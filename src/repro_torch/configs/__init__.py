@@ -1,0 +1,49 @@
+"""Architecture registry: ``get(arch_id)`` / ``get_reduced(arch_id)``.
+
+Only the ported dense GQA architectures are registered; the reference's
+other ids raise ``NotImplementedError`` naming ROADMAP.md.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Tuple
+
+from repro_torch.configs import base, qwen3_1_7b, yi_9b
+from repro_torch.configs.base import ModelConfig
+
+_MODULES = (yi_9b, qwen3_1_7b)
+
+REGISTRY: Dict[str, Tuple[Callable[[], ModelConfig], Callable[[], ModelConfig]]] = {
+    m.ARCH_ID: (m.full, m.reduced) for m in _MODULES
+}
+
+ARCH_IDS = tuple(REGISTRY)
+
+# the reference's architectures whose blocks (MLA, MoE, SSM, hybrid,
+# audio / vision front ends) are still to be ported
+NOT_YET_PORTED = ("mistral-nemo-12b", "command-r-35b", "deepseek-v2-lite-16b",
+                  "deepseek-moe-16b", "musicgen-medium", "xlstm-1.3b",
+                  "hymba-1.5b", "pixtral-12b")
+
+
+def _entry(arch_id: str):
+    if arch_id in NOT_YET_PORTED:
+        raise NotImplementedError(
+            f"arch {arch_id!r} is not yet ported (see ROADMAP.md, Queue A); "
+            f"ported: {ARCH_IDS}")
+    try:
+        return REGISTRY[arch_id]
+    except KeyError as e:
+        raise KeyError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}") from e
+
+
+def get(arch_id: str) -> ModelConfig:
+    return _entry(arch_id)[0]()
+
+
+def get_reduced(arch_id: str) -> ModelConfig:
+    return _entry(arch_id)[1]()
+
+
+__all__ = ["REGISTRY", "ARCH_IDS", "NOT_YET_PORTED", "get", "get_reduced",
+           "ModelConfig", "base"]

@@ -1,0 +1,71 @@
+"""The architecture config schema (counterpart of ``repro.configs.base``).
+
+The ``ModelConfig`` dataclass with the reference's fields and defaults.
+The MLA / MoE / SSM sub-configs and the shape helpers of the reference are
+not ported yet (ROADMAP.md): only dense attention families run here, and
+their ``mla`` / ``moe`` / ``ssm`` fields stay ``None``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional, Tuple
+
+from repro_torch.core import precision as prec
+
+__all__ = ["ModelConfig"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str               # dense | moe | ssm | hybrid | audio | vlm
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0         # 0 -> d_model // n_heads
+    qk_norm: bool = False
+    use_bias: bool = False
+    rope_theta: float = 1e4
+    sliding_window: Optional[int] = None
+    full_attn_layers: Tuple[int, ...] = ()
+    mla: Optional[Any] = None
+    moe: Optional[Any] = None
+    ssm: Optional[Any] = None
+    norm: str = "rmsnorm"     # rmsnorm | layernorm
+    act: str = "silu"
+    mlp: str = "glu"          # glu | plain
+    input_mode: str = "tokens"
+    tie_embeddings: bool = False
+    policy_name: str = "tpu_bf16"
+    param_dtype: str = "float32"
+    q_chunk: int = 1024
+    ce_chunk: int = 0
+    moe_impl: str = "gspmd"
+    remat: str = "full"
+    notes: str = ""
+
+    def __post_init__(self):
+        if self.head_dim == 0:
+            object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
+
+    @property
+    def policy(self) -> prec.Policy:
+        return prec.resolve(self.policy_name)
+
+    @property
+    def compute_dtype(self):
+        return self.policy.compute_dtype
+
+    @property
+    def block_kind(self) -> str:
+        if self.family == "moe":
+            return "moe"
+        if self.family == "ssm":
+            return "xlstm"
+        if self.family == "hybrid":
+            return "hymba"
+        return "attn"

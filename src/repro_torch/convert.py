@@ -1,0 +1,49 @@
+"""Carry the JAX package's parameters across to the port.
+
+``jax.random`` and ``torch.Generator`` draw different numbers from one
+seed, so the tests that hold the port against ``repro`` initialise the
+reference's parameters and hand the same values to both packages.  The
+reference's tree arrives as numpy arrays (``jax.device_get`` of
+``repro.models.transformer.init_params``), with stacked leading layer dims;
+the port keeps that structure and layout, so the conversion is a checked
+copy.  This module imports neither JAX nor ``repro``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.models import transformer
+from repro_torch.models.layers import Param
+
+__all__ = ["params_from_jax"]
+
+
+def params_from_jax(tree: Dict[str, Any], cfg, device="cuda",
+                    dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
+    """The port's parameters from the reference's numpy tree.
+
+    Every leaf of the port's schema must be present with the same shape;
+    values are cast to ``dtype`` (the policy's compute dtype by default —
+    see :func:`repro_torch.models.transformer.init_params` for why that
+    computes the same as fp32 weights)."""
+    dev = resolve_device(device)
+    dt = dtype or cfg.policy.compute_dtype
+
+    def go(node, src, path):
+        if isinstance(node, Param):
+            a = np.array(src, dtype=np.float32)   # a writable copy
+            if a.shape != tuple(node.shape):
+                raise ValueError(f"{'/'.join(path)}: shape {a.shape}, "
+                                 f"expected {tuple(node.shape)}")
+            return torch.from_numpy(a).to(device=dev, dtype=dt)
+        missing = set(node) - set(src)
+        if missing:
+            raise KeyError(f"{'/'.join(path) or '<root>'}: missing {sorted(missing)}")
+        return {k: go(v, src[k], path + (k,)) for k, v in node.items()}
+
+    return go(transformer.schema(cfg), tree, ())

@@ -1,0 +1,173 @@
+"""The RedMulE GEMM on Hopper: the CUDA launcher and the plain version.
+
+Counterpart of ``repro.kernels.redmule_matmul``.  The logical contraction
+is always ``Z[M, K] = act(X[M, N] @ W[N, K] + bias)``; ``layout`` names how
+the operands are stored:
+
+* ``"nn"``: x (M, N), w (N, K) — the forward;
+* ``"nt"``: x (M, N), w (K, N) — e.g. the tied LM head reads the (V, d)
+  embedding as it is stored;
+* ``"tn"``: x (N, M), w (N, K).
+
+The CUDA kernel (``csrc/redmule_matmul.cu``) addresses every operand
+through element strides, so a layout is index arithmetic only and any
+strided view — a transposed one, or a broadcast one with stride 0 — is
+consumed in place.  :func:`redmule_matmul_plain` is the same function in
+plain PyTorch: upcast to the accumulator dtype, ``torch.matmul``, bias and
+epilogue, one cast.  It serves tensors on the CPU and is what the kernel is
+held against on the card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch.core import epilogues as epi
+from repro_torch.core import precision as prec
+from repro_torch.core import tiling
+from repro_torch.kernels import _build
+
+__all__ = ["LAYOUTS", "logical_dims", "redmule_matmul_plain", "launch"]
+
+LAYOUTS = ("nn", "nt", "tn")
+_DTYPE_CODE = {torch.float16: 0, torch.bfloat16: 1, torch.float32: 2}
+
+
+def check_layout(layout: str) -> None:
+    if layout not in LAYOUTS:
+        raise ValueError(f"unknown layout {layout!r}; known: {LAYOUTS}")
+
+
+def logical_dims(x_shape: Sequence[int], w_shape: Sequence[int],
+                 layout: str) -> Tuple[int, int, int]:
+    """(M, N, K) of the logical contraction from the stored trailing dims;
+    raises on a contraction mismatch."""
+    check_layout(layout)
+    (xa, xb), (wa, wb) = tuple(x_shape[-2:]), tuple(w_shape[-2:])
+    if layout == "nn":
+        M, N, N2, K = xa, xb, wa, wb
+    elif layout == "nt":
+        M, N, K, N2 = xa, xb, wa, wb
+    else:  # tn
+        N, M, N2, K = xa, xb, wa, wb
+    if N != N2:
+        raise ValueError(f"contraction mismatch under layout {layout!r}: "
+                         f"{tuple(x_shape)} x {tuple(w_shape)}")
+    return M, N, K
+
+
+def _logical(x: torch.Tensor, w: torch.Tensor, layout: str):
+    """Views of x as (..., M, N) and w as (..., N, K)."""
+    if layout == "tn":
+        x = x.transpose(-1, -2)
+    if layout == "nt":
+        w = w.transpose(-1, -2)
+    return x, w
+
+
+def redmule_matmul_plain(x: torch.Tensor, w: torch.Tensor, *,
+                         policy: prec.Policy,
+                         bias: Optional[torch.Tensor] = None,
+                         epilogue: Optional[str] = None,
+                         layout: str = "nn") -> torch.Tensor:
+    """``act(X @ W + bias)`` in plain PyTorch; leading dims broadcast.
+
+    Operands are upcast to the accumulator dtype, multiplied with
+    ``torch.matmul``, the bias and epilogue applied in that dtype, and the
+    result cast once to ``policy.out_dtype`` — the kernel's store-once
+    contract."""
+    xl, wl = _logical(x, w, layout)
+    acc = policy.accum_dtype
+    z = torch.matmul(xl.to(acc), wl.to(acc))
+    if bias is not None:
+        z = z + bias.reshape(-1).to(acc)
+    return epi.apply_epilogue(epilogue, z).to(policy.out_dtype)
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("redmule_matmul")
+    if lib.redmule_gemm.argtypes is None:
+        i, ll, p = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
+        lib.redmule_gemm.argtypes = [
+            i, i, i, p, p, p, p, i, i, i, i, i,
+            ll, ll, ll, ll, i, ll, ll, ll, ll, i, i, p]
+        lib.redmule_gemm.restype = i
+        lib.redmule_error_string.argtypes = [i]
+        lib.redmule_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _collapse(t: torch.Tensor, lead: Sequence[int]) -> Tuple[torch.Tensor, int, int]:
+    """``(t, outer, inner)``: element strides of a tensor expanded to
+    ``(*lead, r, c)`` over the two batch levels the kernel knows — all lead
+    dims but the last (collapsed into one) and the last.  A broadcast level
+    has stride 0.  If the outer dims do not collapse into one stride the
+    operand is made contiguous first."""
+    t = t.expand(*lead, *t.shape[-2:])
+    if not lead:
+        return t, 0, 0
+    outer_dims = [(n, s) for n, s in zip(lead[:-1], t.stride()[:-3]) if n > 1]
+    inner = t.stride(-3) if lead[-1] > 1 else 0
+    outer = outer_dims[-1][1] if outer_dims else 0
+    span = outer
+    for n, s in reversed(outer_dims):
+        if s != span:
+            return _collapse(t.contiguous(), lead)
+        span = s * n
+    return t, outer, inner
+
+
+def _vec_ok(t: torch.Tensor, batch_strides, s_row: int, s_col: int,
+            rows: int, cols: int) -> int:
+    """Whether the kernel may read ``t`` with 16-byte loads (see
+    ``load_tile`` in csrc/redmule_matmul.cu): 16-byte aligned runs of 8
+    elements along the contiguous axis."""
+    if t.data_ptr() % 16 or any(s % 8 for s in batch_strides):
+        return 0
+    if s_col == 1:
+        return int(cols % 8 == 0 and (rows == 1 or s_row % 8 == 0))
+    if s_row == 1:
+        return int(rows % 8 == 0 and (cols == 1 or s_col % 8 == 0))
+    return 0
+
+
+def launch(x: torch.Tensor, w: torch.Tensor, *, policy: prec.Policy,
+           tile: tiling.TileConfig, bias: Optional[torch.Tensor],
+           epilogue: Optional[str], layout: str) -> torch.Tensor:
+    """Run the CUDA kernel on CUDA operands with broadcast-compatible
+    leading dims; returns ``(*lead, M, K)`` in ``policy.out_dtype``.
+
+    The caller has validated dtypes, devices and shapes and handled
+    degenerate (empty) problems."""
+    lead = tuple(torch.broadcast_shapes(x.shape[:-2], w.shape[:-2]))
+    M, N, K = logical_dims(x.shape, w.shape, layout)
+    x, xs_o, xs_i = _collapse(x, lead)
+    w, ws_o, ws_i = _collapse(w, lead)
+    xl, wl = _logical(x, w, layout)
+    xs_m, xs_n = xl.stride(-2), xl.stride(-1)
+    ws_n, ws_k = wl.stride(-2), wl.stride(-1)
+    z = torch.empty((*lead, M, K), dtype=policy.out_dtype, device=x.device)
+    if bias is not None:
+        bias = bias.reshape(-1).contiguous()     # the kernel reads bias[k]
+    try:
+        tile_id = tiling.GEMM_TILES.index(tile)
+    except ValueError:
+        raise ValueError(f"tile {tile} is not one the kernel is compiled "
+                         f"for: {tiling.GEMM_TILES}") from None
+    lib = _lib()
+    err = lib.redmule_gemm(
+        _DTYPE_CODE[x.dtype], _DTYPE_CODE[policy.out_dtype], tile_id,
+        x.data_ptr(), w.data_ptr(),
+        None if bias is None else bias.data_ptr(), z.data_ptr(),
+        math.prod(lead), lead[-1] if lead else 1, M, N, K,
+        xs_o, xs_i, xs_m, xs_n, _vec_ok(x, (xs_o, xs_i), xs_m, xs_n, M, N),
+        ws_o, ws_i, ws_n, ws_k, _vec_ok(w, (ws_o, ws_i), ws_n, ws_k, N, K),
+        epi.EPILOGUE_IDS[epilogue], torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError(
+            f"redmule_gemm launch failed: {lib.redmule_error_string(err).decode()}")
+    return z

@@ -1,0 +1,125 @@
+"""Primitive layers and the parameter-schema machinery.
+
+Counterpart of ``repro.models.layers``.  A parameter is declared as a
+:class:`Param` inside a nested-dict schema; :func:`init_tree` materialises
+it with a ``torch.Generator`` seeded per path (adding a parameter never
+reshuffles its siblings).  ``jax.random`` and ``torch.Generator`` give
+different numbers from one seed, so the tests carry the reference's own
+initial parameters across (``repro_torch.convert``) instead.
+
+Weights keep the reference's storage layout: a projection is ``(d_in,
+d_out)`` and ``x @ W`` is the GEMM kernel's "nn".  All GEMMs go through
+:mod:`repro_torch.core.engine`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import zlib
+from typing import Any, Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core import engine
+
+__all__ = ["Param", "init_tree", "stack_schema", "rmsnorm", "rope",
+           "apply_rope", "activation", "mlp_glu"]
+
+
+@dataclasses.dataclass(frozen=True)
+class Param:
+    """One parameter: shape and initializer (proj | embed | zeros | ones)."""
+
+    shape: Tuple[int, ...]
+    init: str = "proj"
+    fan_in_dim: int = -2
+
+
+def _path_seed(seed: int, path: Tuple[str, ...]) -> int:
+    """Deterministic across processes (Python's hash() is salted)."""
+    return (int(seed) << 32) ^ (zlib.crc32("/".join(path).encode()) & 0x7FFFFFFF)
+
+
+def init_tree(schema: Dict[str, Any], *, seed: int, device: torch.device,
+              dtype: torch.dtype) -> Dict[str, Any]:
+    """Materialise a schema on ``device``: normal * fan_in^-0.5 for
+    projections, normal * 0.02 for embeddings, drawn in fp32 and cast to
+    ``dtype``."""
+    gen = torch.Generator(device=device)
+
+    def go(node, path):
+        if isinstance(node, Param):
+            if node.init == "zeros":
+                return torch.zeros(node.shape, dtype=dtype, device=device)
+            if node.init == "ones":
+                return torch.ones(node.shape, dtype=dtype, device=device)
+            gen.manual_seed(_path_seed(seed, path))
+            r = torch.randn(node.shape, generator=gen, device=device)
+            if node.init == "embed":
+                return (r * 0.02).to(dtype)
+            fan_in = node.shape[node.fan_in_dim] if node.shape else 1
+            return (r * fan_in ** -0.5).to(dtype)
+        return {k: go(v, path + (k,)) for k, v in node.items()}
+
+    return go(schema, ())
+
+
+def stack_schema(schema: Dict[str, Any], n: int) -> Dict[str, Any]:
+    """Prepend a stacked-layers dimension to every Param."""
+
+    def go(node):
+        if isinstance(node, Param):
+            fd = node.fan_in_dim if node.fan_in_dim < 0 else node.fan_in_dim + 1
+            return Param(shape=(n, *node.shape), init=node.init, fan_in_dim=fd)
+        return {k: go(v) for k, v in node.items()}
+
+    return go(schema)
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Statistics in fp32, application in the activation dtype — the
+    reference's dtype order (``layers.py:129-135``)."""
+    var = x.to(torch.float32).square().mean(dim=-1, keepdim=True)
+    inv = torch.rsqrt(var + eps).to(x.dtype)
+    return x * inv * scale.to(x.dtype)
+
+
+def activation(x: torch.Tensor, kind: str) -> torch.Tensor:
+    if kind == "silu":
+        return F.silu(x)
+    if kind == "gelu":
+        return F.gelu(x, approximate="tanh")   # jax.nn.gelu's default form
+    if kind == "relu":
+        return F.relu(x)
+    raise ValueError(f"unknown activation {kind!r}")
+
+
+def rope(positions: torch.Tensor, dim: int, theta: float
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """positions (...,) -> cos/sin tables (..., dim/2), in fp32."""
+    freqs = theta ** (-torch.arange(0, dim, 2, dtype=torch.float32,
+                                    device=positions.device) / dim)
+    ang = positions.to(torch.float32)[..., None] * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """x (B, H, S, D); cos/sin (B, S, D/2) or (S, D/2); rotated in fp32."""
+    if cos.ndim == 2:
+        cos, sin = cos[None, None], sin[None, None]
+    else:
+        cos, sin = cos[:, None], sin[:, None]
+    x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def mlp_glu(params: Dict[str, torch.Tensor], x: torch.Tensor, *, act: str,
+            policy) -> torch.Tensor:
+    """Gated MLP ``(act(x @ w_gate) * (x @ w_up)) @ w_down``; ``w_in``
+    holds gate and up side by side as one ``(d, 2 * ff)`` GEMM."""
+    h = engine.matmul(x, params["w_in"], policy=policy)
+    gate, up = h.chunk(2, dim=-1)
+    return engine.matmul(activation(gate, act) * up, params["w_out"],
+                         policy=policy)
