@@ -10,18 +10,31 @@ Phases, any failure exits non-zero:
    compiler's register / shared-memory report;
 2. **kernels** — each kernel's wrapper against its plain PyTorch version on
    the same inputs, at the serving path's shapes (qwen3-1.7b at full
-   width), with the tolerance printed beside the error; each kernel, its
-   plain version and one PyTorch library call for the same function are
-   timed with CUDA events, and the kernel alone with torch.profiler;
+   width) and the training path's (xlstm-1.3b at full width), with the
+   tolerance printed beside the error: the bf16 / fp16 GEMM (kernels 1 and
+   2), its fp32 route in nn / nt / tn, flash attention (kernel 3) and the
+   chunked linear-attention sweep (kernel 4: the training shape, a ragged
+   dk != dv shape, fp32 input).  Each kernel, its plain version and — where
+   one exists — one PyTorch library call for the same function are timed
+   with CUDA events, and the kernel alone with torch.profiler;
 3. **serve** — every kernel's launch count is set to 0, then
    ``repro_torch.launch.serve`` serves qwen3-1.7b at full width (random
    weights from a seed): 4 requests, prompt 128, 16 new tokens; the counts
-   are read right after and every kernel must have run; tokens must be in
-   range.  Then one prefill and one decode step are timed with CUDA events
-   (logits must be finite) and profiled (device time by kernel, idle
-   share), and a two-layer cut of the same model is held against the plain
-   path on the CPU;
-4. **report** — the card (``nvidia-smi``), a ``{"kernels": [...]}`` line,
+   are read right after and every kernel of the path must have run; tokens
+   must be in range.  Then one prefill and one decode step are timed with
+   CUDA events (logits must be finite) and profiled, and a two-layer cut
+   of the same model is held against the plain path on the CPU;
+4. **train** — the counts are set to 0 again, then
+   ``repro_torch.launch.train`` trains xlstm-1.3b at full width (48
+   blocks, d 2048, random weights from a seed) for 3 steps at batch 4 x
+   seq 256; loss and gradient norm must be finite on every step and the
+   sweep kernel's launch count must equal the structural one (42 mLSTM
+   blocks per forward, once more in the remat recompute).  Then one step
+   is profiled (device busy / idle share) with its peak memory, and one
+   full-width super-block (7 mLSTM + 1 sLSTM, batch 1, seq 128) is held
+   against the plain path on the CPU: loss and the gradients of w_up,
+   w_qkv and r_gates;
+5. **report** — the card (``nvidia-smi``), a ``{"kernels": [...]}`` line,
    and last ``{"ok": true, "device": {...}}``.
 
 Everything is also written to ``chiprun_out/chip_smoke.json``.  It needs
@@ -42,7 +55,10 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor-core peak
+FP32_FLOPS = 67e12          # H100 SXM fp32 outside the tensor cores
 ARCH, BATCH, PROMPT, GEN, SEED = "qwen3-1.7b", 4, 128, 16, 0
+# the training path: xlstm-1.3b at full width
+T_ARCH, T_BATCH, T_SEQ, T_STEPS = "xlstm-1.3b", 4, 256, 3
 
 
 def _card() -> str:
@@ -89,7 +105,10 @@ def _device_profile(fn, iters: int = 5) -> dict:
         if us is None:
             us = ev.self_cuda_time_total
         name = ("redmule_gemm" if "redmule_gemm_kernel" in ev.key else
-                "flash_fwd" if "flash_fwd_kernel" in ev.key else "other")
+                "redmule_gemm_f32" if "redmule_gemm_f32_kernel" in ev.key else
+                "flash_fwd" if "flash_fwd_kernel" in ev.key else
+                "chunked_linear_attention"
+                if "chunked_linear_attention_kernel" in ev.key else "other")
         g = groups.setdefault(name, {"ms": 0.0, "count": 0})
         g["ms"] += us / 1e3 / iters
         g["count"] += ev.count // iters
@@ -101,8 +120,8 @@ def _device_profile(fn, iters: int = 5) -> dict:
             "idle_share": max(0.0, 1.0 - busy / wall_ms), "by_kernel": groups}
 
 
-def _bound_ms(n_bytes: float, flops: float):
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+def _bound_ms(n_bytes: float, flops: float, peak: float = BF16_FLOPS):
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -206,6 +225,84 @@ def kernel_phase(log):
         _check(f"flash fp16 Hq=8 Hkv=4 D=64 S=100 T=130 causal={causal}",
                fa.flash_attention(q3, k3, v3, **fl3),
                fa.flash_attention_plain(q3, k3, v3, **fl3), 2.0 ** -9, log)
+
+    # the fp32 route of kernels 1 and 2 (SIMT fp32 FMAs, no TF32): fp32 sums
+    # in another order, N <= 1024 terms
+    from repro_torch.kernels import chunked_linear_attention as cla
+
+    f32, tol_fp32 = prec.FP32, 1e-5
+
+    def rnd32(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    x_gate, w_gate = rnd32(T_BATCH * T_SEQ, 4096), rnd32(4096, 8, scale=4096 ** -0.5)
+    err_g32 = _check("gemm fp32 nn mLSTM gates M=1024 N=4096 K=8",
+                     ops.redmule_matmul(x_gate, w_gate, policy=f32),
+                     rm.redmule_matmul_plain(x_gate, w_gate, policy=f32),
+                     tol_fp32, log)
+    dz_gate = rnd32(T_BATCH * T_SEQ, 8)
+    _check("gemm fp32 nt gates dX M=1024 N=8 K=4096",
+           ops.redmule_matmul(dz_gate, w_gate, policy=f32, layout="nt"),
+           rm.redmule_matmul_plain(dz_gate, w_gate, policy=f32, layout="nt"),
+           tol_fp32, log)
+    _check("gemm fp32 tn gates dW M=4096 N=1024 K=8",
+           ops.redmule_matmul(x_gate, dz_gate, policy=f32, layout="tn"),
+           rm.redmule_matmul_plain(x_gate, dz_gate, policy=f32, layout="tn"),
+           tol_fp32, log)
+    xr, wr = rnd32(77, 200), rnd32(200, 130)
+    _check("gemm fp32 nn ragged M=77 N=200 K=130",
+           ops.redmule_matmul(xr, wr, policy=f32),
+           rm.redmule_matmul_plain(xr, wr, policy=f32), tol_fp32, log)
+    # batched: the sweep backward's inter-chunk read (16 heads, 64 x 1024 x
+    # 1024), its dX / dW layouts, and the sLSTM recurrence (4 heads)
+    BH, C, DK = T_BATCH * 4, 64, 1024
+    qe, st = rnd32(BH, C, DK), rnd32(BH, DK, DK, scale=DK ** -0.5)
+    err_b32 = _check("batched fp32 nn inter B=16 M=64 N=1024 K=1024",
+                     ops.redmule_matmul_batched(qe, st, policy=f32),
+                     rm.redmule_matmul_plain(qe, st, policy=f32), tol_fp32, log)
+    do = rnd32(BH, C, DK)
+    _check("batched fp32 nt inter dX B=16 M=64 N=1024 K=1024",
+           ops.redmule_matmul_batched(do, st, policy=f32, layout="nt"),
+           rm.redmule_matmul_plain(do, st, policy=f32, layout="nt"), tol_fp32, log)
+    _check("batched fp32 tn inter dW B=16 M=1024 N=64 K=1024",
+           ops.redmule_matmul_batched(qe, do, policy=f32, layout="tn"),
+           rm.redmule_matmul_plain(qe, do, policy=f32, layout="tn"), tol_fp32, log)
+    h_s, r_s = rnd32(4, T_BATCH, 512), rnd32(4, 512, 2048, scale=512 ** -0.5)
+    _check("batched fp32 nn sLSTM recurrence B=4 M=4 N=512 K=2048",
+           ops.redmule_matmul_batched(h_s, r_s, policy=f32),
+           rm.redmule_matmul_plain(h_s, r_s, policy=f32), tol_fp32, log)
+
+    # kernel 4: the training shape (16 (batch, head) pairs, S 256, dk = dv =
+    # 1024, chunk 64, bf16), a ragged dk != dv shape at chunk 16, fp32 input.
+    # fp32 inside; the state (fp32) differs in summation order over up to
+    # 4 x 64 x 1024 terms (1e-4); the output is stored in the input dtype
+    # (bf16: one-ulp flips, 2^-7).
+    def sweep(BH_, S_, dk_, dv_, dtype):
+        q = (torch.randn(BH_, S_, dk_, generator=g, device=dev) * dk_ ** -0.5).to(dtype)
+        k = (torch.randn(BH_, S_, dk_, generator=g, device=dev) * 0.5).to(dtype)
+        v = torch.randn(BH_, S_, dv_, generator=g, device=dev).to(dtype)
+        lg = -torch.rand(BH_, S_, generator=g, device=dev) * 0.1
+        return q, k, v, lg
+
+    cla_cases = [("train BH=16 S=256 dk=dv=1024 chunk=64 bf16",
+                  (BH, T_SEQ, DK, DK, torch.bfloat16), 64),
+                 ("ragged BH=6 S=48 dk=16 dv=64 chunk=16 bf16",
+                  (6, 48, 16, 64, torch.bfloat16), 16),
+                 ("fp32 BH=4 S=256 dk=96 dv=40 chunk=128",
+                  (4, 256, 96, 40, torch.float32), 128),
+                 ("fp16 BH=3 S=64 dk=64 dv=64 chunk=32",
+                  (3, 64, 64, 64, torch.float16), 32)]
+    cla_in = None
+    for name, shape, chunk in cla_cases:
+        ins = sweep(*shape)
+        out, state = cla.chunked_linear_attention(*ins, chunk=chunk)
+        want_o, want_s = cla.chunked_linear_attention_plain(*ins, chunk=chunk)
+        tol_o = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -9,
+                 torch.float32: 1e-4}[shape[-1]]
+        err = _check(f"sweep {name} out", out, want_o, tol_o, log)
+        _check(f"sweep {name} state", state, want_s, 1e-4, log)
+        if cla_in is None:
+            cla_in, err_cla = ins, err
     torch.cuda.synchronize()
 
     # times at one main-path shape per kernel
@@ -217,55 +314,116 @@ def kernel_phase(log):
     fl_b, fl_f = _bound_ms((2 * hq * PROMPT * hd + 2 * hkv * PROMPT * hd) * 2,
                            4 * hq * pairs * hd)
     q4, k4, v4 = q[None], k[None, :, :PROMPT], vv[None, :, :PROMPT]
+    # kernel 4's bound at the training shape: q, k, v, g read once, out and
+    # the fp32 state written once; the causal score / PV pairs plus the
+    # inter-chunk read and state update, all fp32 FMAs
+    BHc, Sc, dkc, dvc = cla_in[0].shape[0], T_SEQ, DK, DK
+    n_ch, pairs_c = Sc // 64, 64 * 65 // 2
+    cla_b, cla_f = _bound_ms(
+        2 * BHc * Sc * dkc * 2 + 2 * BHc * Sc * dvc * 2 + BHc * Sc * 4
+        + BHc * dkc * dvc * 4,
+        BHc * n_ch * (2 * pairs_c * (dkc + dvc) + 4 * 64 * dkc * dvc), FP32_FLOPS)
+    g32_b, g32_f = _bound_ms((x_gate.numel() + w_gate.numel()
+                              + T_BATCH * T_SEQ * 8) * 4,
+                             2 * T_BATCH * T_SEQ * 4096 * 8, FP32_FLOPS)
+    b32_b, b32_f = _bound_ms((qe.numel() + st.numel() + qe.numel()) * 4,
+                             2 * BH * C * DK * DK, FP32_FLOPS)
+    torch.backends.cuda.matmul.allow_tf32 = False    # full-fp32 yardsticks
     runs = [
-        ("redmule_matmul", "redmule_gemm", "src/repro_torch/csrc/redmule_matmul.cu",
-         "src/repro/kernels/redmule_matmul.py:289",
-         "nt tied head M=4 N=2048 K=151936 bf16", err_head, head_b, head_f,
-         lambda: ops.redmule_matmul(x_dec, emb, policy=pol, layout="nt"),
-         lambda: rm.redmule_matmul_plain(x_dec, emb, policy=pol, layout="nt"),
-         lambda: torch.matmul(x_dec, emb.t())),
-        ("redmule_matmul_batched", "redmule_gemm",
-         "src/repro_torch/csrc/redmule_matmul.cu",
-         "src/repro/kernels/redmule_matmul.py:478",
-         "decode PV B=4x8x2 M=1 N=144 K=128 bf16, V broadcast", err_pv, pv_b, pv_f,
-         lambda: ops.redmule_matmul_batched(p, v, policy=pol),
-         lambda: rm.redmule_matmul_plain(p, v, policy=pol),
-         lambda: torch.matmul(p, v)),
-        ("flash_attention", "flash_fwd", "src/repro_torch/csrc/flash_attention.cu",
-         "src/repro/kernels/flash_attention.py:102",
-         "prefill Hq=16 Hkv=8 D=128 S=128 T=144 t_valid=128 bf16", err_fl, fl_b, fl_f,
-         lambda: fa.flash_attention(q, k, vv, **fl),
-         lambda: fa.flash_attention_plain(q, k, vv, **fl),
-         lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
-                                                enable_gqa=True)),
+        dict(name="redmule_matmul", group="redmule_gemm",
+             counter=(ops.redmule_matmul, "launches"),
+             source="src/repro_torch/csrc/redmule_matmul.cu",
+             replaces="src/repro/kernels/redmule_matmul.py:289",
+             shape="nt tied head M=4 N=2048 K=151936 bf16", err=err_head,
+             bound=(head_b, head_f),
+             kernel=lambda: ops.redmule_matmul(x_dec, emb, policy=pol, layout="nt"),
+             plain=lambda: rm.redmule_matmul_plain(x_dec, emb, policy=pol, layout="nt"),
+             library=lambda: torch.matmul(x_dec, emb.t())),
+        dict(name="redmule_matmul_batched", group="redmule_gemm",
+             counter=(ops.redmule_matmul_batched, "launches"),
+             source="src/repro_torch/csrc/redmule_matmul.cu",
+             replaces="src/repro/kernels/redmule_matmul.py:478",
+             shape="decode PV B=4x8x2 M=1 N=144 K=128 bf16, V broadcast",
+             err=err_pv, bound=(pv_b, pv_f),
+             kernel=lambda: ops.redmule_matmul_batched(p, v, policy=pol),
+             plain=lambda: rm.redmule_matmul_plain(p, v, policy=pol),
+             library=lambda: torch.matmul(p, v)),
+        dict(name="flash_attention", group="flash_fwd",
+             counter=(fa.flash_attention, "launches"),
+             source="src/repro_torch/csrc/flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention.py:102",
+             shape="prefill Hq=16 Hkv=8 D=128 S=128 T=144 t_valid=128 bf16",
+             err=err_fl, bound=(fl_b, fl_f),
+             kernel=lambda: fa.flash_attention(q, k, vv, **fl),
+             plain=lambda: fa.flash_attention_plain(q, k, vv, **fl),
+             library=lambda: F.scaled_dot_product_attention(
+                 q4, k4, v4, is_causal=True, enable_gqa=True)),
+        dict(name="chunked_linear_attention", group="chunked_linear_attention",
+             counter=(cla.chunked_linear_attention, "launches"),
+             source="src/repro_torch/csrc/chunked_linear_attention.cu",
+             replaces="src/repro/kernels/chunked_linear_attention.py:79",
+             shape="train BH=16 S=256 dk=dv=1024 chunk=64 bf16", err=err_cla,
+             bound=(cla_b, cla_f),
+             kernel=lambda: cla.chunked_linear_attention(*cla_in, chunk=64),
+             plain=lambda: cla.chunked_linear_attention_plain(*cla_in, chunk=64),
+             library=None),            # no single PyTorch call computes it
+        dict(name="redmule_matmul (fp32 route)", group="redmule_gemm_f32",
+             counter=(ops.redmule_matmul, "launches_fp32"),
+             source="src/repro_torch/csrc/redmule_matmul.cu",
+             replaces="src/repro/kernels/redmule_matmul.py:289",
+             shape="nn mLSTM gates M=1024 N=4096 K=8 fp32", err=err_g32,
+             bound=(g32_b, g32_f),
+             kernel=lambda: ops.redmule_matmul(x_gate, w_gate, policy=f32),
+             plain=lambda: rm.redmule_matmul_plain(x_gate, w_gate, policy=f32),
+             library=lambda: torch.matmul(x_gate, w_gate)),
+        dict(name="redmule_matmul_batched (fp32 route)", group="redmule_gemm_f32",
+             counter=(ops.redmule_matmul_batched, "launches_fp32"),
+             source="src/repro_torch/csrc/redmule_matmul.cu",
+             replaces="src/repro/kernels/redmule_matmul.py:478",
+             shape="nn sweep inter read B=16 M=64 N=1024 K=1024 fp32",
+             err=err_b32, bound=(b32_b, b32_f),
+             kernel=lambda: ops.redmule_matmul_batched(qe, st, policy=f32),
+             plain=lambda: rm.redmule_matmul_plain(qe, st, policy=f32),
+             library=lambda: torch.matmul(qe, st)),
     ]
     kernels = []
-    for (name, group, source, replaces, shape, err, bound, bound_by, kernel,
-         plain, library) in runs:
+    for r in runs:
         # ms: CUDA events around back-to-back calls (host launch cost
         # included where it exceeds the kernel); device_ms: the kernel
         # alone, from the profiler
+        prof = _device_profile(r["kernel"], 10)["by_kernel"]
         kernels.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "shape": shape, "max_abs_err": err,
-            "ms": _time_ms(kernel), "plain_ms": _time_ms(plain),
-            "bound_ms": bound, "bound_by": bound_by,
-            "library_ms": _time_ms(library),
-            "device_ms": _device_profile(kernel, 10)["by_kernel"][group]["ms"]})
-    return kernels
+            "name": r["name"], "route": "cuda", "source": r["source"],
+            "replaces": r["replaces"], "shape": r["shape"],
+            "max_abs_err": r["err"], "ms": _time_ms(r["kernel"]),
+            "plain_ms": _time_ms(r["plain"]), "bound_ms": r["bound"][0],
+            "bound_by": r["bound"][1],
+            "library_ms": None if r["library"] is None else _time_ms(r["library"]),
+            "device_ms": prof[r["group"]]["ms"]})
+        print(f"[time] {r['name']} ({r['shape']}): {kernels[-1]['ms']:.4f} ms, "
+              f"device {kernels[-1]['device_ms']:.4f} ms, plain "
+              f"{kernels[-1]['plain_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
+              f"({r['bound'][1]}), library {kernels[-1]['library_ms']}", flush=True)
+    return kernels, {r["name"]: r["counter"] for r in runs}
 
 
-def _counters():
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ops
-
-    return {"redmule_matmul": ops.redmule_matmul,
-            "redmule_matmul_batched": ops.redmule_matmul_batched,
-            "flash_attention": fa.flash_attention}
+def _zero(counters) -> None:
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
 
 
-def serve_phase(log):
-    """The main path through the serving entry point, with launch counts."""
+def _read(counters) -> dict:
+    return {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
+
+
+def _require(launches: dict, names, path: str) -> None:
+    missing = [n for n in names if launches[n] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the {path} path: {missing}")
+
+
+def serve_phase(log, counters):
+    """The serving path through its entry point, with launch counts."""
     import dataclasses
 
     import numpy as np
@@ -275,25 +433,22 @@ def serve_phase(log):
     from repro_torch.launch import serve
     from repro_torch.models import transformer
 
-    counters = _counters()
-    for fn in counters.values():
-        fn.launches = 0
+    _zero(counters)
     t0 = time.perf_counter()
     seqs = serve.main(["--arch", ARCH, "--full", "--batch", str(BATCH),
                        "--prompt-len", str(PROMPT), "--gen", str(GEN),
                        "--seed", str(SEED), "--device", "cuda"])
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in counters.items()}
+    launches = _read(counters)
     print(f"[serve] launches on the main path: {launches}", flush=True)
     cfg = configs.get(ARCH)
     if seqs.shape != (BATCH, PROMPT + GEN):
         raise AssertionError(f"generate returned shape {seqs.shape}")
     if not ((seqs >= 0) & (seqs < cfg.vocab_size)).all():
         raise AssertionError("generated tokens out of range")
-    missing = [n for n, c in launches.items() if c == 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on the main path: {missing}")
+    _require(launches, ("redmule_matmul", "redmule_matmul_batched",
+                        "flash_attention"), "serve")
 
     # one prefill and one decode step at the same shapes, CUDA-event timed
     params = transformer.init_params(cfg, seed=SEED, device="cuda")
@@ -348,6 +503,143 @@ def serve_phase(log):
             "profiles": profiles}
 
 
+def train_phase(log, counters):
+    """The training path through its entry point, with launch counts; one
+    profiled step; one full-width super-block against the CPU plain path."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import train
+    from repro_torch.models import layers, transformer
+    from repro_torch.optim import AdamW, tree_map
+
+    cfg = configs.get(T_ARCH)
+    n_mlstm = cfg.n_layers // cfg.ssm.slstm_period * (cfg.ssm.slstm_period - 1)
+    _zero(counters)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = train.main(["--arch", T_ARCH, "--full", "--batch", str(T_BATCH),
+                      "--seq", str(T_SEQ), "--steps", str(T_STEPS),
+                      "--seed", str(SEED), "--device", "cuda"])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = _read(counters)
+    peak_main = torch.cuda.max_memory_allocated()
+    print(f"[train] launches on the main path: {launches}", flush=True)
+    hist = out["history"]
+    if len(hist) != T_STEPS or not all(math.isfinite(h["loss"])
+                                       and math.isfinite(h["grad_norm"])
+                                       for h in hist):
+        raise AssertionError(f"non-finite or missing steps: {hist}")
+    # one sweep per mLSTM block per forward, and again when the remat
+    # region of each super-block recomputes in the backward
+    structural = T_STEPS * n_mlstm * (2 if cfg.remat == "full" else 1)
+    print(f"[train] sweep launches {launches['chunked_linear_attention']}, "
+          f"structural {structural} ({T_STEPS} steps x {n_mlstm} mLSTM blocks "
+          f"x 2 for remat)", flush=True)
+    if launches["chunked_linear_attention"] != structural:
+        raise AssertionError("sweep kernel launches differ from the structural count")
+    _require(launches, ("redmule_matmul", "redmule_matmul_batched",
+                        "chunked_linear_attention", "redmule_matmul (fp32 route)",
+                        "redmule_matmul_batched (fp32 route)"), "train")
+    for h in hist:
+        print(f"[train] step {h['step']}: loss {h['loss']:.4f} grad_norm "
+              f"{h['grad_norm']:.4f} step {h['step_ms']:.1f} ms", flush=True)
+
+    # one profiled step after a warm-up step, with its peak memory
+    opt = AdamW(lr=3e-3, warmup_steps=10)
+    step = train.build_train_step(cfg, opt)
+    ds = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=T_SEQ,
+                     global_batch=T_BATCH, seed=SEED)
+    holder = [train.init_state(cfg, opt, seed=SEED, device="cuda")]
+    holder[0], _ = step(holder[0], ds.batch(0))
+
+    def one_step():
+        holder[0], m = step(holder[0], ds.batch(1))
+        return m
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    prof = _device_profile(one_step, iters=1)
+    peak_step = torch.cuda.max_memory_allocated()
+    del holder, step
+    torch.cuda.empty_cache()
+    parts = ", ".join(f"{k} {g['ms']:.3f} ms x{g['count']}"
+                      for k, g in sorted(prof["by_kernel"].items()))
+    print(f"[profile] train step: wall {prof['wall_ms']:.1f} ms, device busy "
+          f"{prof['device_ms']:.1f} ms (idle {prof['idle_share']:.3f}), peak "
+          f"{peak_step / 2**30:.2f} GiB: {parts}", flush=True)
+
+    # one full-width super-block, batch 1 x seq 128: card vs the CPU plain
+    # path, under the fp32 policy (every GEMM on the fp32 route, the sweep on
+    # fp32 inputs) and under the training policy (bf16).  The gradients are
+    # ill-conditioned: the sLSTM stabilizer's max(log f + m, i) and
+    # max(|n|, 1) switch branch under rounding noise, so two correct
+    # summation orders disagree far above one rounding.  The run measures
+    # that spread itself — the CPU plain path with one thread against all
+    # threads (another BLAS blocking, another summation order) — and holds
+    # the card to 8x it, above a floor of one rounding's worth (fp32 1e-5,
+    # bf16 2^-8); a broken kernel is off by O(1).
+    n_threads = torch.get_num_threads()
+    for policy, floor in (("fp32", 1e-5), (cfg.policy_name, 2.0 ** -8)):
+        small = dataclasses.replace(cfg, n_layers=cfg.ssm.slstm_period,
+                                    policy_name=policy)
+        p_cpu = layers.init_tree(transformer._xlstm_super_schema(small),
+                                 seed=SEED + 2, device=torch.device("cpu"),
+                                 dtype=torch.float32)
+        p_gpu = tree_map(lambda t: t.cuda(), p_cpu)
+        gen = torch.Generator().manual_seed(SEED + 3)
+        h0 = torch.randn(1, 128, cfg.d_model, generator=gen).to(
+            small.policy.compute_dtype)
+        proj = torch.randn(1, 128, cfg.d_model, generator=gen)
+
+        def block_grads(p, h, r):
+            wrt = [p["mlstm"]["cell"]["w_up"], p["mlstm"]["cell"]["w_qkv"],
+                   p["slstm"]["cell"]["r_gates"]]
+            wrt = [t.detach().requires_grad_(True) for t in wrt]
+            q = {"mlstm": {**p["mlstm"], "cell": {**p["mlstm"]["cell"],
+                                                  "w_up": wrt[0], "w_qkv": wrt[1]}},
+                 "slstm": {**p["slstm"], "cell": {**p["slstm"]["cell"],
+                                                  "r_gates": wrt[2]}}}
+            y = transformer._xlstm_super_block(q, h, small, policy=small.policy)
+            loss = (y.float() * r).mean()
+            return [loss.detach()] + [g.detach() for g in
+                                      torch.autograd.grad(loss, wrt)]
+
+        got = block_grads(p_gpu, h0.cuda(), proj.cuda())
+        want = block_grads(p_cpu, h0, proj)
+        torch.set_num_threads(1)
+        try:
+            want_1t = block_grads(p_cpu, h0, proj)
+        finally:
+            torch.set_num_threads(n_threads)
+        failed = []
+        for name, a_, b_, c_ in zip(
+                ("loss", "grad w_up", "grad w_qkv", "grad r_gates"), got, want,
+                want_1t):
+            scale = max(b_.abs().max().item(), 1e-30)
+            spread = (c_ - b_).abs().max().item() / scale
+            print(f"[train] super-block {policy} {name}: CPU spread (1 vs "
+                  f"{n_threads} threads) {spread:.3e} of max", flush=True)
+            try:
+                _check(f"super-block (7 mLSTM + 1 sLSTM, 1x128, {policy}) {name}, "
+                       "card vs CPU plain", a_.cpu(), b_, max(8 * spread, floor), log)
+            except AssertionError as e:
+                failed.append(str(e))
+        if failed:
+            raise AssertionError("; ".join(failed))
+        del p_gpu, p_cpu
+    step_ms = [h["step_ms"] for h in hist]
+    return {"train_wall_s": train_s, "history": hist, "step_ms": step_ms,
+            "launches": launches, "structural_sweeps": structural,
+            "peak_mem_main_gib": peak_main / 2**30,
+            "peak_mem_step_gib": peak_step / 2**30, "profile": prof,
+            "params": out["params"]}
+
+
 def _to_cpu(tree):
     if hasattr(tree, "cpu"):
         return tree.cpu()
@@ -373,12 +665,16 @@ def main() -> int:
             if "registers" in line or "error" in line.lower():
                 print(f"[ptxas] {name}: {line.strip()}")
     log: list = []
-    kernels = kernel_phase(log)
-    serve = serve_phase(log)
+    kernels, counters = kernel_phase(log)
+    serve = serve_phase(log, counters)
+    train = train_phase(log, counters)
     for kern in kernels:
-        kern["launches"] = serve["launches"][kern["name"]]
+        by_path = {"serve": serve["launches"][kern["name"]],
+                   "train": train["launches"][kern["name"]]}
+        kern["launches"] = sum(by_path.values())
+        kern["launches_by_path"] = by_path
     out = {"card": card, "build_s": build_s, "checks": log, "serve": serve,
-           "kernels": kernels}
+           "train": train, "kernels": kernels}
     (ROOT / "chiprun_out").mkdir(exist_ok=True)
     (ROOT / "chiprun_out" / "chip_smoke.json").write_text(json.dumps(out, indent=1))
     print(card)

@@ -1,17 +1,17 @@
 """Architecture registry: ``get(arch_id)`` / ``get_reduced(arch_id)``.
 
-Only the ported dense GQA architectures are registered; the reference's
-other ids raise ``NotImplementedError`` naming ROADMAP.md.
+The ported architectures (dense GQA, xLSTM) are registered; the
+reference's other ids raise ``NotImplementedError`` naming ROADMAP.md.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Dict, Tuple
 
-from repro_torch.configs import base, qwen3_1_7b, yi_9b
+from repro_torch.configs import base, qwen3_1_7b, xlstm_1_3b, yi_9b
 from repro_torch.configs.base import ModelConfig
 
-_MODULES = (yi_9b, qwen3_1_7b)
+_MODULES = (yi_9b, qwen3_1_7b, xlstm_1_3b)
 
 REGISTRY: Dict[str, Tuple[Callable[[], ModelConfig], Callable[[], ModelConfig]]] = {
     m.ARCH_ID: (m.full, m.reduced) for m in _MODULES
@@ -19,11 +19,11 @@ REGISTRY: Dict[str, Tuple[Callable[[], ModelConfig], Callable[[], ModelConfig]]]
 
 ARCH_IDS = tuple(REGISTRY)
 
-# the reference's architectures whose blocks (MLA, MoE, SSM, hybrid,
+# the reference's architectures whose blocks (MLA, MoE, Mamba / hybrid,
 # audio / vision front ends) are still to be ported
 NOT_YET_PORTED = ("mistral-nemo-12b", "command-r-35b", "deepseek-v2-lite-16b",
-                  "deepseek-moe-16b", "musicgen-medium", "xlstm-1.3b",
-                  "hymba-1.5b", "pixtral-12b")
+                  "deepseek-moe-16b", "musicgen-medium", "hymba-1.5b",
+                  "pixtral-12b")
 
 
 def _entry(arch_id: str):

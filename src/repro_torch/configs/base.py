@@ -1,9 +1,9 @@
 """The architecture config schema (counterpart of ``repro.configs.base``).
 
-The ``ModelConfig`` dataclass with the reference's fields and defaults.
-The MLA / MoE / SSM sub-configs and the shape helpers of the reference are
-not ported yet (ROADMAP.md): only dense attention families run here, and
-their ``mla`` / ``moe`` / ``ssm`` fields stay ``None``.
+The ``ModelConfig`` dataclass with the reference's fields and defaults,
+and the ``SSMConfig`` of the xLSTM / SSM families.  The MLA and MoE
+sub-configs and the shape helpers of the reference are not ported yet
+(ROADMAP.md): their ``mla`` / ``moe`` fields stay ``None``.
 """
 
 from __future__ import annotations
@@ -13,7 +13,19 @@ from typing import Any, Optional, Tuple
 
 from repro_torch.core import precision as prec
 
-__all__ = ["ModelConfig"]
+__all__ = ["ModelConfig", "SSMConfig"]
+
+
+@dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    state_dim: int = 16
+    chunk: int = 64
+    mlstm_proj_factor: int = 2
+    mamba_expand: int = 1
+    slstm_period: int = 8     # one sLSTM per this many blocks (xLSTM [7:1])
+
+    def slstm_ffn_dim(self, d: int) -> int:
+        return -(-(4 * d) // (3 * 64)) * 64  # ceil(4d/3) to a 64 multiple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,7 +46,7 @@ class ModelConfig:
     full_attn_layers: Tuple[int, ...] = ()
     mla: Optional[Any] = None
     moe: Optional[Any] = None
-    ssm: Optional[Any] = None
+    ssm: Optional[SSMConfig] = None
     norm: str = "rmsnorm"     # rmsnorm | layernorm
     act: str = "silu"
     mlp: str = "glu"          # glu | plain

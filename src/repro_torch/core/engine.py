@@ -1,7 +1,7 @@
 """The RedMulE Engine in PyTorch: GEMM specs, a backend registry, events.
 
-Counterpart of ``repro.core.engine``, forward half.  Every contraction the
-models run goes through this module:
+Counterpart of ``repro.core.engine``.  Every contraction the models run
+goes through this module:
 
 * :class:`GemmSpec` — a frozen description of one contraction (tag,
   M/N/K, batch, groups, policy, tile, layout, ragged ``valid_rows``) with
@@ -11,33 +11,50 @@ models run goes through this module:
   tensor, their plain PyTorch versions on a CPU tensor — with the
   capabilities ``fused_epilogue`` (bias + activation in the kernel's
   store), ``tiled`` (it runs ``spec.tile``), ``layouts`` (nn / nt / tn
-  storage read in place) and ``attention`` (the flash sweep).  It plays
-  the role of the reference's ``"pallas"`` and ``"interpret"`` together
-  and is the default;
-* the ops :func:`matmul`, :func:`linear` (forward, fused epilogue),
-  :func:`grouped_matmul` (ragged groups) and :func:`attention` (the
-  kernel path);
+  storage read in place) and ``attention`` (the flash and the chunked
+  linear-attention sweeps).  It plays the role of the reference's
+  ``"pallas"`` and ``"interpret"`` together and is the default;
+* the ops :func:`matmul`, :func:`linear` (fused epilogue),
+  :func:`grouped_matmul` (ragged groups), :func:`einsum2d` (two-operand
+  contractions), :func:`attention` (the flash kernel path) and
+  :func:`linear_attention` (the chunked state sweep);
+* **the backward**: ``matmul``, ``einsum2d`` and epilogue-free ``linear``
+  run through one ``torch.autograd.Function`` whose backward dispatches
+  dX = dZ·Wᵀ ("nt") and dW = Xᵀ·dZ ("tn") through the same registry as
+  ``matmul_dx`` / ``matmul_dw`` events (the reference's
+  ``_gemm_call`` / ``_gemm_bwd``): residuals saved in the compute dtype,
+  grads held in the accumulator dtype until one cast to the primal
+  operand's dtype.  ``linear_attention``'s backward recomputes through the
+  reference composition of :func:`einsum2d` / :func:`matmul` calls on the
+  same backend and differentiates it, so its GEMMs are fp32 dispatches of
+  the GEMM kernels (the reference's ``_linear_attention_call_bwd``);
 * **instrumentation** — every dispatch emits a :class:`GemmEvent` into the
   thread-local :func:`instrument` collectors; :func:`repeat` multiplies the
-  count and :func:`op_scope` prefixes the op name.
+  count, :func:`op_scope` prefixes the op name, :func:`paused` suppresses
+  emission, and events emitted while a remat region
+  (:func:`checkpoint`) recomputes are tagged ``recompute=True``.  Autograd may run a backward in
+  another thread (one per CUDA device), so each autograd node captures the
+  emission context of its forward and restores it around its backward.
 
 PyTorch runs eagerly, so an event is emitted each time an op runs (the
 reference emits at trace time, once per scanned body with a multiplicity).
-The backward ops (``torch.autograd.Function`` dispatches), ``einsum2d``,
-``linear_attention``, the reference attention composition and the FP8
-policies arrive with later slices and raise ``NotImplementedError`` here.
+The backward of ``linear`` with an epilogue, of ``grouped_matmul`` and of
+``attention``, the reference attention composition and the FP8 policies
+arrive with later slices and raise ``NotImplementedError`` here.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import math
 import threading
 from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core import epilogues as epi
 from repro_torch.core import precision as prec
@@ -48,8 +65,9 @@ __all__ = [
     "register_backend", "unregister_backend", "registered_backends",
     "get_backend", "backend_supports",
     "default_backend", "set_default_backend", "use_backend",
-    "matmul", "linear", "grouped_matmul", "attention",
-    "instrument", "repeat", "op_scope",
+    "matmul", "linear", "grouped_matmul", "einsum2d", "attention",
+    "linear_attention", "is_backward_op",
+    "instrument", "repeat", "op_scope", "paused", "checkpoint",
     "total_flops", "total_bytes", "summarize", "DEFAULT_ENGINE",
 ]
 
@@ -119,11 +137,14 @@ class GemmSpec:
 @dataclasses.dataclass(frozen=True)
 class GemmEvent:
     """One engine dispatch as observed by :func:`instrument`; ``count`` is
-    the :func:`repeat` multiplicity at emission."""
+    the :func:`repeat` multiplicity at emission (on a backward dispatch:
+    at the forward's emission); ``recompute`` marks a forward dispatch that
+    re-ran while a remat region recomputed during the backward."""
 
     spec: GemmSpec
     backend: str
     count: int = 1
+    recompute: bool = False
 
     @property
     def flops(self) -> int:
@@ -140,6 +161,12 @@ class GemmEvent:
     @property
     def total_bytes(self) -> int:
         return self.spec.bytes * self.count
+
+
+def is_backward_op(op: str) -> bool:
+    """True for the ops the backward dispatches emit (``*_dx`` /
+    ``*_dw``); the single source of the fwd / bwd split."""
+    return op.endswith(("_dx", "_dw"))
 
 
 def total_flops(events: Sequence[GemmEvent]) -> int:
@@ -324,15 +351,96 @@ def op_scope(label: str):
         _state.op_scope = prev
 
 
-def _emit(spec: GemmSpec, backend: str) -> None:
+@contextlib.contextmanager
+def paused():
+    """Suppress event emission within the context (shape probes and oracle
+    runs that would otherwise double-count dispatches)."""
+    prev = getattr(_state, "paused", False)
+    _state.paused = True
+    try:
+        yield
+    finally:
+        _state.paused = prev
+
+
+def _repeat_multiplier() -> int:
+    return math.prod(getattr(_state, "repeat", None) or [1])
+
+
+@dataclasses.dataclass(frozen=True)
+class _EmitContext:
+    """The emission state of one thread at one moment: collectors (the
+    lists themselves), op scope, paused flag and repeat multiplier."""
+
+    collectors: Tuple[List[GemmEvent], ...]
+    op_scope: Optional[str]
+    paused: bool
+    count: int
+
+
+def _capture() -> _EmitContext:
+    return _EmitContext(collectors=tuple(_collectors()),
+                        op_scope=getattr(_state, "op_scope", None),
+                        paused=getattr(_state, "paused", False),
+                        count=_repeat_multiplier())
+
+
+@contextlib.contextmanager
+def _restored(ctx: _EmitContext, *, recompute: bool = False):
+    """Re-enter a captured emission context in the current thread.
+
+    A backward (``recompute=False``) runs with no repeat multiplier — its
+    dispatches pass the count captured at the forward, as the reference's
+    VJP rules do; a remat recompute (``recompute=True``) re-enters the
+    forward's multiplier and tags its events."""
+    names = ("collectors", "op_scope", "paused", "repeat", "recompute")
+    prev = {n: getattr(_state, n, None) for n in names}
+    _state.collectors = list(ctx.collectors)
+    _state.op_scope = ctx.op_scope
+    _state.paused = ctx.paused
+    _state.repeat = [ctx.count] if recompute else []
+    _state.recompute = recompute
+    try:
+        yield
+    finally:
+        for n, v in prev.items():
+            setattr(_state, n, v)
+
+
+def checkpoint(fn: Callable[..., Any], *args):
+    """``fn(*args)`` as a remat region (``torch.utils.checkpoint``,
+    non-reentrant): its activations are not kept, and the backward re-runs
+    ``fn``.  The re-run emits its events in the emission context of the
+    first run, tagged ``recompute=True`` (the reference detects its
+    ``jax.checkpoint`` re-traces the same way, ``engine.py:85-91``), so a
+    remat forward is not billed as new forward work."""
+    from torch.utils.checkpoint import checkpoint as torch_checkpoint
+
+    ctx = _capture()
+    runs = [0]
+
+    def body(*a):
+        runs[0] += 1
+        if runs[0] == 1:
+            return fn(*a)
+        with _restored(ctx, recompute=True):
+            return fn(*a)
+
+    return torch_checkpoint(body, *args, use_reentrant=False)
+
+
+def _emit(spec: GemmSpec, backend: str, count: Optional[int] = None) -> None:
+    """Append one event to every active collector; ``count`` overrides the
+    live :func:`repeat` multiplier (backward dispatches pass the forward's)."""
     stack = _collectors()
-    if not stack:
+    if not stack or getattr(_state, "paused", False):
         return
     scope = getattr(_state, "op_scope", None)
     if scope is not None:
         spec = dataclasses.replace(spec, op=f"{scope}/{spec.op}")
     ev = GemmEvent(spec=spec, backend=backend,
-                   count=math.prod(getattr(_state, "repeat", None) or [1]))
+                   count=_repeat_multiplier() if count is None else count,
+                   recompute=bool(getattr(_state, "recompute", False)))
     for events in stack:
         events.append(ev)
 
@@ -361,12 +469,18 @@ def _hopper_fn(x: torch.Tensor, w: torch.Tensor, *, spec: GemmSpec,
     return ops.redmule_matmul_batched(x, w, **kw)
 
 
-def _hopper_attention(kind: str, operands, **params) -> torch.Tensor:
-    from repro_torch.kernels import flash_attention
+def _hopper_attention(kind: str, operands, **params):
+    """The "attention" capability: ``"attention"`` runs the flash kernel,
+    ``"linear_attention"`` the chunked state sweep (operands pre-padded to
+    a multiple of ``chunk``; returns ``(out, state)``)."""
+    from repro_torch.kernels import chunked_linear_attention, flash_attention
 
-    if kind != "attention":
-        raise NotImplementedError(f"attention kind {kind!r} is {_ROADMAP}")
-    return flash_attention.flash_attention(*operands, **params)
+    if kind == "attention":
+        return flash_attention.flash_attention(*operands, **params)
+    if kind == "linear_attention":
+        return chunked_linear_attention.chunked_linear_attention(
+            *operands, **params)
+    raise ValueError(f"unknown attention kind {kind!r}")
 
 
 register_backend(
@@ -374,9 +488,10 @@ register_backend(
     capabilities=("fused_epilogue", "tiled", "layouts", "attention"),
     attention_fn=_hopper_attention,
     description="hand-written sm_90a CUDA kernels: the RedMulE GEMM (2D and "
-                "batched, nn/nt/tn strides, fused bias + activation store) "
-                "and causal GQA flash attention; plain PyTorch versions on "
-                "CPU tensors")
+                "batched, nn/nt/tn strides, fused bias + activation store; "
+                "bf16 / fp16 on the tensor cores, fp32 in SIMT FMAs), causal "
+                "GQA flash attention and the chunked linear-attention sweep; "
+                "plain PyTorch versions on CPU tensors")
 
 
 # --------------------------------------------------------------------- #
@@ -458,6 +573,246 @@ def _attention_specs(*, B: int, Hq: int, S: int, T: int, D: int, Dv: int,
     return score, pv
 
 
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def _no_backward(what: str, *tensors) -> None:
+    """Raise when autograd would have to differentiate an op whose backward
+    is not ported: a CUDA kernel's output carries no graph, so the
+    gradient would silently be lost."""
+    if _needs_grad(*tensors):
+        raise NotImplementedError(f"the backward of {what} is {_ROADMAP}")
+
+
+# --------------------------------------------------------------------- #
+# The backward: one autograd Function around the GEMM dispatch
+# --------------------------------------------------------------------- #
+@functools.lru_cache(maxsize=None)
+def _grad_policy(policy: prec.Policy) -> prec.Policy:
+    """The backward dispatches' policy: the forward's datapath, output held
+    in the accumulator dtype (one cast to the primal dtype at the end)."""
+    return dataclasses.replace(policy, name=policy.name + "+grad",
+                               output_dtype=policy.accum_dtype)
+
+
+def _unbroadcast(g: torch.Tensor, shape) -> torch.Tensor:
+    """Sum a gradient down to the (possibly broadcast) primal shape."""
+    extra = g.ndim - len(shape)
+    if extra:
+        g = g.sum(dim=tuple(range(extra)))
+    dims = tuple(i for i, (gs, ss) in enumerate(zip(g.shape, shape))
+                 if ss == 1 and gs != 1)
+    if dims:
+        g = g.sum(dim=dims, keepdim=True)
+    return g
+
+
+def _grad_dispatch(spec: GemmSpec, backend: str, a, b, count: int):
+    """One backward GEMM through the registry (transpose layouts read the
+    forward's storage in place); the result in the grad policy's accum
+    dtype."""
+    a, b, layout = _pretranspose(a, b, spec.layout, backend)
+    if layout != spec.layout:
+        spec = dataclasses.replace(spec, layout=layout)
+    _emit(spec, backend, count=count)
+    return get_backend(backend).fn(a, b, spec=spec).to(spec.policy.out_dtype)
+
+
+def _bwd_gemms(spec: GemmSpec, backend: str, count: int, xc, wc, dzc):
+    """dX = dZ·Wᵀ ("nt") and dW = Xᵀ·dZ ("tn") on compute-dtype operands,
+    with the reference's specs (``engine.py:1266-1319``): a 2D weight's dW
+    collapses every leading dim into one contraction; batched grads stay
+    batched and are summed back over broadcast dims."""
+    gpol = _grad_policy(spec.policy)
+    if wc.ndim == 2:
+        dx_spec = GemmSpec(
+            op="matmul_dx", tag="mk,nk->mn", layout="nt", m=spec.m, n=spec.k,
+            k=spec.n, batch=spec.batch, policy=gpol, w_shared=True,
+            tile=tiling.choose_tiles(spec.m, spec.k, spec.n))
+        dx = _grad_dispatch(dx_spec, backend, dzc, wc, count)
+        x2 = xc.reshape(-1, xc.shape[-1])
+        dz2 = dzc.reshape(-1, dzc.shape[-1])
+        rows = x2.shape[0]
+        dw_spec = GemmSpec(
+            op="matmul_dw", tag="mn,mk->nk", layout="tn", m=spec.n, n=rows,
+            k=spec.k, batch=1, policy=gpol, w_shared=False,
+            tile=tiling.choose_tiles(spec.n, rows, spec.k))
+        return dx, _grad_dispatch(dw_spec, backend, x2, dz2, count)
+    dx_spec = GemmSpec(
+        op="matmul_dx", tag="bmk,bnk->bmn", layout="nt", m=spec.m, n=spec.k,
+        k=spec.n, batch=spec.batch, groups=spec.groups, policy=gpol,
+        w_shared=spec.w_shared, tile=tiling.choose_tiles(spec.m, spec.k, spec.n))
+    dx = _unbroadcast(_grad_dispatch(dx_spec, backend, dzc, wc, count), xc.shape)
+    dw_spec = GemmSpec(
+        op="matmul_dw", tag="bmn,bmk->bnk", layout="tn", m=spec.n, n=spec.m,
+        k=spec.k, batch=spec.batch, groups=spec.groups, policy=gpol,
+        w_shared=False, tile=tiling.choose_tiles(spec.n, spec.m, spec.k))
+    dw = _unbroadcast(_grad_dispatch(dw_spec, backend, xc, dzc, count), wc.shape)
+    return dx, dw
+
+
+class _GemmFn(torch.autograd.Function):
+    """The pure-GEMM op with its backward (the reference's ``_gemm_call``
+    / ``_gemm_fwd`` / ``_gemm_bwd``).  Residuals are the compute-dtype
+    operands; both grads are computed whenever the node runs, as the
+    reference's VJP does (the events are the same either way)."""
+
+    @staticmethod
+    def forward(ctx, spec: GemmSpec, backend: str, x, w):
+        pol = spec.policy
+        xd, wd = x.to(pol.compute_dtype), w.to(pol.compute_dtype)
+        z = _dispatch(spec, backend, xd, wd)
+        ctx.save_for_backward(xd, wd)
+        ctx.spec, ctx.backend = spec, backend
+        ctx.dtypes = (x.dtype, w.dtype)
+        ctx.emit = _capture()
+        return z
+
+    @staticmethod
+    def backward(ctx, dz):
+        xd, wd = ctx.saved_tensors
+        with _restored(ctx.emit):
+            dx, dw = _bwd_gemms(ctx.spec, ctx.backend, ctx.emit.count, xd, wd,
+                                dz.to(ctx.spec.policy.compute_dtype))
+        need_x, need_w = ctx.needs_input_grad[2:]
+        return (None, None, dx.to(ctx.dtypes[0]) if need_x else None,
+                dw.to(ctx.dtypes[1]) if need_w else None)
+
+
+def _gemm_call(spec: GemmSpec, backend: str, x, w) -> torch.Tensor:
+    return _GemmFn.apply(spec, backend, x, w)
+
+
+# --------------------------------------------------------------------- #
+# Chunked linear attention: reference composition, specs, kernel path
+# --------------------------------------------------------------------- #
+def _linear_attention_reference(q, k, v, log_g, *, chunk: int,
+                                state: Optional[torch.Tensor],
+                                backend: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The chunked state sweep as a composition of registry dispatches
+    (``engine.py:1654-1706``): per chunk an fp32 score GEMM with the decay
+    matrix, the intra-chunk PV GEMM, the inter-chunk ``q·exp(L) @ state``
+    read and the decayed ``kᵀv`` state update, all under the FP32 policy.
+    Returns ``(out fp32, state fp32)``; differentiable."""
+    B, H, S, dk = q.shape
+    dv = v.shape[-1]
+    f32 = prec.FP32
+    pad = (-S) % chunk
+    if pad:
+        q, k, v = (F.pad(t, (0, 0, 0, pad)) for t in (q, k, v))
+        log_g = F.pad(log_g, (0, pad))
+    n = (S + pad) // chunk
+    qf = q.float().reshape(B, H, n, chunk, dk)
+    kf = k.float().reshape(B, H, n, chunk, dk)
+    vf = v.float().reshape(B, H, n, chunk, dv)
+    gf = log_g.float().reshape(B, H, n, chunk)
+    s_prev = (torch.zeros((B, H, dk, dv), dtype=torch.float32, device=q.device)
+              if state is None else state.float())
+    causal = torch.ones((chunk, chunk), dtype=torch.bool, device=q.device).tril()
+    zero = torch.zeros((), device=q.device)
+    eng = DEFAULT_ENGINE
+    outs = []
+    for i in range(n):     # the reference's lax.scan over chunks
+        qc, kc, vc, gc = qf[:, :, i], kf[:, :, i], vf[:, :, i], gf[:, :, i]
+        L = torch.cumsum(gc, dim=-1)
+        ltot = L[..., -1:]
+        A = torch.where(causal, torch.exp(L[..., :, None] - L[..., None, :]), zero)
+        s = eng.einsum2d("bhik,bhjk->bhij", qc, kc, policy=f32, backend=backend) * A
+        out = eng.matmul(s, vc, policy=f32, backend=backend)
+        out = out + eng.matmul(qc * torch.exp(L)[..., None], s_prev, policy=f32,
+                               backend=backend)
+        kdec = kc * torch.exp(ltot - L)[..., None]
+        s_prev = torch.exp(ltot)[..., None] * s_prev + eng.matmul(
+            kdec.transpose(-1, -2), vc, policy=f32, backend=backend)
+        outs.append(out)
+    out = torch.stack(outs, dim=2).reshape(B, H, n * chunk, dv)[:, :, :S]
+    return out, s_prev
+
+
+def _linear_attention_specs(*, B: int, H: int, S: int, dk: int, dv: int,
+                            chunk: int, in_bytes: int) -> Tuple[GemmSpec, ...]:
+    """The sweep's four per-chunk event specs exactly as the reference bills
+    them (``engine.py:1737-1765``): ``groups`` = number of chunks, the
+    state stored once in fp32."""
+    S_pad = -(-S // chunk) * chunk
+    n = S_pad // chunk
+    BH = B * H
+    f32 = prec.FP32
+    tile = tiling.TileConfig(bm=chunk, bn=chunk, bk=chunk)
+    return (
+        GemmSpec(op="linear_attention_score", tag="bik,bjk->bij", m=chunk,
+                 n=dk, k=chunk, batch=BH, groups=n, policy=f32, tile=tile,
+                 io_bytes=BH * S_pad * (2 * dk * in_bytes + 4)),
+        GemmSpec(op="linear_attention_pv", tag="bij,bjv->biv", m=chunk,
+                 n=chunk, k=dv, batch=BH, groups=n, policy=f32, tile=tile,
+                 io_bytes=BH * S_pad * dv * in_bytes),
+        GemmSpec(op="linear_attention_inter", tag="bik,bkv->biv", m=chunk,
+                 n=dk, k=dv, batch=BH, groups=n, policy=f32, tile=tile,
+                 io_bytes=BH * S_pad * dv * in_bytes),
+        GemmSpec(op="linear_attention_state", tag="bki,bkv->biv", m=dk,
+                 n=chunk, k=dv, batch=BH, groups=n, policy=f32, tile=tile,
+                 io_bytes=BH * dk * dv * 4))
+
+
+@dataclasses.dataclass(frozen=True)
+class _LinAttnCtx:
+    specs: Tuple[GemmSpec, ...]
+    backend: str
+    chunk: int
+
+
+def _linear_attention_kernel_dispatch(actx: _LinAttnCtx, q, k, v, log_g):
+    """Pad to a multiple of the chunk (g = 0, k = 0: inert), emit the
+    sweep's events and run the backend's kernel (``engine.py:1832-1854``)."""
+    B, H, S, dk = q.shape
+    dv = v.shape[-1]
+    pad = (-S) % actx.chunk
+    if pad:
+        q, k, v = (F.pad(t, (0, 0, 0, pad)) for t in (q, k, v))
+        log_g = F.pad(log_g, (0, pad))
+    Sp = S + pad
+    for spec in actx.specs:
+        _emit(spec, actx.backend)
+    out, st = get_backend(actx.backend).attention_fn(
+        "linear_attention",
+        (q.reshape(B * H, Sp, dk), k.reshape(B * H, Sp, dk),
+         v.reshape(B * H, Sp, dv), log_g.float().reshape(B * H, Sp)),
+        chunk=actx.chunk)
+    out = out.reshape(B, H, Sp, dv)[:, :, :S].float()
+    return out, st.reshape(B, H, dk, dv)
+
+
+class _LinearAttentionFn(torch.autograd.Function):
+    """The kernel path with the reference's backward
+    (``engine.py:1867-1882``): only (q, k, v, log_g) are saved; the
+    backward recomputes through :func:`_linear_attention_reference` on the
+    same backend and differentiates it, so its GEMMs (fp32) and their
+    ``matmul_dx`` / ``matmul_dw`` events go through the registry."""
+
+    @staticmethod
+    def forward(ctx, actx: _LinAttnCtx, q, k, v, log_g):
+        out, st = _linear_attention_kernel_dispatch(actx, q, k, v, log_g)
+        ctx.save_for_backward(q, k, v, log_g)
+        ctx.actx = actx
+        ctx.emit = _capture()
+        return out, st
+
+    @staticmethod
+    def backward(ctx, d_out, d_state):
+        saved = ctx.saved_tensors
+        actx = ctx.actx
+        with torch.enable_grad(), _restored(ctx.emit), repeat(ctx.emit.count):
+            ins = [t.detach().requires_grad_(True) for t in saved]
+            out, st = _linear_attention_reference(
+                *ins, chunk=actx.chunk, state=None, backend=actx.backend)
+            grads = torch.autograd.grad((out, st), ins, (d_out, d_state),
+                                        allow_unused=True)
+        return (None, *(None if g is None else g.to(p.dtype)
+                        for g, p in zip(grads, saved)))
+
+
 # --------------------------------------------------------------------- #
 # The Engine
 # --------------------------------------------------------------------- #
@@ -510,7 +865,10 @@ class Engine:
             op="matmul", tag=tag, m=m, n=n, k=k, batch=math.prod(lead),
             policy=policy, tile=tile or tiling.choose_tiles(m, n, k),
             w_shared=(w.ndim == 2), layout=layout)
-        return _dispatch(spec, b, x, w)
+        if layout != "nn":
+            _no_backward(f"a {layout!r}-layout matmul", x, w)
+            return _dispatch(spec, b, x, w)
+        return _gemm_call(spec, b, x, w)
 
     def linear(self, x: torch.Tensor, w: torch.Tensor,
                b: Optional[torch.Tensor] = None, *,
@@ -548,7 +906,8 @@ class Engine:
             epilogue=activation, w_shared=(w.ndim == 2))
         has_epilogue = b is not None or activation is not None
         if not has_epilogue:
-            return _dispatch(spec, bk, x, w)
+            return _gemm_call(spec, bk, x, w)
+        _no_backward("linear with a bias or activation", x, w, b)
         bc = None if b is None else b.to(policy.accum_dtype)
         if get_backend(bk).supports("fused_epilogue"):
             return _dispatch(spec, bk, x, w, bias=bc, fuse=True)
@@ -578,6 +937,7 @@ class Engine:
         if x.shape[-1] != w.shape[-2]:
             raise ValueError(f"contraction mismatch: {tuple(x.shape)} @ "
                              f"{tuple(w.shape)}")
+        _no_backward("grouped_matmul", x, w)
         lead = tuple(x.shape[:-3])
         m, n, k = x.shape[-2], x.shape[-1], w.shape[-1]
         spec = GemmSpec(
@@ -623,6 +983,7 @@ class Engine:
         if not (get_backend(b).supports("attention") and Dv == D):
             raise NotImplementedError(
                 f"the reference attention composition is {_ROADMAP}")
+        _no_backward("attention", q, k, v)
         scale = float(D ** -0.5 if scale is None else scale)
         q_offset = int(q_offset)
         t_valid = T if t_valid is None else min(int(t_valid), T)
@@ -641,6 +1002,121 @@ class Engine:
             t_valid=t_valid, q_offset=q_offset)
         return out.reshape(B, Hq, S, D).to(policy.out_dtype)
 
+    def einsum2d(self, eq: str, x: torch.Tensor, w: torch.Tensor, *,
+                 policy=None, tile: Optional[tiling.TileConfig] = None,
+                 backend: Optional[str] = None) -> torch.Tensor:
+        """Two-operand einsum lowered onto the GEMM dispatch.
+
+        Any equation with exactly two operands, single-letter axes, no
+        repeated labels within an operand and no ellipsis (e.g.
+        ``"bhd,hde->bhe"``).  Shared labels absent from the output are
+        contracted; labels of one operand absent from the output are summed
+        out first.  Shared labels kept in the output become the batch of a
+        batched GEMM; differentiable like :meth:`matmul`."""
+        policy = self.resolve_policy(policy)
+        b = self.resolve_backend(backend)
+        (batch_l, m_l, k_l, c_l, sum_x, sum_w, a_lab, b_lab, out_lab,
+         dims) = _plan_einsum2d(eq, x.shape, w.shape)
+        if sum_x:
+            x = x.sum(dim=tuple(a_lab.index(l) for l in sum_x))
+            a_lab = [l for l in a_lab if l not in sum_x]
+        if sum_w:
+            w = w.sum(dim=tuple(b_lab.index(l) for l in sum_w))
+            b_lab = [l for l in b_lab if l not in sum_w]
+        xt = x.permute([a_lab.index(l) for l in batch_l + m_l + c_l])
+        wt = w.permute([b_lab.index(l) for l in batch_l + c_l + k_l])
+        size = lambda labels: math.prod(dims[l] for l in labels)
+        bsz, m, k, c = size(batch_l), size(m_l), size(k_l), size(c_l)
+        spec = GemmSpec(
+            op="einsum2d", tag=eq.replace(" ", ""), m=m, n=c, k=k, batch=bsz,
+            policy=policy, tile=tile or tiling.choose_tiles(m, c, k),
+            w_shared=not batch_l)
+        if batch_l:
+            x2, w2 = xt.reshape(bsz, m, c), wt.reshape(bsz, c, k)
+        else:
+            x2, w2 = xt.reshape(m, c), wt.reshape(c, k)
+        z = _gemm_call(spec, b, x2, w2)
+        cur = batch_l + m_l + k_l
+        z = z.reshape([dims[l] for l in cur])
+        return z.permute([cur.index(l) for l in out_lab])
+
+    def linear_attention(self, q: torch.Tensor, k: torch.Tensor,
+                         v: torch.Tensor, log_g: torch.Tensor, *,
+                         chunk: Optional[int] = None,
+                         state: Optional[torch.Tensor] = None,
+                         backend: Optional[str] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Chunked linear attention (the mLSTM / SSD state sweep).
+
+        ``q / k (B, H, S, dk)``, ``v (B, H, S, dv)``, ``log_g (B, H, S)``
+        per-step log decays (<= 0); an optional ``state (B, H, dk, dv)``
+        is carried in.  Returns ``(out (B, H, S, dv) fp32, state
+        (B, H, dk, dv) fp32)``.  With the ``"attention"`` capability and no
+        state carried in, the sweep kernel runs, billed as four
+        ``linear_attention_{score,pv,inter,state}`` events; otherwise — and
+        in the kernel path's backward — the reference composition of fp32
+        GEMM dispatches runs, each self-billing.  ``chunk`` defaults to 64
+        (the port has no autotune cache)."""
+        b = self.resolve_backend(backend)
+        if q.ndim != 4 or k.ndim != 4 or v.ndim != 4 or log_g.ndim != 3:
+            raise ValueError(
+                f"linear_attention needs (B, H, S, d) q/k/v and (B, H, S) "
+                f"log_g, got {tuple(q.shape)} / {tuple(k.shape)} / "
+                f"{tuple(v.shape)} / {tuple(log_g.shape)}")
+        B, H, S, dk = q.shape
+        dv = v.shape[-1]
+        if k.shape != q.shape or v.shape[:3] != q.shape[:3] \
+                or log_g.shape != q.shape[:3]:
+            raise ValueError(
+                f"operand shape mismatch: {tuple(q.shape)} / {tuple(k.shape)} "
+                f"/ {tuple(v.shape)} / {tuple(log_g.shape)}")
+        chunk = int(chunk or 64)
+        if not (get_backend(b).supports("attention") and state is None):
+            return _linear_attention_reference(q, k, v, log_g, chunk=chunk,
+                                               state=state, backend=b)
+        actx = _LinAttnCtx(
+            specs=_linear_attention_specs(B=B, H=H, S=S, dk=dk, dv=dv,
+                                          chunk=chunk, in_bytes=q.element_size()),
+            backend=b, chunk=chunk)
+        return _LinearAttentionFn.apply(actx, q, k, v, log_g)
+
+
+def _plan_einsum2d(eq: str, x_shape, w_shape):
+    """Parse an einsum2d equation into (batch, m, k, contract, summed-out,
+    operand, output) labels and the label sizes (the reference's parser)."""
+    e = eq.replace(" ", "")
+    if "->" not in e or "..." in e:
+        raise ValueError(f"einsum2d needs an explicit '->' and no ellipsis: {eq!r}")
+    lhs, out = e.split("->")
+    terms = lhs.split(",")
+    if len(terms) != 2:
+        raise ValueError(f"einsum2d takes exactly two operands: {eq!r}")
+    a, bt = terms
+    for t in (a, bt, out):
+        if len(set(t)) != len(t):
+            raise ValueError(f"repeated labels are not supported: {eq!r}")
+    if len(a) != len(x_shape) or len(bt) != len(w_shape):
+        raise ValueError(f"equation {eq!r} does not match operand ranks "
+                         f"{len(x_shape)} and {len(w_shape)}")
+    dims: Dict[str, int] = {}
+    for labels, shape in ((a, x_shape), (bt, w_shape)):
+        for lab, size in zip(labels, shape):
+            if lab in dims and dims[lab] != size:
+                raise ValueError(f"size mismatch for label {lab!r} in {eq!r}: "
+                                 f"{dims[lab]} vs {size}")
+            dims[lab] = int(size)
+    for lab in out:
+        if lab not in dims:
+            raise ValueError(f"output label {lab!r} not in any operand: {eq!r}")
+    batch_l = [l for l in a if l in bt and l in out]
+    c_l = [l for l in a if l in bt and l not in out]
+    m_l = [l for l in a if l not in bt and l in out]
+    k_l = [l for l in bt if l not in a and l in out]
+    sum_x = [l for l in a if l not in bt and l not in out]
+    sum_w = [l for l in bt if l not in a and l not in out]
+    return (batch_l, m_l, k_l, c_l, sum_x, sum_w, list(a), list(bt),
+            list(out), dims)
+
 
 DEFAULT_ENGINE = Engine()
 
@@ -657,11 +1133,21 @@ def grouped_matmul(x, w, **kwargs) -> torch.Tensor:
     return DEFAULT_ENGINE.grouped_matmul(x, w, **kwargs)
 
 
+def einsum2d(eq, x, w, **kwargs) -> torch.Tensor:
+    return DEFAULT_ENGINE.einsum2d(eq, x, w, **kwargs)
+
+
 def attention(q, k, v, **kwargs) -> torch.Tensor:
     return DEFAULT_ENGINE.attention(q, k, v, **kwargs)
+
+
+def linear_attention(q, k, v, log_g, **kwargs):
+    return DEFAULT_ENGINE.linear_attention(q, k, v, log_g, **kwargs)
 
 
 matmul.__doc__ = Engine.matmul.__doc__
 linear.__doc__ = Engine.linear.__doc__
 grouped_matmul.__doc__ = Engine.grouped_matmul.__doc__
+einsum2d.__doc__ = Engine.einsum2d.__doc__
 attention.__doc__ = Engine.attention.__doc__
+linear_attention.__doc__ = Engine.linear_attention.__doc__

@@ -29,6 +29,18 @@
 // masked store), so the host never pads: decode shapes such as M = 1,
 // K = 2 would otherwise be dominated by padding.  Later work: TMA loads,
 // a multi-stage shared-memory ring and wgmma.
+//
+// The fp32 route.  The reference runs its FP32 policy through the same
+// Pallas GEMM in full fp32 (the mLSTM gate projection, the sLSTM
+// recurrence, and every GEMM of the linear-attention composition that the
+// backward recomputes).  Tensor cores would round fp32 operands to TF32
+// (about three decimal digits), so fp32 operands take a second kernel,
+// `redmule_gemm_f32_kernel`: SIMT fp32 FMAs on 16-deep shared-memory
+// tiles, each of 256 threads holding a TM x TN block of the fp32
+// accumulator in registers, with the same strides, batch levels, layouts,
+// ragged-edge masking and fused bias + epilogue store as the bf16 / fp16
+// kernel.  Its bound on an H100 is the 67 TFLOP/s of fp32 FMAs (or the
+// bytes, for the skinny shapes).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -204,6 +216,120 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// fp32 operands: SIMT FMAs (no TF32).  Logical Z[M, K] = X[M, N] W[N, K];
+// the block owns a BM x BK output tile, thread (tr, tc) the rows
+// tr * TM + i and the columns tc + (BK / TN) * j of it.
+constexpr int kF32Threads = 256;
+constexpr int kF32BN = 16;  // reduction step
+
+template <typename O, int BM, int BK, int TM, int TN>
+__global__ void __launch_bounds__(kF32Threads)
+    redmule_gemm_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                            const float* __restrict__ bias, O* __restrict__ z, int M,
+                            int N, int K, int inner, int batch0, Operand xo,
+                            Operand wo, long long zs_outer, long long zs_inner,
+                            int epi) {
+  constexpr int TX = BK / TN;  // threads along the output columns
+  static_assert((BM / TM) * TX == kF32Threads, "256 threads");
+  __shared__ float xs[kF32BN][BM + 4];  // [n][m]
+  __shared__ float ws[kF32BN][BK + 4];  // [n][k]
+
+  const int b = batch0 + blockIdx.z;
+  const int bo = b / inner, bi = b % inner;
+  x += bo * xo.outer + bi * xo.inner;
+  w += bo * wo.outer + bi * wo.inner;
+  z += bo * zs_outer + bi * zs_inner;
+  const int m0 = blockIdx.y * BM, k0 = blockIdx.x * BK;
+  const int tid = threadIdx.x;
+  const int tr = tid / TX, tc = tid % TX;
+
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+
+  for (int n0 = 0; n0 < N; n0 += kF32BN) {
+    // X tile (BM x 16): neighbouring threads on the contiguous axis
+    for (int e = tid; e < BM * kF32BN; e += kF32Threads) {
+      int r, c;
+      if (xo.col == 1) { r = e / kF32BN; c = e % kF32BN; }
+      else { r = e % BM; c = e / BM; }
+      const int gm = m0 + r, gn = n0 + c;
+      xs[c][r] = (gm < M && gn < N)
+                     ? x[(long long)gm * xo.row + (long long)gn * xo.col] : 0.f;
+    }
+    // W tile (16 x BK)
+    for (int e = tid; e < kF32BN * BK; e += kF32Threads) {
+      int r, c;
+      if (wo.col == 1) { r = e / BK; c = e % BK; }
+      else { r = e % kF32BN; c = e / kF32BN; }
+      const int gn = n0 + r, gk = k0 + c;
+      ws[r][c] = (gn < N && gk < K)
+                     ? w[(long long)gn * wo.row + (long long)gk * wo.col] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int nn = 0; nn < kF32BN; ++nn) {
+      float a[TM], bv[TN];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) a[i] = xs[nn][tr * TM + i];
+#pragma unroll
+      for (int j = 0; j < TN; ++j) bv[j] = ws[nn][tc + TX * j];
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+  // store once: bias + epilogue on the fp32 accumulator, one cast
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int gm = m0 + tr * TM + i;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int gk = k0 + tc + TX * j;
+      if (gm < M && gk < K) {
+        float v = acc[i][j];
+        if (bias != nullptr) v += bias[gk];
+        z[(long long)gm * K + gk] = from_float<O>(apply_epilogue(v, epi));
+      }
+    }
+  }
+}
+
+template <typename O, int BM, int BK, int TM, int TN>
+int launch_f32(const void* x, const void* w, const float* bias, void* z, int batch,
+               int inner, int M, int N, int K, Operand xo, Operand wo, int epi,
+               cudaStream_t stream) {
+  const unsigned gx = (K + BK - 1) / BK, gy = (M + BM - 1) / BM;
+  const long long zs_inner = (long long)M * K;
+  const long long zs_outer = zs_inner * inner;
+  for (int b0 = 0; b0 < batch; b0 += 65535) {
+    const unsigned gz = (batch - b0) < 65535 ? (batch - b0) : 65535;
+    redmule_gemm_f32_kernel<O, BM, BK, TM, TN>
+        <<<dim3(gx, gy, gz), kF32Threads, 0, stream>>>(
+            static_cast<const float*>(x), static_cast<const float*>(w), bias,
+            static_cast<O*>(z), M, N, K, inner, b0, xo, wo, zs_outer, zs_inner, epi);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
+}
+
+template <typename O>
+int by_tile_f32(int tile, const void* x, const void* w, const float* bias, void* z,
+                int batch, int inner, int M, int N, int K, Operand xo, Operand wo,
+                int epi, cudaStream_t s) {
+  if (tile == 0)  // 64 x 64 output tile, 4 x 4 per thread
+    return launch_f32<O, 64, 64, 4, 4>(x, w, bias, z, batch, inner, M, N, K, xo, wo, epi, s);
+  if (tile == 1)  // 16 x 128 (small M), 1 x 8 per thread
+    return launch_f32<O, 16, 128, 1, 8>(x, w, bias, z, batch, inner, M, N, K, xo, wo, epi, s);
+  return (int)cudaErrorInvalidValue;
+}
+
 template <typename T, typename O, int BM, int BK, int WARPS_M, int WARPS_N>
 int launch(const void* x, const void* w, const float* bias, void* z, int batch,
            int inner, int M, int N, int K, Operand xo, Operand wo, int epi,
@@ -250,7 +376,8 @@ int by_out(int out_dtype, int tile, const void* x, const void* w,
 
 }  // namespace
 
-// dtype / out_dtype: 0 = fp16, 1 = bf16, 2 = fp32 (output only).
+// dtype / out_dtype: 0 = fp16, 1 = bf16, 2 = fp32 (fp32 operands take the
+// SIMT route and store fp32).
 // tile: 0 = (bm 64, bn 32, bk 64), 1 = (bm 16, bn 32, bk 128).
 // Returns cudaGetLastError() of the launch (0 on success).
 extern "C" int redmule_gemm(int dtype, int out_dtype, int tile, const void* x,
@@ -268,6 +395,10 @@ extern "C" int redmule_gemm(int dtype, int out_dtype, int tile, const void* x,
     return by_out<__half>(out_dtype, tile, x, w, b, z, batch, inner, M, N, K, xo, wo, epi, s);
   if (dtype == 1)
     return by_out<__nv_bfloat16>(out_dtype, tile, x, w, b, z, batch, inner, M, N, K, xo, wo, epi, s);
+  if (dtype == 2) {  // the fp32 route: SIMT fp32 FMAs, fp32 out only
+    if (out_dtype != 2) return (int)cudaErrorInvalidValue;
+    return by_tile_f32<float>(tile, x, w, b, z, batch, inner, M, N, K, xo, wo, epi, s);
+  }
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,0 +1,5 @@
+"""Synthetic data (counterpart of ``repro.data``)."""
+
+from repro_torch.data.pipeline import Prefetcher, SyntheticLM
+
+__all__ = ["SyntheticLM", "Prefetcher"]

@@ -28,7 +28,7 @@ __all__ = ["SOURCES", "NVCC_FLAGS", "BUILD_DIR", "build_all", "load"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("redmule_matmul", "flash_attention")
+SOURCES = ("redmule_matmul", "flash_attention", "chunked_linear_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,0 +1,137 @@
+"""Chunked linear attention on Hopper: wrapper, launcher, plain version.
+
+Counterpart of ``repro.kernels.chunked_linear_attention``: the mLSTM /
+Mamba2-SSD state sweep
+
+    S_t = exp(g_t) S_{t-1} + k_t v_t^T ;   out_t = q_t S_t
+
+evaluated chunk by chunk, with the fp32 state starting at zero and stored
+once at the end.  q, k ``(BH, S, dk)``, v ``(BH, S, dv)``, log_g ``(BH, S)``
+(log decays, <= 0) -> ``(out (BH, S, dv) in q's dtype, state (BH, dk, dv)
+fp32)``.  ``S`` must be a multiple of ``chunk``: callers pad with g = 0,
+k = 0, which is inert (``repro_torch.core.engine`` does).
+
+A CPU tensor takes :func:`chunked_linear_attention_plain`; a CUDA tensor
+launches ``csrc/chunked_linear_attention.cu`` (fp16 / bf16 / fp32 inputs,
+chunk in {16, 32, 64, 128}, dk up to what fits shared memory — 1024 and
+beyond at every chunk) or raises.  ``chunked_linear_attention.launches``
+counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core import tiling
+from repro_torch.kernels import _build
+
+__all__ = ["chunked_linear_attention", "chunked_linear_attention_plain",
+           "CHUNKS"]
+
+CHUNKS = (16, 32, 64, 128)     # the kernel's compiled chunk sizes
+_DTYPE_CODE = {torch.float16: 0, torch.bfloat16: 1, torch.float32: 2}
+
+
+def chunked_linear_attention_plain(q: torch.Tensor, k: torch.Tensor,
+                                   v: torch.Tensor, log_g: torch.Tensor, *,
+                                   chunk: int = 128):
+    """The kernel's function in plain PyTorch, chunk by chunk in fp32 (the
+    reference kernel's per-chunk step, batched over heads)."""
+    BH, S, dk = q.shape
+    dv = v.shape[-1]
+    _check_shapes(q, k, v, log_g, chunk)
+    state = torch.zeros((BH, dk, dv), dtype=torch.float32, device=q.device)
+    outs = []
+    idx = torch.arange(chunk, device=q.device)
+    causal = idx[:, None] >= idx[None, :]
+    for s0 in range(0, S, chunk):
+        qc = q[:, s0:s0 + chunk].float()
+        kc = k[:, s0:s0 + chunk].float()
+        vc = v[:, s0:s0 + chunk].float()
+        L = torch.cumsum(log_g[:, s0:s0 + chunk].float(), dim=-1)   # (BH, c)
+        ltot = L[:, -1:]
+        A = torch.where(causal, torch.exp(L[:, :, None] - L[:, None, :]),
+                        torch.zeros((), device=q.device))
+        s = torch.matmul(qc, kc.transpose(1, 2)) * A
+        out = torch.matmul(s, vc) + torch.matmul(qc * torch.exp(L)[..., None], state)
+        kdec = kc * torch.exp(ltot - L)[..., None]
+        state = (torch.exp(ltot)[..., None] * state
+                 + torch.matmul(kdec.transpose(1, 2), vc))
+        outs.append(out.to(q.dtype))
+    return torch.cat(outs, dim=1), state
+
+
+def _check_shapes(q, k, v, log_g, chunk: int) -> None:
+    if q.ndim != 3 or k.shape != q.shape or v.ndim != 3 \
+            or v.shape[:2] != q.shape[:2] or tuple(log_g.shape) != q.shape[:2]:
+        raise ValueError(
+            f"expected q, k (BH, S, dk), v (BH, S, dv), log_g (BH, S); got "
+            f"{tuple(q.shape)} / {tuple(k.shape)} / {tuple(v.shape)} / "
+            f"{tuple(log_g.shape)}")
+    if chunk <= 0 or q.shape[1] % chunk:
+        raise ValueError(f"S = {q.shape[1]} must be a positive multiple of "
+                         f"chunk = {chunk} (pad with g = 0, k = 0)")
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("chunked_linear_attention")
+    if lib.chunked_linear_attention.argtypes is None:
+        i, p = ctypes.c_int, ctypes.c_void_p
+        lib.chunked_linear_attention.argtypes = [i, i, p, p, p, p, p, p,
+                                                 i, i, i, i, p]
+        lib.chunked_linear_attention.restype = i
+        lib.cla_smem_bytes.argtypes = [i, i]
+        lib.cla_smem_bytes.restype = ctypes.c_longlong
+        lib.cla_error_string.argtypes = [i]
+        lib.cla_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def chunked_linear_attention(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, log_g: torch.Tensor, *,
+                             chunk: int = 128):
+    """``(out, state)`` of the chunked sweep (see the module docstring)."""
+    _check_shapes(q, k, v, log_g, chunk)
+    if not (q.device == k.device == v.device == log_g.device):
+        raise ValueError("operands on different devices")
+    if q.device.type == "cpu":
+        return chunked_linear_attention_plain(q, k, v, log_g, chunk=chunk)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q, k, v must share one of {sorted(map(str, _DTYPE_CODE))}, "
+                        f"got {q.dtype} / {k.dtype} / {v.dtype}")
+    if log_g.dtype != torch.float32:
+        raise TypeError(f"log_g must be float32, got {log_g.dtype}")
+    if chunk not in CHUNKS:
+        raise NotImplementedError(f"chunk {chunk}: the kernel is compiled for "
+                                  f"{CHUNKS}")
+    BH, S, dk = q.shape
+    dv = v.shape[-1]
+    if BH > 65535:
+        raise ValueError(f"BH = {BH} exceeds the kernel's grid (65535)")
+    lib = _lib()
+    smem = lib.cla_smem_bytes(chunk, dk)
+    if smem > tiling.SMEM_BUDGET:
+        raise NotImplementedError(
+            f"dk = {dk} at chunk {chunk} needs {smem} B of shared memory "
+            f"(budget {tiling.SMEM_BUDGET})")
+    out = torch.empty((BH, S, dv), dtype=q.dtype, device=q.device)
+    state = torch.empty((BH, dk, dv), dtype=torch.float32, device=q.device)
+    if min(BH, dv) == 0:
+        return out, state.zero_()
+    q, k, v, log_g = (t.contiguous() for t in (q, k, v, log_g))
+    err = lib.chunked_linear_attention(
+        _DTYPE_CODE[q.dtype], chunk, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        log_g.data_ptr(), out.data_ptr(), state.data_ptr(), BH, S, dk, dv,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError("chunked_linear_attention launch failed: "
+                           f"{lib.cla_error_string(err).decode()}")
+    chunked_linear_attention.launches += 1
+    return out, state
+
+
+chunked_linear_attention.launches = 0

@@ -6,10 +6,12 @@ launches the kernel or raises — there is no fallback.  Unlike the
 reference there is no host-side padding: the kernel masks ragged M / N / K
 edges itself.  Each wrapper counts its kernel launches in ``.launches``.
 
-Features of the reference kernel that belong to later slices raise
-``NotImplementedError``: ``faithful_accum`` (the ``paper_fp16`` policy),
-the fused backward (``deriv`` / ``bias_grad``), FP8 operands, and — on the
-card — fp32 compute.  Model code goes through :mod:`repro_torch.core.engine`.
+fp32 operands (the FP32 policy) run on the card through the kernel's SIMT
+fp32 route (no TF32); those launches are also counted in
+``.launches_fp32``.  Features of the reference kernel that belong to later
+slices raise ``NotImplementedError``: ``faithful_accum`` (the
+``paper_fp16`` policy), the fused backward (``deriv`` / ``bias_grad``) and
+FP8 operands.  Model code goes through :mod:`repro_torch.core.engine`.
 """
 
 from __future__ import annotations
@@ -45,9 +47,10 @@ def _check(x: torch.Tensor, w: torch.Tensor, policy: prec.Policy,
         return
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    if policy.compute_dtype not in (torch.float16, torch.bfloat16):
+    if policy.compute_dtype == torch.float32 and policy.out_dtype != torch.float32:
         raise NotImplementedError(
-            f"fp32 compute on the card (policy {policy.name!r}) is {_ROADMAP}")
+            f"fp32 operands with a {policy.out_dtype} output (policy "
+            f"{policy.name!r}) are {_ROADMAP}")
     if x.dtype != policy.compute_dtype or w.dtype != policy.compute_dtype:
         raise TypeError(f"operands must be {policy.compute_dtype}, got "
                         f"{x.dtype} and {w.dtype}")
@@ -91,10 +94,13 @@ def redmule_matmul(x: torch.Tensor, w: torch.Tensor, *, policy: prec.Policy,
                   tile=tile or tiling.choose_tiles(M, N, K), bias=bias,
                   epilogue=epilogue, layout=layout)
     redmule_matmul.launches += 1
+    if x.dtype == torch.float32:
+        redmule_matmul.launches_fp32 += 1
     return z
 
 
 redmule_matmul.launches = 0
+redmule_matmul.launches_fp32 = 0
 
 
 def redmule_matmul_batched(x: torch.Tensor, w: torch.Tensor, *,
@@ -126,7 +132,10 @@ def redmule_matmul_batched(x: torch.Tensor, w: torch.Tensor, *,
                   tile=tile or tiling.choose_tiles(M, N, K), bias=bias,
                   epilogue=epilogue, layout=layout)
     redmule_matmul_batched.launches += 1
+    if x.dtype == torch.float32:
+        redmule_matmul_batched.launches_fp32 += 1
     return z
 
 
 redmule_matmul_batched.launches = 0
+redmule_matmul_batched.launches_fp32 = 0

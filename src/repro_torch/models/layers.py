@@ -24,7 +24,7 @@ import torch.nn.functional as F
 from repro_torch.core import engine
 
 __all__ = ["Param", "init_tree", "stack_schema", "rmsnorm", "rope",
-           "apply_rope", "activation", "mlp_glu"]
+           "apply_rope", "activation", "mlp_glu", "cross_entropy"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,3 +123,19 @@ def mlp_glu(params: Dict[str, torch.Tensor], x: torch.Tensor, *, act: str,
     gate, up = h.chunk(2, dim=-1)
     return engine.matmul(activation(gate, act) * up, params["w_out"],
                          policy=policy)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, z_loss: float = 0.0
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Token-level CE in fp32; labels < 0 are masked out
+    (``layers.py:197-209`` of the reference)."""
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
+    nll = lse - gold
+    if z_loss:
+        nll = nll + z_loss * lse ** 2
+    mask = (labels >= 0).to(torch.float32)
+    denom = torch.clamp(mask.sum(), min=1.0)
+    loss = (nll * mask).sum() / denom
+    return loss, {"loss": loss, "ntokens": denom}

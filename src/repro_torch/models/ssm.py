@@ -1,0 +1,182 @@
+"""SSM blocks: xLSTM's mLSTM and sLSTM.
+
+Counterpart of ``repro.models.ssm``.  The mLSTM runs its matrix-memory
+recurrence through the engine's chunked linear-attention op (the
+hand-written sweep kernel on the card, when no state is carried in); the
+sLSTM is a sequential scalar recurrence: its input projection is hoisted
+into one GEMM and the reference's ``lax.scan`` over time is a Python loop
+here, one fp32 recurrent GEMM per step.  The Mamba2 / SSD mixer (hymba)
+is not ported yet (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core import engine
+from repro_torch.core import precision as prec
+from repro_torch.models import layers
+from repro_torch.models.layers import Param
+
+__all__ = [
+    "chunked_linear_attention",
+    "linear_attention_step",
+    "mlstm_schema",
+    "mlstm_block",
+    "slstm_schema",
+    "slstm_block",
+]
+
+_F32 = prec.FP32
+
+
+def chunked_linear_attention(q, k, v, log_g, *, chunk: int = 64,
+                             state: Optional[torch.Tensor] = None,
+                             backend: Optional[str] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out (B, H, S, dv), final state (B, H, dk, dv)) of the chunked
+    sweep; a thin wrapper over :func:`repro_torch.core.engine.linear_attention`."""
+    return engine.linear_attention(q, k, v, log_g, chunk=chunk, state=state,
+                                   backend=backend)
+
+
+def linear_attention_step(state, q, k, v, log_g):
+    """One decode step: S' = exp(g) S + k v^T; out = q @ S'."""
+    state = (torch.exp(log_g.float())[..., None, None] * state
+             + k.float()[..., :, None] * v.float()[..., None, :])
+    out = engine.einsum2d("bhk,bhkv->bhv", q.float(), state, policy=_F32)
+    return out, state
+
+
+def _per_head_rmsnorm(x: torch.Tensor, scale: torch.Tensor, H: int) -> torch.Tensor:
+    """Group-norm over each head's channels; x (B, S, di), scale (di,)."""
+    B, S, di = x.shape
+    xh = x.reshape(B, S, H, di // H)
+    xh = layers.rmsnorm(xh, torch.ones(di // H, dtype=x.dtype, device=x.device))
+    return xh.reshape(B, S, di) * scale.to(x.dtype)
+
+
+def _log_sigmoid_shifted(f: torch.Tensor) -> torch.Tensor:
+    """log sigmoid(f + 3) <= 0, as the reference writes it."""
+    return -F.softplus(-(f + 3.0))
+
+
+# --------------------------------------------------------------------- #
+# mLSTM block
+# --------------------------------------------------------------------- #
+def mlstm_schema(cfg) -> Dict[str, Any]:
+    d = cfg.d_model
+    di = cfg.ssm.mlstm_proj_factor * d
+    H = cfg.n_heads
+    hd = di // H
+    return {
+        "w_up": Param((d, 2 * di)),
+        # block-diagonal per-head q/k/v: H independent hd -> 3hd projections
+        "w_qkv": Param((H, hd, 3 * hd)),
+        "w_if": Param((di, 2 * H)),
+        "b_if": Param((2 * H,), init="zeros"),
+        "norm": Param((di,), init="ones"),
+        "w_down": Param((di, d)),
+    }
+
+
+def mlstm_block(params, x, cfg, *, policy, state=None):
+    """x (B, S, d) -> (y (B, S, d), state (B, H, hd, hd)); ``state`` is
+    carried across decode steps."""
+    B, S, d = x.shape
+    H = cfg.n_heads
+    di = cfg.ssm.mlstm_proj_factor * d
+    hd = di // H
+
+    u = engine.matmul(x, params["w_up"], policy=policy)
+    xin, z = u.chunk(2, dim=-1)
+    xh = xin.reshape(B, S, H, hd).permute(2, 0, 1, 3).reshape(H, B * S, hd)
+    qkv = engine.matmul(xh, params["w_qkv"], policy=policy)     # (H, B*S, 3hd)
+    qkv = qkv.reshape(H, B, S, 3 * hd).permute(1, 0, 2, 3)
+    q, k, v = qkv.chunk(3, dim=-1)                               # (B, H, S, hd)
+    # the scale rounds to the activation dtype first, as JAX's weak-typed
+    # scalar does
+    q = q * torch.tensor(hd ** -0.5, dtype=q.dtype, device=q.device)
+
+    gates = (engine.matmul(xin, params["w_if"], policy=_F32)
+             + params["b_if"].float())
+    i_raw, f_raw = gates.chunk(2, dim=-1)                        # (B, S, H)
+    log_f = _log_sigmoid_shifted(f_raw)
+    i_gate = torch.sigmoid(i_raw)
+    k = k * i_gate.permute(0, 2, 1)[..., None].to(k.dtype)
+    log_g = log_f.permute(0, 2, 1)                               # (B, H, S)
+
+    if S == 1 and state is not None:
+        o, state = linear_attention_step(state, q[:, :, 0], k[:, :, 0],
+                                         v[:, :, 0], log_g[:, :, 0])
+        o = o[:, :, None]
+    else:
+        o, state = chunked_linear_attention(q, k, v, log_g,
+                                            chunk=cfg.ssm.chunk, state=state)
+
+    o = o.permute(0, 2, 1, 3).reshape(B, S, di).to(x.dtype)
+    o = _per_head_rmsnorm(o, params["norm"], H)
+    o = o * F.silu(z)
+    return engine.matmul(o, params["w_down"], policy=policy), state
+
+
+# --------------------------------------------------------------------- #
+# sLSTM block — sequential scalar recurrence
+# --------------------------------------------------------------------- #
+def slstm_schema(cfg) -> Dict[str, Any]:
+    d = cfg.d_model
+    H = cfg.n_heads
+    hd = d // H
+    ff = cfg.ssm.slstm_ffn_dim(d)
+    return {
+        "w_gates": Param((d, 4 * d)),
+        "r_gates": Param((H, hd, 4 * hd)),
+        "b_gates": Param((4 * d,), init="zeros"),
+        "norm": Param((d,), init="ones"),
+        "ffn": {
+            "w_in": Param((d, 2 * ff)),
+            "w_out": Param((ff, d)),
+        },
+    }
+
+
+def slstm_block(params, x, cfg, *, policy, state=None):
+    """x (B, S, d) -> (y, state); state is dict(c, n, h, m), each
+    (B, H, hd) fp32."""
+    B, S, d = x.shape
+    H = cfg.n_heads
+    hd = d // H
+
+    wx = engine.matmul(x, params["w_gates"], policy=policy)     # one GEMM
+    wx = wx.reshape(B, S, 4, H, hd).float()
+    if state is None:
+        zeros = torch.zeros((B, H, hd), dtype=torch.float32, device=x.device)
+        state = {"c": zeros, "n": zeros, "h": zeros,
+                 "m": torch.full((B, H, hd), -1e30, device=x.device)}
+    b = params["b_gates"].float().reshape(4, H, hd)
+    r = params["r_gates"].float()
+    one = torch.ones((), device=x.device)
+
+    st = state
+    hs = []
+    for t in range(S):      # the reference's lax.scan over time
+        rec = engine.einsum2d("bhd,hde->bhe", st["h"], r,
+                              policy=_F32).reshape(B, H, 4, hd)
+        g = wx[:, t] + rec.transpose(1, 2) + b[None]
+        z_t, i_t, f_t, o_t = g[:, 0], g[:, 1], g[:, 2], g[:, 3]
+        log_f = _log_sigmoid_shifted(f_t)
+        m_new = torch.maximum(log_f + st["m"], i_t)
+        i_p = torch.exp(i_t - m_new)
+        f_p = torch.exp(log_f + st["m"] - m_new)
+        c = f_p * st["c"] + i_p * torch.tanh(z_t)
+        n = f_p * st["n"] + i_p
+        h = torch.sigmoid(o_t) * c / torch.maximum(torch.abs(n), one)
+        st = {"c": c, "n": n, "h": h, "m": m_new}
+        hs.append(h)
+    h = torch.stack(hs, dim=1).reshape(B, S, d).to(x.dtype)
+    h = layers.rmsnorm(h, params["norm"])
+    y = h + layers.mlp_glu(params["ffn"], h, act=cfg.act, policy=policy)
+    return y, st

@@ -1,38 +1,46 @@
-"""Decoder LM composition: the reference's ``"attn"`` block kind.
+"""Decoder LM composition: the reference's ``"attn"`` and ``"xlstm"``
+block kinds.
 
-Counterpart of ``repro.models.transformer`` for dense GQA models.  Layer
-parameters are stacked along a leading layer dim as in the reference (so
-its parameter trees carry across, see ``repro_torch.convert``); the
-reference's ``lax.scan`` over that dim is a Python loop here.  The tied LM
-head multiplies by the ``(V, d)`` embedding as stored, through the GEMM
-kernel's "nt" layout — no transposed copy.  The serving entry points run
-under ``torch.inference_mode()``.  MoE, xLSTM and hybrid blocks, MLA,
-plain (non-gated) MLPs, training and the loss are not ported yet
-(ROADMAP.md).
+Counterpart of ``repro.models.transformer``.  Layer parameters are
+stacked along a leading layer dim as in the reference (so its parameter
+trees carry across, see ``repro_torch.convert``); the reference's
+``lax.scan`` over that dim is a Python loop over ``torch.unbind`` views
+here, so the backward stacks each parameter's gradient once.  xLSTM stacks
+super-blocks of (7 mLSTM + 1 sLSTM); with ``remat="full"`` each
+super-block is a :func:`repro_torch.core.engine.checkpoint` region, as the
+reference checkpoints its layer-scan body.  The tied LM head multiplies by
+the ``(V, d)`` embedding as stored, through the GEMM kernel's "nt" layout
+— no transposed copy.  The serving entry points run under
+``torch.inference_mode()``.  MoE and hybrid blocks, MLA, plain (non-gated)
+MLPs, the xLSTM decode state, the attention backward, ``remat="dots"``
+and the chunked CE are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+import math
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch import resolve_device
 from repro_torch.core import engine
-from repro_torch.models import attention, layers
+from repro_torch.models import attention, layers, ssm
 from repro_torch.models.layers import Param
 
-__all__ = ["schema", "init_params", "forward", "serve_step", "prefill",
-           "init_cache"]
+__all__ = ["schema", "init_params", "count_params", "forward", "loss_fn",
+           "serve_step", "prefill", "init_cache"]
 
 _ROADMAP = "not yet ported (see ROADMAP.md, Queue A)"
 
 
-def _check_kind(cfg) -> None:
+def _check_kind(cfg, *, serving: bool = False) -> None:
+    if cfg.block_kind == "xlstm" and not serving:
+        return
     if cfg.block_kind != "attn" or cfg.mla is not None or cfg.mlp != "glu":
-        raise NotImplementedError(
-            f"block kind {cfg.block_kind!r} / mlp {cfg.mlp!r} (arch "
-            f"{cfg.name!r}) is {_ROADMAP}")
+        what = ("the xlstm decode state" if cfg.block_kind == "xlstm" else
+                f"block kind {cfg.block_kind!r} / mlp {cfg.mlp!r}")
+        raise NotImplementedError(f"{what} (arch {cfg.name!r}) is {_ROADMAP}")
 
 
 def _norm_param(cfg) -> Param:
@@ -44,18 +52,42 @@ def _mlp_schema(cfg) -> Dict[str, Any]:
     return {"w_in": Param((d, 2 * ff)), "w_out": Param((ff, d))}
 
 
+def _xlstm_super_schema(cfg) -> Dict[str, Any]:
+    n_m = cfg.ssm.slstm_period - 1
+    m_block = {"ln": _norm_param(cfg), "cell": ssm.mlstm_schema(cfg)}
+    s_block = {"ln": _norm_param(cfg), "cell": ssm.slstm_schema(cfg)}
+    return {"mlstm": layers.stack_schema(m_block, n_m), "slstm": s_block}
+
+
 def schema(cfg) -> Dict[str, Any]:
     _check_kind(cfg)
-    block = {"ln1": _norm_param(cfg), "attn": attention.gqa_schema(cfg),
-             "ln2": _norm_param(cfg), "mlp": _mlp_schema(cfg)}
     s: Dict[str, Any] = {
         "embed": Param((cfg.vocab_size, cfg.d_model), init="embed"),
         "final_norm": _norm_param(cfg),
-        "layers": layers.stack_schema(block, cfg.n_layers),
     }
     if not cfg.tie_embeddings:
         s["lm_head"] = Param((cfg.d_model, cfg.vocab_size))
+    if cfg.block_kind == "xlstm":
+        n_super, rem = divmod(cfg.n_layers, cfg.ssm.slstm_period)
+        if rem:
+            raise ValueError(f"n_layers {cfg.n_layers} is not a multiple of "
+                             f"slstm_period {cfg.ssm.slstm_period}")
+        s["layers"] = layers.stack_schema(_xlstm_super_schema(cfg), n_super)
+    else:
+        block = {"ln1": _norm_param(cfg), "attn": attention.gqa_schema(cfg),
+                 "ln2": _norm_param(cfg), "mlp": _mlp_schema(cfg)}
+        s["layers"] = layers.stack_schema(block, cfg.n_layers)
     return s
+
+
+def count_params(cfg) -> int:
+    """Total parameters (embedding included), from the schema."""
+    def go(node):
+        if isinstance(node, Param):
+            return math.prod(node.shape)
+        return sum(go(v) for v in node.values())
+
+    return go(schema(cfg))
 
 
 def init_params(cfg, *, seed: int = 0, device="cuda",
@@ -77,12 +109,38 @@ def _norm(cfg, x, scale):
     return layers.rmsnorm(x, scale)
 
 
-def _layer(tree, i: int):
-    """Layer ``i``'s slice of a stacked tree (views: in-place cache writes
-    land in the stacked tensors)."""
+def _unbind(tree) -> List[Any]:
+    """The slices of a stacked tree along its leading dim, as views
+    (``torch.unbind``: in-place cache writes land in the stacked tensors,
+    and the backward stacks the slices' gradients once)."""
     if isinstance(tree, torch.Tensor):
-        return tree[i]
-    return {k: _layer(v, i) for k, v in tree.items()}
+        return list(tree.unbind(0))
+    parts = {k: _unbind(v) for k, v in tree.items()}
+    n = len(next(iter(parts.values())))
+    return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+
+
+def _remat(cfg, fn):
+    """``remat="full"``: the block is an engine checkpoint region (the
+    reference's ``jax.checkpoint`` of the layer-scan body)."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat != "full":
+        raise NotImplementedError(f"remat {cfg.remat!r} is {_ROADMAP}")
+    return lambda *args: engine.checkpoint(fn, *args)
+
+
+def _xlstm_super_block(p, h, cfg, *, policy):
+    """7 mLSTM blocks + 1 sLSTM block, no state carried in (training and
+    prefill from zero: the in-sequence state starts at zero inside the
+    chunked sweep)."""
+    for lp in _unbind(p["mlstm"]):
+        out, _ = ssm.mlstm_block(lp["cell"], _norm(cfg, h, lp["ln"]), cfg,
+                                 policy=policy)
+        h = h + out
+    out, _ = ssm.slstm_block(p["slstm"]["cell"], _norm(cfg, h, p["slstm"]["ln"]),
+                             cfg, policy=policy)
+    return h + out
 
 
 def _attn_block(p, h, cfg, *, pos, cache, policy, kv_group_sizes=None):
@@ -102,14 +160,20 @@ def forward(params: Dict[str, Any], cfg, batch: Dict[str, torch.Tensor], *,
     """Logits ``(B, S', V)`` (``S' = 1`` with ``last_only``) and the cache
     (updated in place).  ``pos`` is an int or a ``(B,)`` tensor of
     per-slot decode positions."""
-    _check_kind(cfg)
+    _check_kind(cfg, serving=cache is not None)
     policy = cfg.policy
     h = params["embed"][batch["inputs"]].to(policy.compute_dtype)
-    for i in range(cfg.n_layers):
-        h, _ = _attn_block(
-            _layer(params["layers"], i), h, cfg, pos=pos,
-            cache=None if cache is None else _layer(cache["layers"], i),
-            policy=policy, kv_group_sizes=kv_group_sizes)
+    if cfg.block_kind == "xlstm":
+        block = _remat(cfg, lambda lp, hh: _xlstm_super_block(
+            lp, hh, cfg, policy=policy))
+        for lp in _unbind(params["layers"]):
+            h = block(lp, h)
+    else:
+        caches = ([None] * cfg.n_layers if cache is None
+                  else _unbind(cache["layers"]))
+        for lp, lc in zip(_unbind(params["layers"]), caches):
+            h, _ = _attn_block(lp, h, cfg, pos=pos, cache=lc, policy=policy,
+                               kv_group_sizes=kv_group_sizes)
     if last_only:
         h = h[:, -1:]   # serving: never materialise (B, S, V) prompt logits
     h = _norm(cfg, h, params["final_norm"])
@@ -118,6 +182,18 @@ def forward(params: Dict[str, Any], cfg, batch: Dict[str, torch.Tensor], *,
     else:
         logits = engine.matmul(h, params["lm_head"], policy=policy)
     return logits, cache
+
+
+def loss_fn(params: Dict[str, Any], cfg, batch: Dict[str, torch.Tensor]
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Mean token cross-entropy of ``batch["inputs"]`` against
+    ``batch["labels"]`` (labels < 0 masked), with its metrics."""
+    if cfg.ce_chunk:
+        raise NotImplementedError(f"the chunked CE (ce_chunk) is {_ROADMAP}")
+    logits, _ = forward(params, cfg, batch)
+    loss, metrics = layers.cross_entropy(logits, batch["labels"])
+    metrics["loss"] = loss
+    return loss, metrics
 
 
 @torch.inference_mode()
@@ -148,7 +224,7 @@ def prefill(params, cfg, batch, max_len: int, storage_dtype=None):
 def init_cache(cfg, batch: int, max_len: int, dtype=None, storage_dtype=None,
                *, device="cuda"):
     """The decode cache ``{"layers": {"k", "v": (L, B, Hkv, T, hd)}}``."""
-    _check_kind(cfg)
+    _check_kind(cfg, serving=True)
     one = attention.init_gqa_cache(
         cfg, batch, max_len, dtype or cfg.policy.compute_dtype, storage_dtype,
         device=resolve_device(device))

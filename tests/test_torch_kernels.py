@@ -21,9 +21,11 @@ import jax.numpy as jnp
 
 from repro.core import precision as jprec
 from repro.kernels import ops as jops
+from repro.kernels.chunked_linear_attention import chunked_linear_attention_pallas
 from repro.kernels.flash_attention import flash_attention_pallas
 
 from repro_torch.core import precision as tprec
+from repro_torch.kernels import chunked_linear_attention as tcla
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import redmule_matmul as trm
@@ -222,3 +224,63 @@ def test_flash_rejects_mismatched_groups():
     q, k = torch.zeros(3, 8, 16), torch.zeros(2, 8, 16)
     with pytest.raises(ValueError, match="group"):
         tfa.flash_attention(q, k, k, group=2)
+
+
+_CLA_CASES = {
+    # name: (BH, S, dk, dv, chunk)
+    "c16_dk_lt_dv": (3, 48, 16, 24, 16),      # hymba's SSD shape kind
+    "c32_dk_gt_dv": (2, 64, 24, 8, 32),
+    "c16_square": (2, 32, 16, 16, 16),
+}
+
+
+def _cla_inputs(rng, BH, S, dk, dv):
+    q = rng.standard_normal((BH, S, dk)).astype(np.float32)
+    k = (0.5 * rng.standard_normal((BH, S, dk))).astype(np.float32)
+    v = rng.standard_normal((BH, S, dv)).astype(np.float32)
+    log_g = -rng.random((BH, S)).astype(np.float32)           # <= 0
+    return q, k, v, log_g
+
+
+@pytest.mark.parametrize("name", sorted(_CLA_CASES))
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+def test_plain_chunked_linear_attention_matches_interpret_kernel(name, dtype):
+    BH, S, dk, dv, chunk = _CLA_CASES[name]
+    rng = np.random.default_rng([sorted(_CLA_CASES).index(name), len(dtype)])
+    q, k, v, log_g = _cla_inputs(rng, BH, S, dk, dv)
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    want_o, want_s = chunked_linear_attention_pallas(
+        *(jnp.asarray(a).astype(jd) for a in (q, k, v)), jnp.asarray(log_g),
+        chunk=chunk, interpret=True)
+    got_o, got_s = tcla.chunked_linear_attention(
+        *(torch.from_numpy(a).to(td) for a in (q, k, v)), torch.from_numpy(log_g),
+        chunk=chunk)
+    assert got_o.dtype == td and got_s.dtype == torch.float32
+    assert tuple(got_s.shape) == (BH, dk, dv)
+    # fp32 everywhere inside; the two sides differ in summation order only.
+    # The state is fp32 on both sides (1e-5); the output is stored in the
+    # input dtype, so bf16 may flip one output rounding (2^-8), doubled.
+    _close(got_s, want_s, 1e-5)
+    _close(got_o, want_o, 1e-5 if dtype == "float32" else 2.0 ** -7)
+
+
+def test_plain_chunked_linear_attention_rejects_ragged_sequence():
+    q = torch.zeros(2, 20, 8)
+    with pytest.raises(ValueError, match="multiple of"):
+        tcla.chunked_linear_attention(q, q, q, torch.zeros(2, 20), chunk=16)
+    with pytest.raises(ValueError, match="expected"):
+        tcla.chunked_linear_attention(q, q, q, torch.zeros(2, 21), chunk=4)
+
+
+def test_chunked_linear_attention_zero_decay_padding_is_inert():
+    """The engine pads S to a chunk multiple with g = 0 and k = 0: the
+    padded rows leave the state and the real rows' output unchanged."""
+    rng = np.random.default_rng(2)
+    q, k, v, log_g = (torch.from_numpy(a) for a in _cla_inputs(rng, 2, 24, 8, 8))
+    pad = lambda t: torch.nn.functional.pad(t, (0, 0, 0, 8)) if t.ndim == 3 \
+        else torch.nn.functional.pad(t, (0, 8))
+    o1, s1 = tcla.chunked_linear_attention(q, k, v, log_g, chunk=8)
+    o2, s2 = tcla.chunked_linear_attention(*(pad(t) for t in (q, k, v, log_g)),
+                                           chunk=16)
+    torch.testing.assert_close(o2[:, :24], o1, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(s2, s1, rtol=1e-5, atol=1e-5)

@@ -227,7 +227,8 @@ def test_no_jax_in_the_port():
             for n in names:
                 top = n.split(".")[0]
                 assert top not in ("jax", "jaxlib", "repro", "flax"), (f, n)
-    code = ("import sys, repro_torch.launch.serve, repro_torch.convert; "
+    code = ("import sys, repro_torch.launch.serve, repro_torch.launch.train, "
+            "repro_torch.convert; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(1 if bad else 0)")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
