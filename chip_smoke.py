@@ -10,9 +10,11 @@ Phases, any failure exits non-zero:
    compiler's register / shared-memory report;
 2. **kernels** — each kernel's wrapper against its plain PyTorch version on
    the same inputs, at the serving path's shapes (qwen3-1.7b at full
-   width) and the training path's (xlstm-1.3b at full width), with the
-   tolerance printed beside the error: the bf16 / fp16 GEMM (kernels 1 and
-   2), its fp32 route in nn / nt / tn, flash attention (kernel 3) and the
+   width) and the training paths' (xlstm-1.3b at full width, the
+   AutoEncoder at batch 16 and 4096), with the tolerance printed beside
+   the error: the bf16 / fp16 GEMM (kernels 1 and 2), its fp32 route in nn
+   / nt / tn, kernel 1's faithful fp16 accumulator and fused backward
+   (deriv, dW + db) on every route, flash attention (kernel 3) and the
    chunked linear-attention sweep (kernel 4: the training shape, a ragged
    dk != dv shape, fp32 input).  Each kernel, its plain version and — where
    one exists — one PyTorch library call for the same function are timed
@@ -34,7 +36,16 @@ Phases, any failure exits non-zero:
    full-width super-block (7 mLSTM + 1 sLSTM, batch 1, seq 128) is held
    against the plain path on the CPU: loss and the gradients of w_up,
    w_qkv and r_gates;
-5. **report** — the card (``nvidia-smi``), a ``{"kernels": [...]}`` line,
+5. **ae** — the counts are set to 0 again, then ``repro_torch.launch.train
+   --arch ae`` trains the paper's TinyMLPerf AutoEncoder (640 -> [128 x4]
+   -> 8 -> [128 x4] -> 640, random weights from a seed) for 200 steps at
+   batch 16 under ``paper_fp16``, then 3 steps under ``fp32``: the mse must
+   be finite and falling, and kernel 1 must launch exactly 30 times a step
+   (every one faithful, 10 of them the fused dW + db).  Then one step is
+   profiled, the loss-scaled example runs 200 steps, and one step is held
+   against the CPU plain path at batch 16 and at batch 4096 (where the dW
+   reductions span 2 to 4 rounding blocks);
+6. **report** — the card (``nvidia-smi``), a ``{"kernels": [...]}`` line,
    and last ``{"ok": true, "device": {...}}``.
 
 Everything is also written to ``chiprun_out/chip_smoke.json``.  It needs
@@ -59,6 +70,8 @@ FP32_FLOPS = 67e12          # H100 SXM fp32 outside the tensor cores
 ARCH, BATCH, PROMPT, GEN, SEED = "qwen3-1.7b", 4, 128, 16, 0
 # the training path: xlstm-1.3b at full width
 T_ARCH, T_BATCH, T_SEQ, T_STEPS = "xlstm-1.3b", 4, 256, 3
+# the AutoEncoder path: the paper's use case at its published width
+AE_BATCH, AE_STEPS, AE_BIG = 16, 200, 4096
 
 
 def _card() -> str:
@@ -111,7 +124,7 @@ def _device_profile(fn, iters: int = 5) -> dict:
                 if "chunked_linear_attention_kernel" in ev.key else "other")
         g = groups.setdefault(name, {"ms": 0.0, "count": 0})
         g["ms"] += us / 1e3 / iters
-        g["count"] += ev.count // iters
+        g["count"] += ev.count / iters
     busy = sum(g["ms"] for g in groups.values())
     if busy <= 0:
         raise RuntimeError("torch.profiler recorded no device time")
@@ -138,6 +151,202 @@ def _check(name, got, want, tol_rel, log):
     return err
 
 
+def kernel1_mode_checks(log, g):
+    """Kernel 1's faithful fp16 accumulator and fused backward epilogue
+    (the AutoEncoder path) on the card against the plain version on the
+    card: faithful GEMMs at the AE shapes and at multi-block shapes, the dW
+    "tn" with db (faithful, fp16 -> fp32 and the fp32 route), deriv on
+    "nt" / "tn" (relu, gelu).  Returns the runs to time.
+
+    Tolerances: the faithful accumulator one fp16 ulp (2^-10 relative) per
+    rounding step (each reduction block, and the bias add) — both sides
+    sum each block in fp32 in another order, so a rounding may flip; a
+    transcendental derivative under fp16 2e-2 (the reference's); fp32
+    accumulation 1e-5 of max."""
+    import torch
+
+    from repro_torch.core import precision as prec
+    from repro_torch.core.engine import _grad_policy
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import redmule_matmul as rm
+
+    dev = torch.device("cuda")
+    paper, f32 = prec.PAPER_FP16, prec.FP32
+    g16, g32 = _grad_policy(prec.TPU_FP16), _grad_policy(prec.TPU_BF16)
+    ulp = 2.0 ** -10
+
+    def rnd(*shape, dtype=torch.float16, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+
+    def both(name, x, w, policy, tol, **kw):
+        got = ops.redmule_matmul(x, w, policy=policy, **kw)
+        want = rm.redmule_matmul_plain(x, w, policy=policy, **kw)
+        if kw.get("bias_grad"):
+            err = _check(name, got[0], want[0], tol, log)
+            _check(name + " db", got[1], want[1], tol, log)
+            return err
+        return _check(name, got, want, tol, log)
+
+    # forward: the AE's layers at batch 16 (one block: the reduction fits
+    # the reference's bn) and multi-block shapes
+    B, d_in, d_h = 16, 640, 128
+    x16, w0 = rnd(B, d_in), rnd(d_in, d_h, scale=(2 / d_in) ** 0.5)
+    b0 = torch.randn(d_h, generator=g, device=dev).half()
+    err_fwd = both("faithful nn AE fc0 M=16 N=640 K=128 +bias (1 block of 640)",
+                   x16, w0, paper, 2 * ulp, bias=b0)
+    both("faithful nn AE fc9 M=16 N=128 K=640 +bias", rnd(B, d_h),
+         rnd(d_h, d_in, scale=(2 / d_h) ** 0.5), paper, 2 * ulp,
+         bias=torch.randn(d_in, generator=g, device=dev).half())
+    xm, wm = rnd(256, 640), rnd(640, 128, scale=640 ** -0.5)
+    both("faithful nn M=256 N=640 K=128 block 128 (5 blocks)", xm, wm, paper,
+         6 * ulp, bias=b0, accum_block=128)
+    both("faithful nn M=64 N=4096 K=256 block 2048 (2 blocks)", rnd(64, 4096),
+         rnd(4096, 256, scale=4096 ** -0.5), paper, 2 * ulp, accum_block=2048)
+    both("faithful nt dX M=16 N=128 K=640", rnd(B, d_h), w0, paper, ulp,
+         layout="nt")
+    # the 8-wide bottleneck: fc4 (128 -> 8) and fc5 (8 -> 128) forward, dX
+    # and dW + db; fc5's forward and fc4's dX reduce over 8 rows, fewer
+    # than the kernel's 32-deep step (the rest is masked)
+    w4, w5 = rnd(d_h, 8, scale=(2 / d_h) ** 0.5), rnd(8, d_h, scale=0.5)
+    both("faithful nn AE fc4 M=16 N=128 K=8 +bias", rnd(B, d_h), w4, paper,
+         2 * ulp, bias=rnd(8))
+    both("faithful nn AE fc5 M=16 N=8 K=128 +bias", rnd(B, 8), w5, paper,
+         2 * ulp, bias=rnd(d_h))
+    both("faithful nt dX AE fc4 M=16 N=8 K=128", rnd(B, 8, scale=1e-2), w4,
+         paper, ulp, layout="nt")
+    both("faithful nt dX AE fc5 M=16 N=128 K=8", rnd(B, d_h, scale=1e-2), w5,
+         paper, ulp, layout="nt")
+    both("faithful tn dW+db AE fc4 M=128 N=16 K=8", rnd(B, d_h),
+         rnd(B, 8, scale=1e-2), paper, ulp, layout="tn", bias_grad=True)
+    both("faithful tn dW+db AE fc5 M=8 N=16 K=128", rnd(B, 8),
+         rnd(B, d_h, scale=1e-2), paper, ulp, layout="tn", bias_grad=True)
+    # db over an empty M or N: the kernel still launches (one M-tile row of
+    # blocks sums db, no z is stored)
+    for what, xe, dze in (("M=0 N=16 K=128", rnd(B, 0), rnd(B, d_h, scale=1e-2)),
+                          ("M=640 N=0 K=128", rnd(0, d_in), rnd(0, d_h))):
+        before = ops.redmule_matmul.launches
+        z_e, db_e = ops.redmule_matmul(xe, dze, policy=paper, layout="tn",
+                                       bias_grad=True)
+        z_w, db_w = rm.redmule_matmul_plain(xe, dze, policy=paper, layout="tn",
+                                            bias_grad=True)
+        if ops.redmule_matmul.launches != before + 1 or z_e.shape != z_w.shape:
+            raise AssertionError(f"empty-{what} dW + db did not launch the kernel")
+        _check(f"faithful tn dW+db {what}: db", db_e, db_w, ulp, log)
+    # the dW "tn" with db: AE fc0 at batch 16 (1 block) and 4096 (4 x 1024)
+    xb, dzb = rnd(4096, d_in), rnd(4096, d_h, scale=1e-2)
+    err_dw16 = both("faithful tn dW+db AE fc0 M=640 N=16 K=128", x16,
+                    rnd(B, d_h, scale=1e-2), paper, ulp, layout="tn",
+                    bias_grad=True)
+    err_dw4k = both("faithful tn dW+db AE fc0 M=640 N=4096 K=128 (4 blocks)",
+                    xb, dzb, paper, 4 * ulp, layout="tn", bias_grad=True)
+    err_mb = both("faithful tn dW AE fc0 M=640 N=4096 K=128, no db",
+                  xb, dzb, paper, 4 * ulp, layout="tn")
+    both("tn dW+db fp16 -> fp32 M=640 N=4096 K=128", xb, dzb, g16, 1e-5,
+         layout="tn", bias_grad=True)
+    xb32, dzb32 = xb.float(), dzb.float()
+    both("fp32 route tn dW+db M=640 N=4096 K=128", xb32, dzb32, f32, 1e-5,
+         layout="tn", bias_grad=True)
+    x16f, dz16f = x16.float(), dzb[:B].float()
+    err_dw32 = both("fp32 route tn dW+db AE fc0 M=640 N=16 K=128", x16f, dz16f,
+                    f32, 1e-5, layout="tn", bias_grad=True)
+    # deriv on load: relu (output form) and gelu (pre-activation), nt / tn
+    for act, from_out in (("relu", True), ("gelu", False)):
+        dx_d = rnd(B, d_h)
+        dw_d = rnd(4096, d_h)
+        tol = 2e-2 if act == "gelu" else ulp
+        both(f"faithful nt dX deriv {act} M=16 N=128 K=640", rnd(B, d_h), w0,
+             paper, tol, layout="nt", deriv=dx_d, grad_epilogue=act,
+             grad_from_output=from_out)
+        both(f"faithful tn dW+db deriv {act} M=640 N=4096 K=128", xb, dzb,
+             paper, max(tol, 4 * ulp), layout="tn", deriv=dw_d,
+             grad_epilogue=act, grad_from_output=from_out, bias_grad=True)
+        both(f"bf16 -> fp32 tn dW+db deriv {act} M=640 N=4096 K=128",
+             xb.bfloat16(), dzb.bfloat16(), g32, 2e-2 if act == "gelu" else 1e-5,
+             layout="tn", deriv=dw_d.bfloat16(), grad_epilogue=act,
+             grad_from_output=from_out, bias_grad=True)
+        both(f"fp32 route nt dX deriv {act} M=16 N=128 K=640", rnd(B, d_h).float(),
+             w0.float(), f32, 1e-5, layout="nt", deriv=dx_d.float(),
+             grad_epilogue=act, grad_from_output=from_out)
+        both(f"fp32 route tn dW+db deriv {act} M=640 N=4096 K=128", xb32, dzb32,
+             f32, 1e-5, layout="tn", deriv=dw_d.float(), grad_epilogue=act,
+             grad_from_output=from_out, bias_grad=True)
+    # kernel 2 (batched) under the faithful accumulator
+    xq, wq = rnd(3, 64, 640), rnd(3, 640, 96, scale=640 ** -0.5)
+    got = ops.redmule_matmul_batched(xq, wq, policy=paper, accum_block=128)
+    _check("faithful batched B=3 M=64 N=640 K=96 block 128", got,
+           rm.redmule_matmul_plain(xq, wq, policy=paper, accum_block=128),
+           5 * ulp, log)
+    torch.cuda.synchronize()
+    # the faithful accumulator's cost: the same dW with fp32 accumulation
+    t_faithful = _time_ms(lambda: ops.redmule_matmul(xb, dzb, policy=paper,
+                                                     layout="tn"))
+    t_fp32acc = _time_ms(lambda: ops.redmule_matmul(xb, dzb, policy=g16,
+                                                    layout="tn"))
+    print(f"[time] AE fc0 dW tn M=640 N=4096 K=128 fp16: faithful (4 blocks) "
+          f"{t_faithful:.4f} ms, fp32 accumulation {t_fp32acc:.4f} ms", flush=True)
+
+    fp16_b = lambda M, N, K, extra=0: _bound_ms(
+        (M * N + N * K + M * K) * 2 + extra, 2 * M * N * K)
+    src = "src/repro_torch/csrc/redmule_matmul.cu"
+    rep = "src/repro/kernels/redmule_matmul.py:289"
+    lib_tn = lambda a, b_: (lambda: torch.matmul(a.t(), b_))
+    # ``paths``: the main-path runs whose launches a row reports (default:
+    # every run); the batch-16 and batch-4096 dW + db rows share a counter
+    # and each reads only the run at its batch
+    return [
+        dict(name="redmule_matmul (faithful fp16)", group="redmule_gemm",
+             counter=(ops.redmule_matmul, "launches_faithful"), source=src,
+             replaces=rep, err=err_fwd, bound=fp16_b(B, d_in, d_h, d_h * 2),
+             shape="AE fc0 forward nn M=16 N=640 K=128 +bias, 1 block",
+             kernel=lambda: ops.redmule_matmul(x16, w0, policy=paper, bias=b0),
+             plain=lambda: rm.redmule_matmul_plain(x16, w0, policy=paper, bias=b0),
+             library=lambda: torch.matmul(x16, w0)),
+        dict(name="redmule_matmul (faithful fp16, multi-block)",
+             group="redmule_gemm",
+             counter=(ops.redmule_matmul, "launches_multiblock"), source=src,
+             replaces=rep, err=err_mb, bound=fp16_b(d_in, 4096, d_h),
+             shape="AE fc0 dW tn M=640 N=4096 K=128, 4 blocks of 1024, no db "
+                   "(the path's multi-block launches are its dW + db at batch 4096)",
+             kernel=lambda: ops.redmule_matmul(xb, dzb, policy=paper, layout="tn",
+                                               accum_block=1024),
+             plain=lambda: rm.redmule_matmul_plain(xb, dzb, policy=paper,
+                                                   layout="tn", accum_block=1024),
+             library=lib_tn(xb, dzb)),
+        dict(name="redmule_matmul (fused backward dW + db)", group="redmule_gemm",
+             counter=(ops.redmule_matmul, "launches_fused_bwd"), paths=("ae",),
+             source=src,
+             replaces=rep, err=err_dw16, bound=fp16_b(d_in, B, d_h, d_h * 2),
+             shape="AE fc0 dW tn M=640 N=16 K=128 +db, faithful, 1 block",
+             kernel=lambda: ops.redmule_matmul(x16, dzb[:B], policy=paper,
+                                               layout="tn", bias_grad=True),
+             plain=lambda: rm.redmule_matmul_plain(x16, dzb[:B], policy=paper,
+                                                   layout="tn", bias_grad=True),
+             library=lib_tn(x16, dzb[:B])),
+        dict(name="redmule_matmul (fused backward dW + db, batch 4096)",
+             group="redmule_gemm",
+             counter=(ops.redmule_matmul, "launches_fused_bwd"),
+             paths=("ae_b4096",), source=src, replaces=rep, err=err_dw4k, bound=fp16_b(d_in, 4096, d_h, d_h * 2),
+             shape="AE fc0 dW tn M=640 N=4096 K=128 +db, faithful, 4 blocks",
+             kernel=lambda: ops.redmule_matmul(xb, dzb, policy=paper, layout="tn",
+                                               bias_grad=True),
+             plain=lambda: rm.redmule_matmul_plain(xb, dzb, policy=paper,
+                                                   layout="tn", bias_grad=True),
+             library=lib_tn(xb, dzb)),
+        dict(name="redmule_matmul (fp32 route, fused backward dW + db)",
+             group="redmule_gemm_f32",
+             counter=(ops.redmule_matmul, "launches_fused_bwd_fp32"), source=src,
+             replaces=rep, err=err_dw32,
+             bound=_bound_ms((d_in * B + B * d_h + d_in * d_h + d_h) * 4,
+                             2 * d_in * B * d_h, FP32_FLOPS),
+             shape="AE fc0 dW tn M=640 N=16 K=128 +db, fp32",
+             kernel=lambda: ops.redmule_matmul(x16f, dz16f, policy=f32,
+                                               layout="tn", bias_grad=True),
+             plain=lambda: rm.redmule_matmul_plain(x16f, dz16f, policy=f32,
+                                                   layout="tn", bias_grad=True),
+             library=lib_tn(x16f, dz16f)),
+    ]
+
+
 def kernel_phase(log):
     """Each kernel vs its plain version at the main path's shapes; times."""
     import torch
@@ -151,6 +360,7 @@ def kernel_phase(log):
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED)
     bf16, pol = torch.bfloat16, prec.TPU_BF16
+    torch.backends.cuda.matmul.allow_tf32 = False    # the fp32 plain versions
     scores = prec.Policy("tpu_bf16_scores", bf16, torch.float32, torch.float32)
 
     def rnd(*shape, scale=1.0):
@@ -329,6 +539,9 @@ def kernel_phase(log):
     b32_b, b32_f = _bound_ms((qe.numel() + st.numel() + qe.numel()) * 4,
                              2 * BH * C * DK * DK, FP32_FLOPS)
     torch.backends.cuda.matmul.allow_tf32 = False    # full-fp32 yardsticks
+    # fp16 yardsticks accumulate in fp32 and round once (the faithful
+    # accumulator's function where the reduction is one block)
+    torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
     runs = [
         dict(name="redmule_matmul", group="redmule_gemm",
              counter=(ops.redmule_matmul, "launches"),
@@ -386,6 +599,7 @@ def kernel_phase(log):
              plain=lambda: rm.redmule_matmul_plain(qe, st, policy=f32),
              library=lambda: torch.matmul(qe, st)),
     ]
+    runs += kernel1_mode_checks(log, g)
     kernels = []
     for r in runs:
         # ms: CUDA events around back-to-back calls (host launch cost
@@ -404,7 +618,8 @@ def kernel_phase(log):
               f"device {kernels[-1]['device_ms']:.4f} ms, plain "
               f"{kernels[-1]['plain_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
               f"({r['bound'][1]}), library {kernels[-1]['library_ms']}", flush=True)
-    return kernels, {r["name"]: r["counter"] for r in runs}
+    return kernels, {r["name"]: r["counter"] for r in runs}, \
+        {r["name"]: r["paths"] for r in runs if "paths" in r}
 
 
 def _zero(counters) -> None:
@@ -640,6 +855,193 @@ def train_phase(log, counters):
             "params": out["params"]}
 
 
+def _ae_relabeled(params, seed: int):
+    """The same AutoEncoder with its hidden units renumbered: the same
+    function, another summation order in every GEMM after the first.
+    Returns the tree and a map of its gradients back to the original
+    labels."""
+    import torch
+
+    from repro_torch.models import autoencoder
+
+    dims = autoencoder.AE_DIMS
+    gen = torch.Generator().manual_seed(seed)
+    perms = ([torch.arange(dims[0])]
+             + [torch.randperm(d, generator=gen) for d in dims[1:-1]]
+             + [torch.arange(dims[-1])])
+
+    def relabel(tree, inverse=False):
+        out = {}
+        for i in range(len(dims) - 1):
+            pi, po = perms[i], perms[i + 1]
+            if inverse:
+                pi, po = torch.argsort(pi), torch.argsort(po)
+            out[f"fc{i}"] = {k: (v[pi][:, po] if k == "w" else v[po])
+                             for k, v in tree[f"fc{i}"].items()}
+        return out
+
+    return relabel(params), lambda g: relabel(g, inverse=True)
+
+
+def _ae_step_parity(log, batch: int):
+    """One paper_fp16 step (loss and gradients) at ``batch``, the card
+    against the CPU plain path, from the same parameters and data.
+
+    The held bounds are the CPU parity's (loss 1e-3 relative, gradients
+    2e-2 of the largest |g|) or 8x the spread that two correct summation
+    orders show on this step, measured here: the CPU plain path on the same
+    network with its hidden units renumbered.  BatchNorm over columns of
+    nearly equal values makes the gradients ill-conditioned in fp16 (a
+    one-ulp flip in an activation moves them by percents)."""
+    import torch
+
+    from repro_torch.core import precision as prec
+    from repro_torch.data import SyntheticAE
+    from repro_torch.launch import train
+    from repro_torch.models import autoencoder
+    from repro_torch.optim import tree_leaves, tree_map
+
+    params = autoencoder.init_ae(seed=SEED + 4, device="cpu")
+    x = torch.from_numpy(SyntheticAE(batch=batch, seed=SEED).sample(1))
+
+    def run(tree, dev):
+        p = tree_map(lambda t: t.detach().to(dev).requires_grad_(True), tree)
+        loss, g = train.ae_grads(p, x.to(dev), prec.PAPER_FP16)
+        return loss.cpu(), tree_map(lambda t: t.detach().cpu(), g)
+
+    flat = lambda g: torch.cat([t.float().flatten() for t in tree_leaves(g)])
+    loss_gpu, g_gpu = run(params, "cuda")
+    loss_cpu, g_cpu = run(params, "cpu")
+    alt, back = _ae_relabeled(params, SEED + 5)
+    loss_alt, g_alt = run(alt, "cpu")
+    g_alt = back(g_alt)
+    spread_loss = abs(float(loss_alt - loss_cpu)) / abs(float(loss_cpu))
+    spread_g = float((flat(g_alt) - flat(g_cpu)).abs().max()
+                     / flat(g_cpu).abs().max())
+    print(f"[ae] step parity B={batch}: CPU spread (hidden units renumbered) "
+          f"loss {spread_loss:.3e}, grads {spread_g:.3e} of max", flush=True)
+    err_l = _check(f"AE step B={batch} loss, card vs CPU plain", loss_gpu,
+                   loss_cpu, max(1e-3, 8 * spread_loss), log)
+    err_g = _check(f"AE step B={batch} grads, card vs CPU plain", flat(g_gpu),
+                   flat(g_cpu), max(2e-2, 8 * spread_g), log)
+    return {"batch": batch, "loss_err": err_l, "grad_err": err_g,
+            "spread_loss": spread_loss, "spread_grad": spread_g}
+
+
+def _ae_run(counters, args, steps: int, want_per_step: dict, path: str):
+    """``train.main`` for the AutoEncoder, with the counts set to 0 just
+    before and read just after; checks finite losses and the kernel-1
+    launches a step.  Returns (result, launches, wall seconds)."""
+    import torch
+
+    from repro_torch.launch import train
+
+    _zero(counters)
+    t0 = time.perf_counter()
+    out = train.main(["--arch", "ae", "--steps", str(steps), "--seed", str(SEED),
+                      "--device", "cuda", *args])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read(counters)
+    print(f"[{path}] launches on the main path: {launches}", flush=True)
+    if len(out["history"]) != steps or not all(
+            math.isfinite(h["loss"]) for h in out["history"]):
+        raise AssertionError(f"{path}: non-finite or missing AE steps")
+    per_step = {k: launches[k] / steps for k in want_per_step}
+    if per_step != want_per_step:
+        raise AssertionError(f"{path}: kernel-1 launches a step {per_step}, "
+                             f"expected {want_per_step}")
+    return out, launches, wall
+
+
+def ae_phase(log, counters):
+    """The AutoEncoder path through its entry point: 200 paper_fp16 steps
+    at batch 16 (the main path), 3 steps under fp32 (the fp32 route) and 3
+    paper_fp16 steps at batch 4096 (the dW reductions span 2-4 rounding
+    blocks), each with its own launch counts; one profiled step; the
+    loss-scaled example; one step held against the CPU plain path at batch
+    16 and 4096."""
+    import torch
+
+    from repro_torch.core import precision as prec
+    from repro_torch.data import SyntheticAE
+    from repro_torch.examples import train_autoencoder as example
+    from repro_torch.launch import train
+    from repro_torch.models import autoencoder
+    from repro_torch.optim import AdamW, tree_leaves
+
+    k1, faithful, multi = ("redmule_matmul", "redmule_matmul (faithful fp16)",
+                           "redmule_matmul (faithful fp16, multi-block)")
+    fused, fused32 = ("redmule_matmul (fused backward dW + db)",
+                      "redmule_matmul (fp32 route, fused backward dW + db)")
+    # every AE layer is one kernel-1 launch forward, one dX, one dW + db
+    torch.cuda.reset_peak_memory_stats()
+    out, launches, ae_s = _ae_run(
+        counters, ["--batch", str(AE_BATCH)], AE_STEPS,
+        {k1: 30, faithful: 30, fused: 10, multi: 0}, "ae")
+    peak = torch.cuda.max_memory_allocated()
+    hist = out["history"]
+    losses = [h["loss"] for h in hist]
+    if not sum(losses[-10:]) < sum(losses[:10]):
+        raise AssertionError(f"AE mse is not falling: {losses[:10]} ... {losses[-10:]}")
+    _require(launches, (k1, faithful, fused), "ae")
+    per_step = {k: launches[k] / AE_STEPS for k in (k1, faithful, fused)}
+    # the fp32 policy: the fp32 route's fused backward
+    _, launches_fp32, _ = _ae_run(
+        counters, ["--batch", str(AE_BATCH), "--policy", "fp32"], 3,
+        {k1: 30, "redmule_matmul (fp32 route)": 30, fused32: 10, faithful: 0},
+        "ae_fp32")
+    # batch 4096: ten multi-block faithful dW + db launches a step
+    _, launches_b4096, _ = _ae_run(
+        counters, ["--batch", str(AE_BIG)], 3,
+        {k1: 30, faithful: 30, multi: 10, fused: 10}, "ae_b4096")
+    step_ms = sorted(h["step_ms"] for h in hist[10:])
+    print(f"[ae] {AE_STEPS} steps in {ae_s:.2f}s wall; step (CUDA events, steps "
+          f"10..{AE_STEPS - 1}) median {step_ms[len(step_ms) // 2]:.3f} ms, mean "
+          f"{sum(step_ms) / len(step_ms):.3f} ms; mse {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}; peak {peak / 2**20:.1f} MiB", flush=True)
+
+    # one profiled step (device busy / idle share)
+    params = autoencoder.init_ae(seed=SEED, device="cuda")
+    for t in tree_leaves(params):
+        t.requires_grad_(True)
+    opt = AdamW(lr=3e-3, warmup_steps=0)
+    state = [opt.init(params)]
+    step = train.build_ae_step(opt, prec.PAPER_FP16)
+    xb = torch.from_numpy(SyntheticAE(batch=AE_BATCH, seed=SEED).sample(0)).cuda()
+
+    def one_step():
+        state[0], loss, _ = step(params, state[0], xb)
+        return float(loss)
+
+    one_step()
+    prof = _device_profile(one_step, iters=5)
+    parts = ", ".join(f"{k} {g['ms']:.4f} ms x{g['count']}"
+                      for k, g in sorted(prof["by_kernel"].items()))
+    print(f"[profile] AE step B={AE_BATCH}: wall {prof['wall_ms']:.3f} ms, device "
+          f"busy {prof['device_ms']:.3f} ms (idle {prof['idle_share']:.3f}): "
+          f"{parts}", flush=True)
+
+    # the loss-scaled example (paper_fp16, dynamic loss scaling)
+    ex = example.main(["--steps", str(AE_STEPS), "--batch", str(AE_BATCH),
+                       "--seed", str(SEED), "--device", "cuda"])
+    if not all(math.isfinite(v) for v in ex["losses"]):
+        raise AssertionError("the loss-scaled example lost finiteness")
+    print(f"[ae] loss-scaled example: {AE_STEPS} steps, overflows "
+          f"{ex['overflows']}, final scale {ex['loss_scale']}, mse "
+          f"{ex['losses'][0]:.4f} -> {ex['losses'][-1]:.4f}", flush=True)
+
+    parity = [_ae_step_parity(log, b) for b in (AE_BATCH, AE_BIG)]
+    return {"ae_wall_s": ae_s, "history": hist, "launches": launches,
+            "launches_fp32": launches_fp32, "launches_b4096": launches_b4096,
+            "launches_per_step": per_step,
+            "step_ms_median": step_ms[len(step_ms) // 2],
+            "step_ms_mean": sum(step_ms) / len(step_ms), "peak_mem_mib": peak / 2**20,
+            "profile": prof, "example": {k: ex[k] for k in ("overflows", "loss_scale")}
+            | {"mse_first": ex["losses"][0], "mse_last": ex["losses"][-1]},
+            "parity": parity}
+
+
 def _to_cpu(tree):
     if hasattr(tree, "cpu"):
         return tree.cpu()
@@ -665,16 +1067,22 @@ def main() -> int:
             if "registers" in line or "error" in line.lower():
                 print(f"[ptxas] {name}: {line.strip()}")
     log: list = []
-    kernels, counters = kernel_phase(log)
+    kernels, counters, row_paths = kernel_phase(log)
     serve = serve_phase(log, counters)
     train = train_phase(log, counters)
+    ae = ae_phase(log, counters)
+    runs = {"serve": serve["launches"], "train": train["launches"],
+            "ae": ae["launches"], "ae_fp32": ae["launches_fp32"],
+            "ae_b4096": ae["launches_b4096"]}
     for kern in kernels:
-        by_path = {"serve": serve["launches"][kern["name"]],
-                   "train": train["launches"][kern["name"]]}
-        kern["launches"] = sum(by_path.values())
+        # a path outside the row's ``paths`` does not run its shape: null
+        paths = row_paths.get(kern["name"], tuple(runs))
+        by_path = {p: (runs[p][kern["name"]] if p in paths else None)
+                   for p in runs}
+        kern["launches"] = sum(v for v in by_path.values() if v is not None)
         kern["launches_by_path"] = by_path
     out = {"card": card, "build_s": build_s, "checks": log, "serve": serve,
-           "train": train, "kernels": kernels}
+           "train": train, "ae": ae, "kernels": kernels}
     (ROOT / "chiprun_out").mkdir(exist_ok=True)
     (ROOT / "chiprun_out" / "chip_smoke.json").write_text(json.dumps(out, indent=1))
     print(card)

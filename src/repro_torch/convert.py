@@ -6,7 +6,9 @@ reference's parameters and hand the same values to both packages.  The
 reference's tree arrives as numpy arrays (``jax.device_get`` of
 ``repro.models.transformer.init_params``), with stacked leading layer dims;
 the port keeps that structure and layout, so the conversion is a checked
-copy.  This module imports neither JAX nor ``repro``.
+copy.  The AutoEncoder's tree (``fc{i}.{w,b,gamma,beta}``) converts the same
+way (:func:`ae_params_from_jax`).  This module imports neither JAX nor
+``repro``.
 """
 
 from __future__ import annotations
@@ -17,10 +19,10 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import autoencoder, transformer
 from repro_torch.models.layers import Param
 
-__all__ = ["params_from_jax"]
+__all__ = ["params_from_jax", "ae_params_from_jax"]
 
 
 def params_from_jax(tree: Dict[str, Any], cfg, device="cuda",
@@ -31,9 +33,21 @@ def params_from_jax(tree: Dict[str, Any], cfg, device="cuda",
     values are cast to ``dtype`` (the policy's compute dtype by default —
     see :func:`repro_torch.models.transformer.init_params` for why that
     computes the same as fp32 weights)."""
-    dev = resolve_device(device)
-    dt = dtype or cfg.policy.compute_dtype
+    return _convert(transformer.schema(cfg), tree, resolve_device(device),
+                    dtype or cfg.policy.compute_dtype)
 
+
+def ae_params_from_jax(tree: Dict[str, Any], device="cuda",
+                       dtype: torch.dtype = torch.float32) -> Dict[str, Any]:
+    """The port's AutoEncoder parameters from the reference's numpy tree
+    (``repro.models.autoencoder.init_ae``): fp32 master weights, as the
+    reference trains them."""
+    return _convert(autoencoder.ae_schema(), tree, resolve_device(device),
+                    dtype)
+
+
+def _convert(schema: Dict[str, Any], tree: Dict[str, Any],
+             dev: torch.device, dt: torch.dtype) -> Dict[str, Any]:
     def go(node, src, path):
         if isinstance(node, Param):
             a = np.array(src, dtype=np.float32)   # a writable copy
@@ -46,4 +60,4 @@ def params_from_jax(tree: Dict[str, Any], cfg, device="cuda",
             raise KeyError(f"{'/'.join(path) or '<root>'}: missing {sorted(missing)}")
         return {k: go(v, src[k], path + (k,)) for k, v in node.items()}
 
-    return go(transformer.schema(cfg), tree, ())
+    return go(schema, tree, ())

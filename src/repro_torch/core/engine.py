@@ -11,9 +11,11 @@ goes through this module:
   tensor, their plain PyTorch versions on a CPU tensor — with the
   capabilities ``fused_epilogue`` (bias + activation in the kernel's
   store), ``tiled`` (it runs ``spec.tile``), ``layouts`` (nn / nt / tn
-  storage read in place) and ``attention`` (the flash and the chunked
-  linear-attention sweeps).  It plays the role of the reference's
-  ``"pallas"`` and ``"interpret"`` together and is the default;
+  storage read in place), ``fused_bwd_epilogue`` (act' applied to the dZ
+  tile on load, the bias gradient accumulated in the dW pass) and
+  ``attention`` (the flash and the chunked linear-attention sweeps).  It
+  plays the role of the reference's ``"pallas"`` and ``"interpret"``
+  together and is the default;
 * the ops :func:`matmul`, :func:`linear` (fused epilogue),
   :func:`grouped_matmul` (ragged groups), :func:`einsum2d` (two-operand
   contractions), :func:`attention` (the flash kernel path) and
@@ -24,7 +26,13 @@ goes through this module:
   ``matmul_dx`` / ``matmul_dw`` events (the reference's
   ``_gemm_call`` / ``_gemm_bwd``): residuals saved in the compute dtype,
   grads held in the accumulator dtype until one cast to the primal
-  operand's dtype.  ``linear_attention``'s backward recomputes through the
+  operand's dtype.  ``linear`` with a bias or activation has its own
+  Function (the reference's ``_linear_call``): on a
+  ``fused_bwd_epilogue`` backend with a 2D weight its backward is one
+  pass — the dX dispatch carries ``deriv``, the dW dispatch ``deriv`` and
+  ``bias_grad`` — and elsewhere the two-pass fallback bills its
+  standalone multiply and bias reduction as ``linear_dact`` /
+  ``linear_dbias`` pass events.  ``linear_attention``'s backward recomputes through the
   reference composition of :func:`einsum2d` / :func:`matmul` calls on the
   same backend and differentiates it, so its GEMMs are fp32 dispatches of
   the GEMM kernels (the reference's ``_linear_attention_call_bwd``);
@@ -38,9 +46,13 @@ goes through this module:
 
 PyTorch runs eagerly, so an event is emitted each time an op runs (the
 reference emits at trace time, once per scanned body with a multiplicity).
-The backward of ``linear`` with an epilogue, of ``grouped_matmul`` and of
-``attention``, the reference attention composition and the FP8 policies
-arrive with later slices and raise ``NotImplementedError`` here.
+Under a faithful-accumulation policy (``paper_fp16``) every GEMM dispatch
+carries the reference's reduction block (``GemmSpec.accum_block``, from
+:func:`repro_torch.core.tiling.accum_block`), after which the kernel
+re-rounds its fp16 accumulator.
+The backward of ``grouped_matmul`` and of ``attention``, the reference
+attention composition and the FP8 policies arrive with later slices and
+raise ``NotImplementedError`` here.
 """
 
 from __future__ import annotations
@@ -66,7 +78,7 @@ __all__ = [
     "get_backend", "backend_supports",
     "default_backend", "set_default_backend", "use_backend",
     "matmul", "linear", "grouped_matmul", "einsum2d", "attention",
-    "linear_attention", "is_backward_op",
+    "linear_attention", "is_backward_op", "is_pass_op",
     "instrument", "repeat", "op_scope", "paused", "checkpoint",
     "total_flops", "total_bytes", "summarize", "DEFAULT_ENGINE",
 ]
@@ -83,12 +95,18 @@ def _itemsize(d) -> int:
 # --------------------------------------------------------------------- #
 @dataclasses.dataclass(frozen=True)
 class GemmSpec:
-    """One contraction, fully described (the reference's forward fields;
-    the backward and per-operand-storage fields arrive with their slices).
+    """One contraction, fully described (the reference's fields but the
+    per-operand storage ones, which arrive with the FP8 slice).
     ``m, n, k`` keep their logical meaning in every ``layout``;
     ``valid_rows`` replaces ``groups * M`` in ragged grouped GEMMs (the
     reference's ``ragged_dim == "m"``); ``io_bytes`` carries the exact
-    traffic of an attention sweep."""
+    traffic of an attention sweep.  On a backward dispatch
+    ``grad_epilogue`` names the activation whose derivative scales dZ,
+    ``grad_mode`` how it is recovered ("output" or "preact"),
+    ``fused_bwd`` that the kernel applies it on load and
+    ``fused_bias_grad`` that the dW pass also accumulates db.
+    ``accum_block`` is the faithful accumulator's rounding block (the
+    reference's ``tile.bn``; None under fp32 accumulation)."""
 
     op: str
     tag: str
@@ -104,6 +122,11 @@ class GemmSpec:
     layout: str = "nn"
     valid_rows: Optional[int] = None
     io_bytes: Optional[int] = None
+    grad_epilogue: Optional[str] = None
+    grad_mode: Optional[str] = None
+    fused_bwd: bool = False
+    fused_bias_grad: bool = False
+    accum_block: Optional[int] = None
 
     def __post_init__(self):
         if self.layout not in ("nn", "nt", "tn"):
@@ -113,25 +136,42 @@ class GemmSpec:
     @property
     def flops(self) -> int:
         """2 * B * G * M * N * K; ragged GEMMs bill ``valid_rows`` instead of
-        ``G * M``."""
+        ``G * M``; pass events carry no MACs."""
+        if is_pass_op(self.op):
+            return 0
         if self.valid_rows is None:
             return 2 * self.batch * self.groups * self.m * self.n * self.k
         return 2 * self.batch * self.valid_rows * self.n * self.k
 
     @property
     def bytes(self) -> int:
-        """Operand + result bytes of one execution in device memory: a
-        shared weight is read once per group, ragged GEMMs bill valid rows
-        only, operands at the compute width and the result at the output
-        width."""
+        """Operand + result bytes of one execution in device memory
+        (``engine.py:320-385`` of the reference): a shared weight is read
+        once per group, ragged GEMMs bill valid rows only, operands at the
+        compute width and the result at the output width.  A ``*_dact``
+        pass reads dZ and the residual and writes ds; a ``*_dbias`` pass
+        re-reads the cotangent and writes the accumulator-dtype row; a
+        fused backward adds its streamed derivative operand (shadowing dZ:
+        the x slot on dX, the w slot on dW) and its db row."""
         if self.io_bytes is not None:
             return self.io_bytes
         cb = _itemsize(self.policy.compute_dtype)
         ob = _itemsize(self.policy.out_dtype)
+        ab = _itemsize(self.policy.accum_dtype)
         bg = self.batch * self.groups
+        if self.op.endswith("_dact"):
+            return 3 * bg * self.m * self.k * cb
+        if self.op.endswith("_dbias"):
+            return bg * self.m * self.k * cb + self.k * ab
         rows = bg * self.m if self.valid_rows is None else self.batch * self.valid_rows
+        x_elems = rows * self.n
         w_elems = (self.groups if self.w_shared else bg) * self.n * self.k
-        return rows * self.n * cb + rows * self.k * ob + w_elems * cb
+        total = x_elems * cb + rows * self.k * ob + w_elems * cb
+        if self.fused_bwd and self.grad_epilogue is not None:
+            total += (x_elems if self.op.endswith("_dx") else w_elems) * cb
+        if self.fused_bias_grad:
+            total += self.k * ab
+        return total
 
 
 @dataclasses.dataclass(frozen=True)
@@ -164,9 +204,17 @@ class GemmEvent:
 
 
 def is_backward_op(op: str) -> bool:
-    """True for the ops the backward dispatches emit (``*_dx`` /
-    ``*_dw``); the single source of the fwd / bwd split."""
-    return op.endswith(("_dx", "_dw"))
+    """True for the ops the backward emits (``*_dx`` / ``*_dw`` dispatches
+    and the two-pass fallback's ``*_dact`` / ``*_dbias`` pass events);
+    the single source of the fwd / bwd split."""
+    return op.endswith(("_dx", "_dw", "_dact", "_dbias"))
+
+
+def is_pass_op(op: str) -> bool:
+    """True for the non-GEMM pass events of the two-pass backward: the
+    standalone ``ds = dZ * act'`` multiply (``*_dact``) and the separate
+    bias-grad reduction (``*_dbias``) — device bytes, no MACs."""
+    return op.endswith(("_dact", "_dbias"))
 
 
 def total_flops(events: Sequence[GemmEvent]) -> int:
@@ -207,10 +255,14 @@ class BackendSpec:
     compatible ``(..., N, K)``.  Capabilities, as in the reference:
     ``"fused_epilogue"`` — ``fn`` also takes ``bias`` (an accum-dtype
     ``(K,)`` row) and ``fuse_epilogue`` and applies both before its single
-    store; ``"tiled"`` — ``fn`` runs ``spec.tile``; ``"attention"`` —
+    store; ``"tiled"`` — ``fn`` runs ``spec.tile``;
+    ``"fused_bwd_epilogue"`` (requires ``"layouts"``) — ``fn`` also takes
+    ``deriv`` (stored like the dZ operand, scaled by ``act'`` per
+    ``spec.grad_epilogue`` / ``spec.grad_mode`` on load) and ``bias_grad``
+    (on the "tn" dW dispatch: return ``(dW, db)``); ``"attention"`` —
     ``attention_fn("attention", (q, k, v), **params)`` runs the flash sweep
-    on ``(BH, S, D)`` / ``(BH_kv, T, D)`` operands.  ``fused_bwd_epilogue``
-    and ``operand_dtypes`` are known names for later slices."""
+    on ``(BH, S, D)`` / ``(BH_kv, T, D)`` operands.  ``operand_dtypes`` is
+    a known name for the FP8 slice."""
 
     name: str
     fn: Callable[..., torch.Tensor]
@@ -242,6 +294,9 @@ def register_backend(name: str, fn: Callable[..., torch.Tensor], *,
     unknown = caps - _CAPABILITIES
     if unknown:
         raise ValueError(f"unknown backend capabilities: {sorted(unknown)}")
+    if "fused_bwd_epilogue" in caps and "layouts" not in caps:
+        raise ValueError(f"backend {name!r}: 'fused_bwd_epilogue' requires "
+                         "'layouts'")
     if "attention" in caps and attention_fn is None:
         raise ValueError(f"backend {name!r} declares the 'attention' "
                          "capability but provides no attention_fn")
@@ -450,22 +505,37 @@ def _emit(spec: GemmSpec, backend: str, count: Optional[int] = None) -> None:
 # --------------------------------------------------------------------- #
 def _hopper_fn(x: torch.Tensor, w: torch.Tensor, *, spec: GemmSpec,
                bias: Optional[torch.Tensor] = None,
-               fuse_epilogue: bool = False) -> torch.Tensor:
+               fuse_epilogue: bool = False,
+               deriv: Optional[torch.Tensor] = None,
+               bias_grad: bool = False):
     """The RedMulE kernels (plain versions for CPU tensors).
 
     A 2D weight collapses the leading dims of x into rows and runs the 2D
     kernel; anything else runs the batched kernel, whose broadcast batch
-    strides read a shared operand in place."""
+    strides read a shared operand in place.  ``deriv`` / ``bias_grad`` run
+    the fused backward epilogue on the 2D kernel (``(dW, db)`` with
+    ``bias_grad``)."""
     from repro_torch.kernels import ops  # kernels depend on core
 
     kw = dict(policy=spec.policy, tile=spec.tile, layout=spec.layout,
               bias=bias if fuse_epilogue else None,
-              epilogue=spec.epilogue if fuse_epilogue else None)
+              epilogue=spec.epilogue if fuse_epilogue else None,
+              accum_block=spec.accum_block)
     if w.ndim == 2 and (x.ndim == 2 or spec.layout != "tn"):
         lead = x.shape[:-2]
-        z = ops.redmule_matmul(x.reshape(-1, x.shape[-1]), w, **kw)
+        if deriv is not None or bias_grad:
+            kw.update(deriv=None if deriv is None
+                      else deriv.reshape(-1, deriv.shape[-1]),
+                      grad_epilogue=spec.grad_epilogue,
+                      grad_from_output=spec.grad_mode == "output",
+                      bias_grad=bias_grad)
+        out = ops.redmule_matmul(x.reshape(-1, x.shape[-1]), w, **kw)
+        z, db = out if bias_grad else (out, None)
         m = x.shape[-1] if spec.layout == "tn" else x.shape[-2]
-        return z.reshape(*lead, m, z.shape[-1])
+        z = z.reshape(*lead, m, z.shape[-1])
+        return (z, db) if bias_grad else z
+    if deriv is not None or bias_grad:
+        raise ValueError("the fused backward epilogue is a 2D-weight contract")
     return ops.redmule_matmul_batched(x, w, **kw)
 
 
@@ -485,11 +555,14 @@ def _hopper_attention(kind: str, operands, **params):
 
 register_backend(
     "hopper", _hopper_fn,
-    capabilities=("fused_epilogue", "tiled", "layouts", "attention"),
+    capabilities=("fused_epilogue", "tiled", "layouts", "fused_bwd_epilogue",
+                  "attention"),
     attention_fn=_hopper_attention,
     description="hand-written sm_90a CUDA kernels: the RedMulE GEMM (2D and "
-                "batched, nn/nt/tn strides, fused bias + activation store; "
-                "bf16 / fp16 on the tensor cores, fp32 in SIMT FMAs), causal "
+                "batched, nn/nt/tn strides, fused bias + activation store, "
+                "the paper's fp16 accumulator, act' and db fused into the "
+                "backward; bf16 / fp16 on the tensor cores, fp32 in SIMT "
+                "FMAs), causal "
                 "GQA flash attention and the chunked linear-attention sweep; "
                 "plain PyTorch versions on CPU tensors")
 
@@ -514,8 +587,7 @@ def _pretranspose(x, w, layout: str, backend: str):
     return x, w, "nn"
 
 
-def _dispatch(spec: GemmSpec, backend: str, x, w, *, bias=None,
-              fuse: bool = False) -> torch.Tensor:
+def _dispatch(spec: GemmSpec, backend: str, x, w) -> torch.Tensor:
     """Emit one event and run one GEMM on compute-dtype operands; the
     result is cast to the policy's output dtype."""
     pol = spec.policy
@@ -524,10 +596,7 @@ def _dispatch(spec: GemmSpec, backend: str, x, w, *, bias=None,
     if layout != spec.layout:
         spec = dataclasses.replace(spec, layout=layout)
     _emit(spec, backend)
-    fn = get_backend(backend).fn
-    if fuse:
-        return fn(x, w, spec=spec, bias=bias, fuse_epilogue=True).to(pol.out_dtype)
-    return fn(x, w, spec=spec).to(pol.out_dtype)
+    return get_backend(backend).fn(x, w, spec=spec).to(pol.out_dtype)
 
 
 def _static_valid_rows(group_sizes, m: int) -> Optional[int]:
@@ -609,48 +678,89 @@ def _unbroadcast(g: torch.Tensor, shape) -> torch.Tensor:
     return g
 
 
-def _grad_dispatch(spec: GemmSpec, backend: str, a, b, count: int):
+def _faithful_block(policy: prec.Policy, m: int, n: int, k: int, *,
+                    fused_bwd: bool = False) -> Optional[int]:
+    """The faithful accumulator's rounding block of one dispatch: the
+    reference's (its ``tile.bn``); None under fp32 accumulation."""
+    if not policy.faithful_accum:
+        return None
+    return tiling.accum_block(m, n, k, compute_dtype=policy.compute_dtype,
+                              accum_dtype=policy.accum_dtype,
+                              fused_bwd=fused_bwd)
+
+
+def _grad_dispatch(spec: GemmSpec, backend: str, a, b, count: int, *,
+                   deriv: Optional[torch.Tensor] = None,
+                   want_db: bool = False):
     """One backward GEMM through the registry (transpose layouts read the
-    forward's storage in place); the result in the grad policy's accum
-    dtype."""
+    forward's storage in place); returns ``(grad, db)``, the grad in the
+    grad policy's accum dtype.  ``deriv`` / ``want_db`` run the fused
+    backward epilogue (only ever on ``fused_bwd_epilogue`` backends, which
+    have ``layouts``); ``db`` is None otherwise."""
     a, b, layout = _pretranspose(a, b, spec.layout, backend)
     if layout != spec.layout:
         spec = dataclasses.replace(spec, layout=layout)
     _emit(spec, backend, count=count)
-    return get_backend(backend).fn(a, b, spec=spec).to(spec.policy.out_dtype)
+    fn = get_backend(backend).fn
+    if spec.fused_bwd or want_db:
+        out = fn(a, b, spec=spec, deriv=deriv, bias_grad=want_db)
+        out, db = out if want_db else (out, None)
+        return out.to(spec.policy.out_dtype), db
+    return fn(a, b, spec=spec).to(spec.policy.out_dtype), None
 
 
-def _bwd_gemms(spec: GemmSpec, backend: str, count: int, xc, wc, dzc):
+def _bwd_gemms(spec: GemmSpec, backend: str, count: int, xc, wc, dzc, *,
+               deriv: Optional[torch.Tensor] = None,
+               grad_mode: Optional[str] = None, want_db: bool = False):
     """dX = dZ·Wᵀ ("nt") and dW = Xᵀ·dZ ("tn") on compute-dtype operands,
-    with the reference's specs (``engine.py:1266-1319``): a 2D weight's dW
-    collapses every leading dim into one contraction; batched grads stay
-    batched and are summed back over broadcast dims."""
+    with the reference's specs (``engine.py:1321-1424``); returns
+    ``(dx, dw, db)``.  A 2D weight's dW collapses every leading dim into
+    one contraction; batched grads stay batched and are summed back over
+    broadcast dims.  ``deriv`` (the saved residual, compute dtype) makes
+    both dispatches apply ``act'`` to dZ on load, ``want_db`` makes the dW
+    dispatch return the bias gradient (2D weights only)."""
     gpol = _grad_policy(spec.policy)
+    fb = deriv is not None
+    act = spec.epilogue if fb else None
     if wc.ndim == 2:
         dx_spec = GemmSpec(
             op="matmul_dx", tag="mk,nk->mn", layout="nt", m=spec.m, n=spec.k,
             k=spec.n, batch=spec.batch, policy=gpol, w_shared=True,
-            tile=tiling.choose_tiles(spec.m, spec.k, spec.n))
-        dx = _grad_dispatch(dx_spec, backend, dzc, wc, count)
+            tile=tiling.choose_tiles(spec.m, spec.k, spec.n),
+            grad_epilogue=act, grad_mode=grad_mode, fused_bwd=fb,
+            accum_block=_faithful_block(gpol, spec.m, spec.k, spec.n,
+                                        fused_bwd=fb))
+        dx, _ = _grad_dispatch(dx_spec, backend, dzc, wc, count, deriv=deriv)
         x2 = xc.reshape(-1, xc.shape[-1])
         dz2 = dzc.reshape(-1, dzc.shape[-1])
+        d2 = None if deriv is None else deriv.reshape(-1, deriv.shape[-1])
         rows = x2.shape[0]
         dw_spec = GemmSpec(
             op="matmul_dw", tag="mn,mk->nk", layout="tn", m=spec.n, n=rows,
             k=spec.k, batch=1, policy=gpol, w_shared=False,
-            tile=tiling.choose_tiles(spec.n, rows, spec.k))
-        return dx, _grad_dispatch(dw_spec, backend, x2, dz2, count)
+            tile=tiling.choose_tiles(spec.n, rows, spec.k),
+            grad_epilogue=act, grad_mode=grad_mode, fused_bwd=fb,
+            fused_bias_grad=want_db,
+            accum_block=_faithful_block(gpol, spec.n, rows, spec.k,
+                                        fused_bwd=fb or want_db))
+        dw, db = _grad_dispatch(dw_spec, backend, x2, dz2, count, deriv=d2,
+                                want_db=want_db)
+        return dx, dw, db
+    if fb or want_db:
+        raise ValueError("the fused backward epilogue is a 2D-weight contract")
     dx_spec = GemmSpec(
         op="matmul_dx", tag="bmk,bnk->bmn", layout="nt", m=spec.m, n=spec.k,
         k=spec.n, batch=spec.batch, groups=spec.groups, policy=gpol,
-        w_shared=spec.w_shared, tile=tiling.choose_tiles(spec.m, spec.k, spec.n))
-    dx = _unbroadcast(_grad_dispatch(dx_spec, backend, dzc, wc, count), xc.shape)
+        w_shared=spec.w_shared, tile=tiling.choose_tiles(spec.m, spec.k, spec.n),
+        accum_block=_faithful_block(gpol, spec.m, spec.k, spec.n))
+    dx, _ = _grad_dispatch(dx_spec, backend, dzc, wc, count)
     dw_spec = GemmSpec(
         op="matmul_dw", tag="bmn,bmk->bnk", layout="tn", m=spec.n, n=spec.m,
         k=spec.k, batch=spec.batch, groups=spec.groups, policy=gpol,
-        w_shared=False, tile=tiling.choose_tiles(spec.n, spec.m, spec.k))
-    dw = _unbroadcast(_grad_dispatch(dw_spec, backend, xc, dzc, count), wc.shape)
-    return dx, dw
+        w_shared=False, tile=tiling.choose_tiles(spec.n, spec.m, spec.k),
+        accum_block=_faithful_block(gpol, spec.n, spec.m, spec.k))
+    dw, _ = _grad_dispatch(dw_spec, backend, xc, dzc, count)
+    return _unbroadcast(dx, xc.shape), _unbroadcast(dw, wc.shape), None
 
 
 class _GemmFn(torch.autograd.Function):
@@ -674,11 +784,108 @@ class _GemmFn(torch.autograd.Function):
     def backward(ctx, dz):
         xd, wd = ctx.saved_tensors
         with _restored(ctx.emit):
-            dx, dw = _bwd_gemms(ctx.spec, ctx.backend, ctx.emit.count, xd, wd,
-                                dz.to(ctx.spec.policy.compute_dtype))
+            dx, dw, _ = _bwd_gemms(ctx.spec, ctx.backend, ctx.emit.count, xd,
+                                   wd, dz.to(ctx.spec.policy.compute_dtype))
         need_x, need_w = ctx.needs_input_grad[2:]
         return (None, None, dx.to(ctx.dtypes[0]) if need_x else None,
                 dw.to(ctx.dtypes[1]) if need_w else None)
+
+
+def _linear_forward(spec: GemmSpec, backend: str, x, w, bc, *, fuse: bool,
+                    epilogue: Optional[str]) -> torch.Tensor:
+    """``epilogue(x @ w + bc)`` in the output dtype, ``spec``'s event
+    emitted once: in the kernel's store with ``fuse``, else post-op on the
+    GEMM result in the accumulator dtype (then one downcast).
+    ``epilogue`` is ``spec.epilogue`` or, for the forward-for-grad of an
+    activation without an output-form derivative, None."""
+    pol = spec.policy
+    if fuse:
+        _emit(spec, backend)
+        run = (spec if epilogue == spec.epilogue
+               else dataclasses.replace(spec, epilogue=epilogue))
+        return get_backend(backend).fn(
+            x.to(pol.compute_dtype), w.to(pol.compute_dtype), spec=run,
+            bias=bc, fuse_epilogue=True).to(pol.out_dtype)
+    z = _dispatch(spec, backend, x, w).to(pol.accum_dtype)
+    if bc is not None:
+        z = z + bc
+    return epi.apply_epilogue(epilogue, z).to(pol.out_dtype)
+
+
+class _LinearFn(torch.autograd.Function):
+    """``linear`` with a bias and / or activation, with its backward (the
+    reference's ``_linear_call`` / ``_linear_fwd_core`` /
+    ``_linear_bwd_core``).
+
+    Forward: relu / tanh (output-form derivative) keep the fully fused
+    forward and save its output; gelu / silu fuse only the bias, apply the
+    activation after and save the pre-activation (compute dtype).
+    Backward, on a ``fused_bwd_epilogue`` backend with a 2D weight: one
+    pass — the raw cotangent goes to the dX / dW kernels, which apply
+    ``act'`` to its tiles on load, and the dW kernel returns db.
+    Elsewhere the two-pass fallback: ``ds = dZ * act'`` in the accumulator
+    dtype (a ``linear_dact`` pass event), db its row sum (``linear_dbias``),
+    then the plain backward GEMMs on ``ds``."""
+
+    @staticmethod
+    def forward(ctx, spec: GemmSpec, backend: str, fuse: bool, fuse_bwd: bool,
+                x, w, b):
+        pol = spec.policy
+        act = spec.epilogue
+        xd, wd = x.to(pol.compute_dtype), w.to(pol.compute_dtype)
+        bc = None if b is None else b.to(pol.accum_dtype)
+        if act is not None and epi.epilogue_grad(act).deriv_from_output is None:
+            sa = _linear_forward(spec, backend, xd, wd, bc, fuse=fuse,
+                                 epilogue=None).to(pol.accum_dtype)
+            z = epi.apply_epilogue(act, sa).to(pol.out_dtype)
+            aux = sa.to(pol.compute_dtype)
+        else:
+            z = _linear_forward(spec, backend, xd, wd, bc, fuse=fuse,
+                                epilogue=act)
+            aux = z if act is not None else None
+        ctx.save_for_backward(xd, wd, aux)
+        ctx.spec, ctx.backend, ctx.fuse_bwd = spec, backend, fuse_bwd
+        ctx.dtypes = (x.dtype, w.dtype, None if b is None else b.dtype)
+        ctx.emit = _capture()
+        return z
+
+    @staticmethod
+    def backward(ctx, dz):
+        xd, wd, aux = ctx.saved_tensors
+        spec, backend = ctx.spec, ctx.backend
+        pol, act, count = spec.policy, spec.epilogue, ctx.emit.count
+        has_b = ctx.dtypes[2] is not None
+        with _restored(ctx.emit):
+            if ctx.fuse_bwd:
+                deriv = grad_mode = None
+                if act is not None:
+                    grad_mode = ("output" if epi.epilogue_grad(act)
+                                 .deriv_from_output is not None else "preact")
+                    deriv = aux.to(pol.compute_dtype)
+                dx, dw, db = _bwd_gemms(spec, backend, count, xd, wd,
+                                        dz.to(pol.compute_dtype), deriv=deriv,
+                                        grad_mode=grad_mode, want_db=has_b)
+            else:
+                dza = dz.to(pol.accum_dtype)
+                if act is not None:
+                    g = epi.epilogue_grad(act)
+                    a = aux.to(pol.accum_dtype)
+                    dza = dza * (g.deriv_from_output(a)
+                                 if g.deriv_from_output is not None else g.deriv(a))
+                    _emit(dataclasses.replace(spec, op=spec.op + "_dact",
+                                              tile=None), backend, count=count)
+                db = None
+                if has_b:
+                    db = dza.sum(dim=tuple(range(dza.ndim - 1)))
+                    _emit(dataclasses.replace(spec, op=spec.op + "_dbias",
+                                              tile=None), backend, count=count)
+                dx, dw, _ = _bwd_gemms(spec, backend, count, xd, wd,
+                                       dza.to(pol.compute_dtype))
+        need_x, need_w, need_b = ctx.needs_input_grad[4:]
+        return (None, None, None, None,
+                dx.to(ctx.dtypes[0]) if need_x else None,
+                dw.to(ctx.dtypes[1]) if need_w else None,
+                db.to(ctx.dtypes[2]) if need_b else None)
 
 
 def _gemm_call(spec: GemmSpec, backend: str, x, w) -> torch.Tensor:
@@ -864,7 +1071,8 @@ class Engine:
         spec = GemmSpec(
             op="matmul", tag=tag, m=m, n=n, k=k, batch=math.prod(lead),
             policy=policy, tile=tile or tiling.choose_tiles(m, n, k),
-            w_shared=(w.ndim == 2), layout=layout)
+            w_shared=(w.ndim == 2), layout=layout,
+            accum_block=_faithful_block(policy, m, n, k))
         if layout != "nn":
             _no_backward(f"a {layout!r}-layout matmul", x, w)
             return _dispatch(spec, b, x, w)
@@ -875,13 +1083,15 @@ class Engine:
                activation: Optional[str] = None, policy=None,
                tile: Optional[tiling.TileConfig] = None,
                backend: Optional[str] = None) -> torch.Tensor:
-        """Affine layer ``act(x @ w + b)`` (forward).
+        """Affine layer ``act(x @ w + b)``.
 
         With the ``"fused_epilogue"`` capability the bias and activation run
-        on the fp32 accumulator inside the kernel, before its one store;
-        other backends get the post-op path (epilogue in the accumulator
-        dtype on the GEMM result, then one downcast) — the two agree to
-        ~2 ulp of the output dtype, the reference's contract."""
+        on the accumulator inside the kernel, before its one store; other
+        backends get the post-op path (epilogue in the accumulator dtype on
+        the GEMM result, then one downcast) — the two agree to ~2 ulp of
+        the output dtype, the reference's contract.  Under autograd the
+        backward is one pass on ``fused_bwd_epilogue`` backends with a 2D
+        weight and two-pass elsewhere (see :class:`_LinearFn`)."""
         policy = self.resolve_policy(policy)
         bk = self.resolve_backend(backend)
         epi.validate_epilogue(activation)
@@ -903,18 +1113,18 @@ class Engine:
         spec = GemmSpec(
             op="linear", tag=tag, m=m, n=n, k=k, batch=math.prod(lead),
             policy=policy, tile=tile or tiling.choose_tiles(m, n, k),
-            epilogue=activation, w_shared=(w.ndim == 2))
-        has_epilogue = b is not None or activation is not None
-        if not has_epilogue:
+            epilogue=activation, w_shared=(w.ndim == 2),
+            accum_block=_faithful_block(policy, m, n, k))
+        if b is None and activation is None:
             return _gemm_call(spec, bk, x, w)
-        _no_backward("linear with a bias or activation", x, w, b)
+        backend_spec = get_backend(bk)
+        fuse = backend_spec.supports("fused_epilogue")
+        if _needs_grad(x, w, b):
+            fuse_bwd = w.ndim == 2 and backend_spec.supports("fused_bwd_epilogue")
+            return _LinearFn.apply(spec, bk, fuse, fuse_bwd, x, w, b)
         bc = None if b is None else b.to(policy.accum_dtype)
-        if get_backend(bk).supports("fused_epilogue"):
-            return _dispatch(spec, bk, x, w, bias=bc, fuse=True)
-        z = _dispatch(spec, bk, x, w).to(policy.accum_dtype)
-        if bc is not None:
-            z = z + bc
-        return epi.apply_epilogue(activation, z).to(policy.out_dtype)
+        return _linear_forward(spec, bk, x, w, bc, fuse=fuse,
+                               epilogue=activation)
 
     def grouped_matmul(self, x: torch.Tensor, w: torch.Tensor, *,
                        group_sizes=None, policy=None,
@@ -944,7 +1154,8 @@ class Engine:
             op="grouped_matmul", tag="gmn,gnk->gmk", m=m, n=n, k=k,
             batch=math.prod(lead), groups=w.shape[0], policy=policy,
             tile=tile or tiling.choose_tiles(m, n, k), w_shared=True,
-            valid_rows=_static_valid_rows(group_sizes, m))
+            valid_rows=_static_valid_rows(group_sizes, m),
+            accum_block=_faithful_block(policy, m, n, k))
         z = _dispatch(spec, b, x, w)
         if group_sizes is not None:
             sizes = torch.as_tensor(group_sizes, device=z.device)
@@ -1030,7 +1241,7 @@ class Engine:
         spec = GemmSpec(
             op="einsum2d", tag=eq.replace(" ", ""), m=m, n=c, k=k, batch=bsz,
             policy=policy, tile=tile or tiling.choose_tiles(m, c, k),
-            w_shared=not batch_l)
+            w_shared=not batch_l, accum_block=_faithful_block(policy, m, c, k))
         if batch_l:
             x2, w2 = xt.reshape(bsz, m, c), wt.reshape(bsz, c, k)
         else:

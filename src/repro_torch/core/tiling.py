@@ -14,16 +14,27 @@ for (``csrc/redmule_matmul.cu``):
 ``bn`` is the reduction step.  Every menu entry fits the shared-memory
 budget (checked at import).  The flash-attention kernel's tiles are fixed:
 64 query rows by 32 KV rows (``FLASH_BQ`` / ``FLASH_BKV``).
+
+Under a faithful-accumulation policy (``paper_fp16``) the reference's
+reduction block is numerics, not a speed knob: its fp16 accumulator is
+re-rounded after every ``bn`` rows of the reduction.  :func:`accum_block`
+is the reference's own tile heuristic (``repro/core/tiling.py:102-175``,
+its 8 MiB VMEM budget and 128-lane alignment included), copied so that
+the CUDA kernel rounds at the same points whatever its own 32-deep smem
+step.  The reference's autotune cache (read only when
+``REPRO_AUTOTUNE_CACHE`` is set) is not consulted.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+from typing import Tuple
 
 import torch
 
 __all__ = ["TileConfig", "choose_tiles", "smem_bytes", "GEMM_TILES",
-           "SMEM_BUDGET", "FLASH_BQ", "FLASH_BKV"]
+           "SMEM_BUDGET", "FLASH_BQ", "FLASH_BKV", "accum_block"]
 
 # shared memory one block may use on Hopper (232,448 bytes)
 SMEM_BUDGET = 227 * 1024
@@ -67,3 +78,82 @@ def choose_tiles(M: int, N: int, K: int) -> TileConfig:
     16-row tile (each weight element is then read once), else 64 x 64."""
     del N, K  # the menu is fixed (see the module docstring)
     return GEMM_TILES[1] if M <= 16 else GEMM_TILES[0]
+
+
+# --------------------------------------------------------------------- #
+# The reference's reduction block (faithful accumulation)
+# --------------------------------------------------------------------- #
+# the reference's VMEM budget and its 128-lane tile alignment
+MXU_LANE = 128
+DEFAULT_VMEM_BUDGET = 8 * 1024 * 1024
+
+
+def _itemsize(dtype) -> int:
+    return dtype.itemsize if isinstance(dtype, torch.dtype) else \
+        getattr(torch, str(dtype)).itemsize
+
+
+def sublane(dtype) -> int:
+    """The reference's minimum sublane multiple for a dtype."""
+    return max(8, 32 // max(1, _itemsize(dtype)))
+
+
+def vmem_bytes(t: TileConfig, compute_dtype, accum_dtype, depth: int = 2,
+               fused_bwd: bool = False) -> int:
+    """The reference's VMEM working set of one tile (``tiling.py:102-132``,
+    operands stored in the compute dtype; per-operand FP8 storage arrives
+    with the FP8 slice): ``depth``-buffered X, W (and, for a fused
+    backward, derivative) tiles, the resident accumulator, the output tile
+    and the db row."""
+    cb, ab = _itemsize(compute_dtype), _itemsize(accum_dtype)
+    d_tile = max(t.bm * t.bn, t.bn * t.bk) * cb if fused_bwd else 0
+    db_row = t.bk * ab if fused_bwd else 0
+    return (depth * (t.bm * t.bn + t.bn * t.bk) * cb + depth * d_tile
+            + t.bm * t.bk * ab + t.bm * t.bk * cb + db_row)
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+@functools.lru_cache(maxsize=4096)
+def _reference_tiles_cached(M: int, N: int, K: int, compute: str, accum: str,
+                            fused_bwd: bool) -> Tuple[int, int, int]:
+    sl = sublane(compute)
+    bm = _round_up(min(M, 512), sl)
+    bk = _round_up(min(K, 512), MXU_LANE)
+    bn = _round_up(min(N, 2048), MXU_LANE)
+    while vmem_bytes(TileConfig(bm, bn, bk), compute, accum,
+                     fused_bwd=fused_bwd) > DEFAULT_VMEM_BUDGET:
+        if bn > MXU_LANE:
+            bn //= 2
+        elif bk > MXU_LANE:
+            bk //= 2
+        elif bm > sl:
+            bm //= 2
+        else:
+            break
+    return (max(sl, _round_up(bm, sl)), max(MXU_LANE, _round_up(bn, MXU_LANE)),
+            max(MXU_LANE, _round_up(bk, MXU_LANE)))
+
+
+def reference_tiles(M: int, N: int, K: int, *, compute_dtype, accum_dtype,
+                    fused_bwd: bool = False) -> TileConfig:
+    """The tile the reference's ``choose_tiles`` picks for this GEMM (its
+    ``_choose_tiles_cached``): start from the problem, capped at 512 x 2048
+    x 512 and aligned, and halve bn, then bk, then bm until the working set
+    fits 8 MiB.  Empty dims count as 1, as there."""
+    name = lambda d: str(d).removeprefix("torch.")
+    bm, bn, bk = _reference_tiles_cached(
+        max(int(M), 1), max(int(N), 1), max(int(K), 1), name(compute_dtype),
+        name(accum_dtype), bool(fused_bwd))
+    return TileConfig(bm=bm, bn=bn, bk=bk)
+
+
+def accum_block(M: int, N: int, K: int, *, compute_dtype, accum_dtype,
+                fused_bwd: bool = False) -> int:
+    """The reduction block after which the reference re-rounds a faithful
+    accumulator: its ``tile.bn`` for this dispatch (always a multiple of
+    128, so of the CUDA kernel's 32-deep step)."""
+    return reference_tiles(M, N, K, compute_dtype=compute_dtype,
+                           accum_dtype=accum_dtype, fused_bwd=fused_bwd).bn

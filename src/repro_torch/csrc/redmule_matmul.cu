@@ -41,12 +41,40 @@
 // ragged-edge masking and fused bias + epilogue store as the bf16 / fp16
 // kernel.  Its bound on an H100 is the 67 TFLOP/s of fp32 FMAs (or the
 // bytes, for the skinny shapes).
+//
+// The paper's fp16 accumulator (`paper_faithful`, the `paper_fp16` policy).
+// The reference accumulates in an fp16 scratch: every `bn`-row block of the
+// reduction is one dot rounded to fp16 and added into the fp16 sum.  Here the
+// per-block partial stays in the fp32 WMMA fragments; a second set of fp32
+// fragments holds the fp16-representable running sum, and at every
+// `accum_block` boundary of the logical reduction (a runtime argument, a
+// multiple of the 32-deep smem step) and at its end
+// run = round16(run + round16(part)), part = 0.  Elementwise fragment
+// arithmetic is layout-agnostic because both fragments have one shape.  The
+// bias (an fp32 row holding fp16 values) is added to the rounded sum and
+// rounded, the epilogue applied and rounded once more: the whole layer stays
+// on the binary16 datapath.  Only the fp16 WMMA route takes this mode.
+//
+// The fused backward epilogue (both routes).  A backward dispatch may carry
+// `deriv`, stored like its dZ operand (the x slot on "nt", the w slot on
+// "tn") and read through its own strides.  As the dZ tile lands in shared
+// memory it is multiplied by act'(deriv) in fp32 (rounded to fp16 under the
+// faithful accumulator) and written back in the compute dtype, so
+// ds = dZ * act' never exists in device memory.  `db` (the bias gradient,
+// "tn" only) is summed from the same scaled tile: only the blocks of the
+// first M-tile row (blockIdx.y == 0) sum the columns of each dZ tile that
+// passes through them, per accumulator block like the GEMM, and each writes
+// its `bk` slice of db once — no atomics, and the result does not depend on
+// the grid.  The reference returns an (M/bm, K) array whose every row is the
+// full sum; the port returns the (K,) row.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 using namespace nvcuda;
 
@@ -72,6 +100,43 @@ __device__ __forceinline__ float apply_epilogue(float v, int epi) {
     default:
       return v;
   }
+}
+
+// act'(d) in fp32: from the pre-activation, or (relu, tanh) from the output
+__device__ __forceinline__ float epilogue_grad(float d, int epi, int from_output) {
+  switch (epi) {
+    case kRelu:
+      return d > 0.f ? 1.f : 0.f;
+    case kGelu: {
+      const float c = 0.7978845608028654f, a = 0.044715f;
+      const float t = tanhf(c * (d + a * d * d * d));
+      const float du = c * (1.f + 3.f * a * d * d);
+      return 0.5f * (1.f + t) + 0.5f * d * (1.f - t * t) * du;
+    }
+    case kSilu: {
+      const float sig = 1.f / (1.f + expf(-d));
+      return sig * (1.f + d * (1.f - sig));
+    }
+    case kTanh: {
+      if (from_output) return 1.f - d * d;
+      const float t = tanhf(d);
+      return 1.f - t * t;
+    }
+    default:
+      return 1.f;
+  }
+}
+
+__device__ __forceinline__ float round16(float v) {
+  return __half2float(__float2half_rn(v));
+}
+
+template <typename T> __device__ __forceinline__ float to_float(T v);
+template <> __device__ __forceinline__ float to_float<__half>(__half v) {
+  return __half2float(v);
+}
+template <> __device__ __forceinline__ float to_float<__nv_bfloat16>(__nv_bfloat16 v) {
+  return __bfloat162float(v);
 }
 
 template <typename O> __device__ __forceinline__ O from_float(float v);
@@ -145,20 +210,64 @@ struct Operand {
   int vec;                           // 16-byte loads allowed (see load_tile)
 };
 
-template <typename T, typename O, int BM, int BK, int WARPS_M, int WARPS_N>
+// The faithful accumulator and the fused backward epilogue (2D only).
+struct Ext {
+  const void* deriv;        // compute dtype, stored like the dZ operand
+  long long d_row, d_col;   // its element strides along the dZ operand's rows / cols
+  int slot;                 // which operand is dZ: 0 none, 1 x ("nt"), 2 w ("tn")
+  int grad_epi;             // Epilogue whose derivative scales dZ (0: none)
+  int from_output;          // deriv holds act(s) instead of s
+  float* db;                // (K,) bias gradient, slot 2 only (nullptr: none)
+  int accum_block;          // > 0: faithful fp16 accumulator, re-rounded per block
+};
+
+// In place on the R x C dZ tile in shared memory (top-left logical element
+// (r0, c0)): ds = dZ * act'(deriv) in fp32, rounded to fp16 under the
+// faithful accumulator, written back in the compute dtype when there is a
+// derivative, and copied to `dss` (fp32, leading dimension DLD) for the
+// bias-gradient column sums when `dss` is given.  Cells outside
+// [0, rows) x [0, cols) hold zeros and stay zero.
+template <typename T, int R, int C, int LD, int DLD, int NT>
+__device__ __forceinline__ void scale_dz_tile(T* tile, const Ext& ext, int r0,
+                                              int c0, int rows, int cols,
+                                              float* dss, int tid) {
+  const T* d = static_cast<const T*>(ext.deriv);
+  const bool faithful = ext.accum_block > 0;
+  for (int e = tid; e < R * C; e += NT) {
+    int r, c;
+    if (ext.d_col == 1 || ext.grad_epi == 0) { r = e / C; c = e % C; }
+    else { r = e % R; c = e / R; }
+    const int gr = r0 + r, gc = c0 + c;
+    float v = to_float<T>(tile[r * LD + c]);
+    if (gr < rows && gc < cols) {
+      if (ext.grad_epi != 0)
+        v *= epilogue_grad(
+            to_float<T>(d[(long long)gr * ext.d_row + (long long)gc * ext.d_col]),
+            ext.grad_epi, ext.from_output);
+      if (faithful) v = round16(v);
+    }
+    if (ext.grad_epi != 0) tile[r * LD + c] = from_float<T>(v);
+    if (dss != nullptr) dss[r * DLD + c] = v;
+  }
+}
+
+template <typename T, typename O, int BM, int BK, int WARPS_M, int WARPS_N,
+          bool kExt>
 __global__ void __launch_bounds__(kThreads)
     redmule_gemm_kernel(const T* __restrict__ x, const T* __restrict__ w,
                         const float* __restrict__ bias, O* __restrict__ z,
                         int M, int N, int K, int inner, int batch0, Operand xo,
                         Operand wo, long long zs_outer, long long zs_inner,
-                        int epi) {
+                        int epi, Ext ext) {
   static_assert(WARPS_M * WARPS_N * 32 == kThreads, "four warps");
   constexpr int WM = BM / WARPS_M, WN = BK / WARPS_N;
   constexpr int FM = WM / 16, FN = WN / 16;
-  constexpr int XLD = kBN + 8, WLD = BK + 8, CLD = BK + 4;
+  constexpr int XLD = kBN + 8, WLD = BK + 8, CLD = BK + 4, DLD = BK + 1;
+  static_assert(BK <= kThreads, "one thread per db column");
   __shared__ __align__(128) T xs[BM * XLD];
   __shared__ __align__(128) T ws[kBN * WLD];
   __shared__ __align__(128) float cs[BM * CLD];
+  __shared__ float dss[kExt ? kBN * DLD : 1];  // the scaled dZ tile, for db
 
   const int b = batch0 + blockIdx.z;
   const int bo = b / inner, bi = b % inner;
@@ -170,15 +279,44 @@ __global__ void __launch_bounds__(kThreads)
   const int wm = warp / WARPS_N, wn = warp % WARPS_N;
 
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[FM][FN];
+  // the faithful running sum (fp16-representable values in fp32 fragments)
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> run[kExt ? FM : 1][kExt ? FN : 1];
 #pragma unroll
   for (int i = 0; i < FM; ++i)
 #pragma unroll
     for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+  const bool faithful = kExt && ext.accum_block > 0;
+  // db: the first M-tile row sums its columns of every dZ tile
+  const bool do_db = kExt && ext.db != nullptr && ext.slot == 2 && blockIdx.y == 0;
+  float db_part = 0.f, db_run = 0.f;
+  if constexpr (kExt) {
+#pragma unroll
+    for (int i = 0; i < FM; ++i)
+#pragma unroll
+      for (int j = 0; j < FN; ++j) wmma::fill_fragment(run[i][j], 0.f);
+  }
 
   for (int n0 = 0; n0 < N; n0 += kBN) {
     load_tile<T, BM, kBN, XLD>(xs, x, m0, n0, M, N, xo.row, xo.col, xo.vec, tid);
     load_tile<T, kBN, BK, WLD>(ws, w, n0, k0, N, K, wo.row, wo.col, wo.vec, tid);
     __syncthreads();
+    if constexpr (kExt) {
+      if (ext.slot == 1 && ext.grad_epi != 0) {
+        scale_dz_tile<T, BM, kBN, XLD, DLD, kThreads>(xs, ext, m0, n0, M, N,
+                                                      nullptr, tid);
+        __syncthreads();
+      } else if (ext.slot == 2 && (ext.grad_epi != 0 || do_db)) {
+        scale_dz_tile<T, kBN, BK, WLD, DLD, kThreads>(
+            ws, ext, n0, k0, N, K, do_db ? dss : nullptr, tid);
+        __syncthreads();
+        if (do_db && tid < BK) {
+          float s = 0.f;
+#pragma unroll 8
+          for (int r = 0; r < kBN; ++r) s += dss[r * DLD + tid];
+          db_part += s;
+        }
+      }
+    }
 #pragma unroll
     for (int kk = 0; kk < kBN; kk += 16) {
       wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> a[FM];
@@ -194,26 +332,55 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int j = 0; j < FN; ++j) wmma::mma_sync(acc[i][j], a[i], bf[j], acc[i][j]);
     }
+    if constexpr (kExt) {
+      // the end of a reference reduction block (or of the reduction):
+      // round the block's partial and fold it into the fp16 running sums
+      if (faithful && ((n0 + kBN) % ext.accum_block == 0 || n0 + kBN >= N)) {
+#pragma unroll
+        for (int i = 0; i < FM; ++i)
+#pragma unroll
+          for (int j = 0; j < FN; ++j)
+#pragma unroll
+            for (int t = 0; t < acc[i][j].num_elements; ++t) {
+              run[i][j].x[t] = round16(run[i][j].x[t] + round16(acc[i][j].x[t]));
+              acc[i][j].x[t] = 0.f;
+            }
+        db_run = round16(db_run + round16(db_part));
+        db_part = 0.f;
+      }
+    }
     __syncthreads();
   }
 
-  // store once: accumulator -> shared -> bias + epilogue in fp32 -> one cast
+  // store once: accumulator -> shared -> bias + epilogue -> one cast
 #pragma unroll
   for (int i = 0; i < FM; ++i)
 #pragma unroll
-    for (int j = 0; j < FN; ++j)
-      wmma::store_matrix_sync(cs + (wm * WM + i * 16) * CLD + wn * WN + j * 16,
-                              acc[i][j], CLD, wmma::mem_row_major);
+    for (int j = 0; j < FN; ++j) {
+      float* dst = cs + (wm * WM + i * 16) * CLD + wn * WN + j * 16;
+      if constexpr (kExt) {
+        if (faithful) {
+          wmma::store_matrix_sync(dst, run[i][j], CLD, wmma::mem_row_major);
+          continue;
+        }
+      }
+      wmma::store_matrix_sync(dst, acc[i][j], CLD, wmma::mem_row_major);
+    }
   __syncthreads();
   for (int e = tid; e < BM * BK; e += kThreads) {
     const int r = e / BK, c = e % BK;
     const int gm = m0 + r, gk = k0 + c;
     if (gm < M && gk < K) {
       float v = cs[r * CLD + c];
-      if (bias != nullptr) v += bias[gk];
+      if (bias != nullptr) {
+        v += bias[gk];
+        if (faithful) v = round16(v);  // the fp16 bias add
+      }
       z[(long long)gm * K + gk] = from_float<O>(apply_epilogue(v, epi));
     }
   }
+  if (do_db && tid < BK && k0 + tid < K)
+    ext.db[k0 + tid] = faithful ? db_run : db_part;
 }
 
 // fp32 operands: SIMT FMAs (no TF32).  Logical Z[M, K] = X[M, N] W[N, K];
@@ -222,15 +389,16 @@ __global__ void __launch_bounds__(kThreads)
 constexpr int kF32Threads = 256;
 constexpr int kF32BN = 16;  // reduction step
 
-template <typename O, int BM, int BK, int TM, int TN>
+template <typename O, int BM, int BK, int TM, int TN, bool kExt>
 __global__ void __launch_bounds__(kF32Threads)
     redmule_gemm_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
                             const float* __restrict__ bias, O* __restrict__ z, int M,
                             int N, int K, int inner, int batch0, Operand xo,
                             Operand wo, long long zs_outer, long long zs_inner,
-                            int epi) {
+                            int epi, Ext ext) {
   constexpr int TX = BK / TN;  // threads along the output columns
   static_assert((BM / TM) * TX == kF32Threads, "256 threads");
+  static_assert(BK <= kF32Threads, "one thread per db column");
   __shared__ float xs[kF32BN][BM + 4];  // [n][m]
   __shared__ float ws[kF32BN][BK + 4];  // [n][k]
 
@@ -248,6 +416,7 @@ __global__ void __launch_bounds__(kF32Threads)
   for (int i = 0; i < TM; ++i)
 #pragma unroll
     for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+  float db_part = 0.f;
 
   for (int n0 = 0; n0 < N; n0 += kF32BN) {
     // X tile (BM x 16): neighbouring threads on the contiguous axis
@@ -269,6 +438,38 @@ __global__ void __launch_bounds__(kF32Threads)
                      ? w[(long long)gn * wo.row + (long long)gk * wo.col] : 0.f;
     }
     __syncthreads();
+    if constexpr (kExt) {
+      // the fused backward epilogue: ds = dZ * act'(deriv) on the dZ tile,
+      // then (first M-tile row, "tn") the bias gradient's column sums
+      const float* d = static_cast<const float*>(ext.deriv);
+      if (ext.slot == 1 && ext.grad_epi != 0) {
+        for (int e = tid; e < BM * kF32BN; e += kF32Threads) {
+          const int r = e / kF32BN, c = e % kF32BN;   // (m, n)
+          const int gm = m0 + r, gn = n0 + c;
+          if (gm < M && gn < N)
+            xs[c][r] *= epilogue_grad(
+                d[(long long)gm * ext.d_row + (long long)gn * ext.d_col],
+                ext.grad_epi, ext.from_output);
+        }
+        __syncthreads();
+      } else if (ext.slot == 2) {
+        if (ext.grad_epi != 0) {
+          for (int e = tid; e < kF32BN * BK; e += kF32Threads) {
+            const int r = e / BK, c = e % BK;        // (n, k)
+            const int gn = n0 + r, gk = k0 + c;
+            if (gn < N && gk < K)
+              ws[r][c] *= epilogue_grad(
+                  d[(long long)gn * ext.d_row + (long long)gk * ext.d_col],
+                  ext.grad_epi, ext.from_output);
+          }
+          __syncthreads();
+        }
+        if (ext.db != nullptr && blockIdx.y == 0 && tid < BK) {
+#pragma unroll
+          for (int r = 0; r < kF32BN; ++r) db_part += ws[r][tid];
+        }
+      }
+    }
 #pragma unroll
     for (int nn = 0; nn < kF32BN; ++nn) {
       float a[TM], bv[TN];
@@ -298,78 +499,108 @@ __global__ void __launch_bounds__(kF32Threads)
       }
     }
   }
+  if (kExt && ext.slot == 2 && ext.db != nullptr && blockIdx.y == 0 && tid < BK &&
+      k0 + tid < K)
+    ext.db[k0 + tid] = db_part;
 }
 
-template <typename O, int BM, int BK, int TM, int TN>
-int launch_f32(const void* x, const void* w, const float* bias, void* z, int batch,
-               int inner, int M, int N, int K, Operand xo, Operand wo, int epi,
-               cudaStream_t stream) {
-  const unsigned gx = (K + BK - 1) / BK, gy = (M + BM - 1) / BM;
-  const long long zs_inner = (long long)M * K;
-  const long long zs_outer = zs_inner * inner;
-  for (int b0 = 0; b0 < batch; b0 += 65535) {
-    const unsigned gz = (batch - b0) < 65535 ? (batch - b0) : 65535;
-    redmule_gemm_f32_kernel<O, BM, BK, TM, TN>
+// One launch (or one per 65535 batch elements: grid.z is at most 65535).
+struct Problem {
+  const void* x;
+  const void* w;
+  const float* bias;
+  void* z;
+  int batch, inner, M, N, K;
+  Operand xo, wo;
+  int epi;
+  Ext ext;
+};
+
+template <typename O, int BM, int BK, int TM, int TN, bool kExt>
+int launch_f32(const Problem& p, cudaStream_t stream) {
+  // gy >= 1: a dW over M == 0 rows still launches its db row of blocks
+  const unsigned gx = (p.K + BK - 1) / BK, gy = p.M > 0 ? (p.M + BM - 1) / BM : 1;
+  const long long zs_inner = (long long)p.M * p.K;
+  const long long zs_outer = zs_inner * p.inner;
+  for (int b0 = 0; b0 < p.batch; b0 += 65535) {
+    const unsigned gz = (p.batch - b0) < 65535 ? (p.batch - b0) : 65535;
+    redmule_gemm_f32_kernel<O, BM, BK, TM, TN, kExt>
         <<<dim3(gx, gy, gz), kF32Threads, 0, stream>>>(
-            static_cast<const float*>(x), static_cast<const float*>(w), bias,
-            static_cast<O*>(z), M, N, K, inner, b0, xo, wo, zs_outer, zs_inner, epi);
+            static_cast<const float*>(p.x), static_cast<const float*>(p.w), p.bias,
+            static_cast<O*>(p.z), p.M, p.N, p.K, p.inner, b0, p.xo, p.wo,
+            zs_outer, zs_inner, p.epi, p.ext);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   return 0;
 }
 
-template <typename O>
-int by_tile_f32(int tile, const void* x, const void* w, const float* bias, void* z,
-                int batch, int inner, int M, int N, int K, Operand xo, Operand wo,
-                int epi, cudaStream_t s) {
+template <int BM, int BK, int TM, int TN>
+int ext_f32(const Problem& p, bool ext, cudaStream_t s) {
+  return ext ? launch_f32<float, BM, BK, TM, TN, true>(p, s)
+             : launch_f32<float, BM, BK, TM, TN, false>(p, s);
+}
+
+int by_tile_f32(int tile, const Problem& p, bool ext, cudaStream_t s) {
   if (tile == 0)  // 64 x 64 output tile, 4 x 4 per thread
-    return launch_f32<O, 64, 64, 4, 4>(x, w, bias, z, batch, inner, M, N, K, xo, wo, epi, s);
+    return ext_f32<64, 64, 4, 4>(p, ext, s);
   if (tile == 1)  // 16 x 128 (small M), 1 x 8 per thread
-    return launch_f32<O, 16, 128, 1, 8>(x, w, bias, z, batch, inner, M, N, K, xo, wo, epi, s);
+    return ext_f32<16, 128, 1, 8>(p, ext, s);
   return (int)cudaErrorInvalidValue;
 }
 
-template <typename T, typename O, int BM, int BK, int WARPS_M, int WARPS_N>
-int launch(const void* x, const void* w, const float* bias, void* z, int batch,
-           int inner, int M, int N, int K, Operand xo, Operand wo, int epi,
-           cudaStream_t stream) {
+template <typename T, typename O, int BM, int BK, int WARPS_M, int WARPS_N, bool kExt>
+int launch(const Problem& p, cudaStream_t stream) {
   const dim3 block(kThreads);
-  const unsigned gx = (K + BK - 1) / BK, gy = (M + BM - 1) / BM;
-  const long long zs_inner = (long long)M * K;
-  const long long zs_outer = zs_inner * inner;
-  for (int b0 = 0; b0 < batch; b0 += 65535) {  // grid.z is at most 65535
-    const unsigned gz = (batch - b0) < 65535 ? (batch - b0) : 65535;
-    redmule_gemm_kernel<T, O, BM, BK, WARPS_M, WARPS_N>
+  // gy >= 1: a dW over M == 0 rows still launches its db row of blocks
+  const unsigned gx = (p.K + BK - 1) / BK, gy = p.M > 0 ? (p.M + BM - 1) / BM : 1;
+  const long long zs_inner = (long long)p.M * p.K;
+  const long long zs_outer = zs_inner * p.inner;
+  for (int b0 = 0; b0 < p.batch; b0 += 65535) {  // grid.z is at most 65535
+    const unsigned gz = (p.batch - b0) < 65535 ? (p.batch - b0) : 65535;
+    redmule_gemm_kernel<T, O, BM, BK, WARPS_M, WARPS_N, kExt>
         <<<dim3(gx, gy, gz), block, 0, stream>>>(
-            static_cast<const T*>(x), static_cast<const T*>(w), bias,
-            static_cast<O*>(z), M, N, K, inner, b0, xo, wo, zs_outer, zs_inner,
-            epi);
+            static_cast<const T*>(p.x), static_cast<const T*>(p.w), p.bias,
+            static_cast<O*>(p.z), p.M, p.N, p.K, p.inner, b0, p.xo, p.wo,
+            zs_outer, zs_inner, p.epi, p.ext);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   return 0;
 }
 
+// The faithful / fused-backward variant exists for the (operand, output)
+// pairs a policy gives it: fp16 -> fp16 (paper_fp16, forward and its "+grad"
+// backward) and fp16 / bf16 -> fp32 (the fp32-accumulating policies' "+grad"
+// backward, whose output is the accumulator dtype).
 template <typename T, typename O>
-int by_tile(int tile, const void* x, const void* w, const float* bias, void* z,
-            int batch, int inner, int M, int N, int K, Operand xo, Operand wo,
-            int epi, cudaStream_t s) {
+constexpr bool kExtPair =
+    std::is_same<O, float>::value ||
+    (std::is_same<T, __half>::value && std::is_same<O, __half>::value);
+
+template <typename T, typename O, int BM, int BK, int WARPS_M, int WARPS_N>
+int ext_or_plain(const Problem& p, bool ext, cudaStream_t s) {
+  if (!ext) return launch<T, O, BM, BK, WARPS_M, WARPS_N, false>(p, s);
+  if constexpr (kExtPair<T, O>)
+    return launch<T, O, BM, BK, WARPS_M, WARPS_N, true>(p, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename T, typename O>
+int by_tile(int tile, const Problem& p, bool ext, cudaStream_t s) {
   if (tile == 0)  // bm 64 x bk 64: warps 2 x 2, each 32 x 32
-    return launch<T, O, 64, 64, 2, 2>(x, w, bias, z, batch, inner, M, N, K, xo, wo, epi, s);
+    return ext_or_plain<T, O, 64, 64, 2, 2>(p, ext, s);
   if (tile == 1)  // bm 16 x bk 128: warps 1 x 4, each 16 x 32 (small-M decode)
-    return launch<T, O, 16, 128, 1, 4>(x, w, bias, z, batch, inner, M, N, K, xo, wo, epi, s);
+    return ext_or_plain<T, O, 16, 128, 1, 4>(p, ext, s);
   return (int)cudaErrorInvalidValue;
 }
 
 template <typename T>
-int by_out(int out_dtype, int tile, const void* x, const void* w,
-           const float* bias, void* z, int batch, int inner, int M, int N,
-           int K, Operand xo, Operand wo, int epi, cudaStream_t s) {
+int by_out(int out_dtype, int tile, const Problem& p, bool ext, cudaStream_t s) {
   switch (out_dtype) {
-    case 0: return by_tile<T, __half>(tile, x, w, bias, z, batch, inner, M, N, K, xo, wo, epi, s);
-    case 1: return by_tile<T, __nv_bfloat16>(tile, x, w, bias, z, batch, inner, M, N, K, xo, wo, epi, s);
-    case 2: return by_tile<T, float>(tile, x, w, bias, z, batch, inner, M, N, K, xo, wo, epi, s);
+    case 0: return by_tile<T, __half>(tile, p, ext, s);
+    case 1: return by_tile<T, __nv_bfloat16>(tile, p, ext, s);
+    case 2: return by_tile<T, float>(tile, p, ext, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -379,6 +610,10 @@ int by_out(int out_dtype, int tile, const void* x, const void* w,
 // dtype / out_dtype: 0 = fp16, 1 = bf16, 2 = fp32 (fp32 operands take the
 // SIMT route and store fp32).
 // tile: 0 = (bm 64, bn 32, bk 64), 1 = (bm 16, bn 32, bk 128).
+// accum_block > 0: the faithful fp16 accumulator, re-rounded every
+// accum_block reduction rows (a multiple of 32; fp16 operands and output).
+// deriv / d_row / d_col / slot / grad_epi / grad_from_output / db: the fused
+// backward epilogue (see the header; nulls and zeros when unused, batch 1).
 // Returns cudaGetLastError() of the launch (0 on success).
 extern "C" int redmule_gemm(int dtype, int out_dtype, int tile, const void* x,
                             const void* w, const void* bias, void* z, int batch,
@@ -386,18 +621,28 @@ extern "C" int redmule_gemm(int dtype, int out_dtype, int tile, const void* x,
                             long long xs_inner, long long xs_m, long long xs_n,
                             int x_vec, long long ws_outer, long long ws_inner,
                             long long ws_n, long long ws_k, int w_vec, int epi,
-                            void* stream) {
-  const Operand xo{xs_outer, xs_inner, xs_m, xs_n, x_vec};
-  const Operand wo{ws_outer, ws_inner, ws_n, ws_k, w_vec};
-  const float* b = static_cast<const float*>(bias);
+                            int accum_block, const void* deriv, long long d_row,
+                            long long d_col, int slot, int grad_epi,
+                            int grad_from_output, void* db, void* stream) {
+  const Ext ext{deriv, d_row, d_col, slot, grad_epi, grad_from_output,
+                static_cast<float*>(db), accum_block};
+  const Problem p{x, w, static_cast<const float*>(bias), z, batch, inner, M, N, K,
+                  Operand{xs_outer, xs_inner, xs_m, xs_n, x_vec},
+                  Operand{ws_outer, ws_inner, ws_n, ws_k, w_vec}, epi, ext};
+  const bool use_ext = accum_block > 0 || slot != 0;
+  if (accum_block < 0 || accum_block % kBN != 0 || (slot != 0 && batch != 1) ||
+      (grad_epi != 0 && (deriv == nullptr || slot == 0)) ||
+      (db != nullptr && slot != 2))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return by_out<__half>(out_dtype, tile, x, w, b, z, batch, inner, M, N, K, xo, wo, epi, s);
+    return by_out<__half>(out_dtype, tile, p, use_ext, s);
+  if (accum_block > 0) return (int)cudaErrorInvalidValue;  // fp16 route only
   if (dtype == 1)
-    return by_out<__nv_bfloat16>(out_dtype, tile, x, w, b, z, batch, inner, M, N, K, xo, wo, epi, s);
+    return by_out<__nv_bfloat16>(out_dtype, tile, p, use_ext, s);
   if (dtype == 2) {  // the fp32 route: SIMT fp32 FMAs, fp32 out only
     if (out_dtype != 2) return (int)cudaErrorInvalidValue;
-    return by_tile_f32<float>(tile, x, w, b, z, batch, inner, M, N, K, xo, wo, epi, s);
+    return by_tile_f32(tile, p, use_ext, s);
   }
   return (int)cudaErrorInvalidValue;
 }

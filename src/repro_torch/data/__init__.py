@@ -1,5 +1,5 @@
 """Synthetic data (counterpart of ``repro.data``)."""
 
-from repro_torch.data.pipeline import Prefetcher, SyntheticLM
+from repro_torch.data.pipeline import Prefetcher, SyntheticAE, SyntheticLM
 
-__all__ = ["SyntheticLM", "Prefetcher"]
+__all__ = ["SyntheticLM", "SyntheticAE", "Prefetcher"]

@@ -1,10 +1,11 @@
 """Deterministic, prefetching synthetic data pipeline.
 
-Counterpart of ``repro.data.pipeline`` (``SyntheticLM`` and
-``Prefetcher``).  Every batch is a pure function of (seed, step, host),
+Counterpart of ``repro.data.pipeline`` (``SyntheticLM``, ``SyntheticAE``
+and ``Prefetcher``).  Every batch is a pure function of (seed, step, host),
 drawn with numpy exactly as the reference draws it, so the port and the
-reference see the same token stream bit for bit.  Token streams are
-Zipf-distributed with document boundaries (EOS every ~doc_len tokens).
+reference see the same data bit for bit.  Token streams are
+Zipf-distributed with document boundaries (EOS every ~doc_len tokens); the
+AutoEncoder's frames are low-rank spectra plus noise.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from typing import Dict, Iterator
 
 import numpy as np
 
-__all__ = ["SyntheticLM", "Prefetcher"]
+__all__ = ["SyntheticLM", "SyntheticAE", "Prefetcher"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,6 +60,22 @@ class SyntheticLM:
         while True:
             yield self.batch(step)
             step += 1
+
+
+@dataclasses.dataclass(frozen=True)
+class SyntheticAE:
+    """ToyADMOS-like mel-frame windows for the AutoEncoder use case."""
+
+    batch: int
+    dim: int = 640
+    seed: int = 0
+
+    def sample(self, step: int) -> np.ndarray:
+        rng = np.random.default_rng(np.random.SeedSequence([self.seed, step]))
+        # smooth spectra: low-rank structure + noise, normalised per row
+        base = rng.standard_normal((self.batch, 8)) @ rng.standard_normal((8, self.dim))
+        x = base + 0.1 * rng.standard_normal((self.batch, self.dim))
+        return (x / np.maximum(np.abs(x).max(axis=1, keepdims=True), 1e-6)).astype(np.float32)
 
 
 class Prefetcher:

@@ -16,6 +16,20 @@ consumed in place.  :func:`redmule_matmul_plain` is the same function in
 plain PyTorch: upcast to the accumulator dtype, ``torch.matmul``, bias and
 epilogue, one cast.  It serves tensors on the CPU and is what the kernel is
 held against on the card.
+
+Two modes of the reference kernel ride on the same contraction:
+
+* **faithful accumulation** (``policy.faithful_accum``, ``paper_fp16``):
+  the accumulator is fp16 and re-rounded after every ``accum_block`` rows
+  of the reduction — the partial product of a block is an fp32 sum rounded
+  once, then added into the fp16 running sum — and the bias, the epilogue
+  and the store run in fp16 too;
+* **the fused backward epilogue**: ``deriv`` (stored like the dZ operand:
+  the x slot on "nt", the w slot on "tn") multiplies the dZ operand by
+  ``act'(deriv)`` in the accumulator dtype before the product
+  (``grad_from_output`` picks the output form of the derivative), and
+  ``bias_grad`` (on "tn") also returns ``db``, the column sums of that
+  scaled dZ over the reduction rows, accumulated per block like the GEMM.
 """
 
 from __future__ import annotations
@@ -30,6 +44,7 @@ from repro_torch.core import epilogues as epi
 from repro_torch.core import precision as prec
 from repro_torch.core import tiling
 from repro_torch.kernels import _build
+from repro_torch.kernels import ref
 
 __all__ = ["LAYOUTS", "logical_dims", "redmule_matmul_plain", "launch"]
 
@@ -69,23 +84,65 @@ def _logical(x: torch.Tensor, w: torch.Tensor, layout: str):
     return x, w
 
 
+def _deriv_scaled(dz: torch.Tensor, deriv: Optional[torch.Tensor],
+                  grad_epilogue: Optional[str], grad_from_output: bool,
+                  acc) -> torch.Tensor:
+    """``dZ * act'(deriv)`` in the accumulator dtype (``dZ`` alone without
+    a ``grad_epilogue``)."""
+    dsa = dz.to(acc)
+    if grad_epilogue is None:
+        return dsa
+    g = epi.epilogue_grad(grad_epilogue)
+    d = deriv.to(acc)
+    return dsa * (g.deriv_from_output(d) if grad_from_output else g.deriv(d))
+
+
 def redmule_matmul_plain(x: torch.Tensor, w: torch.Tensor, *,
                          policy: prec.Policy,
                          bias: Optional[torch.Tensor] = None,
                          epilogue: Optional[str] = None,
-                         layout: str = "nn") -> torch.Tensor:
+                         layout: str = "nn",
+                         deriv: Optional[torch.Tensor] = None,
+                         grad_epilogue: Optional[str] = None,
+                         grad_from_output: bool = False,
+                         bias_grad: bool = False,
+                         accum_block: Optional[int] = None):
     """``act(X @ W + bias)`` in plain PyTorch; leading dims broadcast.
 
     Operands are upcast to the accumulator dtype, multiplied with
-    ``torch.matmul``, the bias and epilogue applied in that dtype, and the
-    result cast once to ``policy.out_dtype`` — the kernel's store-once
-    contract."""
+    ``torch.matmul`` (per ``accum_block`` under faithful accumulation, see
+    the module docstring), the bias and epilogue applied in that dtype, and
+    the result cast once to ``policy.out_dtype`` — the kernel's store-once
+    contract.  With ``grad_epilogue`` / ``bias_grad`` the dZ operand is
+    first scaled by ``act'(deriv)``; ``bias_grad`` returns ``(z, db)``
+    with ``db`` the accumulator-dtype ``(K,)`` row."""
+    if policy.faithful_accum and accum_block is None:
+        M, N, K = logical_dims(x.shape, w.shape, layout)
+        accum_block = tiling.accum_block(
+            M, N, K, compute_dtype=policy.compute_dtype,
+            accum_dtype=policy.accum_dtype,
+            fused_bwd=grad_epilogue is not None or bias_grad)
     xl, wl = _logical(x, w, layout)
     acc = policy.accum_dtype
-    z = torch.matmul(xl.to(acc), wl.to(acc))
+    db = None
+    if grad_epilogue is not None or bias_grad:
+        on_x = layout == "nt"
+        dsa = _deriv_scaled(xl if on_x else wl, deriv, grad_epilogue,
+                            grad_from_output, acc)
+        if bias_grad:
+            db = (ref.faithful_row_sum(dsa, acc, accum_block)
+                  if policy.faithful_accum else dsa.sum(dim=-2))
+        ds = dsa.to(policy.compute_dtype)
+        xl, wl = (ds, wl) if on_x else (xl, ds)
+    if policy.faithful_accum:
+        z = ref.faithful_matmul(xl.to(policy.compute_dtype),
+                                wl.to(policy.compute_dtype), acc, accum_block)
+    else:
+        z = torch.matmul(xl.to(acc), wl.to(acc))
     if bias is not None:
         z = z + bias.reshape(-1).to(acc)
-    return epi.apply_epilogue(epilogue, z).to(policy.out_dtype)
+    z = epi.apply_epilogue(epilogue, z).to(policy.out_dtype)
+    return (z, db) if bias_grad else z
 
 
 def _lib() -> ctypes.CDLL:
@@ -94,7 +151,8 @@ def _lib() -> ctypes.CDLL:
         i, ll, p = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
         lib.redmule_gemm.argtypes = [
             i, i, i, p, p, p, p, i, i, i, i, i,
-            ll, ll, ll, ll, i, ll, ll, ll, ll, i, i, p]
+            ll, ll, ll, ll, i, ll, ll, ll, ll, i, i,
+            i, p, ll, ll, i, i, i, p, p]
         lib.redmule_gemm.restype = i
         lib.redmule_error_string.argtypes = [i]
         lib.redmule_error_string.restype = ctypes.c_char_p
@@ -137,12 +195,20 @@ def _vec_ok(t: torch.Tensor, batch_strides, s_row: int, s_col: int,
 
 def launch(x: torch.Tensor, w: torch.Tensor, *, policy: prec.Policy,
            tile: tiling.TileConfig, bias: Optional[torch.Tensor],
-           epilogue: Optional[str], layout: str) -> torch.Tensor:
+           epilogue: Optional[str], layout: str, accum_block: int = 0,
+           deriv: Optional[torch.Tensor] = None,
+           grad_epilogue: Optional[str] = None, grad_from_output: bool = False,
+           bias_grad: bool = False):
     """Run the CUDA kernel on CUDA operands with broadcast-compatible
-    leading dims; returns ``(*lead, M, K)`` in ``policy.out_dtype``.
+    leading dims; returns ``(*lead, M, K)`` in ``policy.out_dtype``, and
+    with ``bias_grad`` ``(z, db)``, ``db`` a ``(K,)`` row in the
+    accumulator dtype.
 
-    The caller has validated dtypes, devices and shapes and handled
-    degenerate (empty) problems."""
+    ``accum_block`` > 0 runs the faithful fp16 accumulator (re-rounded
+    every ``accum_block`` reduction rows).  ``deriv`` is read through its
+    own strides, walking exactly like the dZ operand.  The caller has
+    validated dtypes, devices and shapes and handled degenerate (empty)
+    problems."""
     lead = tuple(torch.broadcast_shapes(x.shape[:-2], w.shape[:-2]))
     M, N, K = logical_dims(x.shape, w.shape, layout)
     x, xs_o, xs_i = _collapse(x, lead)
@@ -152,7 +218,14 @@ def launch(x: torch.Tensor, w: torch.Tensor, *, policy: prec.Policy,
     ws_n, ws_k = wl.stride(-2), wl.stride(-1)
     z = torch.empty((*lead, M, K), dtype=policy.out_dtype, device=x.device)
     if bias is not None:
-        bias = bias.reshape(-1).contiguous()     # the kernel reads bias[k]
+        # the kernel reads bias[k] as fp32 holding accumulator-dtype values
+        bias = bias.reshape(-1).to(policy.accum_dtype).float().contiguous()
+    # which operand slot holds dZ: 1 = x ("nt"), 2 = w ("tn")
+    slot = 0
+    if grad_epilogue is not None or bias_grad:
+        slot = 1 if layout == "nt" else 2
+    db = (torch.empty((K,), dtype=torch.float32, device=x.device)
+          if bias_grad else None)
     try:
         tile_id = tiling.GEMM_TILES.index(tile)
     except ValueError:
@@ -166,8 +239,16 @@ def launch(x: torch.Tensor, w: torch.Tensor, *, policy: prec.Policy,
         math.prod(lead), lead[-1] if lead else 1, M, N, K,
         xs_o, xs_i, xs_m, xs_n, _vec_ok(x, (xs_o, xs_i), xs_m, xs_n, M, N),
         ws_o, ws_i, ws_n, ws_k, _vec_ok(w, (ws_o, ws_i), ws_n, ws_k, N, K),
-        epi.EPILOGUE_IDS[epilogue], torch.cuda.current_stream(x.device).cuda_stream)
+        epi.EPILOGUE_IDS[epilogue], int(accum_block),
+        None if deriv is None else deriv.data_ptr(),
+        0 if deriv is None else deriv.stride(-2),
+        0 if deriv is None else deriv.stride(-1), slot,
+        epi.EPILOGUE_IDS[grad_epilogue], int(grad_from_output),
+        None if db is None else db.data_ptr(),
+        torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(
             f"redmule_gemm launch failed: {lib.redmule_error_string(err).decode()}")
+    if bias_grad:
+        return z, db.to(policy.accum_dtype)
     return z

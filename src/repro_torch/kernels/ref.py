@@ -9,7 +9,36 @@ import torch
 from repro_torch.core import precision as prec
 from repro_torch.core import tiling
 
-__all__ = ["matmul_ref", "matmul_exact", "attention_ref"]
+__all__ = ["matmul_ref", "matmul_exact", "attention_ref", "faithful_matmul",
+           "faithful_row_sum"]
+
+
+def faithful_matmul(x: torch.Tensor, w: torch.Tensor, accum_dtype,
+                    block: int) -> torch.Tensor:
+    """``x @ w`` through a faithful accumulator: for each ``block`` of the
+    reduction, the fp32 partial product rounded to ``accum_dtype`` and
+    added into a running sum in ``accum_dtype`` (the reference kernel's
+    ``acc_ref += dot(..., preferred_element_type=fp16)``, whose dot is an
+    fp32 sum rounded once).  Leading dims broadcast."""
+    N = x.shape[-1]
+    z = None
+    for b0 in range(0, max(N, 1), block):
+        part = torch.matmul(x[..., b0:b0 + block].float(),
+                            w[..., b0:b0 + block, :].float()).to(accum_dtype)
+        z = part if z is None else (z + part).to(accum_dtype)
+    return z
+
+
+def faithful_row_sum(v: torch.Tensor, accum_dtype, block: int) -> torch.Tensor:
+    """The column sums of ``v`` (..., N, K) over N the same way: each
+    ``block`` of rows summed in fp32, rounded, added into an
+    ``accum_dtype`` running sum."""
+    N = v.shape[-2]
+    db = None
+    for b0 in range(0, max(N, 1), block):
+        part = v[..., b0:b0 + block, :].float().sum(dim=-2).to(accum_dtype)
+        db = part if db is None else (db + part).to(accum_dtype)
+    return db
 
 
 def matmul_exact(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -27,14 +56,7 @@ def matmul_ref(x: torch.Tensor, w: torch.Tensor, *, policy: prec.Policy,
     if not policy.faithful_accum:
         return torch.matmul(xc, wc).to(policy.out_dtype)
     bn = tile.bn if tile is not None else 128
-    N = x.shape[-1]
-    acc = torch.zeros((*xc.shape[:-1], wc.shape[-1]), dtype=policy.accum_dtype,
-                      device=x.device)
-    for b0 in range(0, N, bn):
-        part = torch.matmul(xc[..., b0:b0 + bn].float(),
-                            wc[b0:b0 + bn].float()).to(policy.accum_dtype)
-        acc = (acc + part).to(policy.accum_dtype)
-    return acc.to(policy.out_dtype)
+    return faithful_matmul(xc, wc, policy.accum_dtype, bn).to(policy.out_dtype)
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

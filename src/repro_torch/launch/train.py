@@ -1,18 +1,23 @@
-"""Training entry point: the LM train step and a plain training loop.
+"""Training entry point: the LM train step, the AutoEncoder use case and a
+plain training loop.
 
 Counterpart of ``repro.launch.train`` (``TrainState``, ``init_state``,
-``build_train_step`` and the LM branch of ``main`` without a checkpoint
-directory).  It runs on one device, the card by default::
+``build_train_step``, the LM branch of ``main`` without a checkpoint
+directory, and ``_ae_main``).  It runs on one device, the card by default::
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-1.3b --full \\
         --batch 4 --seq 256 --steps 3
+    PYTHONPATH=src python -m repro_torch.launch.train --arch ae --batch 16 \\
+        --steps 200            # the paper's AutoEncoder, paper_fp16
 
 Weights are random, drawn from ``--seed``; batches are the reference's
-``SyntheticLM`` stream.  ``--device cpu`` runs the plain PyTorch versions
-of the kernels.  The default arch is xlstm-1.3b (the reference's default,
-qwen3-1.7b, needs the attention backward, which is not ported yet).  The
-AutoEncoder use case, FP16 loss scaling, checkpointing, gradient
-compression / data parallelism and failure injection are not ported yet
+``SyntheticLM`` / ``SyntheticAE`` streams.  ``--device cpu`` runs the plain
+PyTorch versions of the kernels.  The default arch is xlstm-1.3b (the
+reference's default, qwen3-1.7b, needs the attention backward, which is not
+ported yet).  ``--arch ae`` trains the TinyMLPerf AutoEncoder under
+``--policy`` (default ``paper_fp16``: the RedMulE fp16 accumulator in every
+GEMM).  LM loss scaling, checkpointing, gradient compression / data
+parallelism, failure injection and the FP8 policies are not ported yet
 (ROADMAP.md): their flags are kept so a command line carries over, and
 each raises ``NotImplementedError``.
 """
@@ -21,18 +26,20 @@ from __future__ import annotations
 
 import argparse
 import time
-from typing import Any, Dict, List, NamedTuple, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import configs, resolve_device
 from repro_torch.core import engine
-from repro_torch.data import Prefetcher, SyntheticLM
-from repro_torch.models import transformer
+from repro_torch.core import precision as prec
+from repro_torch.data import Prefetcher, SyntheticAE, SyntheticLM
+from repro_torch.models import autoencoder, transformer
 from repro_torch.optim import AdamW, OptState, clip_by_global_norm, tree_leaves, tree_map
 
-__all__ = ["TrainState", "init_state", "build_train_step", "main"]
+__all__ = ["TrainState", "init_state", "build_train_step", "ae_grads",
+           "build_ae_step", "main"]
 
 _ROADMAP = "not yet ported (see ROADMAP.md, Queue A)"
 
@@ -123,6 +130,71 @@ def build_train_step(cfg, opt, rules=None, *, use_scale: bool = False,
     return step
 
 
+def ae_grads(params, x: torch.Tensor, policy: prec.Policy, *,
+             loss_scale: Optional[torch.Tensor] = None):
+    """``(mse, grads)`` of one AutoEncoder batch; with ``loss_scale`` the
+    gradients are those of ``mse * loss_scale`` (still scaled)."""
+    loss, _ = autoencoder.ae_loss(params, x, policy=policy)
+    target = loss if loss_scale is None else loss * loss_scale.to(loss.dtype)
+    grads = torch.autograd.grad(target, tree_leaves(params))
+    it = iter(grads)
+    return loss.detach(), tree_map(lambda _: next(it), params)
+
+
+def build_ae_step(opt, policy: prec.Policy, *, clip_norm: float = 1.0):
+    """``step(params, opt_state, x) -> (opt_state, mse, grad_norm)``: the
+    reference's ``_ae_main`` step (loss and gradients, global-norm
+    clipping, ``opt``); the parameters are updated in place."""
+
+    def step(params, opt_state: OptState, x: torch.Tensor):
+        loss, grads = ae_grads(params, x, policy)
+        grads, gnorm = clip_by_global_norm(grads, clip_norm)
+        updates, opt_state = opt.update(grads, opt_state, params)
+        opt.apply(params, updates)
+        return opt_state, loss, gnorm
+
+    return step
+
+
+def _ae_main(args, device: torch.device) -> Dict[str, Any]:
+    """The paper's §III-B use case: the AutoEncoder trained under
+    ``--policy`` (``paper_fp16`` by default), AdamW without warmup, clip
+    1.0, one CUDA-event time per step."""
+    policy = prec.resolve(args.policy or "paper_fp16")
+    if policy.mixed_storage:
+        raise NotImplementedError(
+            f"policy {policy.name!r} (FP8 storage) is {_ROADMAP}")
+    params = autoencoder.init_ae(seed=args.seed, device=device)
+    for p in tree_leaves(params):
+        p.requires_grad_(True)
+    opt = AdamW(lr=args.lr, warmup_steps=0)
+    opt_state = opt.init(params)
+    ds = SyntheticAE(batch=args.batch, seed=args.seed)
+    if args.instrument:
+        with engine.instrument() as events:
+            ae_grads(params, torch.from_numpy(ds.sample(0)).to(device), policy)
+        _print_instrument_summary(events)
+    step = build_ae_step(opt, policy)
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    print(f"arch=ae params={n_params} device={device} policy={policy.name} "
+          f"batch={args.batch}", flush=True)
+    history: List[Dict[str, float]] = []
+    for i in range(args.steps):
+        x = torch.from_numpy(ds.sample(i)).to(device)
+        with _StepTimer(device) as timer:
+            opt_state, loss, gnorm = step(params, opt_state, x)
+            loss, gnorm = float(loss), float(gnorm)
+        history.append({"step": i, "loss": loss, "grad_norm": gnorm,
+                        "step_ms": timer.ms})
+        if i % 10 == 0 or i == args.steps - 1:
+            print(f"[{i}] mse={loss:.4f} grad_norm={gnorm:.4f} "
+                  f"step={timer.ms:.2f} ms", flush=True)
+    if history:
+        print(f"final mse: {history[-1]['loss']:.4f}")
+    return {"arch": "ae", "device": str(device), "policy": policy.name,
+            "params": n_params, "history": history}
+
+
 def _print_instrument_summary(events) -> None:
     """Per-op engine summary and the fwd / bwd flop and byte split."""
     for op, d in engine.summarize(events).items():
@@ -181,7 +253,8 @@ def main(argv=None) -> Dict[str, Any]:
     """Train on synthetic data; returns ``{"arch", "device", "params",
     "history": [{"step", "loss", "grad_norm", "step_ms"}, ...]}``."""
     p = argparse.ArgumentParser(description=__doc__)
-    p.add_argument("--arch", default="xlstm-1.3b")
+    p.add_argument("--arch", default="xlstm-1.3b",
+                   help="an LM arch id, or 'ae' (the paper's AutoEncoder)")
     p.add_argument("--reduced", action="store_true", default=True)
     p.add_argument("--full", dest="reduced", action="store_false")
     p.add_argument("--steps", type=int, default=100)
@@ -195,11 +268,13 @@ def main(argv=None) -> Dict[str, Any]:
                    help="run one step's loss and gradients under "
                         "engine.instrument() and print the per-op GEMM "
                         "summary with the fwd/bwd split before training")
+    p.add_argument("--policy", default=None,
+                   help="precision policy for --arch ae (default paper_fp16; "
+                        "tpu_fp16, tpu_bf16 and fp32 are also accepted)")
     unported = p.add_argument_group("not yet ported (ROADMAP.md); each raises")
     unported.add_argument("--ckpt-dir", default="")
     unported.add_argument("--save-every", type=int, default=50)
     unported.add_argument("--fp16-scale", action="store_true")
-    unported.add_argument("--policy", default=None)
     unported.add_argument("--compress", default="none",
                           choices=("none", "fp16", "int8", "fp8", "fp8_e4m3",
                                    "fp8_e5m2"))
@@ -210,9 +285,8 @@ def main(argv=None) -> Dict[str, Any]:
     unported.add_argument("--result", default="")
     args = p.parse_args(argv)
 
-    for flag, what in ((args.arch == "ae", "--arch ae (the AutoEncoder use case)"),
-                       (args.fp16_scale, "--fp16-scale (dynamic loss scaling)"),
-                       (args.policy is not None, "--policy (the AE precision policy)"),
+    for flag, what in ((args.fp16_scale, "--fp16-scale (dynamic loss scaling "
+                                         "of the LM step)"),
                        (bool(args.ckpt_dir), "--ckpt-dir (checkpointing, goodput)"),
                        (args.compress != "none" or args.dp_procs > 0,
                         "--compress / --dp-procs (compressed data parallelism)"),
@@ -222,6 +296,10 @@ def main(argv=None) -> Dict[str, Any]:
             raise NotImplementedError(f"{what} is {_ROADMAP}")
 
     device = resolve_device(args.device)
+    if args.arch == "ae":
+        return _ae_main(args, device)
+    if args.policy is not None:
+        raise ValueError("--policy applies to --arch ae only")
     cfg = configs.get_reduced(args.arch) if args.reduced else configs.get(args.arch)
     opt = AdamW(lr=args.lr, warmup_steps=10)
     step = build_train_step(cfg, opt)

@@ -29,7 +29,8 @@ __all__ = ["Param", "init_tree", "stack_schema", "rmsnorm", "rope",
 
 @dataclasses.dataclass(frozen=True)
 class Param:
-    """One parameter: shape and initializer (proj | embed | zeros | ones)."""
+    """One parameter: shape and initializer (proj | he | embed | zeros |
+    ones)."""
 
     shape: Tuple[int, ...]
     init: str = "proj"
@@ -44,8 +45,8 @@ def _path_seed(seed: int, path: Tuple[str, ...]) -> int:
 def init_tree(schema: Dict[str, Any], *, seed: int, device: torch.device,
               dtype: torch.dtype) -> Dict[str, Any]:
     """Materialise a schema on ``device``: normal * fan_in^-0.5 for
-    projections, normal * 0.02 for embeddings, drawn in fp32 and cast to
-    ``dtype``."""
+    projections, normal * (2 / fan_in)^0.5 for He init, normal * 0.02 for
+    embeddings, drawn in fp32 and cast to ``dtype``."""
     gen = torch.Generator(device=device)
 
     def go(node, path):
@@ -59,7 +60,8 @@ def init_tree(schema: Dict[str, Any], *, seed: int, device: torch.device,
             if node.init == "embed":
                 return (r * 0.02).to(dtype)
             fan_in = node.shape[node.fan_in_dim] if node.shape else 1
-            return (r * fan_in ** -0.5).to(dtype)
+            scale = (2.0 / fan_in) ** 0.5 if node.init == "he" else fan_in ** -0.5
+            return (r * scale).to(dtype)
         return {k: go(v, path + (k,)) for k, v in node.items()}
 
     return go(schema, ())

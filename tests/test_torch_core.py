@@ -1,7 +1,8 @@
 """The port's precision policies, epilogues, tiles and oracles against the
 JAX package's, on the same numpy inputs.
 
-Tolerances: elementwise fp32 functions 1e-6 relative (libm differences);
+Tolerances: elementwise fp32 functions 1e-6 relative (libm differences;
+the derivatives also 1e-5 absolute, see there);
 oracles as the kernels (fp32 1e-5, fp16 2^-9, bf16 2^-7 of the largest
 reference magnitude); FP8 quantization is exact (both round to nearest
 even from the same fp32 quotient).
@@ -69,6 +70,51 @@ def test_epilogues_match_reference(name):
     assert tepi.EPILOGUE_IDS[name] > 0
     with pytest.raises(ValueError, match="unknown epilogue"):
         tepi.validate_epilogue("swish2")
+
+
+@pytest.mark.parametrize("name", sorted(jepi.EPILOGUE_GRADS))
+def test_epilogue_derivatives_match_reference(name):
+    s = np.linspace(-6, 6, 97).astype(np.float32)
+    jg, tg = jepi.epilogue_grad(name), tepi.epilogue_grad(name)
+    # gelu' = 0.5 (1 + t) + ...: where tanh saturates the sum cancels, and a
+    # one-ulp libm difference in t is then ~4e-6 absolute on values of O(1)
+    np.testing.assert_allclose(tg.deriv(torch.from_numpy(s)).numpy(),
+                               np.asarray(jg.deriv(jnp.asarray(s))),
+                               rtol=1e-6, atol=1e-5)
+    assert (tg.deriv_from_output is None) == (jg.deriv_from_output is None)
+    if tg.deriv_from_output is not None:
+        z = np.array(jepi.apply_epilogue(name, jnp.asarray(s)))
+        np.testing.assert_allclose(
+            tg.deriv_from_output(torch.from_numpy(z)).numpy(),
+            np.asarray(jg.deriv_from_output(jnp.asarray(z))), rtol=1e-6, atol=1e-6)
+    assert set(tepi.EPILOGUE_GRADS) == set(tepi.EPILOGUES)
+
+
+_REF_TILE_SHAPES = ((16, 640, 128), (640, 16, 128), (640, 4096, 128),
+                    (128, 4096, 640), (128, 4096, 128), (4096, 640, 128),
+                    (3, 5000, 7), (1000, 1000, 1000), (0, 300, 77))
+
+
+@pytest.mark.parametrize("fused_bwd", (False, True))
+@pytest.mark.parametrize("shape", _REF_TILE_SHAPES)
+def test_reference_tiles_match_reference_heuristic(shape, fused_bwd):
+    """The faithful accumulator's block is the reference's tile.bn, so the
+    heuristic copy must agree with ``repro.core.tiling.choose_tiles`` for
+    every dtype pair a policy gives it."""
+    for c, a in (("float16", "float16"), ("float16", "float32"),
+                 ("bfloat16", "float32"), ("float32", "float32")):
+        want = jtiling.choose_tiles(*shape, compute_dtype=jnp.dtype(c),
+                                    accum_dtype=jnp.dtype(a), fused_bwd=fused_bwd)
+        got = tiling.reference_tiles(*shape, compute_dtype=getattr(torch, c),
+                                     accum_dtype=getattr(torch, a),
+                                     fused_bwd=fused_bwd)
+        assert (got.bm, got.bn, got.bk) == (want.bm, want.bn, want.bk), (c, a)
+        assert tiling.accum_block(*shape, compute_dtype=getattr(torch, c),
+                                  accum_dtype=getattr(torch, a),
+                                  fused_bwd=fused_bwd) == want.bn
+        assert tiling.vmem_bytes(got, getattr(torch, c), getattr(torch, a),
+                                 fused_bwd=fused_bwd) == jtiling.vmem_bytes(
+            want, jnp.dtype(c), jnp.dtype(a), fused_bwd=fused_bwd)
 
 
 def test_tile_rule_fits_shared_memory():

@@ -256,3 +256,106 @@ def test_decode_event_parity(reduced_pair):
     assert all(e.spec.op.startswith("serve_decode/") for e in tev)
     ragged = [e for e in tev if e.spec.op.endswith("grouped_matmul")]
     assert {e.spec.valid_rows for e in ragged} == {(9 + 5) * tcfg.n_kv_heads}
+
+
+# --------------------------------------------------------------------- #
+# linear's backward: one pass (fused_bwd_epilogue) and two-pass fallback
+# --------------------------------------------------------------------- #
+@pytest.fixture
+def two_pass_backend():
+    """The hopper kernels behind a backend without ``fused_bwd_epilogue``:
+    the engine's two-pass fallback."""
+    te.register_backend("hopper_two_pass", te.get_backend("hopper").fn,
+                        capabilities=("fused_epilogue", "tiled", "layouts"))
+    yield "hopper_two_pass"
+    te.unregister_backend("hopper_two_pass")
+
+
+def _event_key(e):
+    s = e.spec
+    return (s.op.split("/")[-1], s.layout, s.m, s.n, s.k, s.batch,
+            s.grad_epilogue, s.grad_mode, s.fused_bwd, s.fused_bias_grad,
+            s.flops, s.bytes)
+
+
+LIN_TOL = {"fp32": 1e-5, "paper_fp16": 2e-2}
+
+
+@pytest.mark.parametrize("path", ("one_pass", "two_pass"))
+@pytest.mark.parametrize("policy", ("fp32", "paper_fp16"))
+@pytest.mark.parametrize("activation", (None, "relu", "tanh", "gelu"))
+def test_linear_backward_matches_reference(activation, policy, path,
+                                           two_pass_backend):
+    """Grads of x, w and b against ``repro.core.engine.linear`` under
+    ``jax.grad``; the events against the reference's capable backend
+    ("interpret", one pass) or its xla fallback (two-pass)."""
+    rng = np.random.default_rng([3, ("fp32", "paper_fp16").index(policy),
+                                 path == "one_pass"])
+    x = rng.standard_normal((2, 5, 24)).astype(np.float32)
+    w = (rng.standard_normal((24, 12)) * 24 ** -0.5).astype(np.float32)
+    b = rng.standard_normal(12).astype(np.float32)
+    r = rng.standard_normal((2, 5, 12)).astype(np.float32)
+    jbk = "interpret" if path == "one_pass" else "xla"
+    tbk = "hopper" if path == "one_pass" else two_pass_backend
+
+    def jloss(p):
+        z = je.linear(p["x"], p["w"], p["b"], activation=activation,
+                      policy=policy, backend=jbk)
+        return jnp.sum(z.astype(jnp.float32) * r)
+
+    jp = {k: jnp.asarray(v) for k, v in (("x", x), ("w", w), ("b", b))}
+    with je.instrument() as jev:
+        jax.eval_shape(jax.grad(jloss), jp)
+    want = jax.grad(lambda p: je.linear(
+        p["x"], p["w"], p["b"], activation=activation, policy=policy,
+        backend="xla").astype(jnp.float32).__mul__(r).sum())(jp)
+    tp = {k: torch.from_numpy(v).requires_grad_(True)
+          for k, v in (("x", x), ("w", w), ("b", b))}
+    with te.instrument() as tev:
+        z = te.linear(tp["x"], tp["w"], tp["b"], activation=activation,
+                      policy=policy, backend=tbk)
+        (z.float() * torch.from_numpy(r)).sum().backward()
+    for k in ("x", "w", "b"):
+        assert tp[k].grad.dtype == torch.float32
+        _close(tp[k].grad, want[k], LIN_TOL[policy])
+    assert [_event_key(e) for e in tev] == [_event_key(e) for e in jev]
+    ops = [e.spec.op for e in tev]
+    if path == "one_pass":
+        assert not any(te.is_pass_op(o) for o in ops)
+        assert tev[-1].spec.fused_bias_grad
+    else:
+        assert "linear_dbias" in ops
+        assert ("linear_dact" in ops) == (activation is not None)
+
+
+def test_faithful_dispatches_carry_the_reference_block():
+    """Under paper_fp16 each dispatch rounds at the reference's tile.bn:
+    at 4096 rows the dW reduction spans 4 blocks of 1024 (the fused
+    backward shrinks the reference's VMEM budget)."""
+    x = np.random.default_rng(4).standard_normal((4096, 640)).astype(np.float32)
+    w = np.zeros((640, 128), np.float32)
+    b = np.zeros(128, np.float32)
+    jp = {"x": jnp.asarray(x), "w": jnp.asarray(w), "b": jnp.asarray(b)}
+    with je.instrument() as jev:
+        jax.eval_shape(jax.grad(lambda p: je.linear(
+            p["x"], p["w"], p["b"], policy="paper_fp16",
+            backend="interpret").astype(jnp.float32).sum()), jp)
+    tw = torch.zeros(640, 128, requires_grad=True)
+    tb = torch.zeros(128, requires_grad=True)
+    with te.instrument() as tev:
+        te.linear(torch.from_numpy(x), tw, tb, policy="paper_fp16").float().sum().backward()
+    assert [e.spec.accum_block for e in tev] == [e.spec.tile.bn for e in jev] \
+        == [640, 128, 1024]
+    with te.instrument() as ev32:
+        te.linear(torch.zeros(4, 8), torch.zeros(8, 2), torch.zeros(2),
+                  policy="fp32")
+    assert ev32[0].spec.accum_block is None     # fp32 accumulation
+
+
+def test_fused_bwd_capability_requires_layouts():
+    assert te.backend_supports("hopper", "fused_bwd_epilogue")
+    with pytest.raises(ValueError, match="requires 'layouts'"):
+        te.register_backend("bad", lambda *a, **k: None,
+                            capabilities=("fused_bwd_epilogue",))
+    assert te.is_pass_op("linear_dact") and te.is_pass_op("x/linear_dbias")
+    assert te.is_backward_op("linear_dact") and not te.is_pass_op("matmul_dw")

@@ -13,6 +13,8 @@ which the output rounding may differ by one ulp): fp32 1e-5, fp16 2^-9,
 bf16 2^-7, each relative to the largest reference magnitude.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -20,6 +22,7 @@ import torch
 import jax.numpy as jnp
 
 from repro.core import precision as jprec
+from repro.core import tiling as jtiling
 from repro.kernels import ops as jops
 from repro.kernels.chunked_linear_attention import chunked_linear_attention_pallas
 from repro.kernels.flash_attention import flash_attention_pallas
@@ -167,13 +170,29 @@ def test_vector_load_rule():
 
 
 def test_plain_gemm_rejects_later_slice_features():
+    # FP8 operands (upcast on load) are the next slice; the fused backward
+    # keeps the reference kernel's contract (transpose layouts, bias_grad
+    # on "tn", deriv shaped like dZ)
     x = torch.ones(4, 8)
-    with pytest.raises(NotImplementedError, match="faithful_accum"):
-        tops.redmule_matmul(x.half(), x.t().half(), policy=tprec.PAPER_FP16)
-    with pytest.raises(NotImplementedError, match="backward"):
-        tops.redmule_matmul(x, x.t(), policy=tprec.FP32, bias_grad=True)
-    with pytest.raises(NotImplementedError, match="FP8"):
+    with pytest.raises(NotImplementedError, match="FP8.*next slice"):
         tops.redmule_matmul(x.to(torch.float8_e4m3fn), x.t(), policy=tprec.FP32)
+    with pytest.raises(NotImplementedError, match="FP8"):
+        tops.redmule_matmul_batched(x[None].to(torch.float8_e5m2), x.t()[None],
+                                    policy=tprec.FP32)
+    with pytest.raises(ValueError, match="tn"):
+        tops.redmule_matmul(x, x.t(), policy=tprec.FP32, bias_grad=True)
+    with pytest.raises(ValueError, match="transpose-layout"):
+        tops.redmule_matmul(x, x.t(), policy=tprec.FP32, deriv=x,
+                            grad_epilogue="relu")
+    with pytest.raises(ValueError, match="shaped like the dZ operand"):
+        tops.redmule_matmul(x, x, policy=tprec.FP32, layout="nt",
+                            deriv=x.t(), grad_epilogue="relu")
+    with pytest.raises(ValueError, match="output-form"):
+        tops.redmule_matmul(x, x, policy=tprec.FP32, layout="nt", deriv=x,
+                            grad_epilogue="gelu", grad_from_output=True)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        tops.redmule_matmul(x.half(), x.t().half(), policy=tprec.PAPER_FP16,
+                            accum_block=48)
     with pytest.raises(ValueError, match="contraction mismatch"):
         tops.redmule_matmul(x, x, policy=tprec.FP32)
 
@@ -284,3 +303,134 @@ def test_chunked_linear_attention_zero_decay_padding_is_inert():
                                            chunk=16)
     torch.testing.assert_close(o2[:, :24], o1, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(s2, s1, rtol=1e-5, atol=1e-5)
+
+
+# --------------------------------------------------------------------- #
+# Kernel 1's faithful fp16 accumulator and fused backward epilogue
+# --------------------------------------------------------------------- #
+# The reference kernel under explicit tiles whose bn is smaller than N, so
+# the faithful accumulator re-rounds several times; the port's plain
+# version gets the same block as ``accum_block``.  Tolerances: faithful
+# fp16 one fp16 ulp (2^-10 relative) per reduction block, relative to max
+# |z|; fp32 accumulation 1e-5; a transcendental derivative under fp16
+# compute the reference's own 2e-2 (tests/test_bwd_fused.py: both sides
+# round act' and ds at different points).
+REF_TILE = jtiling.TileConfig(bm=16, bn=128, bk=128)
+BWD_POLICIES = ("paper_fp16", "tpu_fp16", "fp32")
+
+
+def _grad_policies(name: str):
+    """The backward dispatches' policy in both packages: the output held in
+    the accumulator dtype (the engines' "+grad" policy)."""
+    jp, tp = jprec.resolve(name), tprec.resolve(name)
+    return (dataclasses.replace(jp, name=jp.name + "+grad",
+                                output_dtype=jp.accum_dtype),
+            dataclasses.replace(tp, name=tp.name + "+grad",
+                                output_dtype=tp.accum_dtype))
+
+
+def _bwd_tol(policy: str, act, n_blocks: int) -> float:
+    if act not in (None, "relu") and policy != "fp32":
+        return 2e-2
+    if policy == "paper_fp16":
+        return n_blocks * 2.0 ** -10
+    return 1e-5
+
+
+@pytest.mark.parametrize("bias", (False, True))
+@pytest.mark.parametrize("layout", ("nn", "nt", "tn"))
+def test_plain_faithful_gemm_matches_interpret_kernel(layout, bias):
+    rng = np.random.default_rng([7, ("nn", "nt", "tn").index(layout), bias])
+    M, N, K = 13, 600, 21                  # N: 5 blocks of 128, ragged tail
+    x, w = _stored(rng, layout, M, N, K)
+    b = rng.standard_normal(K).astype(np.float32) if bias else None
+    (jx, tx), (jw, tw) = _pair(x, "paper_fp16"), _pair(w, "paper_fp16")
+    want = jops.redmule_matmul(jx, jw, policy=jprec.PAPER_FP16, tile=REF_TILE,
+                               bias=None if b is None else jnp.asarray(b),
+                               layout=layout, interpret=True)
+    got = tops.redmule_matmul(tx, tw, policy=tprec.PAPER_FP16,
+                              bias=None if b is None else torch.from_numpy(b),
+                              layout=layout, accum_block=128)
+    assert got.dtype == torch.float16
+    _close(got, want, _bwd_tol("paper_fp16", None, 5))
+
+
+def test_plain_faithful_default_block_is_the_reference_tile():
+    # no tile on either side: the reference picks bn = 2048 for N = 2600,
+    # and so does the port's default accum_block (two rounding blocks)
+    rng = np.random.default_rng(8)
+    x = rng.standard_normal((8, 2600)).astype(np.float32)
+    w = rng.standard_normal((2600, 16)).astype(np.float32)
+    (jx, tx), (jw, tw) = _pair(x, "paper_fp16"), _pair(w, "paper_fp16")
+    want = jops.redmule_matmul(jx, jw, policy=jprec.PAPER_FP16, interpret=True)
+    got = tops.redmule_matmul(tx, tw, policy=tprec.PAPER_FP16)
+    _close(got, want, _bwd_tol("paper_fp16", None, 2))
+    # a single rounding of the whole sum is a different function here
+    one = trm.redmule_matmul_plain(tx, tw, policy=tprec.PAPER_FP16,
+                                   accum_block=2624)
+    assert not torch.equal(one, got)
+
+
+def test_plain_faithful_batched_gemm_matches_interpret_kernel():
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal((3, 13, 300)).astype(np.float32)
+    w = rng.standard_normal((3, 300, 21)).astype(np.float32)
+    (jx, tx), (jw, tw) = _pair(x, "paper_fp16"), _pair(w, "paper_fp16")
+    want = jops.redmule_matmul_batched(jx, jw, policy=jprec.PAPER_FP16,
+                                       tile=REF_TILE, interpret=True)
+    got = tops.redmule_matmul_batched(tx, tw, policy=tprec.PAPER_FP16,
+                                      accum_block=128)
+    _close(got, want, _bwd_tol("paper_fp16", None, 3))
+
+
+@pytest.mark.parametrize("policy", BWD_POLICIES)
+def test_plain_bias_grad_matches_interpret_kernel(policy):
+    rng = np.random.default_rng([10, BWD_POLICIES.index(policy)])
+    M, N, K = 13, 600, 21                  # the reduction N is the batch
+    x, dz = _stored(rng, "tn", M, N, K)
+    jp, tp = _grad_policies(policy)
+    (jx, tx), (jw, tw) = _pair(x, policy), _pair(dz, policy)
+    want_z, want_db = jops.redmule_matmul(jx, jw, policy=jp, tile=REF_TILE,
+                                          layout="tn", bias_grad=True,
+                                          interpret=True)
+    got_z, got_db = tops.redmule_matmul(tx, tw, policy=tp, layout="tn",
+                                        bias_grad=True, accum_block=128)
+    assert got_z.dtype == got_db.dtype == tp.accum_dtype
+    tol = _bwd_tol(policy, None, 5)
+    _close(got_z, want_z, tol)
+    _close(got_db, want_db, tol)
+
+
+_DERIVS = (("relu", True), ("relu", False), ("tanh", True), ("tanh", False),
+           ("gelu", False), ("silu", False))
+
+
+@pytest.mark.parametrize("act,from_output", _DERIVS)
+@pytest.mark.parametrize("layout", ("nt", "tn"))
+@pytest.mark.parametrize("policy", BWD_POLICIES)
+def test_plain_fused_bwd_deriv_matches_interpret_kernel(policy, layout, act,
+                                                        from_output):
+    """``deriv`` scales dZ (the x slot on "nt", the w slot on "tn") by
+    act'; on "tn" the same dispatch also returns db."""
+    rng = np.random.default_rng([11, BWD_POLICIES.index(policy),
+                                 layout == "tn", _DERIVS.index((act, from_output))])
+    M, N, K = (13, 300, 21) if layout == "tn" else (13, 21, 300)
+    x, w = _stored(rng, layout, M, N, K)
+    d = rng.standard_normal(x.shape if layout == "nt" else w.shape)
+    if from_output and act == "tanh":
+        d = np.tanh(d)                     # an output of tanh
+    d = d.astype(np.float32)
+    jp, tp = _grad_policies(policy)
+    (jx, tx), (jw, tw), (jd, td) = (_pair(x, policy), _pair(w, policy),
+                                    _pair(d, policy))
+    bias_grad = layout == "tn"
+    kw = dict(layout=layout, grad_epilogue=act, grad_from_output=from_output,
+              bias_grad=bias_grad)
+    want = jops.redmule_matmul(jx, jw, policy=jp, tile=REF_TILE, deriv=jd,
+                               interpret=True, **kw)
+    got = tops.redmule_matmul(tx, tw, policy=tp, deriv=td, accum_block=128,
+                              **kw)
+    want, got = (want, got) if bias_grad else ((want,), (got,))
+    tol = _bwd_tol(policy, act, -(-N // 128))
+    for g, w_ in zip(got, want):
+        _close(g, w_, tol)

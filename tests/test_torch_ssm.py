@@ -273,8 +273,13 @@ def test_checkpoint_tags_recompute_events_and_paused_suppresses():
 def test_backwards_of_later_slices_raise():
     x = torch.randn(2, 4, 8, requires_grad=True)
     w = torch.randn(8, 8)
-    with pytest.raises(NotImplementedError, match="linear"):
-        te.linear(x, w, torch.zeros(8), activation="gelu", policy="fp32")
+    # linear with an epilogue differentiates now (the fused backward)
+    z = te.linear(x, w, torch.zeros(8), activation="gelu", policy="fp32")
+    (gx,) = torch.autograd.grad(z.sum(), x)
+    xr = x.detach().requires_grad_(True)
+    (want,) = torch.autograd.grad(
+        torch.nn.functional.gelu(xr @ w, approximate="tanh").sum(), xr)
+    torch.testing.assert_close(gx, want, rtol=1e-5, atol=1e-5)
     with pytest.raises(NotImplementedError, match="grouped_matmul"):
         te.grouped_matmul(x[None], w[None].expand(2, 8, 8), policy="fp32")
     q = torch.randn(1, 2, 8, 16, requires_grad=True)

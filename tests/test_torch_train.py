@@ -285,7 +285,8 @@ def test_full_width_config_matches_reference():
 
 
 def test_train_unported_paths_raise():
-    for argv in (["--arch", "ae"], ["--fp16-scale"], ["--ckpt-dir", "x"],
+    for argv in (["--arch", "ae", "--policy", "mixed_fp8_e4m3"],
+                 ["--fp16-scale"], ["--ckpt-dir", "x"],
                  ["--compress", "fp8"], ["--dp-procs", "2"], ["--fail-step", "3"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ttrain.main(["--device", "cpu", *argv])
