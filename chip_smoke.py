@@ -14,11 +14,13 @@ Phases, any failure exits non-zero:
    AutoEncoder at batch 16 and 4096), with the tolerance printed beside
    the error: the bf16 / fp16 GEMM (kernels 1 and 2), its fp32 route in nn
    / nt / tn, kernel 1's faithful fp16 accumulator and fused backward
-   (deriv, dW + db) on every route, flash attention (kernel 3) and the
-   chunked linear-attention sweep (kernel 4: the training shape, a ragged
-   dk != dv shape, fp32 input).  Each kernel, its plain version and — where
-   one exists — one PyTorch library call for the same function are timed
-   with CUDA events, and the kernel alone with torch.profiler;
+   (deriv, dW + db) on every route, FP8 storage upcast on load in kernels
+   1 and 2 (each FP8 launch also bitwise against the same launch on
+   pre-widened fp16 operands), flash attention (kernel 3) and the chunked
+   linear-attention sweep (kernel 4: the training shape, a ragged dk != dv
+   shape, fp32 input).  Each kernel, its plain version and — where one
+   exists — one PyTorch library call for the same function are timed with
+   CUDA events, and the kernel alone with torch.profiler;
 3. **serve** — every kernel's launch count is set to 0, then
    ``repro_torch.launch.serve`` serves qwen3-1.7b at full width (random
    weights from a seed): 4 requests, prompt 128, 16 new tokens; the counts
@@ -45,7 +47,19 @@ Phases, any failure exits non-zero:
    profiled, the loss-scaled example runs 200 steps, and one step is held
    against the CPU plain path at batch 16 and at batch 4096 (where the dW
    reductions span 2 to 4 rounding blocks);
-6. **report** — the card (``nvidia-smi``), a ``{"kernels": [...]}`` line,
+6. **ae8** — the same entry point under FP8 storage: 200
+   ``mixed_fp8_e4m3`` steps at batch 16 (the mse must fall to the
+   reference's level), 3 at batch 4096 and 3 ``mixed_fp8_e5m2`` steps,
+   each with its own counts (30 kernel-1 launches a step, all FP8, none
+   fused-backward); one profiled step; one step at batch 16 and 4096 held
+   against the CPU plain path, with BatchNorm in float64 on both sides and
+   as the path runs it, each bound beside two controls that must fail it;
+7. **serve8** — qwen3-1.7b at full width under ``mixed_fp8_e4m3``:
+   ``launch.serve.generate`` of 4 x (128 + 16) with the counts set to 0
+   (the structural 2260 / 896 / 112 launches, every GEMM launch FP8);
+   one prefill and one decode step timed and profiled; a two-layer cut
+   (prefill, and a decode step from one cache) against the CPU plain path;
+8. **report** — the card (``nvidia-smi``), a ``{"kernels": [...]}`` line,
    and last ``{"ok": true, "device": {...}}``.
 
 Everything is also written to ``chiprun_out/chip_smoke.json``.  It needs
@@ -66,12 +80,18 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor-core peak
+FP8_FLOPS = 1979e12         # H100 SXM dense fp8 tensor-core peak
 FP32_FLOPS = 67e12          # H100 SXM fp32 outside the tensor cores
 ARCH, BATCH, PROMPT, GEN, SEED = "qwen3-1.7b", 4, 128, 16, 0
 # the training path: xlstm-1.3b at full width
 T_ARCH, T_BATCH, T_SEQ, T_STEPS = "xlstm-1.3b", 4, 256, 3
 # the AutoEncoder path: the paper's use case at its published width
 AE_BATCH, AE_STEPS, AE_BIG = 16, 200, 4096
+# the FP8 AE step with BatchNorm in float64 on both sides, card vs CPU:
+# two fp16 ulps of the largest gradient
+AE8_STATS_TOL = 2.0 ** -9
+# the serve8 two-layer cut, card vs CPU plain: four fp16 ulps of max
+SERVE8_TOL = 2.0 ** -8
 
 
 def _card() -> str:
@@ -347,6 +367,199 @@ def kernel1_mode_checks(log, g):
     ]
 
 
+def fp8_kernel_checks(log, g):
+    """FP8 storage, upcast on load, in kernels 1 and 2 (the mixed_fp8_*
+    policies) at the ae8 and serve8 paths' shapes.  Each launch is held
+    two ways: **bitwise** against the same kernel on the operands widened
+    to fp16 first (the reference's ``operand_dtypes`` contract: the bytes
+    change, the values do not; both launches get the same rounding block),
+    and against the plain version on the card.  Returns the runs to time.
+
+    Tolerances against the plain version: the faithful fp16 accumulator
+    one fp16 ulp (2^-10 of max) per rounding step — each reduction block,
+    plus the fused derivative's rounding — as in the paper_fp16 checks; an
+    fp16 store after fp32 accumulation two ulps (2^-9); fp32 stores after
+    fp32 accumulation 1e-5 (summation order only); a transcendental
+    derivative 2e-2 (the reference's)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.core import precision as prec
+    from repro_torch.core import tiling
+    from repro_torch.core.engine import _grad_policy
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import redmule_matmul as rm
+
+    dev = torch.device("cuda")
+    E4, E5 = torch.float8_e4m3fn, torch.float8_e5m2
+    e4, e5 = prec.MIXED_FP8_E4M3, prec.MIXED_FP8_E5M2
+    g4, g5 = _grad_policy(e4), _grad_policy(e5)
+    s4 = dataclasses.replace(e4, name=e4.name + "_scores",
+                             output_dtype=torch.float32, faithful_accum=False)
+    ulp = 2.0 ** -10
+
+    def q(*shape, dtype=E4):
+        """A random operand quantized per tensor, as the engine does."""
+        return prec.quantize_fp8(torch.randn(shape, generator=g, device=dev),
+                                 dtype)[0]
+
+    launched = set()
+
+    def both(name, x, w, policy, tol, *, batched=False, **kw):
+        fn = ops.redmule_matmul_batched if batched else ops.redmule_matmul
+        if policy.blockwise_accum and "accum_block" not in kw:
+            M, N, K = rm.logical_dims(x.shape, w.shape, kw.get("layout", "nn"))
+            kw["accum_block"] = tiling.accum_block(
+                M, N, K, compute_dtype=torch.float16, accum_dtype=torch.float16,
+                fused_bwd=bool(kw.get("grad_epilogue") or kw.get("bias_grad")),
+                x_dtype=x.dtype, w_dtype=w.dtype)
+        got = fn(x, w, policy=policy, **kw)
+        launched.add((x.dtype, w.dtype, policy.out_dtype, bool(
+            kw.get("accum_block") or kw.get("grad_epilogue") or kw.get("bias_grad"))))
+        wide = fn(x.half(), w.half(), policy=policy, **kw)
+        want = rm.redmule_matmul_plain(x, w, policy=policy, **kw)
+        pairs = zip(got, wide) if kw.get("bias_grad") else ((got, wide),)
+        same = all(torch.equal(a, b) for a, b in pairs)
+        log.append({"check": name + ": FP8 == pre-widened fp16 launch",
+                    "bitwise": same, "ok": same})
+        print(f"[check] {name}: FP8 vs pre-widened fp16 launch "
+              f"{'bitwise equal' if same else 'DIFFER'}", flush=True)
+        if not same:
+            raise AssertionError(f"{name}: the FP8 launch differs from the "
+                                 "pre-widened fp16 launch")
+        if kw.get("bias_grad"):
+            _check(name + " db", got[1], want[1], tol, log)
+            return _check(name, got[0], want[0], tol, log)
+        return _check(name, got, want, tol, log)
+
+    # the AutoEncoder under mixed_fp8_e4m3 (faithful): forward E4M3 x E4M3,
+    # dX E5M2 dZ x E4M3 W ("nt"), dW E4M3 X x E5M2 dZ ("tn"), batch 16 and
+    # 4096 (the dW reduction over 4096 rows spans 2 blocks of 2048)
+    B, d_in, d_h = 16, 640, 128
+    x16, w0 = q(B, d_in), q(d_in, d_h)
+    both("fp8 e4m3 nn AE fc0 M=16 N=640 K=128", x16, w0, e4, 2 * ulp)
+    both("fp8 e5m2 x e4m3 nt dX AE fc0 M=16 N=128 K=640", q(B, d_h, dtype=E5),
+         w0, g4, 2 * ulp, layout="nt")
+    both("fp8 e4m3 x e5m2 tn dW AE fc0 M=640 N=16 K=128", x16,
+         q(B, d_h, dtype=E5), g4, 2 * ulp, layout="tn")
+    xb, dzb = q(4096, d_in), q(4096, d_h, dtype=E5)
+    both("fp8 e4m3 x e5m2 tn dW AE fc0 M=640 N=4096 K=128 (2 blocks)", xb, dzb,
+         g4, 3 * ulp, layout="tn")
+    # the 8-wide bottleneck: extents of 8 take the scalar (unvectorised) load
+    w4, w5 = q(d_h, 8), q(8, d_h)
+    both("fp8 e4m3 nn AE fc4 M=16 N=128 K=8 (scalar w)", q(B, d_h), w4, e4,
+         2 * ulp)
+    both("fp8 e4m3 nn AE fc5 M=16 N=8 K=128 (scalar x)", q(B, 8), w5, e4,
+         2 * ulp)
+    both("fp8 e5m2 x e4m3 nt dX AE fc4 M=16 N=8 K=128", q(B, 8, dtype=E5), w4,
+         g4, 2 * ulp, layout="nt")
+    both("fp8 e4m3 x e5m2 tn dW AE fc5 M=8 N=16 K=128", q(B, 8),
+         q(B, d_h, dtype=E5), g4, 2 * ulp, layout="tn")
+    # unaligned: a view one byte into its storage, odd strides
+    xu = q(B + 1, d_in + 3)[1:, 3:]
+    both("fp8 e4m3 nn unaligned view M=16 N=640 K=128", xu, w0, e4, 2 * ulp)
+    # the fused backward on FP8 dZ: act' on load (nt, tn) and db
+    dzx, dzw = q(B, d_h, dtype=E5), q(4096, d_h, dtype=E5)
+    dder = (torch.randn(B, d_h, generator=g, device=dev)).half()
+    wder = (torch.randn(4096, d_h, generator=g, device=dev)).half()
+    both("fp8 e5m2 x e4m3 nt dX deriv relu M=16 N=128 K=640", dzx, w0, g4,
+         2 * ulp, layout="nt", deriv=dder.relu(), grad_epilogue="relu",
+         grad_from_output=True)
+    both("fp8 e4m3 x e5m2 tn dW+db deriv gelu M=640 N=4096 K=128", xb, dzw, g4,
+         2e-2, layout="tn", deriv=wder, grad_epilogue="gelu", bias_grad=True)
+    # mixed_fp8_e5m2 (fp32 accumulator): E5M2 x E5M2, fp16 forward, fp32 grads
+    x5, w5b = q(B, d_in, dtype=E5), q(d_in, d_h, dtype=E5)
+    err_e5 = both("fp8 e5m2 nn AE fc0 M=16 N=640 K=128 (fp32 acc)", x5, w5b, e5,
+                  2 * ulp)
+    both("fp8 e5m2 nt dX AE fc0 M=16 N=128 K=640 (fp32 out)",
+         q(B, d_h, dtype=E5), w5b, g5, 1e-5, layout="nt")
+    both("fp8 e5m2 tn dW AE fc0 M=640 N=4096 K=128 (fp32 out)",
+         q(4096, d_in, dtype=E5), q(4096, d_h, dtype=E5), g5, 1e-5, layout="tn")
+
+    # qwen3-1.7b serving under mixed_fp8_e4m3: the tied head ("nt"), the
+    # prefill projections, and kernel 2's decode scores (fp32 out) and PV
+    d, V, ff, hq, hkv, hd = 2048, 151936, 6144, 16, 8, 128
+    T = PROMPT + GEN
+    x_dec, emb = q(BATCH, d), q(V, d)
+    err_head = both("fp8 e4m3 nt tied head M=4 N=2048 K=151936", x_dec, emb, e4,
+                    2 * ulp, layout="nt")
+    both("fp8 e4m3 nn wqkv prefill M=128 N=2048 K=4096", q(PROMPT, d),
+         q(d, (hq + 2 * hkv) * hd), e4, 2 * ulp)
+    both("fp8 e4m3 nn w_out prefill M=128 N=6144 K=2048 (3 blocks)",
+         q(PROMPT, ff), q(ff, d), e4, 4 * ulp)
+    kc, qt = q(BATCH * hkv, T, hd), q(BATCH * hkv, hd, hq // hkv)
+    err_sc = both("fp8 e4m3 batched decode scores B=32 M=144 N=128 K=2 "
+                  "(fp32 out)", kc, qt, s4, 2 * ulp, batched=True)
+    p8, v8 = q(BATCH, hkv, hq // hkv, 1, T), q(BATCH, hkv, 1, T, hd)
+    both("fp8 e4m3 batched decode PV B=4x8x2 M=1 N=144 K=128 (V broadcast)",
+         p8, v8, e4, 2 * ulp, batched=True)
+    # the kernel's compiled pairs are what the Python side declares: each
+    # declared pair launched above, and an undeclared one fails in the
+    # kernel's own dispatch (it is never widened)
+    same = launched == rm.FP8_KERNELS
+    log.append({"check": "FP8 pairs launched == FP8_KERNELS", "ok": same})
+    if not same:
+        raise AssertionError(f"FP8 pairs launched {sorted(map(str, launched))} "
+                             f"differ from FP8_KERNELS")
+    try:
+        ops.redmule_matmul(x5, w5b, policy=e4)
+    except RuntimeError as e:
+        log.append({"check": "undeclared FP8 pair fails", "ok": True})
+        print(f"[check] undeclared FP8 pair fails: {e}"[:200], flush=True)
+    else:
+        raise AssertionError("an undeclared FP8 pair (e5m2 x e5m2 -> fp16 "
+                             "faithful forward) did not fail")
+    torch.cuda.synchronize()
+
+    src = "src/repro_torch/csrc/redmule_matmul.cu"
+
+    def bound(M, N, K, out_bytes, batch=1, w_batch=None):
+        # FP8 operands at one byte per element; FP8 tensor-core peak
+        wb = batch if w_batch is None else w_batch
+        return _bound_ms(batch * M * N + wb * N * K + batch * M * K * out_bytes,
+                         2 * batch * M * N * K, FP8_FLOPS)
+
+    head_blk = tiling.accum_block(BATCH, d, V, compute_dtype=torch.float16,
+                                  accum_dtype=torch.float16, x_dtype=E4,
+                                  w_dtype=E4)
+    return [
+        dict(name="redmule_matmul (FP8 e4m3, faithful)", group="redmule_gemm",
+             counter=(ops.redmule_matmul, "launches_fp8"),
+             paths=("serve8", "ae8", "ae8_b4096"), source=src,
+             replaces="src/repro/kernels/redmule_matmul.py:289", err=err_head,
+             bound=bound(BATCH, d, V, 2),
+             shape="nt tied head M=4 N=2048 K=151936, e4m3 x e4m3 -> fp16, "
+                   "faithful (1 block)",
+             kernel=lambda: ops.redmule_matmul(x_dec, emb, policy=e4, layout="nt",
+                                               accum_block=head_blk),
+             plain=lambda: rm.redmule_matmul_plain(x_dec, emb, policy=e4,
+                                                   layout="nt",
+                                                   accum_block=head_blk),
+             library=lambda: torch.matmul(x_dec.half(), emb.half().t())),
+        dict(name="redmule_matmul (FP8 e5m2, fp32 accumulator)",
+             group="redmule_gemm", counter=(ops.redmule_matmul, "launches_fp8"),
+             paths=("ae8_e5m2",), source=src,
+             replaces="src/repro/kernels/redmule_matmul.py:289", err=err_e5,
+             bound=bound(B, d_in, d_h, 2),
+             shape="AE fc0 forward nn M=16 N=640 K=128, e5m2 x e5m2 -> fp16",
+             kernel=lambda: ops.redmule_matmul(x5, w5b, policy=e5),
+             plain=lambda: rm.redmule_matmul_plain(x5, w5b, policy=e5),
+             library=lambda: torch.matmul(x5.half(), w5b.half())),
+        dict(name="redmule_matmul_batched (FP8 e4m3, decode scores)",
+             group="redmule_gemm",
+             counter=(ops.redmule_matmul_batched, "launches_fp8"),
+             paths=("serve8",), source=src,
+             replaces="src/repro/kernels/redmule_matmul.py:478", err=err_sc,
+             bound=bound(T, hd, hq // hkv, 4, batch=BATCH * hkv),
+             shape="decode scores B=32 M=144 N=128 K=2, e4m3 x e4m3 -> fp32, "
+                   "fp16 accumulator",
+             kernel=lambda: ops.redmule_matmul_batched(kc, qt, policy=s4),
+             plain=lambda: rm.redmule_matmul_plain(kc, qt, policy=s4),
+             library=lambda: torch.matmul(kc.half(), qt.half()).float()),
+    ]
+
+
 def kernel_phase(log):
     """Each kernel vs its plain version at the main path's shapes; times."""
     import torch
@@ -600,6 +813,7 @@ def kernel_phase(log):
              library=lambda: torch.matmul(qe, st)),
     ]
     runs += kernel1_mode_checks(log, g)
+    runs += fp8_kernel_checks(log, g)
     kernels = []
     for r in runs:
         # ms: CUDA events around back-to-back calls (host launch cost
@@ -928,6 +1142,106 @@ def _ae_step_parity(log, batch: int):
             "spread_loss": spread_loss, "spread_grad": spread_g}
 
 
+def _ae8_step_parity(log, batch: int):
+    """One mixed_fp8_e4m3 step (loss and gradients) at ``batch``, the card
+    against the CPU plain path, from the same parameters and data.
+
+    Renumbering hidden units (the paper_fp16 spread) moves nothing here:
+    the FP8 products sum exactly.  What moves the step is BatchNorm's fp32
+    reductions over the batch (its statistics, and their sums in the
+    backward): another summation order there moves an activation or a
+    cotangent across an E4M3 / E5M2 rounding boundary, and at large batch
+    that moves the gradients by percents of their max.  So the step is held
+    twice, each time beside two controls that must fail the same bound
+    (on the CPU: the batch with its last row dropped, and E5M2 operands in
+    place of E4M3):
+
+    * with BatchNorm in float64 on both sides (``stats_dtype``), which
+      makes those reductions order-independent: the gradients within
+      ``AE8_STATS_TOL`` of max;
+    * as the path runs it (fp32 statistics): within max(2e-2, 1.25x) the
+      spread that the same batch with its rows shuffled inside each dW
+      rounding block shows, measured here on the card and on the CPU (the
+      same function: BatchNorm, the loss and each rounding block see the
+      same rows).
+
+    The loss is held to 1e-3 relative throughout."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.core import precision as prec
+    from repro_torch.core import tiling
+    from repro_torch.data import SyntheticAE
+    from repro_torch.models import autoencoder
+    from repro_torch.optim import tree_leaves, tree_map
+
+    pol = prec.MIXED_FP8_E4M3
+    wrong = dataclasses.replace(pol, x_dtype=torch.float8_e5m2,
+                                w_dtype=torch.float8_e5m2)
+    params = autoencoder.init_ae(seed=SEED + 4, device="cpu")
+    names = [f"{layer}.{k}" for layer, leaves in params.items() for k in leaves]
+    x = torch.from_numpy(SyntheticAE(batch=batch, seed=SEED).sample(1))
+    dims = autoencoder.AE_DIMS
+    blk = min(tiling.accum_block(dims[i], batch, dims[i + 1],
+                                 compute_dtype=torch.float16,
+                                 accum_dtype=torch.float16, x_dtype=pol.x_dtype,
+                                 w_dtype=pol.grad_dtype)
+              for i in range(len(dims) - 1))
+    gen = torch.Generator().manual_seed(SEED + 6)
+    shuffled = torch.cat([s + torch.randperm(min(blk, batch - s), generator=gen)
+                          for s in range(0, batch, blk)])
+
+    def run(dev, xx=x, stats=torch.float32, policy=pol):
+        p = tree_map(lambda t: t.detach().to(dev).requires_grad_(True), params)
+        loss, _ = autoencoder.ae_loss(p, xx.to(dev), policy=policy,
+                                      stats_dtype=stats)
+        g = torch.autograd.grad(loss, tree_leaves(p))
+        return loss.detach().cpu(), [t.detach().cpu().float() for t in g]
+
+    flat = lambda g: torch.cat([t.flatten() for t in g])
+    rel = lambda a, b: float((flat(a) - flat(b)).abs().max() / flat(b).abs().max())
+
+    def worst_leaf(a, b):
+        scale = flat(b).abs().max()
+        errs = [float((u - v).abs().max() / scale) for u, v in zip(a, b)]
+        i = max(range(len(errs)), key=errs.__getitem__)
+        return names[i], errs[i]
+
+    out = {"policy": pol.name, "batch": batch, "shuffle_block": blk}
+    for stats, label in ((torch.float64, "float64 BatchNorm"),
+                         (torch.float32, "fp32 BatchNorm, as the path runs")):
+        loss_gpu, g_gpu = run("cuda", stats=stats)
+        loss_cpu, g_cpu = run("cpu", stats=stats)
+        controls = {"last row dropped": run("cpu", x[:-1], stats)[1],
+                    "e5m2 operands": run("cpu", stats=stats, policy=wrong)[1]}
+        controls = {k: rel(v, g_cpu) for k, v in controls.items()}
+        if stats == torch.float64:
+            spread, tol_g = None, AE8_STATS_TOL
+        else:
+            spread = {"card": rel(run("cuda", x[shuffled], stats)[1], g_gpu),
+                      "cpu": rel(run("cpu", x[shuffled], stats)[1], g_cpu)}
+            tol_g = max(2e-2, 1.25 * max(spread.values()))
+        leaf = worst_leaf(g_gpu, g_cpu)
+        print(f"[ae8] step parity B={batch}, {label}: card vs CPU grads "
+              f"{rel(g_gpu, g_cpu):.3e} of max (largest in {leaf[0]}); rows "
+              f"shuffled in blocks of {blk}: {spread}; controls {controls}; "
+              f"bound {tol_g:.3e}", flush=True)
+        if not min(controls.values()) > tol_g:
+            raise AssertionError(f"ae8 B={batch} {label}: a control passes the "
+                                 f"bound {tol_g:.3e}: {controls}")
+        tag = "float64" if stats == torch.float64 else "fp32"
+        err_l = _check(f"AE step mixed_fp8_e4m3 B={batch} ({tag} BatchNorm) loss, "
+                       "card vs CPU plain", loss_gpu, loss_cpu, 1e-3, log)
+        err_g = _check(f"AE step mixed_fp8_e4m3 B={batch} ({tag} BatchNorm) grads, "
+                       "card vs CPU plain", flat(g_gpu), flat(g_cpu), tol_g, log)
+        out[tag] = {"loss_err": err_l, "grad_err": err_g,
+                    "grad_err_of_max": rel(g_gpu, g_cpu), "worst_leaf": leaf,
+                    "shuffle_spread": spread, "controls": controls,
+                    "grad_tol_of_max": tol_g}
+    return out
+
+
 def _ae_run(counters, args, steps: int, want_per_step: dict, path: str):
     """``train.main`` for the AutoEncoder, with the counts set to 0 just
     before and read just after; checks finite losses and the kernel-1
@@ -1042,6 +1356,205 @@ def ae_phase(log, counters):
             "parity": parity}
 
 
+def ae8_phase(log, counters):
+    """The AutoEncoder under FP8 storage through its entry point: 200
+    mixed_fp8_e4m3 steps at batch 16, 3 at batch 4096 (the dW reductions
+    over 4096 rows span two rounding blocks) and 3 mixed_fp8_e5m2 steps at
+    batch 16, each with its own launch counts — 30 kernel-1 launches a
+    step, all FP8 (10 forward, 10 dX, 10 dW), none fused-backward; one
+    profiled step; one step at batch 16 and one at 4096 held against the
+    CPU plain path."""
+    import torch
+
+    from repro_torch.core import precision as prec
+    from repro_torch.data import SyntheticAE
+    from repro_torch.launch import train
+    from repro_torch.models import autoencoder
+    from repro_torch.optim import AdamW, tree_leaves
+
+    k1, fp8, fp8_e5 = ("redmule_matmul", "redmule_matmul (FP8 e4m3, faithful)",
+                       "redmule_matmul (FP8 e5m2, fp32 accumulator)")
+    faithful, multi = ("redmule_matmul (faithful fp16)",
+                       "redmule_matmul (faithful fp16, multi-block)")
+    fused = "redmule_matmul (fused backward dW + db)"
+    torch.cuda.reset_peak_memory_stats()
+    out, launches, wall = _ae_run(
+        counters, ["--batch", str(AE_BATCH), "--policy", "mixed_fp8_e4m3"],
+        AE_STEPS, {k1: 30, fp8: 30, faithful: 30, fused: 0, multi: 0}, "ae8")
+    peak = torch.cuda.max_memory_allocated()
+    losses = [h["loss"] for h in out["history"]]
+    # the reference reaches 0.1197 by step 40 on the CPU (xla backend)
+    if not (sum(losses[-10:]) / 10 <= 0.1197 < losses[0]):
+        raise AssertionError(f"ae8 mse did not fall to the reference's level: "
+                             f"{losses[:3]} ... {losses[-10:]}")
+    _, launches_4k, _ = _ae_run(
+        counters, ["--batch", str(AE_BIG), "--policy", "mixed_fp8_e4m3"], 3,
+        {k1: 30, fp8: 30, faithful: 30, fused: 0, multi: 10}, "ae8_b4096")
+    out5, launches_e5, _ = _ae_run(
+        counters, ["--batch", str(AE_BATCH), "--policy", "mixed_fp8_e5m2"], 3,
+        {k1: 30, fp8_e5: 30, faithful: 0, fused: 0}, "ae8_e5m2")
+    step_ms = sorted(h["step_ms"] for h in out["history"][10:])
+    print(f"[ae8] {AE_STEPS} steps in {wall:.2f}s wall; step (CUDA events, "
+          f"steps 10..{AE_STEPS - 1}) median {step_ms[len(step_ms) // 2]:.3f} "
+          f"ms, mean {sum(step_ms) / len(step_ms):.3f} ms; mse {losses[0]:.4f} "
+          f"-> {losses[-1]:.4f} (mean of the last 10: "
+          f"{sum(losses[-10:]) / 10:.4f}); peak {peak / 2**20:.1f} MiB; "
+          f"mixed_fp8_e5m2 mse {[round(h['loss'], 4) for h in out5['history']]}",
+          flush=True)
+
+    params = autoencoder.init_ae(seed=SEED, device="cuda")
+    for t in tree_leaves(params):
+        t.requires_grad_(True)
+    opt = AdamW(lr=3e-3, warmup_steps=0)
+    state = [opt.init(params)]
+    step = train.build_ae_step(opt, prec.MIXED_FP8_E4M3)
+    xb = torch.from_numpy(SyntheticAE(batch=AE_BATCH, seed=SEED).sample(0)).cuda()
+
+    def one_step():
+        state[0], loss, _ = step(params, state[0], xb)
+        return float(loss)
+
+    one_step()
+    torch.cuda.reset_peak_memory_stats()
+    prof = _device_profile(one_step, iters=5)
+    peak_step = torch.cuda.max_memory_allocated()
+    parts = ", ".join(f"{k} {g['ms']:.4f} ms x{g['count']}"
+                      for k, g in sorted(prof["by_kernel"].items()))
+    print(f"[profile] AE step mixed_fp8_e4m3 B={AE_BATCH}: wall "
+          f"{prof['wall_ms']:.3f} ms, device busy {prof['device_ms']:.3f} ms "
+          f"(idle {prof['idle_share']:.3f}), peak {peak_step / 2**20:.1f} MiB: "
+          f"{parts}", flush=True)
+    parity = [_ae8_step_parity(log, b) for b in (AE_BATCH, AE_BIG)]
+    return {"ae8_wall_s": wall, "history": out["history"],
+            "history_e5m2": out5["history"], "launches": launches,
+            "launches_b4096": launches_4k, "launches_e5m2": launches_e5,
+            "step_ms_median": step_ms[len(step_ms) // 2],
+            "step_ms_mean": sum(step_ms) / len(step_ms),
+            "peak_mem_mib": peak / 2**20, "peak_mem_step_mib": peak_step / 2**20,
+            "profile": prof, "parity": parity}
+
+
+def serve8_phase(log, counters):
+    """qwen3-1.7b at full width under mixed_fp8_e4m3 (random fp16 weights
+    from the seed, the dense fp16 KV cache): ``generate`` for 4 requests
+    x (prompt 128 + 16 new tokens) with the counts set to 0 just before;
+    every kernel-1 and kernel-2 launch must be FP8 and the counts
+    structural; tokens in range, logits finite.  Then one prefill and one
+    decode step timed and profiled, and a two-layer cut held against the
+    CPU plain path: prefill logits, and one decode step from the same
+    cache."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+
+    cfg = dataclasses.replace(configs.get(ARCH), policy_name="mixed_fp8_e4m3")
+    L = cfg.n_layers
+    params = transformer.init_params(cfg, seed=SEED, device="cuda")
+    gen = torch.Generator().manual_seed(SEED)
+    prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen)
+    _zero(counters)
+    t0 = time.perf_counter()
+    seqs, _, final = serve.generate(params, cfg, prompts, GEN, return_state=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read(counters)
+    print(f"[serve8] launches on the main path: {launches}", flush=True)
+    if seqs.shape != (BATCH, PROMPT + GEN) or not (
+            (seqs >= 0) & (seqs < cfg.vocab_size)).all():
+        raise AssertionError(f"serve8: generate returned {seqs.shape} / tokens "
+                             "out of range")
+    if not np.isfinite(final).all():
+        raise AssertionError("serve8: final logits are not finite")
+    # B prefills and GEN decode steps: 4 projections a layer and the head
+    # each (kernel 1), scores and PV a layer per decode step (kernel 2),
+    # flash a layer per prefill
+    want = {"redmule_matmul": (BATCH + GEN) * (4 * L + 1),
+            "redmule_matmul (FP8 e4m3, faithful)": (BATCH + GEN) * (4 * L + 1),
+            "redmule_matmul_batched": GEN * 2 * L,
+            "redmule_matmul_batched (FP8 e4m3, decode scores)": GEN * 2 * L,
+            "flash_attention": BATCH * L}
+    got = {k: launches[k] for k in want}
+    print(f"[serve8] launches {got}, structural {want}", flush=True)
+    if got != want:
+        raise AssertionError("serve8: launches differ from the structural "
+                             "count, or not every GEMM launch is FP8")
+
+    gen_c = torch.Generator(device="cuda").manual_seed(SEED)
+    prompt = torch.randint(0, cfg.vocab_size, (1, PROMPT), generator=gen_c,
+                           device="cuda")
+    logits, _ = transformer.prefill(params, cfg, {"inputs": prompt}, PROMPT + GEN)
+    prefill_ms = _time_ms(lambda: transformer.prefill(
+        params, cfg, {"inputs": prompt}, PROMPT + GEN), iters=10, warmup=2)
+    cache = transformer.init_cache(cfg, BATCH, PROMPT + GEN, device="cuda")
+    toks = torch.randint(0, cfg.vocab_size, (BATCH, 1), generator=gen_c,
+                         device="cuda")
+    pos = torch.full((BATCH,), PROMPT, device="cuda")
+    sizes = np.full((BATCH,), PROMPT + 1, np.int32)
+
+    def decode():
+        return transformer.serve_step(params, cfg, toks, cache, pos,
+                                      kv_group_sizes=sizes)
+
+    dec_logits, _ = decode()
+    decode_ms = _time_ms(decode, iters=20, warmup=2)
+    for name, t in (("prefill", logits), ("decode", dec_logits)):
+        if not torch.isfinite(t.float()).all():
+            raise AssertionError(f"serve8: {name} logits are not finite")
+    # the tied head's per-tensor quantization of the (V, d) embedding, alone
+    from repro_torch.core import precision as prec
+    quant_ms = _time_ms(lambda: prec.quantize_fp8(params["embed"],
+                                                  torch.float8_e4m3fn), iters=10)
+    print(f"[serve8] generate {BATCH}x({PROMPT}+{GEN}) {wall:.3f}s wall; "
+          f"prefill(1x{PROMPT}) {prefill_ms:.3f} ms; decode step (B={BATCH}) "
+          f"{decode_ms:.3f} ms; quantizing the embedding {quant_ms:.3f} ms",
+          flush=True)
+    profiles = {
+        "prefill": _device_profile(lambda: transformer.prefill(
+            params, cfg, {"inputs": prompt}, PROMPT + GEN), iters=3),
+        "decode_step": _device_profile(decode, iters=5)}
+    for name, prof in profiles.items():
+        parts = ", ".join(f"{k} {g['ms']:.3f} ms x{g['count']}"
+                          for k, g in sorted(prof["by_kernel"].items()))
+        print(f"[profile] serve8 {name}: wall {prof['wall_ms']:.3f} ms, device "
+              f"busy {prof['device_ms']:.3f} ms (idle {prof['idle_share']:.3f}): "
+              f"{parts}", flush=True)
+    del params, cache
+
+    # a two-layer cut at full width, card vs the CPU plain path: the same
+    # kernels' math on the same inputs, held to a few fp16 ulps of max
+    small = dataclasses.replace(cfg, n_layers=2)
+    pc = transformer.init_params(small, seed=SEED + 1, device="cuda")
+    pcpu = _to_cpu(pc)
+    sp = torch.randint(0, cfg.vocab_size, (1, 16), generator=gen_c, device="cuda")
+    got_l, got_c = transformer.prefill(pc, small, {"inputs": sp}, 24)
+    want_l, want_c = transformer.prefill(pcpu, small, {"inputs": sp.cpu()}, 24)
+    err_pre = _check("serve8 two-layer prefill logits, card vs CPU plain",
+                     got_l.cpu(), want_l, SERVE8_TOL, log)
+    # one decode step from the same cache (the CPU's, copied to the card)
+    shared = _to_cpu(want_c)
+    tok = torch.randint(0, cfg.vocab_size, (1, 1), generator=gen)
+    p16 = torch.tensor([16])
+    s16 = np.array([17], np.int32)
+    got_d, _ = transformer.serve_step(pc, small, tok.cuda(),
+                                      {"layers": {k: v.cuda() for k, v in
+                                                  shared["layers"].items()}},
+                                      p16.cuda(), kv_group_sizes=s16)
+    want_d, _ = transformer.serve_step(pcpu, small, tok, shared, p16,
+                                       kv_group_sizes=s16)
+    err_dec = _check("serve8 two-layer decode step from one cache, card vs "
+                     "CPU plain", got_d.cpu(), want_d, SERVE8_TOL, log)
+    del got_c
+    return {"serve_wall_s": wall, "prefill_ms": prefill_ms,
+            "decode_step_ms": decode_ms, "quantize_embed_ms": quant_ms,
+            "launches": launches, "structural": want, "profiles": profiles,
+            "two_layer_err": {"prefill": err_pre, "decode": err_dec}}
+
+
 def _to_cpu(tree):
     if hasattr(tree, "cpu"):
         return tree.cpu()
@@ -1071,9 +1584,13 @@ def main() -> int:
     serve = serve_phase(log, counters)
     train = train_phase(log, counters)
     ae = ae_phase(log, counters)
+    ae8 = ae8_phase(log, counters)
+    serve8 = serve8_phase(log, counters)
     runs = {"serve": serve["launches"], "train": train["launches"],
             "ae": ae["launches"], "ae_fp32": ae["launches_fp32"],
-            "ae_b4096": ae["launches_b4096"]}
+            "ae_b4096": ae["launches_b4096"], "ae8": ae8["launches"],
+            "ae8_b4096": ae8["launches_b4096"], "ae8_e5m2": ae8["launches_e5m2"],
+            "serve8": serve8["launches"]}
     for kern in kernels:
         # a path outside the row's ``paths`` does not run its shape: null
         paths = row_paths.get(kern["name"], tuple(runs))
@@ -1082,7 +1599,8 @@ def main() -> int:
         kern["launches"] = sum(v for v in by_path.values() if v is not None)
         kern["launches_by_path"] = by_path
     out = {"card": card, "build_s": build_s, "checks": log, "serve": serve,
-           "train": train, "ae": ae, "kernels": kernels}
+           "train": train, "ae": ae, "ae8": ae8, "serve8": serve8,
+           "kernels": kernels}
     (ROOT / "chiprun_out").mkdir(exist_ok=True)
     (ROOT / "chiprun_out" / "chip_smoke.json").write_text(json.dumps(out, indent=1))
     print(card)

@@ -24,9 +24,9 @@ goes through this module:
   run through one ``torch.autograd.Function`` whose backward dispatches
   dX = dZ·Wᵀ ("nt") and dW = Xᵀ·dZ ("tn") through the same registry as
   ``matmul_dx`` / ``matmul_dw`` events (the reference's
-  ``_gemm_call`` / ``_gemm_bwd``): residuals saved in the compute dtype,
-  grads held in the accumulator dtype until one cast to the primal
-  operand's dtype.  ``linear`` with a bias or activation has its own
+  ``_gemm_call`` / ``_gemm_bwd``): residuals saved in the dispatch
+  storage, grads held in the accumulator dtype until one cast to the
+  primal operand's dtype.  ``linear`` with a bias or activation has its own
   Function (the reference's ``_linear_call``): on a
   ``fused_bwd_epilogue`` backend with a 2D weight its backward is one
   pass — the dX dispatch carries ``deriv``, the dW dispatch ``deriv`` and
@@ -46,13 +46,27 @@ goes through this module:
 
 PyTorch runs eagerly, so an event is emitted each time an op runs (the
 reference emits at trace time, once per scanned body with a multiplicity).
-Under a faithful-accumulation policy (``paper_fp16``) every GEMM dispatch
-carries the reference's reduction block (``GemmSpec.accum_block``, from
-:func:`repro_torch.core.tiling.accum_block`), after which the kernel
-re-rounds its fp16 accumulator.
-The backward of ``grouped_matmul`` and of ``attention``, the reference
-attention composition and the FP8 policies arrive with later slices and
-raise ``NotImplementedError`` here.
+Under an fp16 accumulator (``paper_fp16``, ``mixed_fp8_e4m3``) every GEMM
+dispatch carries the reference's reduction block (``GemmSpec.accum_block``,
+from :func:`repro_torch.core.tiling.accum_block`), after which the kernel
+re-rounds its accumulator.
+
+**FP8 storage** (``mixed_fp8_e4m3`` / ``mixed_fp8_e5m2``, the reference's
+scaled-dispatch contract): the engine quantizes each operand per tensor
+(``q = v / amax``, :func:`repro_torch.core.precision.quantize_fp8`) right
+before its dispatch, the kernel widens the FP8 tiles to fp16 on load, and
+the engine multiplies the scale product back into the result — in fp32,
+as JAX promotes an fp16 result times the reference's fp32 scale — before
+the bias and activation, so a scaled ``linear`` never fuses its epilogue
+and bills the post-op pass as a ``linear_postep`` event.  The residuals
+stay in FP8 with their scales; the backward quantizes the cotangent to
+the grad storage (E5M2) once and runs dX (grad storage in the x slot) and
+dW (in the w slot).  Scales are device tensors: nothing on the dispatch
+path syncs with the host.  ``attention`` casts q / k / v to the compute
+dtype and runs flash without quantizing, as the reference does.
+The backward of ``grouped_matmul`` and of ``attention`` and the reference
+attention composition arrive with later slices and raise
+``NotImplementedError`` here.
 """
 
 from __future__ import annotations
@@ -95,8 +109,7 @@ def _itemsize(d) -> int:
 # --------------------------------------------------------------------- #
 @dataclasses.dataclass(frozen=True)
 class GemmSpec:
-    """One contraction, fully described (the reference's fields but the
-    per-operand storage ones, which arrive with the FP8 slice).
+    """One contraction, fully described (the reference's fields).
     ``m, n, k`` keep their logical meaning in every ``layout``;
     ``valid_rows`` replaces ``groups * M`` in ragged grouped GEMMs (the
     reference's ``ragged_dim == "m"``); ``io_bytes`` carries the exact
@@ -105,8 +118,11 @@ class GemmSpec:
     ``grad_mode`` how it is recovered ("output" or "preact"),
     ``fused_bwd`` that the kernel applies it on load and
     ``fused_bias_grad`` that the dW pass also accumulates db.
-    ``accum_block`` is the faithful accumulator's rounding block (the
-    reference's ``tile.bn``; None under fp32 accumulation)."""
+    ``x_dtype`` / ``w_dtype`` name the storage dtype each operand slot is
+    dispatched in (None: the compute dtype) and ``scaled`` that per-tensor
+    FP8 scales are applied around the dispatch.  ``accum_block`` is the
+    faithful accumulator's rounding block (the reference's ``tile.bn``;
+    None under fp32 accumulation)."""
 
     op: str
     tag: str
@@ -126,12 +142,17 @@ class GemmSpec:
     grad_mode: Optional[str] = None
     fused_bwd: bool = False
     fused_bias_grad: bool = False
+    x_dtype: Optional[str] = None
+    w_dtype: Optional[str] = None
+    scaled: bool = False
     accum_block: Optional[int] = None
 
     def __post_init__(self):
         if self.layout not in ("nn", "nt", "tn"):
             raise ValueError(
                 f"GemmSpec.layout = {self.layout!r}; known: ('nn', 'nt', 'tn')")
+        for f in ("x_dtype", "w_dtype"):
+            prec._validate_dtype("GemmSpec", f, getattr(self, f), optional=True)
 
     @property
     def flops(self) -> int:
@@ -146,27 +167,35 @@ class GemmSpec:
     @property
     def bytes(self) -> int:
         """Operand + result bytes of one execution in device memory
-        (``engine.py:320-385`` of the reference): a shared weight is read
-        once per group, ragged GEMMs bill valid rows only, operands at the
-        compute width and the result at the output width.  A ``*_dact``
-        pass reads dZ and the residual and writes ds; a ``*_dbias`` pass
-        re-reads the cotangent and writes the accumulator-dtype row; a
-        fused backward adds its streamed derivative operand (shadowing dZ:
-        the x slot on dX, the w slot on dW) and its db row."""
+        (``engine.py:320-396`` of the reference): a shared weight is read
+        once per group, ragged GEMMs bill valid rows only, each operand
+        slot at its storage width (``x_dtype`` / ``w_dtype``: an FP8
+        operand pays one byte per element) and the result at the output
+        width.  A ``*_dact`` pass reads dZ and the residual and writes ds;
+        a ``*_dbias`` pass re-reads the cotangent and writes the
+        accumulator-dtype row; a ``*_postep`` pass (the scaled forward's
+        post-op epilogue) round-trips the stored result and reads the bias
+        row; a fused backward adds its streamed derivative operand
+        (shadowing dZ: the x slot on dX, the w slot on dW, at the compute
+        width) and its db row."""
         if self.io_bytes is not None:
             return self.io_bytes
         cb = _itemsize(self.policy.compute_dtype)
         ob = _itemsize(self.policy.out_dtype)
         ab = _itemsize(self.policy.accum_dtype)
+        xb = _itemsize(self.x_dtype) if self.x_dtype else cb
+        wb = _itemsize(self.w_dtype) if self.w_dtype else cb
         bg = self.batch * self.groups
         if self.op.endswith("_dact"):
             return 3 * bg * self.m * self.k * cb
         if self.op.endswith("_dbias"):
             return bg * self.m * self.k * cb + self.k * ab
+        if self.op.endswith("_postep"):
+            return 2 * bg * self.m * self.k * ob + self.k * ab
         rows = bg * self.m if self.valid_rows is None else self.batch * self.valid_rows
         x_elems = rows * self.n
         w_elems = (self.groups if self.w_shared else bg) * self.n * self.k
-        total = x_elems * cb + rows * self.k * ob + w_elems * cb
+        total = x_elems * xb + rows * self.k * ob + w_elems * wb
         if self.fused_bwd and self.grad_epilogue is not None:
             total += (x_elems if self.op.endswith("_dx") else w_elems) * cb
         if self.fused_bias_grad:
@@ -211,10 +240,11 @@ def is_backward_op(op: str) -> bool:
 
 
 def is_pass_op(op: str) -> bool:
-    """True for the non-GEMM pass events of the two-pass backward: the
-    standalone ``ds = dZ * act'`` multiply (``*_dact``) and the separate
-    bias-grad reduction (``*_dbias``) — device bytes, no MACs."""
-    return op.endswith(("_dact", "_dbias"))
+    """True for the non-GEMM pass events: the two-pass backward's
+    standalone ``ds = dZ * act'`` multiply (``*_dact``) and separate
+    bias-grad reduction (``*_dbias``), and the scaled forward's post-op
+    epilogue (``*_postep``, a forward event) — device bytes, no MACs."""
+    return op.endswith(("_dact", "_dbias", "_postep"))
 
 
 def total_flops(events: Sequence[GemmEvent]) -> int:
@@ -249,7 +279,7 @@ _CAPABILITIES = frozenset({"fused_epilogue", "tiled", "layouts",
 class BackendSpec:
     """A registered backend: ``fn(x, w, *, spec) -> tensor``.
 
-    ``fn`` receives operands cast to ``spec.policy.compute_dtype``, stored
+    ``fn`` receives operands in ``spec.policy.compute_dtype``, stored
     as ``spec.layout`` names when the backend declares ``"layouts"`` (else
     always "nn"), with ``x (..., M, N)`` and ``w (N, K)`` or broadcast-
     compatible ``(..., N, K)``.  Capabilities, as in the reference:
@@ -261,8 +291,10 @@ class BackendSpec:
     ``spec.grad_epilogue`` / ``spec.grad_mode`` on load) and ``bias_grad``
     (on the "tn" dW dispatch: return ``(dW, db)``); ``"attention"`` —
     ``attention_fn("attention", (q, k, v), **params)`` runs the flash sweep
-    on ``(BH, S, D)`` / ``(BH_kv, T, D)`` operands.  ``operand_dtypes`` is
-    a known name for the FP8 slice."""
+    on ``(BH, S, D)`` / ``(BH_kv, T, D)`` operands; ``"operand_dtypes"`` —
+    ``fn`` takes operands in their storage dtype (FP8 under the mixed
+    policies, already quantized; ``spec.x_dtype`` / ``spec.w_dtype`` name
+    it) and widens them on load."""
 
     name: str
     fn: Callable[..., torch.Tensor]
@@ -556,13 +588,13 @@ def _hopper_attention(kind: str, operands, **params):
 register_backend(
     "hopper", _hopper_fn,
     capabilities=("fused_epilogue", "tiled", "layouts", "fused_bwd_epilogue",
-                  "attention"),
+                  "operand_dtypes", "attention"),
     attention_fn=_hopper_attention,
     description="hand-written sm_90a CUDA kernels: the RedMulE GEMM (2D and "
                 "batched, nn/nt/tn strides, fused bias + activation store, "
                 "the paper's fp16 accumulator, act' and db fused into the "
-                "backward; bf16 / fp16 on the tensor cores, fp32 in SIMT "
-                "FMAs), causal "
+                "backward, FP8 storage widened to fp16 on load; bf16 / fp16 "
+                "on the tensor cores, fp32 in SIMT FMAs), causal "
                 "GQA flash attention and the chunked linear-attention sweep; "
                 "plain PyTorch versions on CPU tensors")
 
@@ -571,9 +603,13 @@ register_backend(
 # Dispatch helpers
 # --------------------------------------------------------------------- #
 def _check_policy(policy: prec.Policy) -> None:
-    if policy.mixed_storage:
-        raise NotImplementedError(
-            f"mixed-storage / FP8 policy {policy.name!r} is {_ROADMAP}")
+    """Per-operand storage is FP8 (the two mixed policies) or the compute
+    dtype; other narrow storage dtypes are not ported."""
+    for d in (policy.x_dtype, policy.w_dtype, policy.grad_dtype):
+        if d is not None and not prec.is_fp8(d) and d != policy.compute_dtype:
+            raise NotImplementedError(
+                f"{prec.dtype_name(d)} storage under policy {policy.name!r} "
+                f"is {_ROADMAP}")
 
 
 def _pretranspose(x, w, layout: str, backend: str):
@@ -587,16 +623,108 @@ def _pretranspose(x, w, layout: str, backend: str):
     return x, w, "nn"
 
 
-def _dispatch(spec: GemmSpec, backend: str, x, w) -> torch.Tensor:
-    """Emit one event and run one GEMM on compute-dtype operands; the
-    result is cast to the policy's output dtype."""
+# --------------------------------------------------------------------- #
+# Per-operand storage: dispatch dtypes and per-tensor quantization
+# --------------------------------------------------------------------- #
+def _dispatch_storage(policy: prec.Policy, backend: str
+                      ) -> Tuple[Optional[str], Optional[str], Optional[str]]:
+    """``(x_store, w_store, grad_store)``: the dtype names one dispatch to
+    ``backend`` carries (None: the compute dtype), ``engine.py:1001-1023``
+    of the reference.  Narrow operands go only to backends with
+    ``"operand_dtypes"``; others get the quantized values widened to the
+    compute dtype — the same numbers, billed at the wide width."""
+    if not policy.mixed_storage or not get_backend(backend).supports(
+            "operand_dtypes"):
+        return None, None, None
+    comp = prec.dtype_name(policy.compute_dtype)
+
+    def nm(d):
+        n = prec.dtype_name(d)
+        return None if n == comp else n
+
+    return (nm(policy.x_storage_dtype), nm(policy.w_storage_dtype),
+            nm(policy.grad_storage_dtype))
+
+
+def _prep_operand(v: torch.Tensor, storage_dtype, store_name: Optional[str],
+                  policy: prec.Policy
+                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Cast, or per-tensor quantize, one operand for dispatch
+    (``engine.py:1026-1049``): FP8 storage returns ``(q, s)`` with ``q = v
+    / amax`` in FP8 and ``s`` an fp32 scalar tensor on the operand's device
+    (no host sync); anything else ``(v cast, None)``.  Without a narrow
+    ``store_name`` the quantized values are widened back to the compute
+    dtype, so the quantization point does not depend on the backend."""
+    comp = policy.compute_dtype
+    if prec.is_fp8(storage_dtype):
+        q, s = prec.quantize_fp8(v, storage_dtype)
+        return (q.to(comp) if store_name is None else q), s
+    q = v.to(storage_dtype)
+    if store_name is None and q.dtype != comp:
+        q = q.to(comp)
+    return q, None
+
+
+def _scale_product(*scales: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """Product of the non-None per-tensor scales (None when there are none:
+    the uniform policies skip every multiply)."""
+    out = None
+    for s in scales:
+        if s is not None:
+            out = s if out is None else out * s
+    return out
+
+
+def _unscale(z: torch.Tensor, pol: prec.Policy,
+             sp: Optional[torch.Tensor]) -> torch.Tensor:
+    """``z.astype(accum) * sp`` as the reference computes it: its scale is
+    a strongly typed fp32 scalar, so JAX multiplies even an fp16
+    accumulator in fp32 (PyTorch would keep fp16 for a 0-d tensor).
+    Returns fp32 when scaled, else ``z`` unchanged."""
+    if sp is None:
+        return z
+    return z.to(pol.accum_dtype).float() * sp
+
+
+def _prep_xw(spec: GemmSpec, x, w):
+    """Both GEMM operands cast or quantized per the spec's per-operand
+    storage: ``(xd, wd, sx, sw)``, the scales None on uniform policies."""
     pol = spec.policy
-    x, w, layout = _pretranspose(x.to(pol.compute_dtype),
-                                 w.to(pol.compute_dtype), spec.layout, backend)
+    xd, sx = _prep_operand(x, pol.x_storage_dtype, spec.x_dtype, pol)
+    wd, sw = _prep_operand(w, pol.w_storage_dtype, spec.w_dtype, pol)
+    return xd, wd, sx, sw
+
+
+def _dispatch(spec: GemmSpec, backend: str, x, w,
+              extra_specs: Sequence[GemmSpec] = ()) -> torch.Tensor:
+    """Emit one event (and its companion pass events) and run one GEMM on
+    prepped operands (compute dtype, or FP8 storage); the result is cast
+    to the policy's output dtype."""
+    pol = spec.policy
+    x, w, layout = _pretranspose(x, w, spec.layout, backend)
     if layout != spec.layout:
         spec = dataclasses.replace(spec, layout=layout)
     _emit(spec, backend)
+    for extra in extra_specs:
+        _emit(extra, backend)
     return get_backend(backend).fn(x, w, spec=spec).to(pol.out_dtype)
+
+
+def _storage(policy: prec.Policy, backend: str) -> Dict[str, Any]:
+    """A forward spec's per-operand storage fields."""
+    xs, ws, _ = _dispatch_storage(policy, backend)
+    return dict(x_dtype=xs, w_dtype=ws, scaled=policy.scaled)
+
+
+def _gemm_forward(spec: GemmSpec, backend: str, x, w):
+    """The pure GEMM (the reference's ``_gemm_call`` / ``_gemm_fwd``):
+    prep, dispatch, undo the scales; returns ``(z, residuals)`` with the
+    residuals ``(xd, wd, sx, sw)`` in the dispatch storage."""
+    pol = spec.policy
+    xd, wd, sx, sw = _prep_xw(spec, x, w)
+    z = _dispatch(spec, backend, xd, wd)
+    z = _unscale(z, pol, _scale_product(sx, sw)).to(pol.out_dtype)
+    return z, (xd, wd, sx, sw)
 
 
 def _static_valid_rows(group_sizes, m: int) -> Optional[int]:
@@ -679,14 +807,17 @@ def _unbroadcast(g: torch.Tensor, shape) -> torch.Tensor:
 
 
 def _faithful_block(policy: prec.Policy, m: int, n: int, k: int, *,
-                    fused_bwd: bool = False) -> Optional[int]:
+                    fused_bwd: bool = False, x_dtype: Optional[str] = None,
+                    w_dtype: Optional[str] = None) -> Optional[int]:
     """The faithful accumulator's rounding block of one dispatch: the
-    reference's (its ``tile.bn``); None under fp32 accumulation."""
-    if not policy.faithful_accum:
+    reference's (its ``tile.bn``, sized by the operands' storage); None
+    under fp32 accumulation."""
+    if not policy.blockwise_accum:
         return None
     return tiling.accum_block(m, n, k, compute_dtype=policy.compute_dtype,
                               accum_dtype=policy.accum_dtype,
-                              fused_bwd=fused_bwd)
+                              fused_bwd=fused_bwd, x_dtype=x_dtype,
+                              w_dtype=w_dtype)
 
 
 def _grad_dispatch(spec: GemmSpec, backend: str, a, b, count: int, *,
@@ -712,24 +843,31 @@ def _grad_dispatch(spec: GemmSpec, backend: str, a, b, count: int, *,
 def _bwd_gemms(spec: GemmSpec, backend: str, count: int, xc, wc, dzc, *,
                deriv: Optional[torch.Tensor] = None,
                grad_mode: Optional[str] = None, want_db: bool = False):
-    """dX = dZ·Wᵀ ("nt") and dW = Xᵀ·dZ ("tn") on compute-dtype operands,
-    with the reference's specs (``engine.py:1321-1424``); returns
-    ``(dx, dw, db)``.  A 2D weight's dW collapses every leading dim into
-    one contraction; batched grads stay batched and are summed back over
-    broadcast dims.  ``deriv`` (the saved residual, compute dtype) makes
-    both dispatches apply ``act'`` to dZ on load, ``want_db`` makes the dW
-    dispatch return the bias gradient (2D weights only)."""
+    """dX = dZ·Wᵀ ("nt") and dW = Xᵀ·dZ ("tn"), with the reference's specs
+    (``engine.py:1256-1331``); returns ``(dx, dw, db)``.  The residuals
+    ``xc`` / ``wc`` keep the forward's dispatch storage and ``dzc`` rides
+    in the grad storage (the x slot on dX, the w slot on dW); tiles and
+    rounding blocks are sized by those storages.  A 2D weight's dW
+    collapses every leading dim into one contraction; batched grads stay
+    batched and are summed back over broadcast dims.  ``deriv`` (the saved
+    residual, compute dtype) makes both dispatches apply ``act'`` to dZ on
+    load, ``want_db`` makes the dW dispatch return the bias gradient (2D
+    weights only)."""
     gpol = _grad_policy(spec.policy)
+    g_store = _dispatch_storage(spec.policy, backend)[2]
     fb = deriv is not None
     act = spec.epilogue if fb else None
+    dx_st = dict(x_dtype=g_store, w_dtype=spec.w_dtype)
+    dw_st = dict(x_dtype=spec.x_dtype, w_dtype=g_store)
     if wc.ndim == 2:
         dx_spec = GemmSpec(
             op="matmul_dx", tag="mk,nk->mn", layout="nt", m=spec.m, n=spec.k,
             k=spec.n, batch=spec.batch, policy=gpol, w_shared=True,
             tile=tiling.choose_tiles(spec.m, spec.k, spec.n),
             grad_epilogue=act, grad_mode=grad_mode, fused_bwd=fb,
+            **dx_st, scaled=spec.scaled,
             accum_block=_faithful_block(gpol, spec.m, spec.k, spec.n,
-                                        fused_bwd=fb))
+                                        fused_bwd=fb, **dx_st))
         dx, _ = _grad_dispatch(dx_spec, backend, dzc, wc, count, deriv=deriv)
         x2 = xc.reshape(-1, xc.shape[-1])
         dz2 = dzc.reshape(-1, dzc.shape[-1])
@@ -740,9 +878,9 @@ def _bwd_gemms(spec: GemmSpec, backend: str, count: int, xc, wc, dzc, *,
             k=spec.k, batch=1, policy=gpol, w_shared=False,
             tile=tiling.choose_tiles(spec.n, rows, spec.k),
             grad_epilogue=act, grad_mode=grad_mode, fused_bwd=fb,
-            fused_bias_grad=want_db,
+            fused_bias_grad=want_db, **dw_st, scaled=spec.scaled,
             accum_block=_faithful_block(gpol, spec.n, rows, spec.k,
-                                        fused_bwd=fb or want_db))
+                                        fused_bwd=fb or want_db, **dw_st))
         dw, db = _grad_dispatch(dw_spec, backend, x2, dz2, count, deriv=d2,
                                 want_db=want_db)
         return dx, dw, db
@@ -752,29 +890,51 @@ def _bwd_gemms(spec: GemmSpec, backend: str, count: int, xc, wc, dzc, *,
         op="matmul_dx", tag="bmk,bnk->bmn", layout="nt", m=spec.m, n=spec.k,
         k=spec.n, batch=spec.batch, groups=spec.groups, policy=gpol,
         w_shared=spec.w_shared, tile=tiling.choose_tiles(spec.m, spec.k, spec.n),
-        accum_block=_faithful_block(gpol, spec.m, spec.k, spec.n))
+        **dx_st, scaled=spec.scaled,
+        accum_block=_faithful_block(gpol, spec.m, spec.k, spec.n, **dx_st))
     dx, _ = _grad_dispatch(dx_spec, backend, dzc, wc, count)
     dw_spec = GemmSpec(
         op="matmul_dw", tag="bmn,bmk->bnk", layout="tn", m=spec.n, n=spec.m,
         k=spec.k, batch=spec.batch, groups=spec.groups, policy=gpol,
         w_shared=False, tile=tiling.choose_tiles(spec.n, spec.m, spec.k),
-        accum_block=_faithful_block(gpol, spec.n, spec.m, spec.k))
+        **dw_st, scaled=spec.scaled,
+        accum_block=_faithful_block(gpol, spec.n, spec.m, spec.k, **dw_st))
     dw, _ = _grad_dispatch(dw_spec, backend, xc, dzc, count)
     return _unbroadcast(dx, xc.shape), _unbroadcast(dw, wc.shape), None
 
 
+def _quantized_bwd(spec: GemmSpec, backend: str, count: int, xd, wd, sx, sw,
+                   dz_wide):
+    """The two-pass backward's tail (``engine.py:1366-1388``): the
+    cotangent cast, or quantized to the grad storage once, both backward
+    GEMMs, then the scales undone — dX = dZ·Wᵀ by the dZ and W scales,
+    dW = Xᵀ·dZ by the X and dZ scales (in fp32, as :func:`_unscale`).
+    Returns ``(dx, dw)``: the grad policy's accum dtype, fp32 when
+    scaled."""
+    pol = spec.policy
+    dzd, sdz = _prep_operand(dz_wide, pol.grad_storage_dtype,
+                             _dispatch_storage(pol, backend)[2], pol)
+    dx, dw, _ = _bwd_gemms(spec, backend, count, xd, wd, dzd)
+    spx, spw = _scale_product(sdz, sw), _scale_product(sx, sdz)
+    if spx is not None:
+        dx = dx.float() * spx
+    if spw is not None:
+        dw = dw.float() * spw
+    return dx, dw
+
+
 class _GemmFn(torch.autograd.Function):
     """The pure-GEMM op with its backward (the reference's ``_gemm_call``
-    / ``_gemm_fwd`` / ``_gemm_bwd``).  Residuals are the compute-dtype
-    operands; both grads are computed whenever the node runs, as the
-    reference's VJP does (the events are the same either way)."""
+    / ``_gemm_fwd`` / ``_gemm_bwd``).  Residuals are the dispatched
+    operands — FP8 with their per-tensor scales under a scaled policy, so
+    the backward GEMMs re-read them narrow; both grads are computed
+    whenever the node runs, as the reference's VJP does (the events are
+    the same either way)."""
 
     @staticmethod
     def forward(ctx, spec: GemmSpec, backend: str, x, w):
-        pol = spec.policy
-        xd, wd = x.to(pol.compute_dtype), w.to(pol.compute_dtype)
-        z = _dispatch(spec, backend, xd, wd)
-        ctx.save_for_backward(xd, wd)
+        z, res = _gemm_forward(spec, backend, x, w)
+        ctx.save_for_backward(*res)
         ctx.spec, ctx.backend = spec, backend
         ctx.dtypes = (x.dtype, w.dtype)
         ctx.emit = _capture()
@@ -782,34 +942,59 @@ class _GemmFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dz):
-        xd, wd = ctx.saved_tensors
+        xd, wd, sx, sw = ctx.saved_tensors
         with _restored(ctx.emit):
-            dx, dw, _ = _bwd_gemms(ctx.spec, ctx.backend, ctx.emit.count, xd,
-                                   wd, dz.to(ctx.spec.policy.compute_dtype))
+            dx, dw = _quantized_bwd(ctx.spec, ctx.backend, ctx.emit.count, xd,
+                                    wd, sx, sw, dz)
         need_x, need_w = ctx.needs_input_grad[2:]
         return (None, None, dx.to(ctx.dtypes[0]) if need_x else None,
                 dw.to(ctx.dtypes[1]) if need_w else None)
 
 
-def _linear_forward(spec: GemmSpec, backend: str, x, w, bc, *, fuse: bool,
-                    epilogue: Optional[str]) -> torch.Tensor:
-    """``epilogue(x @ w + bc)`` in the output dtype, ``spec``'s event
-    emitted once: in the kernel's store with ``fuse``, else post-op on the
-    GEMM result in the accumulator dtype (then one downcast).
-    ``epilogue`` is ``spec.epilogue`` or, for the forward-for-grad of an
-    activation without an output-form derivative, None."""
+def _postep(spec: GemmSpec) -> Tuple[GemmSpec, ...]:
+    """The scaled forward's post-op epilogue pass event (the scale must be
+    undone before the bias / activation, so the epilogue never fuses),
+    emitted beside its GEMM event; none on uniform policies."""
+    if not spec.scaled:
+        return ()
+    return (dataclasses.replace(spec, op=spec.op + "_postep", tile=None),)
+
+
+def _linear_forward(spec: GemmSpec, backend: str, xd, wd, bc, sp, *,
+                    fuse: bool, epilogue: Optional[str]) -> torch.Tensor:
+    """``epilogue(x @ w + bc)`` in the output dtype on prepped operands
+    (the reference's ``_linear_primal_prepped``), ``spec``'s event emitted
+    once: in the kernel's store with ``fuse``, else post-op — the scales
+    ``sp`` undone (fp32), the result re-rounded to the accumulator dtype,
+    then bias and epilogue there, then one downcast.  ``epilogue`` is
+    ``spec.epilogue``, or None to fuse only the bias."""
     pol = spec.policy
     if fuse:
         _emit(spec, backend)
         run = (spec if epilogue == spec.epilogue
                else dataclasses.replace(spec, epilogue=epilogue))
-        return get_backend(backend).fn(
-            x.to(pol.compute_dtype), w.to(pol.compute_dtype), spec=run,
-            bias=bc, fuse_epilogue=True).to(pol.out_dtype)
-    z = _dispatch(spec, backend, x, w).to(pol.accum_dtype)
+        return get_backend(backend).fn(xd, wd, spec=run, bias=bc,
+                                       fuse_epilogue=True).to(pol.out_dtype)
+    z = _unscale(_dispatch(spec, backend, xd, wd, _postep(spec)), pol, sp)
+    z = z.to(pol.accum_dtype)
     if bc is not None:
         z = z + bc
     return epi.apply_epilogue(epilogue, z).to(pol.out_dtype)
+
+
+def _linear_preact(spec: GemmSpec, backend: str, xd, wd, bc, sp, *,
+                   fuse: bool) -> torch.Tensor:
+    """The pre-activation ``x @ w + bc`` of an activation without an
+    output-form derivative (gelu / silu), in the accumulator dtype — fp32
+    when scaled, where the scales and the bias are applied in fp32 with no
+    re-rounding (the reference's ``_linear_fwd_core``)."""
+    pol = spec.policy
+    if fuse:
+        return _linear_forward(spec, backend, xd, wd, bc, sp, fuse=True,
+                               epilogue=None).to(pol.accum_dtype)
+    sa = _dispatch(spec, backend, xd, wd, _postep(spec)).to(pol.accum_dtype)
+    sa = _unscale(sa, pol, sp)
+    return sa if bc is None else sa + bc
 
 
 class _LinearFn(torch.autograd.Function):
@@ -819,31 +1004,35 @@ class _LinearFn(torch.autograd.Function):
 
     Forward: relu / tanh (output-form derivative) keep the fully fused
     forward and save its output; gelu / silu fuse only the bias, apply the
-    activation after and save the pre-activation (compute dtype).
-    Backward, on a ``fused_bwd_epilogue`` backend with a 2D weight: one
-    pass — the raw cotangent goes to the dX / dW kernels, which apply
-    ``act'`` to its tiles on load, and the dW kernel returns db.
-    Elsewhere the two-pass fallback: ``ds = dZ * act'`` in the accumulator
-    dtype (a ``linear_dact`` pass event), db its row sum (``linear_dbias``),
-    then the plain backward GEMMs on ``ds``."""
+    activation after and save the pre-activation (compute dtype).  Under
+    a scaled (FP8) policy nothing fuses: the scales are undone post-op
+    before the bias and activation, and the operands are saved in FP8
+    with their scales.
+    Backward, on a ``fused_bwd_epilogue`` backend with a 2D weight and a
+    uniform policy: one pass — the raw cotangent goes to the dX / dW
+    kernels, which apply ``act'`` to its tiles on load, and the dW kernel
+    returns db.  Elsewhere the two-pass fallback: ``ds = dZ * act'`` in
+    the accumulator dtype (a ``linear_dact`` pass event), db its row sum
+    (``linear_dbias``, from the wide ``ds``), then ``ds`` cast or
+    quantized once to the grad storage and the backward GEMMs."""
 
     @staticmethod
     def forward(ctx, spec: GemmSpec, backend: str, fuse: bool, fuse_bwd: bool,
                 x, w, b):
         pol = spec.policy
         act = spec.epilogue
-        xd, wd = x.to(pol.compute_dtype), w.to(pol.compute_dtype)
+        xd, wd, sx, sw = _prep_xw(spec, x, w)
+        sp = _scale_product(sx, sw)
         bc = None if b is None else b.to(pol.accum_dtype)
         if act is not None and epi.epilogue_grad(act).deriv_from_output is None:
-            sa = _linear_forward(spec, backend, xd, wd, bc, fuse=fuse,
-                                 epilogue=None).to(pol.accum_dtype)
+            sa = _linear_preact(spec, backend, xd, wd, bc, sp, fuse=fuse)
             z = epi.apply_epilogue(act, sa).to(pol.out_dtype)
             aux = sa.to(pol.compute_dtype)
         else:
-            z = _linear_forward(spec, backend, xd, wd, bc, fuse=fuse,
+            z = _linear_forward(spec, backend, xd, wd, bc, sp, fuse=fuse,
                                 epilogue=act)
             aux = z if act is not None else None
-        ctx.save_for_backward(xd, wd, aux)
+        ctx.save_for_backward(xd, wd, aux, sx, sw)
         ctx.spec, ctx.backend, ctx.fuse_bwd = spec, backend, fuse_bwd
         ctx.dtypes = (x.dtype, w.dtype, None if b is None else b.dtype)
         ctx.emit = _capture()
@@ -851,7 +1040,7 @@ class _LinearFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dz):
-        xd, wd, aux = ctx.saved_tensors
+        xd, wd, aux, sx, sw = ctx.saved_tensors
         spec, backend = ctx.spec, ctx.backend
         pol, act, count = spec.policy, spec.epilogue, ctx.emit.count
         has_b = ctx.dtypes[2] is not None
@@ -879,8 +1068,8 @@ class _LinearFn(torch.autograd.Function):
                     db = dza.sum(dim=tuple(range(dza.ndim - 1)))
                     _emit(dataclasses.replace(spec, op=spec.op + "_dbias",
                                               tile=None), backend, count=count)
-                dx, dw, _ = _bwd_gemms(spec, backend, count, xd, wd,
-                                       dza.to(pol.compute_dtype))
+                dx, dw = _quantized_bwd(spec, backend, count, xd, wd, sx, sw,
+                                        dza)
         need_x, need_w, need_b = ctx.needs_input_grad[4:]
         return (None, None, None, None,
                 dx.to(ctx.dtypes[0]) if need_x else None,
@@ -1068,14 +1257,16 @@ class Engine:
         else:
             lead = tuple(torch.broadcast_shapes(x.shape[:-2], w.shape[:-2]))
             tag = "bmn,bnk->bmk"
+        st = _storage(policy, b)
         spec = GemmSpec(
             op="matmul", tag=tag, m=m, n=n, k=k, batch=math.prod(lead),
             policy=policy, tile=tile or tiling.choose_tiles(m, n, k),
-            w_shared=(w.ndim == 2), layout=layout,
-            accum_block=_faithful_block(policy, m, n, k))
+            w_shared=(w.ndim == 2), layout=layout, **st,
+            accum_block=_faithful_block(policy, m, n, k, x_dtype=st["x_dtype"],
+                                        w_dtype=st["w_dtype"]))
         if layout != "nn":
             _no_backward(f"a {layout!r}-layout matmul", x, w)
-            return _dispatch(spec, b, x, w)
+            return _gemm_forward(spec, b, x, w)[0]
         return _gemm_call(spec, b, x, w)
 
     def linear(self, x: torch.Tensor, w: torch.Tensor,
@@ -1110,21 +1301,28 @@ class Engine:
             lead = tuple(torch.broadcast_shapes(x.shape[:-2], w.shape[:-2]))
             tag = "bmn,bnk->bmk"
         m, n, k = x.shape[-2], x.shape[-1], w.shape[-1]
+        st = _storage(policy, bk)
         spec = GemmSpec(
             op="linear", tag=tag, m=m, n=n, k=k, batch=math.prod(lead),
             policy=policy, tile=tile or tiling.choose_tiles(m, n, k),
-            epilogue=activation, w_shared=(w.ndim == 2),
-            accum_block=_faithful_block(policy, m, n, k))
+            epilogue=activation, w_shared=(w.ndim == 2), **st,
+            accum_block=_faithful_block(policy, m, n, k, x_dtype=st["x_dtype"],
+                                        w_dtype=st["w_dtype"]))
         if b is None and activation is None:
             return _gemm_call(spec, bk, x, w)
+        # a scaled (FP8) policy runs the epilogue post-op and the two-pass
+        # backward: the scales must be undone before the bias / activation,
+        # and ds is quantized once, in the engine (reference engine.py:2080)
         backend_spec = get_backend(bk)
-        fuse = backend_spec.supports("fused_epilogue")
+        fuse = backend_spec.supports("fused_epilogue") and not policy.scaled
         if _needs_grad(x, w, b):
-            fuse_bwd = w.ndim == 2 and backend_spec.supports("fused_bwd_epilogue")
+            fuse_bwd = (w.ndim == 2 and not policy.scaled
+                        and backend_spec.supports("fused_bwd_epilogue"))
             return _LinearFn.apply(spec, bk, fuse, fuse_bwd, x, w, b)
+        xd, wd, sx, sw = _prep_xw(spec, x, w)
         bc = None if b is None else b.to(policy.accum_dtype)
-        return _linear_forward(spec, bk, x, w, bc, fuse=fuse,
-                               epilogue=activation)
+        return _linear_forward(spec, bk, xd, wd, bc, _scale_product(sx, sw),
+                               fuse=fuse, epilogue=activation)
 
     def grouped_matmul(self, x: torch.Tensor, w: torch.Tensor, *,
                        group_sizes=None, policy=None,
@@ -1150,13 +1348,15 @@ class Engine:
         _no_backward("grouped_matmul", x, w)
         lead = tuple(x.shape[:-3])
         m, n, k = x.shape[-2], x.shape[-1], w.shape[-1]
+        st = _storage(policy, b)
         spec = GemmSpec(
             op="grouped_matmul", tag="gmn,gnk->gmk", m=m, n=n, k=k,
             batch=math.prod(lead), groups=w.shape[0], policy=policy,
             tile=tile or tiling.choose_tiles(m, n, k), w_shared=True,
-            valid_rows=_static_valid_rows(group_sizes, m),
-            accum_block=_faithful_block(policy, m, n, k))
-        z = _dispatch(spec, b, x, w)
+            valid_rows=_static_valid_rows(group_sizes, m), **st,
+            accum_block=_faithful_block(policy, m, n, k, x_dtype=st["x_dtype"],
+                                        w_dtype=st["w_dtype"]))
+        z, _ = _gemm_forward(spec, b, x, w)
         if group_sizes is not None:
             sizes = torch.as_tensor(group_sizes, device=z.device)
             valid = (torch.arange(m, device=z.device)[None, :]
@@ -1238,10 +1438,13 @@ class Engine:
         wt = w.permute([b_lab.index(l) for l in batch_l + c_l + k_l])
         size = lambda labels: math.prod(dims[l] for l in labels)
         bsz, m, k, c = size(batch_l), size(m_l), size(k_l), size(c_l)
+        st = _storage(policy, b)
         spec = GemmSpec(
             op="einsum2d", tag=eq.replace(" ", ""), m=m, n=c, k=k, batch=bsz,
             policy=policy, tile=tile or tiling.choose_tiles(m, c, k),
-            w_shared=not batch_l, accum_block=_faithful_block(policy, m, c, k))
+            w_shared=not batch_l, **st,
+            accum_block=_faithful_block(policy, m, c, k, x_dtype=st["x_dtype"],
+                                        w_dtype=st["w_dtype"]))
         if batch_l:
             x2, w2 = xt.reshape(bsz, m, c), wt.reshape(bsz, c, k)
         else:

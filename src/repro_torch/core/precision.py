@@ -19,7 +19,7 @@ import torch
 __all__ = [
     "Policy", "PAPER_FP16", "TPU_FP16", "TPU_BF16", "FP32",
     "MIXED_FP8_E4M3", "MIXED_FP8_E5M2", "FP8_FORMATS",
-    "resolve", "known_policies", "is_fp8",
+    "resolve", "known_policies", "is_fp8", "fp8_max",
     "quantize_fp8", "dequantize_fp8", "as_dtype", "dtype_name",
 ]
 
@@ -48,6 +48,11 @@ def is_fp8(dtype) -> bool:
         return False
 
 
+def fp8_max(dtype) -> float:
+    """Largest finite value of an FP8 format (448 for E4M3, 57344 for E5M2)."""
+    return float(torch.finfo(as_dtype(dtype)).max)
+
+
 def _validate_dtype(owner: str, field: str, value, *,
                     optional: bool = False) -> None:
     if value is None and optional:
@@ -70,6 +75,8 @@ class Policy:
     compute_dtype: torch.dtype
     accum_dtype: torch.dtype
     output_dtype: Optional[torch.dtype] = None
+    # mirrors the reference's field; the port never branches on it (an fp16
+    # accumulator is re-rounded per block whatever it says: blockwise_accum)
     faithful_accum: bool = False
     x_dtype: Optional[torch.dtype] = None
     w_dtype: Optional[torch.dtype] = None
@@ -109,6 +116,13 @@ class Policy:
         """True when any operand storage is FP8 (per-tensor scales)."""
         return any(is_fp8(d) for d in (self.x_dtype, self.w_dtype,
                                        self.grad_dtype) if d is not None)
+
+    @property
+    def blockwise_accum(self) -> bool:
+        """True when the accumulator is re-rounded to ``accum_dtype`` after
+        every reduction block: the reference kernel keeps its scratch
+        accumulator in ``accum_dtype``, so an fp16 accumulator is."""
+        return self.accum_dtype == torch.float16
 
 
 PAPER_FP16 = Policy("paper_fp16", torch.float16, torch.float16, torch.float16,
@@ -166,7 +180,21 @@ def quantize_fp8(v: torch.Tensor, dtype,
         scale = torch.where((amax > 0) & torch.isfinite(amax), amax,
                             torch.ones_like(amax))
     scale = torch.as_tensor(scale, dtype=torch.float32, device=vf.device)
-    return (vf / scale).to(dt), scale
+    return _to_fp8(vf / scale, dt), scale
+
+
+def _to_fp8(x: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """fp32 -> FP8, round to nearest even, bit for bit as XLA converts.
+
+    PyTorch saturates where XLA does not: E4M3 (no infinity) takes ±NaN
+    above 464 (what rounds past 448) and for ±inf, where PyTorch gives
+    ±448; an E5M2 NaN is 0x7e (with its sign bit), where PyTorch gives
+    0x7f.  Finite values inside the range convert alike."""
+    if dt == torch.float8_e4m3fn:
+        nan = torch.full_like(x, float("nan")).copysign(x)
+        return torch.where(x.abs() > 464.0, nan, x).to(dt)
+    q = x.to(dt).view(torch.uint8)
+    return torch.where(torch.isnan(x), (q & 0x80) | 0x7E, q).view(dt)
 
 
 def dequantize_fp8(q: torch.Tensor, scale, dtype=torch.float32) -> torch.Tensor:

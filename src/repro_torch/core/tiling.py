@@ -15,9 +15,10 @@ for (``csrc/redmule_matmul.cu``):
 budget (checked at import).  The flash-attention kernel's tiles are fixed:
 64 query rows by 32 KV rows (``FLASH_BQ`` / ``FLASH_BKV``).
 
-Under a faithful-accumulation policy (``paper_fp16``) the reference's
-reduction block is numerics, not a speed knob: its fp16 accumulator is
-re-rounded after every ``bn`` rows of the reduction.  :func:`accum_block`
+Under an fp16 accumulator (``paper_fp16``, ``mixed_fp8_e4m3``) the
+reference's reduction block is numerics, not a speed knob: its accumulator
+is re-rounded after every ``bn`` rows of the reduction, and ``bn`` depends
+on the operands' storage widths.  :func:`accum_block`
 is the reference's own tile heuristic (``repro/core/tiling.py:102-175``,
 its 8 MiB VMEM budget and 128-lane alignment included), copied so that
 the CUDA kernel rounds at the same points whatever its own 32-deep smem
@@ -29,7 +30,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -99,16 +100,19 @@ def sublane(dtype) -> int:
 
 
 def vmem_bytes(t: TileConfig, compute_dtype, accum_dtype, depth: int = 2,
-               fused_bwd: bool = False) -> int:
-    """The reference's VMEM working set of one tile (``tiling.py:102-132``,
-    operands stored in the compute dtype; per-operand FP8 storage arrives
-    with the FP8 slice): ``depth``-buffered X, W (and, for a fused
-    backward, derivative) tiles, the resident accumulator, the output tile
-    and the db row."""
+               fused_bwd: bool = False, x_dtype=None, w_dtype=None) -> int:
+    """The reference's VMEM working set of one tile (``tiling.py:73-97``):
+    ``depth``-buffered X, W (and, for a fused backward, derivative) tiles,
+    the resident accumulator, the output tile and the db row.  X and W are
+    held at their storage width (``x_dtype`` / ``w_dtype``, None: the
+    compute dtype): an FP8 operand's tiles take half the VMEM of fp16 ones,
+    since the reference DMAs them narrow and widens on load."""
     cb, ab = _itemsize(compute_dtype), _itemsize(accum_dtype)
+    xb = cb if x_dtype is None else _itemsize(x_dtype)
+    wb = cb if w_dtype is None else _itemsize(w_dtype)
     d_tile = max(t.bm * t.bn, t.bn * t.bk) * cb if fused_bwd else 0
     db_row = t.bk * ab if fused_bwd else 0
-    return (depth * (t.bm * t.bn + t.bn * t.bk) * cb + depth * d_tile
+    return (depth * (t.bm * t.bn * xb + t.bn * t.bk * wb + d_tile)
             + t.bm * t.bk * ab + t.bm * t.bk * cb + db_row)
 
 
@@ -118,13 +122,15 @@ def _round_up(x: int, m: int) -> int:
 
 @functools.lru_cache(maxsize=4096)
 def _reference_tiles_cached(M: int, N: int, K: int, compute: str, accum: str,
-                            fused_bwd: bool) -> Tuple[int, int, int]:
+                            fused_bwd: bool, x_dtype: Optional[str],
+                            w_dtype: Optional[str]) -> Tuple[int, int, int]:
     sl = sublane(compute)
     bm = _round_up(min(M, 512), sl)
     bk = _round_up(min(K, 512), MXU_LANE)
     bn = _round_up(min(N, 2048), MXU_LANE)
     while vmem_bytes(TileConfig(bm, bn, bk), compute, accum,
-                     fused_bwd=fused_bwd) > DEFAULT_VMEM_BUDGET:
+                     fused_bwd=fused_bwd, x_dtype=x_dtype,
+                     w_dtype=w_dtype) > DEFAULT_VMEM_BUDGET:
         if bn > MXU_LANE:
             bn //= 2
         elif bk > MXU_LANE:
@@ -137,23 +143,31 @@ def _reference_tiles_cached(M: int, N: int, K: int, compute: str, accum: str,
             max(MXU_LANE, _round_up(bk, MXU_LANE)))
 
 
+def _name(d) -> Optional[str]:
+    return None if d is None else str(d).removeprefix("torch.")
+
+
 def reference_tiles(M: int, N: int, K: int, *, compute_dtype, accum_dtype,
-                    fused_bwd: bool = False) -> TileConfig:
+                    fused_bwd: bool = False, x_dtype=None,
+                    w_dtype=None) -> TileConfig:
     """The tile the reference's ``choose_tiles`` picks for this GEMM (its
     ``_choose_tiles_cached``): start from the problem, capped at 512 x 2048
     x 512 and aligned, and halve bn, then bk, then bm until the working set
-    fits 8 MiB.  Empty dims count as 1, as there."""
-    name = lambda d: str(d).removeprefix("torch.")
+    fits 8 MiB.  ``x_dtype`` / ``w_dtype`` are the operands' storage dtypes
+    (None: the compute dtype); empty dims count as 1, as there."""
     bm, bn, bk = _reference_tiles_cached(
-        max(int(M), 1), max(int(N), 1), max(int(K), 1), name(compute_dtype),
-        name(accum_dtype), bool(fused_bwd))
+        max(int(M), 1), max(int(N), 1), max(int(K), 1), _name(compute_dtype),
+        _name(accum_dtype), bool(fused_bwd), _name(x_dtype), _name(w_dtype))
     return TileConfig(bm=bm, bn=bn, bk=bk)
 
 
 def accum_block(M: int, N: int, K: int, *, compute_dtype, accum_dtype,
-                fused_bwd: bool = False) -> int:
+                fused_bwd: bool = False, x_dtype=None, w_dtype=None) -> int:
     """The reduction block after which the reference re-rounds a faithful
     accumulator: its ``tile.bn`` for this dispatch (always a multiple of
-    128, so of the CUDA kernel's 32-deep step)."""
+    128, so of the CUDA kernel's 32-deep step).  FP8 storage halves the
+    streamed tiles, which can double ``bn``: at (512, 4096, 512) fp16
+    operands give 1024, E4M3 ones 2048."""
     return reference_tiles(M, N, K, compute_dtype=compute_dtype,
-                           accum_dtype=accum_dtype, fused_bwd=fused_bwd).bn
+                           accum_dtype=accum_dtype, fused_bwd=fused_bwd,
+                           x_dtype=x_dtype, w_dtype=w_dtype).bn

@@ -67,9 +67,27 @@
 // its `bk` slice of db once — no atomics, and the result does not depend on
 // the grid.  The reference returns an (M/bm, K) array whose every row is the
 // full sum; the port returns the (K,) row.
+//
+// FP8 storage, upcast on load (the mixed-precision policies; the reference's
+// `xt.astype(compute_dtype)` after each tile's DMA, redmule_matmul.py:227-237,
+// and `_load_compute`, :403-427).  The x and w operands have their own
+// global element types TX / TW, each __half or an FP8 format (__nv_fp8_e4m3,
+// __nv_fp8_e5m2); the shared-memory tiles stay fp16, so the WMMA fp16 ->
+// fp32 path, the faithful fold and the fused backward run unchanged on the
+// widened values.  One 16-byte load carries 16 FP8 elements and is widened
+// with the paired cvt (two values per instruction) into two 16-byte
+// shared-memory stores of 8 halves; unaligned or ragged operands take the
+// scalar path.  Every FP8 value is an fp16 value, so the product is the
+// one of the pre-widened operands: the bytes change, the values do not.
+// Hopper's native FP8 MMA is not used: it accumulates with fewer bits than
+// fp32, which is not the function the reference computes.  Only the pairs
+// the two FP8 policies produce are compiled (`kFp8Pair`); any other returns
+// an error.  The FP8 bytes move the bound of the weight-streaming decode
+// GEMMs from 2 to 1 byte per weight element.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
@@ -139,6 +157,47 @@ template <> __device__ __forceinline__ float to_float<__nv_bfloat16>(__nv_bfloat
   return __bfloat162float(v);
 }
 
+// FP8 storage: the interpretation of each format, and its widening to fp16
+using E4 = __nv_fp8_e4m3;
+using E5 = __nv_fp8_e5m2;
+template <typename T>
+constexpr bool kFp8 = std::is_same<T, E4>::value || std::is_same<T, E5>::value;
+template <typename TS> struct Fp8Interp;
+template <> struct Fp8Interp<E4> {
+  static constexpr __nv_fp8_interpretation_t value = __NV_E4M3;
+};
+template <> struct Fp8Interp<E5> {
+  static constexpr __nv_fp8_interpretation_t value = __NV_E5M2;
+};
+
+// one stored element in the tile's type T (exact: an FP8 value is an fp16)
+template <typename T, typename TS>
+__device__ __forceinline__ T widen(TS v) {
+  if constexpr (std::is_same<T, TS>::value) {
+    return v;
+  } else {
+    static_assert(kFp8<TS> && std::is_same<T, __half>::value, "FP8 -> fp16 only");
+    return __half(__nv_cvt_fp8_to_halfraw(v.__x, Fp8Interp<TS>::value));
+  }
+}
+
+// two FP8 values (the low byte first) -> two halves packed the same way
+template <typename TS>
+__device__ __forceinline__ unsigned int widen2(unsigned int pair) {
+  const __half2_raw r = __nv_cvt_fp8x2_to_halfraw2(
+      static_cast<__nv_fp8x2_storage_t>(pair), Fp8Interp<TS>::value);
+  return static_cast<unsigned int>(r.x) | (static_cast<unsigned int>(r.y) << 16);
+}
+
+// one 16-byte load of 16 FP8 values -> two 16-byte runs of 8 halves
+template <typename TS>
+__device__ __forceinline__ void widen16(const uint4 v, uint4& lo, uint4& hi) {
+  lo = make_uint4(widen2<TS>(v.x & 0xffffu), widen2<TS>(v.x >> 16),
+                  widen2<TS>(v.y & 0xffffu), widen2<TS>(v.y >> 16));
+  hi = make_uint4(widen2<TS>(v.z & 0xffffu), widen2<TS>(v.z >> 16),
+                  widen2<TS>(v.w & 0xffffu), widen2<TS>(v.w >> 16));
+}
+
 template <typename O> __device__ __forceinline__ O from_float(float v);
 template <> __device__ __forceinline__ float from_float<float>(float v) { return v; }
 template <> __device__ __forceinline__ __half from_float<__half>(float v) {
@@ -149,57 +208,81 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(f
 }
 
 // Copy the R x C tile whose top-left logical element is (r0, c0) into shared
-// memory (row-major, leading dimension LD), zero-filling outside
-// [0, rows) x [0, cols).  `vec` promises 16-byte alignment of every
-// 8-element run along the contiguous axis and a multiple-of-8 extent there.
-template <typename T, int R, int C, int LD>
-__device__ __forceinline__ void load_tile(T* dst, const T* src, int r0, int c0,
+// memory (row-major, leading dimension LD, type T), zero-filling outside
+// [0, rows) x [0, cols) and widening stored FP8 (TS) to T on the way.  `vec`
+// promises 16-byte alignment of every 16-byte run along the contiguous axis
+// (8 fp16 / bf16 elements, 16 FP8 ones) and a multiple of it as the extent
+// there.
+template <typename T, typename TS, int R, int C, int LD>
+__device__ __forceinline__ void load_tile(T* dst, const TS* src, int r0, int c0,
                                           int rows, int cols, long long s_r,
                                           long long s_c, int vec, int tid) {
   const T zero = from_float<T>(0.f);
+  constexpr bool narrow = !std::is_same<T, TS>::value;  // FP8 storage
+  constexpr int RUN = 16 / sizeof(TS);                  // elements per 16 bytes
   if (s_c == 1) {  // columns contiguous: neighbouring threads walk columns
     if (vec) {
-      constexpr int CV = C / 8;
+      constexpr int CV = C / RUN;
 #pragma unroll 4
       for (int e = tid; e < R * CV; e += kThreads) {
-        const int r = e / CV, c = (e % CV) * 8;
+        const int r = e / CV, c = (e % CV) * RUN;
         const int gr = r0 + r, gc = c0 + c;
         uint4 v = make_uint4(0u, 0u, 0u, 0u);
         if (gr < rows && gc < cols)
           v = *reinterpret_cast<const uint4*>(src + (long long)gr * s_r + gc);
-        *reinterpret_cast<uint4*>(dst + r * LD + c) = v;
+        if constexpr (narrow) {
+          uint4 lo, hi;
+          widen16<TS>(v, lo, hi);
+          *reinterpret_cast<uint4*>(dst + r * LD + c) = lo;
+          *reinterpret_cast<uint4*>(dst + r * LD + c + 8) = hi;
+        } else {
+          *reinterpret_cast<uint4*>(dst + r * LD + c) = v;
+        }
       }
     } else {
 #pragma unroll 4
       for (int e = tid; e < R * C; e += kThreads) {
         const int r = e / C, c = e % C;
         const int gr = r0 + r, gc = c0 + c;
-        dst[r * LD + c] =
-            (gr < rows && gc < cols) ? src[(long long)gr * s_r + gc] : zero;
+        dst[r * LD + c] = (gr < rows && gc < cols)
+                              ? widen<T>(src[(long long)gr * s_r + gc]) : zero;
       }
     }
   } else {  // a transposed layout: rows contiguous, threads walk rows
     if (vec && s_r == 1) {
-      constexpr int RV = R / 8;
+      constexpr int RV = R / RUN;
 #pragma unroll 4
       for (int e = tid; e < RV * C; e += kThreads) {
-        const int r = (e % RV) * 8, c = e / RV;
+        const int r = (e % RV) * RUN, c = e / RV;
         const int gr = r0 + r, gc = c0 + c;
         uint4 v = make_uint4(0u, 0u, 0u, 0u);
         if (gr < rows && gc < cols)
           v = *reinterpret_cast<const uint4*>(src + gr + (long long)gc * s_c);
-        const T* vals = reinterpret_cast<const T*>(&v);
+        if constexpr (narrow) {
+          uint4 lo, hi;
+          widen16<TS>(v, lo, hi);
+          const T* vl = reinterpret_cast<const T*>(&lo);
+          const T* vh = reinterpret_cast<const T*>(&hi);
 #pragma unroll
-        for (int q = 0; q < 8; ++q) dst[(r + q) * LD + c] = vals[q];
+          for (int q = 0; q < 8; ++q) {
+            dst[(r + q) * LD + c] = vl[q];
+            dst[(r + 8 + q) * LD + c] = vh[q];
+          }
+        } else {
+          const T* vals = reinterpret_cast<const T*>(&v);
+#pragma unroll
+          for (int q = 0; q < 8; ++q) dst[(r + q) * LD + c] = vals[q];
+        }
       }
     } else {
 #pragma unroll 4
       for (int e = tid; e < R * C; e += kThreads) {
         const int r = e % R, c = e / R;
         const int gr = r0 + r, gc = c0 + c;
-        dst[r * LD + c] = (gr < rows && gc < cols)
-                              ? src[(long long)gr * s_r + (long long)gc * s_c]
-                              : zero;
+        dst[r * LD + c] =
+            (gr < rows && gc < cols)
+                ? widen<T>(src[(long long)gr * s_r + (long long)gc * s_c])
+                : zero;
       }
     }
   }
@@ -251,10 +334,12 @@ __device__ __forceinline__ void scale_dz_tile(T* tile, const Ext& ext, int r0,
   }
 }
 
-template <typename T, typename O, int BM, int BK, int WARPS_M, int WARPS_N,
-          bool kExt>
+// T: the shared-memory tile and WMMA type (fp16 / bf16); TX / TW: the
+// operands' global element types (T, or FP8 widened to T on load)
+template <typename T, typename TX, typename TW, typename O, int BM, int BK,
+          int WARPS_M, int WARPS_N, bool kExt>
 __global__ void __launch_bounds__(kThreads)
-    redmule_gemm_kernel(const T* __restrict__ x, const T* __restrict__ w,
+    redmule_gemm_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
                         const float* __restrict__ bias, O* __restrict__ z,
                         int M, int N, int K, int inner, int batch0, Operand xo,
                         Operand wo, long long zs_outer, long long zs_inner,
@@ -297,8 +382,8 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   for (int n0 = 0; n0 < N; n0 += kBN) {
-    load_tile<T, BM, kBN, XLD>(xs, x, m0, n0, M, N, xo.row, xo.col, xo.vec, tid);
-    load_tile<T, kBN, BK, WLD>(ws, w, n0, k0, N, K, wo.row, wo.col, wo.vec, tid);
+    load_tile<T, TX, BM, kBN, XLD>(xs, x, m0, n0, M, N, xo.row, xo.col, xo.vec, tid);
+    load_tile<T, TW, kBN, BK, WLD>(ws, w, n0, k0, N, K, wo.row, wo.col, wo.vec, tid);
     __syncthreads();
     if constexpr (kExt) {
       if (ext.slot == 1 && ext.grad_epi != 0) {
@@ -549,7 +634,8 @@ int by_tile_f32(int tile, const Problem& p, bool ext, cudaStream_t s) {
   return (int)cudaErrorInvalidValue;
 }
 
-template <typename T, typename O, int BM, int BK, int WARPS_M, int WARPS_N, bool kExt>
+template <typename T, typename TX, typename TW, typename O, int BM, int BK,
+          int WARPS_M, int WARPS_N, bool kExt>
 int launch(const Problem& p, cudaStream_t stream) {
   const dim3 block(kThreads);
   // gy >= 1: a dW over M == 0 rows still launches its db row of blocks
@@ -558,9 +644,9 @@ int launch(const Problem& p, cudaStream_t stream) {
   const long long zs_outer = zs_inner * p.inner;
   for (int b0 = 0; b0 < p.batch; b0 += 65535) {  // grid.z is at most 65535
     const unsigned gz = (p.batch - b0) < 65535 ? (p.batch - b0) : 65535;
-    redmule_gemm_kernel<T, O, BM, BK, WARPS_M, WARPS_N, kExt>
+    redmule_gemm_kernel<T, TX, TW, O, BM, BK, WARPS_M, WARPS_N, kExt>
         <<<dim3(gx, gy, gz), block, 0, stream>>>(
-            static_cast<const T*>(p.x), static_cast<const T*>(p.w), p.bias,
+            static_cast<const TX*>(p.x), static_cast<const TW*>(p.w), p.bias,
             static_cast<O*>(p.z), p.M, p.N, p.K, p.inner, b0, p.xo, p.wo,
             zs_outer, zs_inner, p.epi, p.ext);
     const cudaError_t err = cudaGetLastError();
@@ -578,48 +664,87 @@ constexpr bool kExtPair =
     std::is_same<O, float>::value ||
     (std::is_same<T, __half>::value && std::is_same<O, __half>::value);
 
-template <typename T, typename O, int BM, int BK, int WARPS_M, int WARPS_N>
+// The FP8 (x, w, output, ext) combinations the two FP8 policies produce
+// (declared on the Python side as FP8_KERNELS; chip_smoke.py launches each
+// and checks that another fails): mixed_fp8_e4m3 runs every GEMM on the
+// faithful fp16 accumulator — E4M3 x E4M3 forward (fp16 out) and decode
+// scores (fp32 out), E5M2 dZ x E4M3 W (dX) and E4M3 X x E5M2 dZ (dW), the
+// latter two also with the fused backward; mixed_fp8_e5m2 accumulates in
+// fp32, E5M2 x E5M2 with an fp16 (forward) or fp32 ("+grad") output.
+template <typename TX, typename TW, typename O, bool kExt>
+constexpr bool kFp8Pair =
+    (std::is_same<TX, E4>::value && std::is_same<TW, E4>::value && kExt &&
+     (std::is_same<O, __half>::value || std::is_same<O, float>::value)) ||
+    (((std::is_same<TX, E5>::value && std::is_same<TW, E4>::value) ||
+      (std::is_same<TX, E4>::value && std::is_same<TW, E5>::value)) &&
+     kExt && std::is_same<O, __half>::value) ||
+    (std::is_same<TX, E5>::value && std::is_same<TW, E5>::value && !kExt &&
+     (std::is_same<O, __half>::value || std::is_same<O, float>::value));
+
+template <typename TX, typename TW, typename O, bool kExt>
+constexpr bool kCompiled =
+    (kFp8<TX> || kFp8<TW>) ? kFp8Pair<TX, TW, O, kExt>
+                           : (!kExt || kExtPair<TX, O>);
+
+template <typename T, typename TX, typename TW, typename O, int BM, int BK,
+          int WARPS_M, int WARPS_N>
 int ext_or_plain(const Problem& p, bool ext, cudaStream_t s) {
-  if (!ext) return launch<T, O, BM, BK, WARPS_M, WARPS_N, false>(p, s);
-  if constexpr (kExtPair<T, O>)
-    return launch<T, O, BM, BK, WARPS_M, WARPS_N, true>(p, s);
+  if (ext) {
+    if constexpr (kCompiled<TX, TW, O, true>)
+      return launch<T, TX, TW, O, BM, BK, WARPS_M, WARPS_N, true>(p, s);
+  } else {
+    if constexpr (kCompiled<TX, TW, O, false>)
+      return launch<T, TX, TW, O, BM, BK, WARPS_M, WARPS_N, false>(p, s);
+  }
   return (int)cudaErrorInvalidValue;
 }
 
-template <typename T, typename O>
+template <typename T, typename TX, typename TW, typename O>
 int by_tile(int tile, const Problem& p, bool ext, cudaStream_t s) {
   if (tile == 0)  // bm 64 x bk 64: warps 2 x 2, each 32 x 32
-    return ext_or_plain<T, O, 64, 64, 2, 2>(p, ext, s);
+    return ext_or_plain<T, TX, TW, O, 64, 64, 2, 2>(p, ext, s);
   if (tile == 1)  // bm 16 x bk 128: warps 1 x 4, each 16 x 32 (small-M decode)
-    return ext_or_plain<T, O, 16, 128, 1, 4>(p, ext, s);
+    return ext_or_plain<T, TX, TW, O, 16, 128, 1, 4>(p, ext, s);
   return (int)cudaErrorInvalidValue;
 }
 
-template <typename T>
+template <typename T, typename TX = T, typename TW = T>
 int by_out(int out_dtype, int tile, const Problem& p, bool ext, cudaStream_t s) {
   switch (out_dtype) {
-    case 0: return by_tile<T, __half>(tile, p, ext, s);
-    case 1: return by_tile<T, __nv_bfloat16>(tile, p, ext, s);
-    case 2: return by_tile<T, float>(tile, p, ext, s);
+    case 0: return by_tile<T, TX, TW, __half>(tile, p, ext, s);
+    case 1: return by_tile<T, TX, TW, __nv_bfloat16>(tile, p, ext, s);
+    case 2: return by_tile<T, TX, TW, float>(tile, p, ext, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
+// FP8 storage in both slots, widened to fp16 tiles
+template <typename TX>
+int fp8_by_w(int w_dtype, int out_dtype, int tile, const Problem& p, bool ext,
+             cudaStream_t s) {
+  if (w_dtype == 3) return by_out<__half, TX, E4>(out_dtype, tile, p, ext, s);
+  if (w_dtype == 4) return by_out<__half, TX, E5>(out_dtype, tile, p, ext, s);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// dtype / out_dtype: 0 = fp16, 1 = bf16, 2 = fp32 (fp32 operands take the
-// SIMT route and store fp32).
+// x_dtype / w_dtype / out_dtype: 0 = fp16, 1 = bf16, 2 = fp32, 3 = fp8 e4m3,
+// 4 = fp8 e5m2.  x and w are the same dtype (fp32 operands take the SIMT
+// route and store fp32) or both FP8 (widened to fp16 on load; the compiled
+// pairs are `kFp8Pair`'s).
 // tile: 0 = (bm 64, bn 32, bk 64), 1 = (bm 16, bn 32, bk 128).
 // accum_block > 0: the faithful fp16 accumulator, re-rounded every
-// accum_block reduction rows (a multiple of 32; fp16 operands and output).
+// accum_block reduction rows (a multiple of 32; fp16 tiles).
 // deriv / d_row / d_col / slot / grad_epi / grad_from_output / db: the fused
 // backward epilogue (see the header; nulls and zeros when unused, batch 1).
 // Returns cudaGetLastError() of the launch (0 on success).
-extern "C" int redmule_gemm(int dtype, int out_dtype, int tile, const void* x,
-                            const void* w, const void* bias, void* z, int batch,
-                            int inner, int M, int N, int K, long long xs_outer,
-                            long long xs_inner, long long xs_m, long long xs_n,
-                            int x_vec, long long ws_outer, long long ws_inner,
+extern "C" int redmule_gemm(int x_dtype, int w_dtype, int out_dtype, int tile,
+                            const void* x, const void* w, const void* bias,
+                            void* z, int batch, int inner, int M, int N, int K,
+                            long long xs_outer, long long xs_inner,
+                            long long xs_m, long long xs_n, int x_vec,
+                            long long ws_outer, long long ws_inner,
                             long long ws_n, long long ws_k, int w_vec, int epi,
                             int accum_block, const void* deriv, long long d_row,
                             long long d_col, int slot, int grad_epi,
@@ -635,12 +760,18 @@ extern "C" int redmule_gemm(int dtype, int out_dtype, int tile, const void* x,
       (db != nullptr && slot != 2))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
+  if (x_dtype >= 3 && w_dtype >= 3) {  // FP8 storage, fp16 tiles
+    if (x_dtype == 3) return fp8_by_w<E4>(w_dtype, out_dtype, tile, p, use_ext, s);
+    if (x_dtype == 4) return fp8_by_w<E5>(w_dtype, out_dtype, tile, p, use_ext, s);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (x_dtype != w_dtype) return (int)cudaErrorInvalidValue;
+  if (x_dtype == 0)
     return by_out<__half>(out_dtype, tile, p, use_ext, s);
-  if (accum_block > 0) return (int)cudaErrorInvalidValue;  // fp16 route only
-  if (dtype == 1)
+  if (accum_block > 0) return (int)cudaErrorInvalidValue;  // fp16 tiles only
+  if (x_dtype == 1)
     return by_out<__nv_bfloat16>(out_dtype, tile, p, use_ext, s);
-  if (dtype == 2) {  // the fp32 route: SIMT fp32 FMAs, fp32 out only
+  if (x_dtype == 2) {  // the fp32 route: SIMT fp32 FMAs, fp32 out only
     if (out_dtype != 2) return (int)cudaErrorInvalidValue;
     return by_tile_f32(tile, p, use_ext, s);
   }

@@ -17,8 +17,18 @@ route.  ``redmule_matmul`` also counts its faithful launches in
 ``.launches_faithful`` (those whose reduction spans more than one block
 again in ``.launches_multiblock``) and its fused-backward ones in
 ``.launches_fused_bwd`` (those on the fp32 route again in
-``.launches_fused_bwd_fp32``).
-FP8 operands belong to the next slice and raise ``NotImplementedError``.
+``.launches_fused_bwd_fp32``).  Every fp16 accumulator is faithful
+(``policy.blockwise_accum``): the reference kernel keeps its accumulator
+in ``accum_dtype``, so the ``*_scores`` policy of the decode scores (fp16
+accumulator, fp32 store) rounds per block too.
+
+FP8 operands (``float8_e4m3fn`` / ``float8_e5m2``, in either slot) are
+upcast to the fp16 compute dtype on load; a launch with one is also
+counted in ``.launches_fp8``.  On the card only the pairs the kernel is
+compiled for run (declared in
+:data:`repro_torch.kernels.redmule_matmul.FP8_KERNELS`); the kernel's
+dispatch refuses any other and the launch raises — nothing is widened
+behind the caller's back.
 Model code goes through :mod:`repro_torch.core.engine`.
 """
 
@@ -40,12 +50,17 @@ _ROADMAP = "not yet ported (see ROADMAP.md, Queue A)"
 _KERNEL_BN = tiling.GEMM_TILES[0].bn
 
 
+def _is_fp8(x: torch.Tensor, w: torch.Tensor) -> bool:
+    return prec.is_fp8(x.dtype) or prec.is_fp8(w.dtype)
+
+
 def _check(x: torch.Tensor, w: torch.Tensor, policy: prec.Policy,
            bias: Optional[torch.Tensor], epilogue: Optional[str]) -> None:
     epi.validate_epilogue(epilogue)
-    if prec.is_fp8(x.dtype) or prec.is_fp8(w.dtype):
+    if _is_fp8(x, w) and policy.compute_dtype != torch.float16:
         raise NotImplementedError(
-            f"FP8 operands (upcast on load) are {_ROADMAP}: the next slice")
+            f"FP8 operands widen to an fp16 compute dtype; policy "
+            f"{policy.name!r} computes in {prec.dtype_name(policy.compute_dtype)}")
     if x.device != w.device:
         raise ValueError(f"operands on {x.device} and {w.device}")
     if x.device.type == "cpu":
@@ -56,15 +71,16 @@ def _check(x: torch.Tensor, w: torch.Tensor, policy: prec.Policy,
         raise NotImplementedError(
             f"fp32 operands with a {policy.out_dtype} output (policy "
             f"{policy.name!r}) are {_ROADMAP}")
-    if policy.faithful_accum and not (
-            policy.compute_dtype == policy.accum_dtype == policy.out_dtype
-            == torch.float16):
+    if policy.blockwise_accum and not (
+            policy.compute_dtype == policy.accum_dtype == torch.float16
+            and policy.out_dtype in (torch.float16, torch.float32)):
         raise NotImplementedError(
             f"faithful accumulation outside fp16 (policy {policy.name!r}) is "
             f"{_ROADMAP}")
-    if x.dtype != policy.compute_dtype or w.dtype != policy.compute_dtype:
-        raise TypeError(f"operands must be {policy.compute_dtype}, got "
-                        f"{x.dtype} and {w.dtype}")
+    for t in (x, w):
+        if t.dtype != policy.compute_dtype and not prec.is_fp8(t.dtype):
+            raise TypeError(f"operands must be {policy.compute_dtype} or FP8, "
+                            f"got {x.dtype} and {w.dtype}")
     if bias is not None and bias.device != x.device:
         raise TypeError("bias must lie on the operands' device")
 
@@ -103,16 +119,19 @@ def _check_bwd(x, w, layout: str, policy: prec.Policy, deriv, grad_epilogue,
                             f"{x.device}, got {deriv.dtype} on {deriv.device}")
 
 
-def _block(policy: prec.Policy, M: int, N: int, K: int,
+def _block(policy: prec.Policy, x, w, M: int, N: int, K: int,
            accum_block: Optional[int], fused_bwd: bool) -> Optional[int]:
     """The faithful accumulator's rounding block: the caller's, else the
-    reference's for this dispatch; None without faithful accumulation."""
-    if not policy.faithful_accum:
+    reference's for this dispatch (sized by the operands' storage); None
+    without an fp16 accumulator."""
+    if not policy.blockwise_accum:
         return None
     if accum_block is None:
         return tiling.accum_block(M, N, K, compute_dtype=policy.compute_dtype,
                                   accum_dtype=policy.accum_dtype,
-                                  fused_bwd=fused_bwd)
+                                  fused_bwd=fused_bwd,
+                                  x_dtype=rm.storage_dtype(x),
+                                  w_dtype=rm.storage_dtype(w))
     if accum_block <= 0 or accum_block % _KERNEL_BN:
         raise ValueError(f"accum_block must be a positive multiple of "
                          f"{_KERNEL_BN}, got {accum_block}")
@@ -159,7 +178,7 @@ def redmule_matmul(x: torch.Tensor, w: torch.Tensor, *, policy: prec.Policy,
     _check_bwd(x, w, layout, policy, deriv, grad_epilogue, grad_from_output,
                bias_grad)
     fused_bwd = grad_epilogue is not None or bias_grad
-    block = _block(policy, M, N, K, accum_block, fused_bwd)
+    block = _block(policy, x, w, M, N, K, accum_block, fused_bwd)
     bwd = dict(deriv=deriv, grad_epilogue=grad_epilogue,
                grad_from_output=grad_from_output, bias_grad=bias_grad)
     if x.device.type == "cpu":
@@ -182,6 +201,8 @@ def redmule_matmul(x: torch.Tensor, w: torch.Tensor, *, policy: prec.Policy,
     redmule_matmul.launches += 1
     if x.dtype == torch.float32:
         redmule_matmul.launches_fp32 += 1
+    if _is_fp8(x, w):
+        redmule_matmul.launches_fp8 += 1
     if block:
         redmule_matmul.launches_faithful += 1
         if N > block:
@@ -195,6 +216,7 @@ def redmule_matmul(x: torch.Tensor, w: torch.Tensor, *, policy: prec.Policy,
 
 redmule_matmul.launches = 0
 redmule_matmul.launches_fp32 = 0
+redmule_matmul.launches_fp8 = 0
 redmule_matmul.launches_faithful = 0
 redmule_matmul.launches_multiblock = 0
 redmule_matmul.launches_fused_bwd = 0
@@ -221,7 +243,7 @@ def redmule_matmul_batched(x: torch.Tensor, w: torch.Tensor, *,
         raise ValueError(f">=2D operands expected, got {tuple(x.shape)} and "
                          f"{tuple(w.shape)}")
     M, N, K = rm.logical_dims(x.shape, w.shape, layout)
-    block = _block(policy, M, N, K, accum_block, False)
+    block = _block(policy, x, w, M, N, K, accum_block, False)
     if x.device.type == "cpu":
         return rm.redmule_matmul_plain(x, w, policy=policy, bias=bias,
                                        epilogue=epilogue, layout=layout,
@@ -236,8 +258,11 @@ def redmule_matmul_batched(x: torch.Tensor, w: torch.Tensor, *,
     redmule_matmul_batched.launches += 1
     if x.dtype == torch.float32:
         redmule_matmul_batched.launches_fp32 += 1
+    if _is_fp8(x, w):
+        redmule_matmul_batched.launches_fp8 += 1
     return z
 
 
 redmule_matmul_batched.launches = 0
 redmule_matmul_batched.launches_fp32 = 0
+redmule_matmul_batched.launches_fp8 = 0

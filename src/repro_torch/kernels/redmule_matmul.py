@@ -17,9 +17,10 @@ plain PyTorch: upcast to the accumulator dtype, ``torch.matmul``, bias and
 epilogue, one cast.  It serves tensors on the CPU and is what the kernel is
 held against on the card.
 
-Two modes of the reference kernel ride on the same contraction:
+Three modes of the reference kernel ride on the same contraction:
 
-* **faithful accumulation** (``policy.faithful_accum``, ``paper_fp16``):
+* **faithful accumulation** (an fp16 accumulator, ``policy.blockwise_accum``:
+  ``paper_fp16``, ``mixed_fp8_e4m3`` and its fp32-out ``*_scores``):
   the accumulator is fp16 and re-rounded after every ``accum_block`` rows
   of the reduction — the partial product of a block is an fp32 sum rounded
   once, then added into the fp16 running sum — and the bias, the epilogue
@@ -29,7 +30,14 @@ Two modes of the reference kernel ride on the same contraction:
   ``act'(deriv)`` in the accumulator dtype before the product
   (``grad_from_output`` picks the output form of the derivative), and
   ``bias_grad`` (on "tn") also returns ``db``, the column sums of that
-  scaled dZ over the reduction rows, accumulated per block like the GEMM.
+  scaled dZ over the reduction rows, accumulated per block like the GEMM;
+* **FP8 storage, upcast on load** (the ``mixed_fp8_*`` policies): either
+  operand may be ``float8_e4m3fn`` / ``float8_e5m2`` (the per-tensor scale
+  is the engine's business); it is widened to the compute dtype (fp16) on
+  its way into the kernel's shared-memory tile, so the bytes in device
+  memory stay narrow and the values are those of the pre-widened operand.
+  The kernel is compiled for the pairs the two policies produce
+  (declared in :data:`FP8_KERNELS`); a launch on any other pair raises.
 """
 
 from __future__ import annotations
@@ -46,10 +54,32 @@ from repro_torch.core import tiling
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref
 
-__all__ = ["LAYOUTS", "logical_dims", "redmule_matmul_plain", "launch"]
+__all__ = ["LAYOUTS", "FP8_KERNELS", "logical_dims", "redmule_matmul_plain",
+           "launch", "storage_dtype"]
 
 LAYOUTS = ("nn", "nt", "tn")
-_DTYPE_CODE = {torch.float16: 0, torch.bfloat16: 1, torch.float32: 2}
+_E4, _E5 = torch.float8_e4m3fn, torch.float8_e5m2
+_DTYPE_CODE = {torch.float16: 0, torch.bfloat16: 1, torch.float32: 2, _E4: 3,
+               _E5: 4}
+# The FP8 instantiations, declared: csrc/redmule_matmul.cu's `kFp8Pair`
+# decides what runs, this set names it (for error messages, and for the
+# tests that hold the paths' dispatches to it; chip_smoke.py launches each
+# pair and checks that an undeclared one fails).  (x storage, w storage,
+# output, ext), ext = the faithful fp16 accumulator or the fused backward
+# epilogue.  mixed_fp8_e4m3 (faithful): forward, tied head, PV and
+# the fp32-out decode scores (E4M3 x E4M3), dX (E5M2 dZ x E4M3 W) and dW
+# (E4M3 X x E5M2 dZ), the last two also with deriv / db.  mixed_fp8_e5m2
+# (fp32 accumulator): E5M2 x E5M2 with an fp16 (forward) or fp32 ("+grad")
+# output.
+FP8_KERNELS = frozenset({
+    (_E4, _E4, torch.float16, True), (_E4, _E4, torch.float32, True),
+    (_E5, _E4, torch.float16, True), (_E4, _E5, torch.float16, True),
+    (_E5, _E5, torch.float16, False), (_E5, _E5, torch.float32, False)})
+
+
+def _fp8_pairs():
+    name = prec.dtype_name
+    return sorted((name(a), name(b), name(o), e) for a, b, o, e in FP8_KERNELS)
 
 
 def check_layout(layout: str) -> None:
@@ -84,6 +114,12 @@ def _logical(x: torch.Tensor, w: torch.Tensor, layout: str):
     return x, w
 
 
+def storage_dtype(t: torch.Tensor) -> Optional[torch.dtype]:
+    """An operand's dtype where it is FP8 storage, else None (the compute
+    dtype), as the tile heuristic keys it."""
+    return t.dtype if prec.is_fp8(t.dtype) else None
+
+
 def _deriv_scaled(dz: torch.Tensor, deriv: Optional[torch.Tensor],
                   grad_epilogue: Optional[str], grad_from_output: bool,
                   acc) -> torch.Tensor:
@@ -115,13 +151,15 @@ def redmule_matmul_plain(x: torch.Tensor, w: torch.Tensor, *,
     the result cast once to ``policy.out_dtype`` — the kernel's store-once
     contract.  With ``grad_epilogue`` / ``bias_grad`` the dZ operand is
     first scaled by ``act'(deriv)``; ``bias_grad`` returns ``(z, db)``
-    with ``db`` the accumulator-dtype ``(K,)`` row."""
-    if policy.faithful_accum and accum_block is None:
+    with ``db`` the accumulator-dtype ``(K,)`` row.  FP8 operands are
+    widened first (exactly: every FP8 value is an fp16 and an fp32)."""
+    if policy.blockwise_accum and accum_block is None:
         M, N, K = logical_dims(x.shape, w.shape, layout)
         accum_block = tiling.accum_block(
             M, N, K, compute_dtype=policy.compute_dtype,
             accum_dtype=policy.accum_dtype,
-            fused_bwd=grad_epilogue is not None or bias_grad)
+            fused_bwd=grad_epilogue is not None or bias_grad,
+            x_dtype=storage_dtype(x), w_dtype=storage_dtype(w))
     xl, wl = _logical(x, w, layout)
     acc = policy.accum_dtype
     db = None
@@ -131,10 +169,10 @@ def redmule_matmul_plain(x: torch.Tensor, w: torch.Tensor, *,
                             grad_from_output, acc)
         if bias_grad:
             db = (ref.faithful_row_sum(dsa, acc, accum_block)
-                  if policy.faithful_accum else dsa.sum(dim=-2))
+                  if policy.blockwise_accum else dsa.sum(dim=-2))
         ds = dsa.to(policy.compute_dtype)
         xl, wl = (ds, wl) if on_x else (xl, ds)
-    if policy.faithful_accum:
+    if policy.blockwise_accum:
         z = ref.faithful_matmul(xl.to(policy.compute_dtype),
                                 wl.to(policy.compute_dtype), acc, accum_block)
     else:
@@ -150,7 +188,7 @@ def _lib() -> ctypes.CDLL:
     if lib.redmule_gemm.argtypes is None:
         i, ll, p = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
         lib.redmule_gemm.argtypes = [
-            i, i, i, p, p, p, p, i, i, i, i, i,
+            i, i, i, i, p, p, p, p, i, i, i, i, i,
             ll, ll, ll, ll, i, ll, ll, ll, ll, i, i,
             i, p, ll, ll, i, i, i, p, p]
         lib.redmule_gemm.restype = i
@@ -182,14 +220,15 @@ def _collapse(t: torch.Tensor, lead: Sequence[int]) -> Tuple[torch.Tensor, int, 
 def _vec_ok(t: torch.Tensor, batch_strides, s_row: int, s_col: int,
             rows: int, cols: int) -> int:
     """Whether the kernel may read ``t`` with 16-byte loads (see
-    ``load_tile`` in csrc/redmule_matmul.cu): 16-byte aligned runs of 8
-    elements along the contiguous axis."""
-    if t.data_ptr() % 16 or any(s % 8 for s in batch_strides):
+    ``load_tile`` in csrc/redmule_matmul.cu): 16-byte aligned runs along
+    the contiguous axis — 8 elements of fp16 / bf16, 16 of FP8."""
+    n = 16 // t.element_size()
+    if t.data_ptr() % 16 or any(s % n for s in batch_strides):
         return 0
     if s_col == 1:
-        return int(cols % 8 == 0 and (rows == 1 or s_row % 8 == 0))
+        return int(cols % n == 0 and (rows == 1 or s_row % n == 0))
     if s_row == 1:
-        return int(rows % 8 == 0 and (cols == 1 or s_col % 8 == 0))
+        return int(rows % n == 0 and (cols == 1 or s_col % n == 0))
     return 0
 
 
@@ -233,7 +272,8 @@ def launch(x: torch.Tensor, w: torch.Tensor, *, policy: prec.Policy,
                          f"for: {tiling.GEMM_TILES}") from None
     lib = _lib()
     err = lib.redmule_gemm(
-        _DTYPE_CODE[x.dtype], _DTYPE_CODE[policy.out_dtype], tile_id,
+        _DTYPE_CODE[x.dtype], _DTYPE_CODE[w.dtype],
+        _DTYPE_CODE[policy.out_dtype], tile_id,
         x.data_ptr(), w.data_ptr(),
         None if bias is None else bias.data_ptr(), z.data_ptr(),
         math.prod(lead), lead[-1] if lead else 1, M, N, K,
@@ -247,8 +287,13 @@ def launch(x: torch.Tensor, w: torch.Tensor, *, policy: prec.Policy,
         None if db is None else db.data_ptr(),
         torch.cuda.current_stream(x.device).cuda_stream)
     if err:
+        ext = bool(accum_block) or slot != 0
         raise RuntimeError(
-            f"redmule_gemm launch failed: {lib.redmule_error_string(err).decode()}")
+            f"redmule_gemm launch failed ({prec.dtype_name(x.dtype)} x "
+            f"{prec.dtype_name(w.dtype)} -> {prec.dtype_name(policy.out_dtype)}"
+            f"{', faithful / fused backward' if ext else ''}): "
+            f"{lib.redmule_error_string(err).decode()}; FP8 pairs compiled "
+            f"(x, w, out, faithful / fused): {_fp8_pairs()}")
     if bias_grad:
         return z, db.to(policy.accum_dtype)
     return z

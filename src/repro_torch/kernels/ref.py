@@ -49,11 +49,11 @@ def matmul_exact(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def matmul_ref(x: torch.Tensor, w: torch.Tensor, *, policy: prec.Policy,
                tile: Optional[tiling.TileConfig] = None) -> torch.Tensor:
     """Oracle with the kernel's accumulation semantics: one accum-dtype
-    product and one downcast, or — under ``faithful_accum`` — partial
+    product and one downcast, or — under an fp16 accumulator — partial
     products per ``bn`` block re-rounded to the accumulator dtype."""
     xc = x.to(policy.compute_dtype).to(policy.accum_dtype)
     wc = w.to(policy.compute_dtype).to(policy.accum_dtype)
-    if not policy.faithful_accum:
+    if not policy.blockwise_accum:
         return torch.matmul(xc, wc).to(policy.out_dtype)
     bn = tile.bn if tile is not None else 128
     return faithful_matmul(xc, wc, policy.accum_dtype, bn).to(policy.out_dtype)

@@ -9,6 +9,8 @@ directory, and ``_ae_main``).  It runs on one device, the card by default::
         --batch 4 --seq 256 --steps 3
     PYTHONPATH=src python -m repro_torch.launch.train --arch ae --batch 16 \\
         --steps 200            # the paper's AutoEncoder, paper_fp16
+    PYTHONPATH=src python -m repro_torch.launch.train --arch ae --batch 16 \\
+        --steps 200 --policy mixed_fp8_e4m3   # FP8 storage, per-tensor scales
 
 Weights are random, drawn from ``--seed``; batches are the reference's
 ``SyntheticLM`` / ``SyntheticAE`` streams.  ``--device cpu`` runs the plain
@@ -16,8 +18,9 @@ PyTorch versions of the kernels.  The default arch is xlstm-1.3b (the
 reference's default, qwen3-1.7b, needs the attention backward, which is not
 ported yet).  ``--arch ae`` trains the TinyMLPerf AutoEncoder under
 ``--policy`` (default ``paper_fp16``: the RedMulE fp16 accumulator in every
-GEMM).  LM loss scaling, checkpointing, gradient compression / data
-parallelism, failure injection and the FP8 policies are not ported yet
+GEMM; ``mixed_fp8_e4m3`` / ``mixed_fp8_e5m2`` store every GEMM operand in
+FP8 with a per-tensor scale).  LM loss scaling, checkpointing, gradient
+compression / data parallelism and failure injection are not ported yet
 (ROADMAP.md): their flags are kept so a command line carries over, and
 each raises ``NotImplementedError``.
 """
@@ -158,12 +161,10 @@ def build_ae_step(opt, policy: prec.Policy, *, clip_norm: float = 1.0):
 
 def _ae_main(args, device: torch.device) -> Dict[str, Any]:
     """The paper's §III-B use case: the AutoEncoder trained under
-    ``--policy`` (``paper_fp16`` by default), AdamW without warmup, clip
-    1.0, one CUDA-event time per step."""
+    ``--policy`` (``paper_fp16`` by default; the FP8 policies quantize
+    every GEMM operand per tensor), AdamW without warmup, clip 1.0, one
+    CUDA-event time per step."""
     policy = prec.resolve(args.policy or "paper_fp16")
-    if policy.mixed_storage:
-        raise NotImplementedError(
-            f"policy {policy.name!r} (FP8 storage) is {_ROADMAP}")
     params = autoencoder.init_ae(seed=args.seed, device=device)
     for p in tree_leaves(params):
         p.requires_grad_(True)
@@ -270,7 +271,8 @@ def main(argv=None) -> Dict[str, Any]:
                         "summary with the fwd/bwd split before training")
     p.add_argument("--policy", default=None,
                    help="precision policy for --arch ae (default paper_fp16; "
-                        "tpu_fp16, tpu_bf16 and fp32 are also accepted)")
+                        "tpu_fp16, tpu_bf16, fp32, mixed_fp8_e4m3 and "
+                        "mixed_fp8_e5m2 are also accepted)")
     unported = p.add_argument_group("not yet ported (ROADMAP.md); each raises")
     unported.add_argument("--ckpt-dir", default="")
     unported.add_argument("--save-every", type=int, default=50)

@@ -93,6 +93,8 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if kv_group_sizes is not None:
         if S != 1:
             raise ValueError("kv_group_sizes is a decode-only (S == 1) path")
+        # the reference's scores policy, field for field; clearing
+        # faithful_accum changes nothing here (Policy.blockwise_accum)
         scores_policy = dataclasses.replace(
             policy, name=policy.name + "_scores", output_dtype=torch.float32,
             faithful_accum=False)

@@ -49,28 +49,37 @@ def init_ae(*, seed: int = 0, device="cuda") -> Dict[str, Any]:
 
 def ae_forward(params, x: torch.Tensor, *,
                policy: prec.Policy = prec.PAPER_FP16,
-               backend=None) -> torch.Tensor:
+               backend=None, stats_dtype: torch.dtype = torch.float32
+               ) -> torch.Tensor:
     """``x (B, 640)`` -> reconstruction ``(B, 640)`` in the policy's
-    output dtype."""
+    output dtype.
+
+    ``stats_dtype`` is the dtype BatchNorm computes in: fp32 as the
+    reference does.  float64 makes its reductions over the batch (forward
+    statistics and their backward sums) independent of the summation
+    order, so two devices can be compared without BatchNorm's
+    ill-conditioning."""
     h = x
     n = len(AE_DIMS) - 1
     for i in range(n):
         p = params[f"fc{i}"]
         h = engine.linear(h, p["w"], p["b"], policy=policy, backend=backend)
         if i != n - 1:
-            hf = h.float()
+            hf = h.to(stats_dtype)
             mu = hf.mean(dim=0, keepdim=True)
             var = hf.var(dim=0, keepdim=True, unbiased=False)
             hf = (hf - mu) * torch.rsqrt(var + 1e-5)
-            hf = hf * p["gamma"].float() + p["beta"].float()
+            hf = hf * p["gamma"].to(stats_dtype) + p["beta"].to(stats_dtype)
             h = torch.relu(hf).to(h.dtype)
     return h
 
 
 def ae_loss(params, x: torch.Tensor, *, policy: prec.Policy = prec.PAPER_FP16,
-            backend=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+            backend=None, stats_dtype: torch.dtype = torch.float32
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The reconstruction MSE in fp32, and ``{"mse": loss}``."""
-    rec = ae_forward(params, x, policy=policy, backend=backend)
+    rec = ae_forward(params, x, policy=policy, backend=backend,
+                     stats_dtype=stats_dtype)
     err = rec.float() - x.float()
     loss = torch.mean(err * err)
     return loss, {"mse": loss}

@@ -156,7 +156,8 @@ def test_instrument_repeat_and_scope():
 
 def test_registry_contract():
     assert te.default_backend() == "hopper"
-    for cap in ("fused_epilogue", "tiled", "layouts", "attention"):
+    for cap in ("fused_epilogue", "tiled", "layouts", "fused_bwd_epilogue",
+                "operand_dtypes", "attention"):
         assert te.backend_supports("hopper", cap)
     with pytest.raises(ValueError, match="unknown backend capabilities"):
         te.register_backend("bad", lambda *a, **k: None, capabilities=("warp",))
@@ -164,8 +165,12 @@ def test_registry_contract():
         te.register_backend("bad", lambda *a, **k: None, capabilities=("attention",))
     with pytest.raises(ValueError, match="unknown backend"):
         te.matmul(torch.ones(2, 2), torch.ones(2, 2), backend="nope")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        te.matmul(torch.ones(2, 2), torch.ones(2, 2), policy="mixed_fp8_e4m3")
+    # the FP8 policies dispatch: E4M3 operands, per-tensor scales undone
+    with te.instrument() as ev:
+        z = te.matmul(torch.ones(2, 2), torch.ones(2, 2), policy="mixed_fp8_e4m3")
+    assert z.dtype == torch.float16 and torch.equal(z, torch.full((2, 2), 2.0).half())
+    assert (ev[0].spec.x_dtype, ev[0].spec.w_dtype, ev[0].spec.scaled) == \
+        ("float8_e4m3fn", "float8_e4m3fn", True)
 
 
 def test_post_op_backend_without_capabilities():

@@ -170,15 +170,22 @@ def test_vector_load_rule():
 
 
 def test_plain_gemm_rejects_later_slice_features():
-    # FP8 operands (upcast on load) are the next slice; the fused backward
-    # keeps the reference kernel's contract (transpose layouts, bias_grad
-    # on "tn", deriv shaped like dZ)
+    # FP8 operands widen on load to an fp16 compute dtype only (and there
+    # run); the fused backward keeps the reference kernel's contract
+    # (transpose layouts, bias_grad on "tn", deriv shaped like dZ)
     x = torch.ones(4, 8)
-    with pytest.raises(NotImplementedError, match="FP8.*next slice"):
+    with pytest.raises(NotImplementedError, match="FP8.*fp16 compute"):
         tops.redmule_matmul(x.to(torch.float8_e4m3fn), x.t(), policy=tprec.FP32)
     with pytest.raises(NotImplementedError, match="FP8"):
         tops.redmule_matmul_batched(x[None].to(torch.float8_e5m2), x.t()[None],
                                     policy=tprec.FP32)
+    z = tops.redmule_matmul(x.to(torch.float8_e4m3fn), x.t().to(torch.float8_e4m3fn),
+                            policy=tprec.MIXED_FP8_E4M3)
+    assert z.dtype == torch.float16 and torch.equal(z, torch.full((4, 4), 8.0).half())
+    zb = tops.redmule_matmul_batched(x[None].to(torch.float8_e5m2),
+                                     x.t()[None].to(torch.float8_e5m2),
+                                     policy=tprec.MIXED_FP8_E5M2)
+    assert torch.equal(zb, torch.full((1, 4, 4), 8.0).half())
     with pytest.raises(ValueError, match="tn"):
         tops.redmule_matmul(x, x.t(), policy=tprec.FP32, bias_grad=True)
     with pytest.raises(ValueError, match="transpose-layout"):

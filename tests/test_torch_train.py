@@ -285,8 +285,11 @@ def test_full_width_config_matches_reference():
 
 
 def test_train_unported_paths_raise():
-    for argv in (["--arch", "ae", "--policy", "mixed_fp8_e4m3"],
-                 ["--fp16-scale"], ["--ckpt-dir", "x"],
+    # the AutoEncoder under an FP8 policy trains (tests/test_torch_fp8.py)
+    out = ttrain.main(["--device", "cpu", "--arch", "ae", "--policy",
+                       "mixed_fp8_e4m3", "--batch", "8", "--steps", "1"])
+    assert out["policy"] == "mixed_fp8_e4m3" and np.isfinite(out["history"][0]["loss"])
+    for argv in (["--fp16-scale"], ["--ckpt-dir", "x"],
                  ["--compress", "fp8"], ["--dp-procs", "2"], ["--fail-step", "3"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ttrain.main(["--device", "cpu", *argv])
