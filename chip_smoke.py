@@ -18,9 +18,16 @@ Phases, any failure exits non-zero:
    1 and 2 (each FP8 launch also bitwise against the same launch on
    pre-widened fp16 operands), flash attention (kernel 3) and the chunked
    linear-attention sweep (kernel 4: the training shape, a ragged dk != dv
-   shape, fp32 input).  Each kernel, its plain version and — where one
-   exists — one PyTorch library call for the same function are timed with
-   CUDA events, and the kernel alone with torch.profiler;
+   shape, fp32 input); then the split of the reduction inside one GEMM
+   launch (a ragged last slice, the faithful accumulator over 3 rounding
+   blocks, an FP8 pair bitwise against its pre-widened launch, a broadcast
+   batched operand, the fp32 route), every split launch repeated and
+   bitwise equal run to run, and rows at qwen3-1.7b's decode / prefill and
+   the xLSTM's fp32 gate and sLSTM shapes.  Each kernel, its plain version
+   and — where one exists — one PyTorch library call for the same function
+   are timed with CUDA events (decode / prefill rows over weight copies
+   that exceed the L2), the kernel alone with torch.profiler, and each
+   GEMM row prints the slices S its launch split into;
 3. **serve** — every kernel's launch count is set to 0, then
    ``repro_torch.launch.serve`` serves qwen3-1.7b at full width (random
    weights from a seed): 4 requests, prompt 128, 16 new tokens; the counts
@@ -33,8 +40,10 @@ Phases, any failure exits non-zero:
    blocks, d 2048, random weights from a seed) for 3 steps at batch 4 x
    seq 256; loss and gradient norm must be finite on every step and the
    sweep kernel's launch count must equal the structural one (42 mLSTM
-   blocks per forward, once more in the remat recompute).  Then one step
-   is profiled (device busy / idle share) with its peak memory, and one
+   blocks per forward, once more in the remat recompute).  The warm-up
+   step's fp32-route launches are tallied by shape, each shape then timed
+   alone; then one step is profiled (device busy / idle share) with its
+   peak memory, and one
    full-width super-block (7 mLSTM + 1 sLSTM, batch 1, seq 128) is held
    against the plain path on the CPU: loss and the gradients of w_up,
    w_qkv and r_gates;
@@ -59,8 +68,9 @@ Phases, any failure exits non-zero:
    (the structural 2260 / 896 / 112 launches, every GEMM launch FP8);
    one prefill and one decode step timed and profiled; a two-layer cut
    (prefill, and a decode step from one cache) against the CPU plain path;
-8. **report** — the card (``nvidia-smi``), a ``{"kernels": [...]}`` line,
-   and last ``{"ok": true, "device": {...}}``.
+8. **report** — the GEMM wrappers' split launches (``.launches_split``)
+   per path, the card (``nvidia-smi``), a ``{"kernels": [...]}`` line, and
+   last ``{"ok": true, "device": {...}}``.
 
 Everything is also written to ``chiprun_out/chip_smoke.json``.  It needs
 one card and exits non-zero without one, or without the rest of the repo.
@@ -560,6 +570,198 @@ def fp8_kernel_checks(log, g):
     ]
 
 
+def _with_splits(fn):
+    """``(fn(), S)``: what one call returns, and the number of slices its
+    GEMM launch split the reduction into (``core/tiling.split_plan``, read
+    as the launch asks for it); S is None where ``fn`` launches no GEMM."""
+    from repro_torch.core import tiling
+
+    seen = []
+    plan_of = tiling.split_plan
+
+    def record(*a, **k):
+        plan = plan_of(*a, **k)
+        seen.append(plan.splits)
+        return plan
+
+    tiling.split_plan = record
+    try:
+        out = fn()
+    finally:
+        tiling.split_plan = plan_of
+    return out, (max(seen) if seen else None)
+
+
+def split_checks(log, g):
+    """The split of the reduction (kernels 1 and 2, both routes) on the
+    card: the serving and training shapes it exists for, each against its
+    plain version, and cases of the split itself — a last slice shorter
+    than the others (N not a multiple of S x 32), the faithful accumulator
+    over 3 rounding blocks of 4 slices each, an FP8 pair (still bitwise
+    equal to the launch on pre-widened fp16 operands), a batched launch
+    with a broadcast (stride-0) operand, the fp32 route with a ragged last
+    slice.  Every launch is repeated and must be bitwise equal run to run:
+    the last block of a tile sums the slices in split order, whichever
+    block arrives last.  Returns the rows to time; the decode and prefill
+    rows read, call after call, the next of several weight copies (more
+    than the 50 MB L2 holds), as the serving step finds its weights cold.
+
+    Tolerances: a bf16 output two ulps (2^-7 of max); fp32 1e-5 of max
+    (summation order); the faithful accumulator one fp16 ulp (2^-10) per
+    rounding block plus one, since each block's slices are summed in fp32
+    in another order than the plain version's one dot, then rounded."""
+    import itertools
+
+    import torch
+
+    from repro_torch.core import precision as prec
+    from repro_torch.core import tiling
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import redmule_matmul as rm
+
+    dev = torch.device("cuda")
+    bf, f32, paper = prec.TPU_BF16, prec.FP32, prec.PAPER_FP16
+    E4 = torch.float8_e4m3fn
+    ulp, tol_bf16, tol_fp32 = 2.0 ** -10, 2.0 ** -7, 1e-5
+
+    def rnd(*shape, dtype=torch.bfloat16, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+
+    def both(name, x, w, policy, tol, *, batched=False, split=True, **kw):
+        """The launch against its plain version, and against itself run to
+        run; ``split``: S must be above 1.  Returns (max_abs_err, S)."""
+        fn = ops.redmule_matmul_batched if batched else ops.redmule_matmul
+        got, S = _with_splits(lambda: fn(x, w, policy=policy, **kw))
+        if split and S <= 1:
+            raise AssertionError(f"{name}: the launch did not split (S = {S})")
+        same = torch.equal(got, fn(x, w, policy=policy, **kw))
+        log.append({"check": name + ": run to run", "splits": S, "bitwise": same,
+                    "ok": same})
+        print(f"[check] {name}: S={S}, run to run "
+              f"{'bitwise equal' if same else 'DIFFER'}", flush=True)
+        if not same:
+            raise AssertionError(f"{name}: two launches differ")
+        want = rm.redmule_matmul_plain(x, w, policy=policy, **kw)
+        return _check(f"{name} (S={S})", got, want, tol, log), S
+
+    # the last slice shorter than the others (N = 2000 in slices of 128),
+    # and ragged K
+    both("split gemm nn M=4 N=2000 K=1000 bf16 (ragged last slice)", rnd(4, 2000),
+         rnd(2000, 1000, scale=2000 ** -0.5), bf, tol_bf16)
+    # the faithful accumulator: 3 rounding blocks of 512, 4 slices each
+    both("split faithful nn M=16 N=1536 K=256 +bias, 3 blocks of 512",
+         rnd(16, 1536, dtype=torch.float16),
+         rnd(1536, 256, dtype=torch.float16, scale=1536 ** -0.5), paper, 4 * ulp,
+         bias=rnd(256, dtype=torch.float16), accum_block=512)
+    # an FP8 pair on the decode wqkv: bitwise equal to the pre-widened launch
+    x8 = prec.quantize_fp8(torch.randn(BATCH, 2048, generator=g, device=dev), E4)[0]
+    w8 = prec.quantize_fp8(torch.randn(2048, 4096, generator=g, device=dev), E4)[0]
+    blk8 = tiling.accum_block(BATCH, 2048, 4096, compute_dtype=torch.float16,
+                              accum_dtype=torch.float16, x_dtype=E4, w_dtype=E4)
+    e4 = prec.MIXED_FP8_E4M3
+    both("split fp8 e4m3 nn decode wqkv M=4 N=2048 K=4096, faithful", x8, w8, e4,
+         2 * ulp, accum_block=blk8)
+    same = torch.equal(ops.redmule_matmul(x8, w8, policy=e4, accum_block=blk8),
+                       ops.redmule_matmul(x8.half(), w8.half(), policy=e4,
+                                          accum_block=blk8))
+    log.append({"check": "split fp8 decode wqkv: FP8 == pre-widened fp16 launch",
+                "bitwise": same, "ok": same})
+    print(f"[check] split fp8 decode wqkv: FP8 vs pre-widened fp16 launch "
+          f"{'bitwise equal' if same else 'DIFFER'}", flush=True)
+    if not same:
+        raise AssertionError("split FP8 launch differs from the pre-widened one")
+    # batched, w broadcast over both batch levels (stride 0)
+    both("split batched nn B=2x4 M=4 N=2048 K=256 bf16, w broadcast",
+         rnd(2, 4, BATCH, 2048), rnd(2048, 256, scale=2048 ** -0.5), bf, tol_bf16,
+         batched=True)
+    # the fp32 route: "nt", 16 slices of 64, the last holding 40 rows
+    both("split fp32 nt M=30 N=1000 K=50 (ragged last slice)", rnd(30, 1000,
+         dtype=torch.float32), rnd(50, 1000, dtype=torch.float32), f32, tol_fp32,
+         layout="nt")
+
+    # the rows: qwen3-1.7b's decode and prefill GEMMs (bf16), the xLSTM's
+    # fp32 gates dW and sLSTM recurrence (4 heads of 512)
+    d, ff, qkv = 2048, 6144, (16 + 2 * 8) * 128
+
+    def copies(t):
+        n = max(1, math.ceil(100 * 2 ** 20 / (t.numel() * t.element_size())))
+        return [t] + [t.clone() for _ in range(n - 1)]
+
+    def cycling(f, ws):
+        it = itertools.cycle(ws)
+        return lambda: f(next(it))
+
+    def bf_bound(M, N, K):
+        return _bound_ms((M * N + N * K + M * K) * 2, 2 * M * N * K)
+
+    def f32_bound(M, N, K, batch=1):
+        return _bound_ms(batch * (M * N + N * K + M * K) * 4, 2 * batch * M * N * K,
+                         FP32_FLOPS)
+
+    src = "src/repro_torch/csrc/redmule_matmul.cu"
+    rep1 = "src/repro/kernels/redmule_matmul.py:289"
+    rep2 = "src/repro/kernels/redmule_matmul.py:478"
+    rows = []
+
+    def cold_row(name, shape, M, N, K, counter, paths, split):
+        x = rnd(M, N)
+        ws = copies(rnd(N, K, scale=N ** -0.5))
+        err, _ = both(f"gemm nn {shape}", x, ws[0], bf, tol_bf16, split=split)
+        rows.append(dict(
+            name=name, group="redmule_gemm", counter=counter, paths=paths,
+            source=src, replaces=rep1, err=err, bound=bf_bound(M, N, K),
+            shape=f"{shape} bf16, L2 cold ({len(ws)} weight copies)",
+            kernel=cycling(lambda w: ops.redmule_matmul(x, w, policy=bf), ws),
+            plain=cycling(lambda w: rm.redmule_matmul_plain(x, w, policy=bf), ws),
+            library=cycling(lambda w: torch.matmul(x, w), ws)))
+
+    split1 = (ops.redmule_matmul, "launches_split")
+    split2 = (ops.redmule_matmul_batched, "launches_split")
+    cold_row("redmule_matmul (split, decode w_out)", "decode w_out M=4 N=6144 K=2048",
+             BATCH, ff, d, split1, ("serve", "serve8"), True)
+    cold_row("redmule_matmul (split, decode wqkv)", "decode wqkv M=4 N=2048 K=4096",
+             BATCH, d, qkv, split1, ("serve", "serve8"), True)
+    cold_row("redmule_matmul (ring, prefill w_in)", "prefill w_in M=128 N=2048 K=12288",
+             PROMPT, d, 2 * ff, (ops.redmule_matmul, "launches"), ("serve",), False)
+    xg, dzg = rnd(T_BATCH * T_SEQ, 4096, dtype=torch.float32), rnd(
+        T_BATCH * T_SEQ, 8, dtype=torch.float32)
+    err, _ = both("split fp32 tn gates dW M=4096 N=1024 K=8", xg, dzg, f32, tol_fp32,
+                  layout="tn")
+    rows.append(dict(
+        name="redmule_matmul (fp32 route, split, gates dW)", group="redmule_gemm_f32",
+        counter=split1, paths=("train",), source=src, replaces=rep1, err=err,
+        bound=f32_bound(4096, T_BATCH * T_SEQ, 8),
+        shape="mLSTM gates dW tn M=4096 N=1024 K=8 fp32",
+        kernel=lambda: ops.redmule_matmul(xg, dzg, policy=f32, layout="tn"),
+        plain=lambda: rm.redmule_matmul_plain(xg, dzg, policy=f32, layout="tn"),
+        library=lambda: torch.matmul(xg.t(), dzg)))
+    h, r = rnd(4, T_BATCH, 512, dtype=torch.float32), rnd(4, 512, 2048,
+                                                          dtype=torch.float32,
+                                                          scale=512 ** -0.5)
+    dzr = rnd(4, T_BATCH, 2048, dtype=torch.float32)
+    err_h, _ = both("split batched fp32 nn sLSTM recurrence B=4 M=4 N=512 K=2048",
+                    h, r, f32, tol_fp32, batched=True)
+    err_i, _ = both("split batched fp32 nt sLSTM dX B=4 M=4 N=2048 K=512",
+                    dzr, r, f32, tol_fp32, batched=True, layout="nt")
+    rows += [
+        dict(name="redmule_matmul_batched (fp32 route, split, sLSTM recurrence)",
+             group="redmule_gemm_f32", counter=split2, paths=("train",), source=src,
+             replaces=rep2, err=err_h, bound=f32_bound(T_BATCH, 512, 2048, 4),
+             shape="sLSTM recurrence nn B=4 M=4 N=512 K=2048 fp32",
+             kernel=lambda: ops.redmule_matmul_batched(h, r, policy=f32),
+             plain=lambda: rm.redmule_matmul_plain(h, r, policy=f32),
+             library=lambda: torch.matmul(h, r)),
+        dict(name="redmule_matmul_batched (fp32 route, split, sLSTM dX)",
+             group="redmule_gemm_f32", counter=split2, paths=("train",), source=src,
+             replaces=rep2, err=err_i, bound=f32_bound(T_BATCH, 2048, 512, 4),
+             shape="sLSTM recurrence dX nt B=4 M=4 N=2048 K=512 fp32",
+             kernel=lambda: ops.redmule_matmul_batched(dzr, r, policy=f32, layout="nt"),
+             plain=lambda: rm.redmule_matmul_plain(dzr, r, policy=f32, layout="nt"),
+             library=lambda: torch.matmul(dzr, r.transpose(-1, -2)))]
+    torch.cuda.synchronize()
+    return rows
+
+
 def kernel_phase(log):
     """Each kernel vs its plain version at the main path's shapes; times."""
     import torch
@@ -814,11 +1016,13 @@ def kernel_phase(log):
     ]
     runs += kernel1_mode_checks(log, g)
     runs += fp8_kernel_checks(log, g)
+    runs += split_checks(log, g)
     kernels = []
     for r in runs:
         # ms: CUDA events around back-to-back calls (host launch cost
         # included where it exceeds the kernel); device_ms: the kernel
-        # alone, from the profiler
+        # alone, from the profiler; splits: the slices S of the call
+        _, splits = _with_splits(r["kernel"])
         prof = _device_profile(r["kernel"], 10)["by_kernel"]
         kernels.append({
             "name": r["name"], "route": "cuda", "source": r["source"],
@@ -827,13 +1031,24 @@ def kernel_phase(log):
             "plain_ms": _time_ms(r["plain"]), "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1],
             "library_ms": None if r["library"] is None else _time_ms(r["library"]),
-            "device_ms": prof[r["group"]]["ms"]})
+            "device_ms": prof[r["group"]]["ms"], "splits": splits})
         print(f"[time] {r['name']} ({r['shape']}): {kernels[-1]['ms']:.4f} ms, "
               f"device {kernels[-1]['device_ms']:.4f} ms, plain "
               f"{kernels[-1]['plain_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
-              f"({r['bound'][1]}), library {kernels[-1]['library_ms']}", flush=True)
-    return kernels, {r["name"]: r["counter"] for r in runs}, \
+              f"({r['bound'][1]}), library {kernels[-1]['library_ms']}, "
+              f"S={splits}", flush=True)
+    counters = {r["name"]: r["counter"] for r in runs}
+    counters.update(_split_counters(ops))
+    return kernels, counters, \
         {r["name"]: r["paths"] for r in runs if "paths" in r}
+
+
+def _split_counters(ops):
+    """The GEMM wrappers' counts of launches that split their reduction,
+    reported per path beside the kernels' rows."""
+    return {"split launches: redmule_matmul": (ops.redmule_matmul, "launches_split"),
+            "split launches: redmule_matmul_batched":
+                (ops.redmule_matmul_batched, "launches_split")}
 
 
 def _zero(counters) -> None:
@@ -984,7 +1199,12 @@ def train_phase(log, counters):
     ds = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=T_SEQ,
                      global_batch=T_BATCH, seed=SEED)
     holder = [train.init_state(cfg, opt, seed=SEED, device="cuda")]
-    holder[0], _ = step(holder[0], ds.batch(0))
+    # the warm-up step also tallies the fp32 route's dispatches by shape,
+    # each timed alone before the step's profile (after a profile of ~200k
+    # kernels the profiler records no device time for a while)
+    fp32_shapes = _fp32_shapes(lambda: step(holder[0], ds.batch(0)))
+    holder[0], _ = fp32_shapes.pop("result")
+    by_shape = _fp32_by_shape(fp32_shapes["tally"])
 
     def one_step():
         holder[0], m = step(holder[0], ds.batch(1))
@@ -1064,9 +1284,86 @@ def train_phase(log, counters):
     step_ms = [h["step_ms"] for h in hist]
     return {"train_wall_s": train_s, "history": hist, "step_ms": step_ms,
             "launches": launches, "structural_sweeps": structural,
+            "fp32_route_by_shape": by_shape,
             "peak_mem_main_gib": peak_main / 2**30,
             "peak_mem_step_gib": peak_step / 2**30, "profile": prof,
             "params": out["params"]}
+
+
+def _fp32_shapes(run):
+    """``{"result": run(), "tally": {...}}``: the fp32 GEMM launches that one
+    ``run()`` makes, counted by (wrapper, layout, batch, M, N, K, fused
+    backward) where the wrappers hand them to the kernel
+    (``kernels/redmule_matmul.py::launch``)."""
+    import torch
+
+    from repro_torch.kernels import redmule_matmul as rm
+
+    tally: dict = {}
+    launch = rm.launch
+
+    def counted(x, w, **kw):
+        if x.dtype == torch.float32:
+            layout = kw["layout"]
+            M, N, K = rm.logical_dims(x.shape, w.shape, layout)
+            batch = math.prod(torch.broadcast_shapes(x.shape[:-2], w.shape[:-2]))
+            name = ("redmule_matmul" if x.ndim == w.ndim == 2
+                    else "redmule_matmul_batched")
+            key = (name, layout, batch, M, N, K,
+                   bool(kw.get("bias_grad") or kw.get("grad_epilogue")))
+            tally[key] = tally.get(key, 0) + 1
+        return launch(x, w, **kw)
+
+    rm.launch = counted
+    try:
+        result = run()
+    finally:
+        rm.launch = launch
+    return {"result": result, "tally": tally}
+
+
+def _fp32_by_shape(tally):
+    """Each tallied fp32 GEMM shape timed alone on the card (device time of
+    the kernel on contiguous random operands of that shape; a fused
+    backward as db on "tn", act' on "nt"), times its count: where the fp32
+    route's time in a training step goes.  Printed largest first; returns
+    the rows."""
+    import torch
+
+    from repro_torch.core import precision as prec
+    from repro_torch.core import tiling
+    from repro_torch.kernels import ops
+
+    rows = []
+    for (name, layout, batch, M, N, K, fused), n in tally.items():
+        x_shape = (N, M) if layout == "tn" else (M, N)
+        w_shape = (K, N) if layout == "nt" else (N, K)
+        lead = (batch,) if name == "redmule_matmul_batched" else ()
+        x = torch.randn(*lead, *x_shape, device="cuda")
+        w = torch.randn(*lead, *w_shape, device="cuda")
+        fn = getattr(ops, name)
+        kw = {}
+        if fused:  # "tn": dW + db; "nt": dX with act' on dZ
+            kw = ({"bias_grad": True} if layout == "tn" else
+                  {"deriv": torch.randn_like(x), "grad_epilogue": "relu"})
+        ms = _device_profile(lambda: fn(x, w, policy=prec.FP32, layout=layout, **kw),
+                             10)["by_kernel"]["redmule_gemm_f32"]["ms"]
+        tile = tiling.choose_tiles(M, N, K)
+        S = tiling.split_plan(M, N, K, tile=tile, batch=batch, route="simt",
+                              fused_bwd=fused).splits
+        rows.append({"wrapper": name, "layout": layout, "batch": batch, "M": M,
+                     "N": N, "K": K, "fused_bwd": fused, "splits": S,
+                     "launches": n, "ms": ms, "total_ms": n * ms})
+    rows.sort(key=lambda r: -r["total_ms"])
+    total = sum(r["total_ms"] for r in rows)
+    print(f"[train] fp32 route by shape (each shape timed alone x its launches "
+          f"in one step): {total:.1f} ms in {sum(r['launches'] for r in rows)} "
+          f"launches", flush=True)
+    for r in rows[:12]:
+        print(f"[train]   {r['wrapper']} {r['layout']} {r['batch']} x ({r['M']} x "
+              f"{r['N']} x {r['K']}){' +db' if r['fused_bwd'] else ''} S={r['splits']}: "
+              f"{r['launches']} x {r['ms']:.4f} ms = {r['total_ms']:.1f} ms", flush=True)
+    return rows
 
 
 def _ae_relabeled(params, seed: int):
@@ -1598,9 +1895,12 @@ def main() -> int:
                    for p in runs}
         kern["launches"] = sum(v for v in by_path.values() if v is not None)
         kern["launches_by_path"] = by_path
+    split_by_path = {p: {k.split(": ")[1]: v for k, v in runs[p].items()
+                         if k.startswith("split launches: ")} for p in runs}
+    print(f"[report] split launches per path: {json.dumps(split_by_path)}", flush=True)
     out = {"card": card, "build_s": build_s, "checks": log, "serve": serve,
            "train": train, "ae": ae, "ae8": ae8, "serve8": serve8,
-           "kernels": kernels}
+           "kernels": kernels, "split_launches_by_path": split_by_path}
     (ROOT / "chiprun_out").mkdir(exist_ok=True)
     (ROOT / "chiprun_out" / "chip_smoke.json").write_text(json.dumps(out, indent=1))
     print(card)

@@ -15,6 +15,17 @@ for (``csrc/redmule_matmul.cu``):
 budget (checked at import).  The flash-attention kernel's tiles are fixed:
 64 query rows by 32 KV rows (``FLASH_BQ`` / ``FLASH_BKV``).
 
+A GEMM with few output tiles leaves most of the 132 SMs idle (qwen3-1.7b's
+decode projections give 16-96 tiles, the fp32 mLSTM gates 16), so the
+kernel splits the reduction inside one launch: :func:`split_plan` gives
+the number of slices S and their depth from the shapes alone (no flag, no
+environment variable), aiming for about two waves of blocks.  Each slice is
+a multiple of the route's step (32 on the tensor cores, 16 on the fp32
+route); under a faithful accumulator no slice straddles a rounding block;
+a launch with the fused backward (deriv / db) is never split.  The plan
+reads no storage dtype, so an FP8 launch and its pre-widened fp16 twin
+split alike.
+
 Under an fp16 accumulator (``paper_fp16``, ``mixed_fp8_e4m3``) the
 reference's reduction block is numerics, not a speed knob: its accumulator
 is re-rounded after every ``bn`` rows of the reduction, and ``bn`` depends
@@ -30,12 +41,13 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 __all__ = ["TileConfig", "choose_tiles", "smem_bytes", "GEMM_TILES",
-           "SMEM_BUDGET", "FLASH_BQ", "FLASH_BKV", "accum_block"]
+           "SMEM_BUDGET", "FLASH_BQ", "FLASH_BKV", "accum_block",
+           "SplitPlan", "split_plan", "SPLIT_STEP"]
 
 # shared memory one block may use on Hopper (232,448 bytes)
 SMEM_BUDGET = 227 * 1024
@@ -63,11 +75,30 @@ class TileConfig:
 GEMM_TILES = (TileConfig(bm=64, bn=32, bk=64), TileConfig(bm=16, bn=32, bk=128))
 
 
+# the tensor-core kernel's copy ring (csrc/redmule_matmul.cu, kStages /
+# kSlab): stages of 64 reduction rows, two 32-deep (bn) steps each
+GEMM_STAGES = 3
+GEMM_SLAB = 64
+
+
 def smem_bytes(t: TileConfig, compute_dtype=torch.bfloat16) -> int:
-    """Shared memory of one block: padded X and W tiles in the compute
-    dtype plus the fp32 output staging tile (csrc/redmule_matmul.cu)."""
+    """Shared memory of one block of the tensor-core kernel on operands
+    stored in the compute dtype (csrc/redmule_matmul.cu, ``GemmSmem``): the
+    ring of X and W slabs (room for either orientation, 16 bytes of padding
+    a row) and the row-major compute tiles; the fp32 output staging tile
+    reuses the ring."""
     cb = compute_dtype.itemsize
-    return (t.bm * (t.bn + 8) + t.bn * (t.bk + 8)) * cb + t.bm * (t.bk + 4) * 4
+    pad = 16 // cb
+
+    def r128(n):
+        return -(-n // 128) * 128
+
+    S = GEMM_SLAB
+    x_stage = r128(max(t.bm * (S + pad), S * (t.bm + pad)) * cb)
+    w_stage = r128(max(S * (t.bk + pad), t.bk * (S + pad)) * cb)
+    ring = max(GEMM_STAGES * (x_stage + w_stage), t.bm * (t.bk + 4) * 4)
+    return (ring + r128(max(t.bm * (S + 8), S * (t.bm + 8)) * cb)
+            + r128(max(S * (t.bk + 8), t.bk * (S + 8)) * cb))
 
 
 for _t in GEMM_TILES:
@@ -79,6 +110,62 @@ def choose_tiles(M: int, N: int, K: int) -> TileConfig:
     16-row tile (each weight element is then read once), else 64 x 64."""
     del N, K  # the menu is fixed (see the module docstring)
     return GEMM_TILES[1] if M <= 16 else GEMM_TILES[0]
+
+
+# --------------------------------------------------------------------- #
+# The split of the reduction (csrc/redmule_matmul.cu, `Split`)
+# --------------------------------------------------------------------- #
+NUM_SMS = 132               # H100 SXM
+SPLIT_TARGET = 2 * NUM_SMS  # blocks to aim for: about two waves
+MAX_SPLITS = 32
+MIN_SPLIT_STEPS = 4         # the shallowest slice, in steps
+# the reduction step of each route: the tensor-core kernel's smem slab, the
+# fp32 (SIMT) kernel's
+SPLIT_STEP = {"tensor": 32, "simt": 16}
+
+
+class SplitPlan(NamedTuple):
+    """``splits`` slices of ``depth`` reduction rows (the last holds the
+    rest); unsplit, one slice of all ``N`` rows."""
+
+    splits: int
+    depth: int
+
+
+def split_plan(M: int, N: int, K: int, *, tile: TileConfig, batch: int = 1,
+               accum_block: int = 0, route: str = "tensor",
+               fused_bwd: bool = False) -> SplitPlan:
+    """How many slices the kernel cuts the reduction of one launch into.
+
+    Unsplit when the launch already fills the card (at least one output
+    tile per SM), when the reduction is shallower than two slices of
+    ``MIN_SPLIT_STEPS`` steps, or with the fused backward (``fused_bwd``:
+    db is summed by the first M-tile row without atomics).  Otherwise
+    about ``SPLIT_TARGET`` blocks, at most ``MAX_SPLITS`` slices, each a
+    multiple of the route's step.  Under a faithful accumulator
+    (``accum_block`` > 0) a slice never straddles a rounding block: its
+    depth divides ``accum_block``, or it is one whole block (unsplit where
+    that would take more than ``MAX_SPLITS`` slices)."""
+    if route not in SPLIT_STEP:
+        raise ValueError(f"unknown route {route!r}; known: {sorted(SPLIT_STEP)}")
+    step = SPLIT_STEP[route]
+    whole = SplitPlan(1, N)
+    tiles = (-(-max(M, 1) // tile.bm)) * (-(-max(K, 1) // tile.bk)) * max(batch, 1)
+    steps = -(-N // step)
+    if fused_bwd or tiles >= NUM_SMS or steps < 2 * MIN_SPLIT_STEPS:
+        return whole
+    want = min(MAX_SPLITS, -(-SPLIT_TARGET // tiles))
+    depth = max(MIN_SPLIT_STEPS, -(-steps // want)) * step
+    if accum_block:
+        if depth >= accum_block:
+            depth = accum_block
+        else:  # the shallowest divisor of the block at least this deep
+            depth = next(d for d in range(depth, accum_block + 1, step)
+                         if accum_block % d == 0)
+    splits = -(-N // depth)
+    if splits <= 1 or splits > MAX_SPLITS:
+        return whole
+    return SplitPlan(splits, depth)
 
 
 # --------------------------------------------------------------------- #

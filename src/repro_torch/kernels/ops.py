@@ -29,6 +29,10 @@ compiled for run (declared in
 :data:`repro_torch.kernels.redmule_matmul.FP8_KERNELS`); the kernel's
 dispatch refuses any other and the launch raises — nothing is widened
 behind the caller's back.
+
+A launch whose reduction the kernel splits inside the launch
+(:func:`repro_torch.core.tiling.split_plan`: few output tiles for the
+card) is also counted in ``.launches_split``; it is still one launch.
 Model code goes through :mod:`repro_torch.core.engine`.
 """
 
@@ -194,11 +198,13 @@ def redmule_matmul(x: torch.Tensor, w: torch.Tensor, *, policy: prec.Policy,
         return z, torch.zeros((0,), dtype=policy.accum_dtype, device=x.device)
     # db over an empty M (or N) still launches: the kernel runs one M-tile
     # row of blocks, which sums (N == 0: zeroes) db and stores no z
-    out = rm.launch(x, w, policy=policy,
-                    tile=tile or tiling.choose_tiles(M, N, K), bias=bias,
-                    epilogue=epilogue, layout=layout, accum_block=block or 0,
-                    **bwd)
+    out, splits = rm.launch(x, w, policy=policy,
+                            tile=tile or tiling.choose_tiles(M, N, K),
+                            bias=bias, epilogue=epilogue, layout=layout,
+                            accum_block=block or 0, **bwd)
     redmule_matmul.launches += 1
+    if splits > 1:
+        redmule_matmul.launches_split += 1
     if x.dtype == torch.float32:
         redmule_matmul.launches_fp32 += 1
     if _is_fp8(x, w):
@@ -221,6 +227,7 @@ redmule_matmul.launches_faithful = 0
 redmule_matmul.launches_multiblock = 0
 redmule_matmul.launches_fused_bwd = 0
 redmule_matmul.launches_fused_bwd_fp32 = 0
+redmule_matmul.launches_split = 0
 
 
 def redmule_matmul_batched(x: torch.Tensor, w: torch.Tensor, *,
@@ -252,10 +259,13 @@ def redmule_matmul_batched(x: torch.Tensor, w: torch.Tensor, *,
     if min(M, N, K, *lead) == 0:
         return _empty_problem(lead, M, N, K, policy=policy, bias=bias,
                               epilogue=epilogue, device=x.device)
-    z = rm.launch(x, w, policy=policy,
-                  tile=tile or tiling.choose_tiles(M, N, K), bias=bias,
-                  epilogue=epilogue, layout=layout, accum_block=block or 0)
+    z, splits = rm.launch(x, w, policy=policy,
+                          tile=tile or tiling.choose_tiles(M, N, K), bias=bias,
+                          epilogue=epilogue, layout=layout,
+                          accum_block=block or 0)
     redmule_matmul_batched.launches += 1
+    if splits > 1:
+        redmule_matmul_batched.launches_split += 1
     if x.dtype == torch.float32:
         redmule_matmul_batched.launches_fp32 += 1
     if _is_fp8(x, w):
@@ -266,3 +276,4 @@ def redmule_matmul_batched(x: torch.Tensor, w: torch.Tensor, *,
 redmule_matmul_batched.launches = 0
 redmule_matmul_batched.launches_fp32 = 0
 redmule_matmul_batched.launches_fp8 = 0
+redmule_matmul_batched.launches_split = 0

@@ -38,13 +38,22 @@ Three modes of the reference kernel ride on the same contraction:
   memory stay narrow and the values are those of the pre-widened operand.
   The kernel is compiled for the pairs the two policies produce
   (declared in :data:`FP8_KERNELS`); a launch on any other pair raises.
+
+A launch with few output tiles splits its reduction inside the kernel
+(:func:`repro_torch.core.tiling.split_plan`, from the shapes alone): S
+slices, each block's fp32 partial written to a workspace
+(``S x batch x M x K``, allocated per call), the last block of each output
+tile summing them in split order and storing once.  The tile counters that
+find that last block live in one int32 buffer per device, zeroed when it is
+allocated or grown and reset by the kernel itself, so no memset runs per
+call.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -55,7 +64,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import ref
 
 __all__ = ["LAYOUTS", "FP8_KERNELS", "logical_dims", "redmule_matmul_plain",
-           "launch", "storage_dtype"]
+           "launch", "storage_dtype", "check_split"]
 
 LAYOUTS = ("nn", "nt", "tn")
 _E4, _E5 = torch.float8_e4m3fn, torch.float8_e5m2
@@ -190,7 +199,7 @@ def _lib() -> ctypes.CDLL:
         lib.redmule_gemm.argtypes = [
             i, i, i, i, p, p, p, p, i, i, i, i, i,
             ll, ll, ll, ll, i, ll, ll, ll, ll, i, i,
-            i, p, ll, ll, i, i, i, p, p]
+            i, p, ll, ll, i, i, i, p, i, i, p, p, p]
         lib.redmule_gemm.restype = i
         lib.redmule_error_string.argtypes = [i]
         lib.redmule_error_string.restype = ctypes.c_char_p
@@ -219,9 +228,10 @@ def _collapse(t: torch.Tensor, lead: Sequence[int]) -> Tuple[torch.Tensor, int, 
 
 def _vec_ok(t: torch.Tensor, batch_strides, s_row: int, s_col: int,
             rows: int, cols: int) -> int:
-    """Whether the kernel may read ``t`` with 16-byte loads (see
-    ``load_tile`` in csrc/redmule_matmul.cu): 16-byte aligned runs along
-    the contiguous axis — 8 elements of fp16 / bf16, 16 of FP8."""
+    """Whether the kernel may copy ``t`` in 16-byte runs (see
+    ``issue_tile`` in csrc/redmule_matmul.cu): 16-byte aligned runs along
+    the contiguous axis — 8 elements of fp16 / bf16, 4 of fp32, 16 of FP8 —
+    and an extent there that is a multiple of one."""
     n = 16 // t.element_size()
     if t.data_ptr() % 16 or any(s % n for s in batch_strides):
         return 0
@@ -232,6 +242,45 @@ def _vec_ok(t: torch.Tensor, batch_strides, s_row: int, s_col: int,
     return 0
 
 
+def check_split(plan: tiling.SplitPlan, N: int, *, route: str,
+                accum_block: int = 0, fused_bwd: bool = False) -> None:
+    """Raise ValueError on a split the kernel does not take (its own
+    argument check, csrc/redmule_matmul.cu ``redmule_gemm``): S slices of
+    a depth that is a multiple of the route's step and covers ``N`` with
+    the last slice non-empty; none with the fused backward; under a
+    faithful accumulator, slices inside one rounding block."""
+    S, depth = plan
+    if S == 1:
+        return
+    step = tiling.SPLIT_STEP[route]
+    why = None
+    if not 1 < S <= 65535:
+        why = "S outside [1, 65535]"
+    elif depth <= 0 or depth % step:
+        why = f"a depth that is not a positive multiple of the {route} step {step}"
+    elif not (S - 1) * depth < N <= S * depth:
+        why = f"{S} slices of {depth} do not cover N = {N} with a non-empty last one"
+    elif fused_bwd:
+        why = "a split of the fused backward (deriv / db)"
+    elif accum_block and accum_block % depth:
+        why = f"slices straddling the rounding block {accum_block}"
+    if why:
+        raise ValueError(f"split plan {tuple(plan)} is not one the kernel takes: {why}")
+
+
+# the split's tile counters, one int32 buffer per device (zero between launches)
+_COUNTERS: Dict[torch.device, torch.Tensor] = {}
+
+
+def _tile_counters(device: torch.device, n: int) -> torch.Tensor:
+    buf = _COUNTERS.get(device)
+    if buf is None or buf.numel() < n:
+        grown = max(n, 2 * (0 if buf is None else buf.numel()))
+        buf = _COUNTERS[device] = torch.zeros(grown, dtype=torch.int32,
+                                              device=device)
+    return buf
+
+
 def launch(x: torch.Tensor, w: torch.Tensor, *, policy: prec.Policy,
            tile: tiling.TileConfig, bias: Optional[torch.Tensor],
            epilogue: Optional[str], layout: str, accum_block: int = 0,
@@ -239,9 +288,10 @@ def launch(x: torch.Tensor, w: torch.Tensor, *, policy: prec.Policy,
            grad_epilogue: Optional[str] = None, grad_from_output: bool = False,
            bias_grad: bool = False):
     """Run the CUDA kernel on CUDA operands with broadcast-compatible
-    leading dims; returns ``(*lead, M, K)`` in ``policy.out_dtype``, and
-    with ``bias_grad`` ``(z, db)``, ``db`` a ``(K,)`` row in the
-    accumulator dtype.
+    leading dims; returns ``(out, S)``: ``out`` is ``(*lead, M, K)`` in
+    ``policy.out_dtype``, and with ``bias_grad`` ``(z, db)``, ``db`` a
+    ``(K,)`` row in the accumulator dtype; ``S`` the number of slices the
+    reduction was split into (:func:`tiling.split_plan`).
 
     ``accum_block`` > 0 runs the faithful fp16 accumulator (re-rounded
     every ``accum_block`` reduction rows).  ``deriv`` is read through its
@@ -270,13 +320,26 @@ def launch(x: torch.Tensor, w: torch.Tensor, *, policy: prec.Policy,
     except ValueError:
         raise ValueError(f"tile {tile} is not one the kernel is compiled "
                          f"for: {tiling.GEMM_TILES}") from None
+    batch = math.prod(lead)
+    route = "simt" if x.dtype == torch.float32 else "tensor"
+    plan = tiling.split_plan(M, N, K, tile=tile, batch=batch,
+                             accum_block=int(accum_block), route=route,
+                             fused_bwd=slot != 0)
+    check_split(plan, N, route=route, accum_block=int(accum_block),
+                fused_bwd=slot != 0)
+    part = counters = None
+    if plan.splits > 1:
+        part = torch.empty((plan.splits, batch, M, K), dtype=torch.float32,
+                           device=x.device)
+        counters = _tile_counters(
+            x.device, batch * -(-M // tile.bm) * -(-K // tile.bk))
     lib = _lib()
     err = lib.redmule_gemm(
         _DTYPE_CODE[x.dtype], _DTYPE_CODE[w.dtype],
         _DTYPE_CODE[policy.out_dtype], tile_id,
         x.data_ptr(), w.data_ptr(),
         None if bias is None else bias.data_ptr(), z.data_ptr(),
-        math.prod(lead), lead[-1] if lead else 1, M, N, K,
+        batch, lead[-1] if lead else 1, M, N, K,
         xs_o, xs_i, xs_m, xs_n, _vec_ok(x, (xs_o, xs_i), xs_m, xs_n, M, N),
         ws_o, ws_i, ws_n, ws_k, _vec_ok(w, (ws_o, ws_i), ws_n, ws_k, N, K),
         epi.EPILOGUE_IDS[epilogue], int(accum_block),
@@ -284,7 +347,9 @@ def launch(x: torch.Tensor, w: torch.Tensor, *, policy: prec.Policy,
         0 if deriv is None else deriv.stride(-2),
         0 if deriv is None else deriv.stride(-1), slot,
         epi.EPILOGUE_IDS[grad_epilogue], int(grad_from_output),
-        None if db is None else db.data_ptr(),
+        None if db is None else db.data_ptr(), plan.splits, plan.depth,
+        None if part is None else part.data_ptr(),
+        None if counters is None else counters.data_ptr(),
         torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         ext = bool(accum_block) or slot != 0
@@ -295,5 +360,5 @@ def launch(x: torch.Tensor, w: torch.Tensor, *, policy: prec.Policy,
             f"{lib.redmule_error_string(err).decode()}; FP8 pairs compiled "
             f"(x, w, out, faithful / fused): {_fp8_pairs()}")
     if bias_grad:
-        return z, db.to(policy.accum_dtype)
-    return z
+        return (z, db.to(policy.accum_dtype)), plan.splits
+    return z, plan.splits
