@@ -16,12 +16,16 @@ Phases, any failure exits non-zero:
    / nt / tn, kernel 1's faithful fp16 accumulator and fused backward
    (deriv, dW + db) on every route, FP8 storage upcast on load in kernels
    1 and 2 (each FP8 launch also bitwise against the same launch on
-   pre-widened fp16 operands), flash attention (kernel 3) and the chunked
+   pre-widened fp16 operands), flash attention (kernel 3: the prefill and
+   a continuation, fp16 / D 64 / non-causal, S = T = 1024, a q tile count
+   that does not divide S, MHA, fp16 at D 128) and the chunked
    linear-attention sweep (kernel 4: the training shape, a ragged dk != dv
-   shape, fp32 input); then the split of the reduction inside one GEMM
-   launch (a ragged last slice, the faithful accumulator over 3 rounding
-   blocks, an FP8 pair bitwise against its pre-widened launch, a broadcast
-   batched operand, the fp32 route), every split launch repeated and
+   shape, fp32 input, chunk 128 at dk = dv = 1024, dv = 1000), every
+   kernel 3 / 4 launch of the new shapes run twice and bitwise equal; then
+   the split of the reduction inside one GEMM launch (a ragged last slice,
+   the faithful accumulator over 3 rounding blocks, an FP8 pair bitwise
+   against its pre-widened launch, a broadcast batched operand, the fp32
+   route), every split launch repeated and
    bitwise equal run to run, and rows at qwen3-1.7b's decode / prefill and
    the xLSTM's fp32 gate and sLSTM shapes.  Each kernel, its plain version
    and — where one exists — one PyTorch library call for the same function
@@ -46,7 +50,10 @@ Phases, any failure exits non-zero:
    peak memory, and one
    full-width super-block (7 mLSTM + 1 sLSTM, batch 1, seq 128) is held
    against the plain path on the CPU: loss and the gradients of w_up,
-   w_qkv and r_gates;
+   w_qkv and r_gates; then step 0 of the whole model (48 blocks, full
+   width, batch 1 x seq 128): its loss and the gradients of w_up, w_qkv and
+   r_gates of the first and the last super-block, card vs CPU, under fp32
+   and tpu_bf16, each held to 8x the CPU's own spread (1 vs all threads);
 5. **ae** — the counts are set to 0 again, then ``repro_torch.launch.train
    --arch ae`` trains the paper's TinyMLPerf AutoEncoder (640 -> [128 x4]
    -> 8 -> [128 x4] -> 640, random weights from a seed) for 200 steps at
@@ -92,9 +99,13 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor-core peak
 FP8_FLOPS = 1979e12         # H100 SXM dense fp8 tensor-core peak
 FP32_FLOPS = 67e12          # H100 SXM fp32 outside the tensor cores
+TF32_FLOPS = 495e12         # H100 SXM dense TF32 tensor-core peak
 ARCH, BATCH, PROMPT, GEN, SEED = "qwen3-1.7b", 4, 128, 16, 0
 # the training path: xlstm-1.3b at full width
 T_ARCH, T_BATCH, T_SEQ, T_STEPS = "xlstm-1.3b", 4, 256, 3
+# the full-depth step-0 parity: batch 1 x seq 128 (two 64-row chunks, so
+# the sweep carries its state once), all 48 blocks at full width
+FD_SEQ = 128
 # the AutoEncoder path: the paper's use case at its published width
 AE_BATCH, AE_STEPS, AE_BIG = 16, 200, 4096
 # the FP8 AE step with BatchNorm in float64 on both sides, card vs CPU:
@@ -126,10 +137,25 @@ def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _device_profile(fn, iters: int = 5) -> dict:
+def _device_profile(fn, iters: int = 5, attempts: int = 3) -> dict:
     """Device time of ``iters`` calls of ``fn`` from torch.profiler, by
-    kernel group, beside the host wall time of the same calls; an empty
-    profile (no CUDA activity recorded) raises."""
+    kernel group, beside the host wall time of the same calls.  A profile
+    that recorded no CUDA activity (CUPTI now and then drops a whole
+    window right after a step of ~200k kernels) is taken again, up to
+    ``attempts`` windows in all; then it raises."""
+    for attempt in range(attempts):
+        out = _profile_once(fn, iters)
+        if out is not None:
+            return out
+        print(f"[profile] no device time recorded (window {attempt + 1} of "
+              f"{attempts})", flush=True)
+        time.sleep(2.0)
+    raise RuntimeError("torch.profiler recorded no device time")
+
+
+def _profile_once(fn, iters: int):
+    """One profiled window of ``_device_profile``; None if it recorded no
+    device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -150,14 +176,14 @@ def _device_profile(fn, iters: int = 5) -> dict:
         name = ("redmule_gemm" if "redmule_gemm_kernel" in ev.key else
                 "redmule_gemm_f32" if "redmule_gemm_f32_kernel" in ev.key else
                 "flash_fwd" if "flash_fwd_kernel" in ev.key else
-                "chunked_linear_attention"
-                if "chunked_linear_attention_kernel" in ev.key else "other")
+                "chunked_linear_attention"     # its scores kernel and the sweep
+                if "chunked_linear_attention" in ev.key else "other")
         g = groups.setdefault(name, {"ms": 0.0, "count": 0})
         g["ms"] += us / 1e3 / iters
         g["count"] += ev.count / iters
     busy = sum(g["ms"] for g in groups.values())
     if busy <= 0:
-        raise RuntimeError("torch.profiler recorded no device time")
+        return None
     wall_ms = wall * 1e3 / iters
     return {"wall_ms": wall_ms, "device_ms": busy,
             "idle_share": max(0.0, 1.0 - busy / wall_ms), "by_kernel": groups}
@@ -179,6 +205,19 @@ def _check(name, got, want, tol_rel, log):
     if not ok:
         raise AssertionError(f"{name}: kernel disagrees with its plain version")
     return err
+
+
+def _repeat(name, first, second, log):
+    """A launch run twice on the same inputs must give the same bits."""
+    import torch
+
+    torch.cuda.synchronize()
+    ok = bool(torch.equal(first, second))
+    log.append({"check": f"{name} run twice, bitwise equal", "ok": ok})
+    print(f"[check] {name} run twice: {'bitwise equal' if ok else 'FAIL: differs'}",
+          flush=True)
+    if not ok:
+        raise AssertionError(f"{name}: two runs of one launch differ")
 
 
 def kernel1_mode_checks(log, g):
@@ -850,6 +889,27 @@ def kernel_phase(log):
         _check(f"flash fp16 Hq=8 Hkv=4 D=64 S=100 T=130 causal={causal}",
                fa.flash_attention(q3, k3, v3, **fl3),
                fa.flash_attention_plain(q3, k3, v3, **fl3), 2.0 ** -9, log)
+    # the shapes the tensor-core design makes tricky: a prompt whose T spans
+    # 16 rounds of the copy ring, a q tile count that does not divide S
+    # (200 = 12.5 x 16), one q head per KV head, fp16 at D = 128; every
+    # launch twice, bitwise equal (no atomics: each output is written once,
+    # after a fixed-order merge)
+    for name, (hq_, hkv_, S_, T_, tv_, qo_, dt) in {
+            "S=T=1024": (hq, hkv, 1024, 1024, 1024, 0, bf16),
+            "S=200 T=232 q_offset=32": (hq, hkv, 200, 232, 232, 32, bf16),
+            "MHA Hq=Hkv=6 S=77 T=90": (6, 6, 77, 90, 85, 5, bf16),
+            "fp16 S=16 T=24 (serve8's cut)": (hq, hkv, 16, 24, 16, 0,
+                                               torch.float16)}.items():
+        ql, kl, vl = (rnd(h_, n_, hd).to(dt) for h_, n_ in
+                      ((hq_, S_), (hkv_, T_), (hkv_, T_)))
+        fll = dict(group=hq_ // hkv_, t_valid=tv_, q_offset=qo_)
+        got = fa.flash_attention(ql, kl, vl, **fll)
+        _check(f"flash Hq={hq_} Hkv={hkv_} D=128 {name}", got,
+               fa.flash_attention_plain(ql, kl, vl, **fll),
+               tol_bf16 if dt == bf16 else 2.0 ** -9, log)
+        _repeat(f"flash {name}", got, fa.flash_attention(ql, kl, vl, **fll), log)
+    _repeat("flash Hq=16 Hkv=8 D=128 S=128 T=144 q_offset=0",
+            fa.flash_attention(q, k, vv, **fl), fa.flash_attention(q, k, vv, **fl), log)
 
     # the fp32 route of kernels 1 and 2 (SIMT fp32 FMAs, no TF32): fp32 sums
     # in another order, N <= 1024 terms
@@ -909,6 +969,10 @@ def kernel_phase(log):
         lg = -torch.rand(BH_, S_, generator=g, device=dev) * 0.1
         return q, k, v, lg
 
+    # chunk 128 at dk = dv = 1024 (the largest shared-memory plan), and a dv
+    # that is not a multiple of the sweep's 32-column tile.  Every launch
+    # twice, bitwise equal (no atomics: each output and state element is
+    # written once by one thread, after a fixed-order sum).
     cla_cases = [("train BH=16 S=256 dk=dv=1024 chunk=64 bf16",
                   (BH, T_SEQ, DK, DK, torch.bfloat16), 64),
                  ("ragged BH=6 S=48 dk=16 dv=64 chunk=16 bf16",
@@ -916,7 +980,13 @@ def kernel_phase(log):
                  ("fp32 BH=4 S=256 dk=96 dv=40 chunk=128",
                   (4, 256, 96, 40, torch.float32), 128),
                  ("fp16 BH=3 S=64 dk=64 dv=64 chunk=32",
-                  (3, 64, 64, 64, torch.float16), 32)]
+                  (3, 64, 64, 64, torch.float16), 32),
+                 ("BH=4 S=256 dk=dv=1024 chunk=128 bf16",
+                  (4, 256, DK, DK, torch.bfloat16), 128),
+                 ("BH=2 S=128 dk=1024 dv=1000 chunk=64 bf16",
+                  (2, 128, DK, 1000, torch.bfloat16), 64),
+                 ("fp32 BH=2 S=256 dk=dv=1024 chunk=128",
+                  (2, 256, DK, DK, torch.float32), 128)]
     cla_in = None
     for name, shape, chunk in cla_cases:
         ins = sweep(*shape)
@@ -926,6 +996,9 @@ def kernel_phase(log):
                  torch.float32: 1e-4}[shape[-1]]
         err = _check(f"sweep {name} out", out, want_o, tol_o, log)
         _check(f"sweep {name} state", state, want_s, 1e-4, log)
+        out2, state2 = cla.chunked_linear_attention(*ins, chunk=chunk)
+        _repeat(f"sweep {name} out", out, out2, log)
+        _repeat(f"sweep {name} state", state, state2, log)
         if cla_in is None:
             cla_in, err_cla = ins, err
     torch.cuda.synchronize()
@@ -941,13 +1014,21 @@ def kernel_phase(log):
     q4, k4, v4 = q[None], k[None, :, :PROMPT], vv[None, :, :PROMPT]
     # kernel 4's bound at the training shape: q, k, v, g read once, out and
     # the fp32 state written once; the causal score / PV pairs plus the
-    # inter-chunk read and state update, all fp32 FMAs
+    # inter-chunk read and state update, all fp32 FMAs.  Beside it, the
+    # bound of the products as the kernel runs them on TF32 tensor cores:
+    # qk^T once (its operands are exact), the three products with an fp32
+    # operand twice (big and small piece)
     BHc, Sc, dkc, dvc = cla_in[0].shape[0], T_SEQ, DK, DK
     n_ch, pairs_c = Sc // 64, 64 * 65 // 2
+    cla_bytes = (2 * BHc * Sc * dkc * 2 + 2 * BHc * Sc * dvc * 2 + BHc * Sc * 4
+                 + BHc * dkc * dvc * 4)
     cla_b, cla_f = _bound_ms(
-        2 * BHc * Sc * dkc * 2 + 2 * BHc * Sc * dvc * 2 + BHc * Sc * 4
-        + BHc * dkc * dvc * 4,
+        cla_bytes,
         BHc * n_ch * (2 * pairs_c * (dkc + dvc) + 4 * 64 * dkc * dvc), FP32_FLOPS)
+    cla_tc = _bound_ms(
+        cla_bytes,
+        BHc * n_ch * (2 * pairs_c * dkc + 2 * (2 * pairs_c * dvc
+                                                + 4 * 64 * dkc * dvc)), TF32_FLOPS)
     g32_b, g32_f = _bound_ms((x_gate.numel() + w_gate.numel()
                               + T_BATCH * T_SEQ * 8) * 4,
                              2 * T_BATCH * T_SEQ * 4096 * 8, FP32_FLOPS)
@@ -991,7 +1072,7 @@ def kernel_phase(log):
              source="src/repro_torch/csrc/chunked_linear_attention.cu",
              replaces="src/repro/kernels/chunked_linear_attention.py:79",
              shape="train BH=16 S=256 dk=dv=1024 chunk=64 bf16", err=err_cla,
-             bound=(cla_b, cla_f),
+             bound=(cla_b, cla_f), bound_tc=cla_tc,
              kernel=lambda: cla.chunked_linear_attention(*cla_in, chunk=64),
              plain=lambda: cla.chunked_linear_attention_plain(*cla_in, chunk=64),
              library=None),            # no single PyTorch call computes it
@@ -1032,10 +1113,15 @@ def kernel_phase(log):
             "bound_by": r["bound"][1],
             "library_ms": None if r["library"] is None else _time_ms(r["library"]),
             "device_ms": prof[r["group"]]["ms"], "splits": splits})
+        if r["library"] is not None:   # the library call's kernels alone
+            kernels[-1]["library_device_ms"] = _device_profile(r["library"], 10)["device_ms"]
+        if "bound_tc" in r:   # the tensor-core bound of the split products
+            kernels[-1]["bound_tc_ms"], kernels[-1]["bound_tc_by"] = r["bound_tc"]
         print(f"[time] {r['name']} ({r['shape']}): {kernels[-1]['ms']:.4f} ms, "
               f"device {kernels[-1]['device_ms']:.4f} ms, plain "
               f"{kernels[-1]['plain_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
-              f"({r['bound'][1]}), library {kernels[-1]['library_ms']}, "
+              f"({r['bound'][1]}), library {kernels[-1]['library_ms']} "
+              f"(device {kernels[-1].get('library_device_ms')}), "
               f"S={splits}", flush=True)
     counters = {r["name"]: r["counter"] for r in runs}
     counters.update(_split_counters(ops))
@@ -1281,13 +1367,99 @@ def train_phase(log, counters):
         if failed:
             raise AssertionError("; ".join(failed))
         del p_gpu, p_cpu
+    full_depth = full_depth_parity(log, cfg)
     step_ms = [h["step_ms"] for h in hist]
     return {"train_wall_s": train_s, "history": hist, "step_ms": step_ms,
+            "full_depth_parity": full_depth,
             "launches": launches, "structural_sweeps": structural,
             "fp32_route_by_shape": by_shape,
             "peak_mem_main_gib": peak_main / 2**30,
             "peak_mem_step_gib": peak_step / 2**30, "profile": prof,
             "params": out["params"]}
+
+
+def full_depth_parity(log, cfg):
+    """Step 0 of the training path at full depth and width, card vs the CPU
+    plain path: the loss of ``transformer.loss_fn`` on one batch of 1 x
+    FD_SEQ tokens at the path's seed and the gradients of w_up, w_qkv
+    (every mLSTM block) and r_gates (the sLSTM block) of the first and the
+    last super-block, under ``fp32`` and the training policy.  The bound is
+    the super-block check's: the spread measured in this run between the
+    CPU plain path on one thread and on all threads (another BLAS blocking,
+    another summation order) times 8, above a floor of one rounding (fp32
+    1e-5, bf16 2^-8).  Returns the errors, spreads and seconds per policy."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import train
+    from repro_torch.models import transformer
+    from repro_torch.optim import tree_map
+
+    batch_np = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=FD_SEQ,
+                           global_batch=1, seed=SEED).batch(0)
+    n_threads = torch.get_num_threads()
+    names = [(f"grad {w} super-block {b}", w, i) for w in ("w_up", "w_qkv", "r_gates")
+             for b, i in (("0", 0), ("last", -1))]
+
+    def run(params, c, dev):
+        cells = params["layers"]
+        wrt = [cells["mlstm"]["cell"]["w_up"], cells["mlstm"]["cell"]["w_qkv"],
+               cells["slstm"]["cell"]["r_gates"]]
+        wrt = [t.detach().requires_grad_(True) for t in wrt]
+        p = {**params, "layers": {
+            "mlstm": {**cells["mlstm"], "cell": {**cells["mlstm"]["cell"],
+                                                 "w_up": wrt[0], "w_qkv": wrt[1]}},
+            "slstm": {**cells["slstm"], "cell": {**cells["slstm"]["cell"],
+                                                 "r_gates": wrt[2]}}}}
+        loss, _ = transformer.loss_fn(p, c, train._to_device(batch_np, dev))
+        grads = dict(zip(("w_up", "w_qkv", "r_gates"), torch.autograd.grad(loss, wrt)))
+        return [loss.detach().cpu()] + [grads[w][i].detach().cpu() for _, w, i in names]
+
+    result = {}
+    for policy, floor in (("fp32", 1e-5), (cfg.policy_name, 2.0 ** -8)):
+        c = dataclasses.replace(cfg, policy_name=policy)
+        p_cpu = transformer.init_params(c, seed=SEED, device="cpu", dtype=torch.float32)
+        t0 = time.perf_counter()
+        got = run(tree_map(lambda t: t.cuda(), p_cpu), c, torch.device("cuda"))
+        torch.cuda.synchronize()
+        t_card = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        want = run(p_cpu, c, torch.device("cpu"))
+        t_cpu = time.perf_counter() - t0
+        torch.set_num_threads(1)
+        t0 = time.perf_counter()
+        try:
+            want_1t = run(p_cpu, c, torch.device("cpu"))
+        finally:
+            torch.set_num_threads(n_threads)
+        t_cpu1 = time.perf_counter() - t0
+        del p_cpu
+        print(f"[train] full depth {policy}: card {t_card:.1f} s, CPU {t_cpu:.1f} s "
+              f"({n_threads} threads), {t_cpu1:.1f} s (1 thread)", flush=True)
+        rows, failed = {}, []
+        for name, a_, b_, c_ in zip(["loss"] + [n for n, _, _ in names], got, want,
+                                    want_1t):
+            scale = max(b_.abs().max().item(), 1e-30)
+            spread = (c_ - b_).abs().max().item() / scale
+            tol = max(8 * spread, floor)
+            print(f"[train] full depth {policy} {name}: CPU spread (1 vs {n_threads} "
+                  f"threads) {spread:.3e} of max", flush=True)
+            try:
+                err = _check(f"full depth (48 blocks, 1x{FD_SEQ}, {policy}) step 0 "
+                             f"{name}, card vs CPU plain", a_, b_, tol, log)
+            except AssertionError as e:
+                err = float("nan")
+                failed.append(str(e))
+            rows[name] = {"err_rel": err / scale, "spread": spread, "tol_rel": tol,
+                          "max_abs": scale}
+        result[policy] = {"rows": rows, "card_s": t_card, "cpu_s": t_cpu,
+                          "cpu_1thread_s": t_cpu1}
+        if failed:
+            raise AssertionError("; ".join(failed))
+    return result
 
 
 def _fp32_shapes(run):

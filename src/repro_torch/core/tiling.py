@@ -13,7 +13,9 @@ for (``csrc/redmule_matmul.cu``):
 
 ``bn`` is the reduction step.  Every menu entry fits the shared-memory
 budget (checked at import).  The flash-attention kernel's tiles are fixed:
-64 query rows by 32 KV rows (``FLASH_BQ`` / ``FLASH_BKV``).
+16 query rows (one m16 MMA tile) by 16 KV rows (what one of its four warps
+takes from each 64-row stage of its copy ring) — ``FLASH_BQ`` /
+``FLASH_BKV``, the block pairs the engine bills.
 
 A GEMM with few output tiles leaves most of the 132 SMs idle (qwen3-1.7b's
 decode projections give 16-96 tiles, the fp32 mLSTM gates 16), so the
@@ -51,8 +53,8 @@ __all__ = ["TileConfig", "choose_tiles", "smem_bytes", "GEMM_TILES",
 
 # shared memory one block may use on Hopper (232,448 bytes)
 SMEM_BUDGET = 227 * 1024
-FLASH_BQ = 64
-FLASH_BKV = 32
+FLASH_BQ = 16
+FLASH_BKV = 16
 
 
 @dataclasses.dataclass(frozen=True)

@@ -13,9 +13,12 @@ k = 0, which is inert (``repro_torch.core.engine`` does).
 
 A CPU tensor takes :func:`chunked_linear_attention_plain`; a CUDA tensor
 launches ``csrc/chunked_linear_attention.cu`` (fp16 / bf16 / fp32 inputs,
-chunk in {16, 32, 64, 128}, dk up to what fits shared memory — 1024 and
-beyond at every chunk) or raises.  ``chunked_linear_attention.launches``
-counts kernel launches.
+chunk in {16, 32, 64, 128}, dk up to 1024, any dv) or raises: first its
+scores kernel (``L`` and the decayed masked scores of every chunk, into
+scratch — :func:`chunk_scores_plain` is their plain version), then the
+sweep on the tensor cores, with the fp32 operands split into TF32 pieces.
+``chunked_linear_attention.launches`` counts wrapper calls that launched
+the pair.
 """
 
 from __future__ import annotations
@@ -28,9 +31,10 @@ from repro_torch.core import tiling
 from repro_torch.kernels import _build
 
 __all__ = ["chunked_linear_attention", "chunked_linear_attention_plain",
-           "CHUNKS"]
+           "chunk_scores_plain", "CHUNKS", "MAX_DK"]
 
 CHUNKS = (16, 32, 64, 128)     # the kernel's compiled chunk sizes
+MAX_DK = 1024                  # the sweep holds S^T (32 x dk) in registers
 _DTYPE_CODE = {torch.float16: 0, torch.bfloat16: 1, torch.float32: 2}
 
 
@@ -63,6 +67,28 @@ def chunked_linear_attention_plain(q: torch.Tensor, k: torch.Tensor,
     return torch.cat(outs, dim=1), state
 
 
+def chunk_scores_plain(q: torch.Tensor, k: torch.Tensor, log_g: torch.Tensor,
+                       *, chunk: int = 128):
+    """What the kernel's first launch writes, in plain PyTorch: ``L``
+    ``(BH, S)``, the inclusive cumsum of ``log_g`` within each chunk, and
+    ``A`` ``(BH, S // chunk, chunk, chunk)``, the decayed, causally masked
+    scores ``(q k^T) * exp(L_i - L_j) [i >= j]`` of each chunk, in fp32."""
+    BH, S, _ = q.shape
+    if chunk <= 0 or S % chunk or tuple(k.shape) != tuple(q.shape) \
+            or tuple(log_g.shape) != (BH, S):
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, log_g "
+                         f"{tuple(log_g.shape)} at chunk {chunk}")
+    n = S // chunk
+    L = torch.cumsum(log_g.float().reshape(BH, n, chunk), dim=-1)
+    idx = torch.arange(chunk, device=q.device)
+    causal = idx[:, None] >= idx[None, :]
+    decay = torch.where(causal, torch.exp(L[..., :, None] - L[..., None, :]),
+                        torch.zeros((), device=q.device))
+    qc = q.float().reshape(BH, n, chunk, -1)
+    kc = k.float().reshape(BH, n, chunk, -1)
+    return L.reshape(BH, S), torch.matmul(qc, kc.transpose(-1, -2)) * decay
+
+
 def _check_shapes(q, k, v, log_g, chunk: int) -> None:
     if q.ndim != 3 or k.shape != q.shape or v.ndim != 3 \
             or v.shape[:2] != q.shape[:2] or tuple(log_g.shape) != q.shape[:2]:
@@ -79,10 +105,10 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("chunked_linear_attention")
     if lib.chunked_linear_attention.argtypes is None:
         i, p = ctypes.c_int, ctypes.c_void_p
-        lib.chunked_linear_attention.argtypes = [i, i, p, p, p, p, p, p,
+        lib.chunked_linear_attention.argtypes = [i, i, p, p, p, p, p, p, p, p,
                                                  i, i, i, i, p]
         lib.chunked_linear_attention.restype = i
-        lib.cla_smem_bytes.argtypes = [i, i]
+        lib.cla_smem_bytes.argtypes = [i, i, i]
         lib.cla_smem_bytes.restype = ctypes.c_longlong
         lib.cla_error_string.argtypes = [i]
         lib.cla_error_string.restype = ctypes.c_char_p
@@ -112,20 +138,27 @@ def chunked_linear_attention(q: torch.Tensor, k: torch.Tensor,
     dv = v.shape[-1]
     if BH > 65535:
         raise ValueError(f"BH = {BH} exceeds the kernel's grid (65535)")
+    if dk > MAX_DK:
+        raise NotImplementedError(f"dk = {dk}: the sweep holds its state in "
+                                  f"registers up to dk = {MAX_DK}")
     lib = _lib()
-    smem = lib.cla_smem_bytes(chunk, dk)
+    smem = lib.cla_smem_bytes(_DTYPE_CODE[q.dtype], chunk, dk)
     if smem > tiling.SMEM_BUDGET:
         raise NotImplementedError(
             f"dk = {dk} at chunk {chunk} needs {smem} B of shared memory "
             f"(budget {tiling.SMEM_BUDGET})")
     out = torch.empty((BH, S, dv), dtype=q.dtype, device=q.device)
     state = torch.empty((BH, dk, dv), dtype=torch.float32, device=q.device)
-    if min(BH, dv) == 0:
-        return out, state.zero_()
+    if min(BH, S, dk, dv) == 0:
+        return out.zero_(), state.zero_()
     q, k, v, log_g = (t.contiguous() for t in (q, k, v, log_g))
+    # scratch of the scores launch: L (BH, S) and the scores (BH, S, chunk)
+    scratch = torch.empty(BH * S * (chunk + 1), dtype=torch.float32,
+                          device=q.device)
     err = lib.chunked_linear_attention(
         _DTYPE_CODE[q.dtype], chunk, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        log_g.data_ptr(), out.data_ptr(), state.data_ptr(), BH, S, dk, dv,
+        log_g.data_ptr(), out.data_ptr(), state.data_ptr(), scratch.data_ptr(),
+        scratch.data_ptr() + BH * S * 4, BH, S, dk, dv,
         torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError("chunked_linear_attention launch failed: "

@@ -8,9 +8,11 @@ row 0 for the causal mask (col <= q_offset + row); a row with no visible
 column returns exact zeros; the output is in q's dtype.
 
 A CPU tensor takes :func:`flash_attention_plain`; a CUDA tensor launches
-``csrc/flash_attention.cu`` (bf16 / fp16, D in {64, 128}, its own
-64 x 32 tiles) or raises.  The kernel masks ragged S and T itself, so
-nothing is padded.  ``flash_attention.launches`` counts kernel launches.
+``csrc/flash_attention.cu`` (bf16 / fp16, D in {64, 128}; tensor-core
+``mma.sync`` products, four warps on 16 query rows, each taking 16 KV rows
+at a time — the ``tiling.FLASH_BQ`` x ``FLASH_BKV`` the engine bills) or
+raises.  The kernel masks ragged S and T itself, so nothing is padded.
+``flash_attention.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -107,7 +109,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise TypeError(f"bf16/fp16 operands of one dtype expected, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
+    if (q.data_ptr() | k.data_ptr() | v.data_ptr()) % 16:
         raise ValueError("the flash kernel needs 16-byte aligned operands")
     out = torch.empty_like(q)
     if BHq == 0 or S == 0:

@@ -1,16 +1,21 @@
 #!/usr/bin/env python3
-"""Time the RedMulE GEMM kernels (kernels 1 and 2) of one source tree on the card.
+"""Time the port's kernels of one source tree on the card, row by row.
 
     python3 tools/gemm_timing.py [--root DIR] [--rows 1,1f,...] [--out FILE]
 
 Imports ``repro_torch`` from ``DIR/src`` (default: this checkout), builds
-its kernels, and times each row below through the public wrappers
-(``ops.redmule_matmul`` / ``ops.redmule_matmul_batched``, the same calls on
-every tree since PR 11).  A row's time is the device time of one call from
-torch.profiler (the kernel alone, not the host's enqueue), averaged over a
-window of calls.  A decode or prefill row reads, call after call, the next
-of enough weight copies to exceed the card's 50 MB L2, as the serving step
-finds its weights cold; the other rows run as their paths run them, hot.
+its kernels, and times each row below through the public wrappers, the
+same calls on every tree since they were ported: the RedMulE GEMMs
+(``ops.redmule_matmul`` / ``ops.redmule_matmul_batched``, rows 1* and 2*,
+since PR 11), flash attention (``flash_attention.flash_attention``, row 3,
+since PR 11) and the chunked linear-attention sweep
+(``chunked_linear_attention.chunked_linear_attention``, row 4, since PR
+12).  A row's time is the device time of one call from torch.profiler
+(the row's kernels alone — for row 4 every kernel the call launches — not
+the host's enqueue), averaged over a window of calls.  A decode or prefill
+row reads, call after call, the next of enough weight copies to exceed the
+card's 50 MB L2, as the serving step finds its weights cold; the other
+rows run as their paths run them, hot.
 Bounds are the larger of the bytes (each input read once, the output
 written once) over 3.35 TB/s and the operations over the peak of their
 type (989 TFLOP/s bf16 / fp16, 1979 fp8, 67 fp32), H100 SXM data sheet.
@@ -124,6 +129,24 @@ def _rows(torch, prec, dev):
         return batched(dz, [r], policy=f32, layout="nt"), (
             (dz.numel() + r.numel() + 4 * 4 * 512) * 4, 2 * 4 * 4 * 2048 * 512, "fp32")
 
+    def mk_3():
+        from repro_torch.kernels import flash_attention as fa
+        q, k, v = rnd(HQ, 128, HD), rnd(HKV, T, HD), rnd(HKV, T, HD)
+        pairs = 128 * 129 // 2
+        return (lambda: fa.flash_attention(q, k, v, group=HQ // HKV, t_valid=128)), (
+            (2 * HQ * 128 * HD + 2 * HKV * 128 * HD) * 2, 4 * HQ * pairs * HD, "bf16")
+
+    def mk_4():
+        from repro_torch.kernels import chunked_linear_attention as cla
+        BH, S, DK, C = 16, 256, 1024, 64
+        q = rnd(BH, S, DK, scale=DK ** -0.5)
+        k, v = rnd(BH, S, DK, scale=0.5), rnd(BH, S, DK)
+        lg = -torch.rand(BH, S, generator=g, device=dev) * 0.1
+        pairs = C * (C + 1) // 2
+        return (lambda: cla.chunked_linear_attention(q, k, v, lg, chunk=C)), (
+            4 * BH * S * DK * 2 + BH * S * 4 + BH * DK * DK * 4,
+            BH * (S // C) * (4 * pairs * DK + 4 * C * DK * DK), "fp32")
+
     return [
         ("1", "tied head nt 4 x 2048 x 151936 bf16", mk_1),
         ("1a", "AE fc0 nn 16 x 640 x 128 +bias paper_fp16", mk_1a),
@@ -139,12 +162,20 @@ def _rows(torch, prec, dev):
         ("1l", "mLSTM gates dW tn 4096 x 1024 x 8 fp32", mk_1l),
         ("2h", "sLSTM recurrence nn 4 x (4 x 512 x 2048) fp32", mk_2h),
         ("2i", "sLSTM recurrence dX nt 4 x (4 x 2048 x 512) fp32", mk_2i),
+        ("3", "flash prefill 16/8 heads D 128 S 128 T 144 t_valid 128 bf16", mk_3),
+        ("4", "sweep BH 16 S 256 dk = dv = 1024 chunk 64 bf16", mk_4),
     ]
 
 
-def device_ms(torch, fn, iters: int = 30, warmup: int = 5) -> float:
-    """Device time of one call of ``fn``: the RedMulE kernels' time in a
-    profiled window of ``iters`` calls, over ``iters``."""
+# the kernels a row's device time sums, by a substring of their names
+KERNEL_KEY = {"3": "flash_fwd", "4": "chunked_linear_attention"}
+
+
+def device_ms(torch, fn, key: str = "redmule_gemm", iters: int = 30,
+              warmup: int = 5) -> float:
+    """Device time of one call of ``fn``: the time of the kernels whose
+    names contain ``key`` in a profiled window of ``iters`` calls, over
+    ``iters``."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
@@ -156,11 +187,11 @@ def device_ms(torch, fn, iters: int = 30, warmup: int = 5) -> float:
         torch.cuda.synchronize()
     us = 0.0
     for ev in prof.key_averages():
-        if "redmule_gemm" in ev.key and ev.device_type == torch.autograd.DeviceType.CUDA:
+        if key in ev.key and ev.device_type == torch.autograd.DeviceType.CUDA:
             t = getattr(ev, "self_device_time_total", None)
             us += ev.self_cuda_time_total if t is None else t
     if us <= 0:
-        raise RuntimeError("torch.profiler recorded no RedMulE kernel")
+        raise RuntimeError(f"torch.profiler recorded no kernel named *{key}*")
     return us / 1e3 / iters
 
 
@@ -191,7 +222,7 @@ def main(argv=None) -> int:
         if want and name not in want:
             continue
         fn, (n_bytes, flops, peak) = make()
-        ms = device_ms(torch, fn)
+        ms = device_ms(torch, fn, KERNEL_KEY.get(name, "redmule_gemm"))
         bound = max(n_bytes / HBM, flops / PEAK[peak]) * 1e3
         row = {"row": name, "what": what, "tree": str(root), "card": card,
                "device_ms": ms, "bound_ms": bound,
