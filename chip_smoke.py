@@ -27,7 +27,11 @@ Phases, any failure exits non-zero:
    against its pre-widened launch, a broadcast batched operand, the fp32
    route), every split launch repeated and
    bitwise equal run to run, and rows at qwen3-1.7b's decode / prefill and
-   the xLSTM's fp32 gate and sLSTM shapes.  Each kernel, its plain version
+   the xLSTM's fp32 gate and sLSTM shapes; then the LM training path's
+   shapes: the tied head's backward ("nn" dX, "tn" dW over the 151936 x
+   2048 table), the attention composition's six kernel-2 launches and
+   flash at the training shape (bf16, fp16 and the fp32 route) and at
+   musicgen-medium's D 64, each launch twice and bitwise equal.  Each kernel, its plain version
    and — where one exists — one PyTorch library call for the same function
    are timed with CUDA events (decode / prefill rows over weight copies
    that exceed the L2), the kernel alone with torch.profiler, and each
@@ -54,7 +58,22 @@ Phases, any failure exits non-zero:
    width, batch 1 x seq 128): its loss and the gradients of w_up, w_qkv and
    r_gates of the first and the last super-block, card vs CPU, under fp32
    and tpu_bf16, each held to 8x the CPU's own spread (1 vs all threads);
-5. **ae** — the counts are set to 0 again, then ``repro_torch.launch.train
+5. **lmtrain** — the counts are set to 0 again, then
+   ``repro_torch.launch.train`` trains qwen3-1.7b at full width (28
+   layers, d 2048, vocab 151936, random weights from a seed) for 3 steps
+   at batch 4 x seq 256: loss and gradient norm finite, and each kernel's
+   launches equal to the structural count (kernel 1 451, kernel 2 168,
+   kernel 3 56 a step).  Then one step is profiled (busy / idle share;
+   GEMM, composition, flash and other device time; peak memory), two
+   ``--fp16-scale`` steps run (finite, or a counted skip), a two-layer cut
+   at full width (batch 1 x seq 128) is held against the CPU plain path
+   under fp32 and tpu_bf16 (loss, the gradients of wqkv, w_in and the
+   embedding) to 8x the CPU's own 1-vs-all-threads spread, kernel 3
+   launched in both (its fp32 route under fp32), and a
+   two-layer full-width serve cut of each dense config of the slice
+   (mistral-nemo-12b, pixtral-12b, command-r-35b, musicgen-medium) is held
+   against the CPU plain path;
+6. **ae** — the counts are set to 0 again, then ``repro_torch.launch.train
    --arch ae`` trains the paper's TinyMLPerf AutoEncoder (640 -> [128 x4]
    -> 8 -> [128 x4] -> 640, random weights from a seed) for 200 steps at
    batch 16 under ``paper_fp16``, then 3 steps under ``fp32``: the mse must
@@ -63,19 +82,24 @@ Phases, any failure exits non-zero:
    profiled, the loss-scaled example runs 200 steps, and one step is held
    against the CPU plain path at batch 16 and at batch 4096 (where the dW
    reductions span 2 to 4 rounding blocks);
-6. **ae8** — the same entry point under FP8 storage: 200
+7. **ae8** — the same entry point under FP8 storage: 200
    ``mixed_fp8_e4m3`` steps at batch 16 (the mse must fall to the
    reference's level), 3 at batch 4096 and 3 ``mixed_fp8_e5m2`` steps,
    each with its own counts (30 kernel-1 launches a step, all FP8, none
    fused-backward); one profiled step; one step at batch 16 and 4096 held
    against the CPU plain path, with BatchNorm in float64 on both sides and
    as the path runs it, each bound beside two controls that must fail it;
-7. **serve8** — qwen3-1.7b at full width under ``mixed_fp8_e4m3``:
+8. **serve8** — qwen3-1.7b at full width under ``mixed_fp8_e4m3``:
    ``launch.serve.generate`` of 4 x (128 + 16) with the counts set to 0
    (the structural 2260 / 896 / 112 launches, every GEMM launch FP8);
    one prefill and one decode step timed and profiled; a two-layer cut
-   (prefill, and a decode step from one cache) against the CPU plain path;
-8. **report** — the GEMM wrappers' split launches (``.launches_split``)
+   (prefill, and a decode step from one cache) against the CPU plain path
+   on two prompts, each held to a bound measured in the run (the CPU's own
+   rounding floor: its largest change when kernel 3's outputs move by one
+   ulp as often as the card's flash launches differ from their plain
+   version), beside two controls that must fail it (row 0 of the first
+   layer's wqkv zeroed, the attention scale off by a factor 1 + 2^-6);
+9. **report** — the GEMM wrappers' split launches (``.launches_split``)
    per path, the card (``nvidia-smi``), a ``{"kernels": [...]}`` line, and
    last ``{"ok": true, "device": {...}}``.
 
@@ -85,6 +109,7 @@ one card and exits non-zero without one, or without the rest of the repo.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -111,8 +136,16 @@ AE_BATCH, AE_STEPS, AE_BIG = 16, 200, 4096
 # the FP8 AE step with BatchNorm in float64 on both sides, card vs CPU:
 # two fp16 ulps of the largest gradient
 AE8_STATS_TOL = 2.0 ** -9
-# the serve8 two-layer cut, card vs CPU plain: four fp16 ulps of max
-SERVE8_TOL = 2.0 ** -8
+# the serve8 two-layer cut, card vs CPU plain: S8_FACTOR times the cut's
+# rounding floor, the CPU's largest change under one-ulp moves of kernel
+# 3's output over S8_TRIALS draws on each of its two prompts.  A move that
+# crosses an E4M3 boundary grows to 0.03-0.06 of max; a zeroed wqkv row or
+# a 2^-6 scale error moves the logits by 0.087-0.13: 1.25 splits the gap
+S8_TRIALS, S8_FACTOR = 4, 1.25
+# the LM training path: qwen3-1.7b at full width; its two-layer parity cut
+L_BATCH, L_SEQ, L_STEPS, L_CUT_SEQ = 4, 256, 3, 128
+# the dense configs of the LM slice, each served as a two-layer cut
+DENSE_ARCHS = ("mistral-nemo-12b", "pixtral-12b", "command-r-35b", "musicgen-medium")
 
 
 def _card() -> str:
@@ -137,14 +170,16 @@ def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _device_profile(fn, iters: int = 5, attempts: int = 3) -> dict:
+def _device_profile(fn, iters: int = 5, attempts: int = 3, ranges=()) -> dict:
     """Device time of ``iters`` calls of ``fn`` from torch.profiler, by
-    kernel group, beside the host wall time of the same calls.  A profile
-    that recorded no CUDA activity (CUPTI now and then drops a whole
-    window right after a step of ~200k kernels) is taken again, up to
-    ``attempts`` windows in all; then it raises."""
+    kernel group, beside the host wall time of the same calls, and the
+    device time of the kernels launched inside each ``record_function``
+    range named in ``ranges``.  A profile that recorded no CUDA activity
+    (CUPTI now and then drops a whole window right after a step of ~200k
+    kernels) is taken again, up to ``attempts`` windows in all; then it
+    raises."""
     for attempt in range(attempts):
-        out = _profile_once(fn, iters)
+        out = _profile_once(fn, iters, ranges)
         if out is not None:
             return out
         print(f"[profile] no device time recorded (window {attempt + 1} of "
@@ -153,7 +188,7 @@ def _device_profile(fn, iters: int = 5, attempts: int = 3) -> dict:
     raise RuntimeError("torch.profiler recorded no device time")
 
 
-def _profile_once(fn, iters: int):
+def _profile_once(fn, iters: int, ranges=()):
     """One profiled window of ``_device_profile``; None if it recorded no
     device time."""
     import torch
@@ -167,7 +202,13 @@ def _profile_once(fn, iters: int):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     groups: dict = {}
+    spans = {r: {"ms": 0.0, "count": 0} for r in ranges}
     for ev in prof.key_averages():
+        if ev.key in spans:
+            us = getattr(ev, "device_time_total", None)
+            if us is None:
+                us = ev.cuda_time_total
+            spans[ev.key] = {"ms": us / 1e3 / iters, "count": ev.count / iters}
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
         us = getattr(ev, "self_device_time_total", None)
@@ -175,7 +216,7 @@ def _profile_once(fn, iters: int):
             us = ev.self_cuda_time_total
         name = ("redmule_gemm" if "redmule_gemm_kernel" in ev.key else
                 "redmule_gemm_f32" if "redmule_gemm_f32_kernel" in ev.key else
-                "flash_fwd" if "flash_fwd_kernel" in ev.key else
+                "flash_fwd" if "flash_fwd" in ev.key else  # either route
                 "chunked_linear_attention"     # its scores kernel and the sweep
                 if "chunked_linear_attention" in ev.key else "other")
         g = groups.setdefault(name, {"ms": 0.0, "count": 0})
@@ -186,7 +227,8 @@ def _profile_once(fn, iters: int):
         return None
     wall_ms = wall * 1e3 / iters
     return {"wall_ms": wall_ms, "device_ms": busy,
-            "idle_share": max(0.0, 1.0 - busy / wall_ms), "by_kernel": groups}
+            "idle_share": max(0.0, 1.0 - busy / wall_ms), "by_kernel": groups,
+            "ranges": spans}
 
 
 def _bound_ms(n_bytes: float, flops: float, peak: float = BF16_FLOPS):
@@ -1098,6 +1140,7 @@ def kernel_phase(log):
     runs += kernel1_mode_checks(log, g)
     runs += fp8_kernel_checks(log, g)
     runs += split_checks(log, g)
+    runs += lmtrain_kernel_checks(log, g)
     kernels = []
     for r in runs:
         # ms: CUDA events around back-to-back calls (host launch cost
@@ -1127,6 +1170,187 @@ def kernel_phase(log):
     counters.update(_split_counters(ops))
     return kernels, counters, \
         {r["name"]: r["paths"] for r in runs if "paths" in r}
+
+
+def lmtrain_kernel_checks(log, g):
+    """Kernels 1-3 at the LM training path's shapes (qwen3-1.7b at full
+    width, batch 4 x seq 256, tpu_bf16), each against its plain version
+    and run twice, bitwise equal: the tied head's backward — dX = dZ·E
+    ("nn", reading the (V, d) embedding as stored) and dE = dZᵀ·h ("tn") —
+    with the "+grad" policy's fp32 output; the attention composition of
+    the backward (kernel 2): scores (fp32 out, K read through a transposed
+    view), PV, and the four backward launches ("nt" dX, "tn" dW); flash
+    (kernel 3) at the training shape in bf16 and fp16 (``--fp16-scale``),
+    and musicgen-medium's MHA at D 64.  Returns the rows to time.
+
+    Tolerances: fp32 outputs summation order, 1e-4 of max — except the
+    head's dX, whose 151936-deep reduction runs unsplit through 4748
+    sequential 32-deep tensor-core accumulations, each of which may lose
+    up to one fp32 ulp (the tensor cores' fp32 adder is not
+    round-to-nearest; 4748 x 2^-23 = 5.7e-4 in all): 2^-10;
+    bf16 outputs two ulps (2^-7), fp16 two ulps (2^-9)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core import precision as prec
+    from repro_torch.core.engine import _grad_policy, scores_policy
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import redmule_matmul as rm
+
+    dev = torch.device("cuda")
+    bf = prec.TPU_BF16
+    gbf, scores = _grad_policy(bf), scores_policy(bf)
+    tol_bf16, tol_f32 = 2.0 ** -7, 1e-4
+    d, V, hq, hkv, hd = 2048, 151936, 16, 8, 128
+    rows_t = L_BATCH * L_SEQ
+
+    def rnd(*shape, dtype=torch.bfloat16, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+
+    def both(name, fn, plain, tol):
+        got = fn()
+        _repeat(name, got, fn(), log)
+        return _check(name, got, plain(), tol, log)
+
+    src = "src/repro_torch/csrc/redmule_matmul.cu"
+    rep1 = "src/repro/kernels/redmule_matmul.py:289"
+    rep2 = "src/repro/kernels/redmule_matmul.py:478"
+    k1 = (ops.redmule_matmul, "launches")
+    k2 = (ops.redmule_matmul_batched, "launches")
+    out = []
+
+    # kernel 1: the tied head's backward at 1024 rows
+    dz, emb, h = rnd(rows_t, V, scale=1e-3), rnd(V, d, scale=0.02), rnd(rows_t, d)
+    for name, x, w, layout, (M, N, K), tol, lib in (
+            ("redmule_matmul (tied head dX)", dz, emb, "nn", (rows_t, V, d),
+             2.0 ** -10, lambda: torch.matmul(dz, emb)),
+            ("redmule_matmul (tied head dW)", dz, h, "tn", (V, rows_t, d),
+             tol_f32, lambda: torch.matmul(dz.t(), h))):
+        kern = (lambda x=x, w=w, layout=layout:
+                ops.redmule_matmul(x, w, policy=gbf, layout=layout))
+        plain = (lambda x=x, w=w, layout=layout:
+                 rm.redmule_matmul_plain(x, w, policy=gbf, layout=layout))
+        shape = f"{layout} M={M} N={N} K={K} bf16 -> fp32"
+        err = both(f"gemm {name} {shape}", kern, plain, tol)
+        out.append(dict(
+            name=name, group="redmule_gemm", counter=k1, paths=("lmtrain",),
+            source=src, replaces=rep1, shape=shape, err=err,
+            bound=_bound_ms((M * N + N * K) * 2 + M * K * 4, 2 * M * N * K),
+            kernel=kern, plain=plain, library=lib))
+
+    # kernel 2: the composition, B·Hkv = 32 batches of (G·S = 512) query
+    # rows against T = 256 keys; K^T is a transposed view of k (in place)
+    BH, GS, T = L_BATCH * hkv, (hq // hkv) * L_SEQ, L_SEQ
+    q, k, v = rnd(BH, GS, hd), rnd(BH, T, hd), rnd(BH, T, hd)
+    kt = k.transpose(-1, -2)
+    ds = rnd(BH, GS, T, scale=1e-2)
+    p = torch.softmax(torch.randn(BH, GS, T, generator=g, device=dev), -1).to(
+        torch.bfloat16)
+    do = rnd(BH, GS, hd)
+    comp = {
+        "scores": (q, kt, "nn", scores, (GS, hd, T)),
+        "scores dX": (ds, kt, "nt", gbf, (GS, T, hd)),
+        "scores dW": (q, ds, "tn", gbf, (hd, GS, T)),
+        "PV": (p, v, "nn", bf, (GS, T, hd)),
+        "PV dX": (do, v, "nt", gbf, (GS, hd, T)),
+        "PV dW": (p, do, "tn", gbf, (T, GS, hd)),
+    }
+    libs = {"scores": lambda: torch.matmul(q, kt),
+            "scores dX": lambda: torch.matmul(ds, k),
+            "scores dW": lambda: torch.matmul(q.transpose(-1, -2), ds)}
+    for name, (x, w, layout, pol, (M, N, K)) in comp.items():
+        kern = (lambda x=x, w=w, layout=layout, pol=pol:
+                ops.redmule_matmul_batched(x, w, policy=pol, layout=layout))
+        plain = (lambda x=x, w=w, layout=layout, pol=pol:
+                 rm.redmule_matmul_plain(x, w, policy=pol, layout=layout))
+        shape = (f"{layout} B={BH} M={M} N={N} K={K} bf16 -> "
+                 f"{prec.dtype_name(pol.out_dtype)}")
+        err = both(f"batched composition {name} {shape}", kern, plain,
+                   tol_f32 if pol.out_dtype == torch.float32 else tol_bf16)
+        if name in libs:
+            ob = pol.out_dtype.itemsize
+            out.append(dict(
+                name=f"redmule_matmul_batched (composition {name})",
+                group="redmule_gemm", counter=k2, paths=("lmtrain",), source=src,
+                replaces=rep2, shape=shape, err=err,
+                bound=_bound_ms(BH * ((M * N + N * K) * 2 + M * K * ob),
+                                2 * BH * M * N * K),
+                kernel=kern, plain=plain, library=libs[name]))
+
+    # kernel 3 at the training shape (bf16; fp16 under --fp16-scale) and
+    # musicgen-medium's MHA at D 64
+    B, S = L_BATCH, L_SEQ
+    for dt, tol in ((torch.bfloat16, tol_bf16), (torch.float16, 2.0 ** -9)):
+        qf, kf, vf = (rnd(B * h_, S, hd, dtype=dt) for h_ in (hq, hkv, hkv))
+        kern = lambda qf=qf, kf=kf, vf=vf: fa.flash_attention(
+            qf, kf, vf, group=hq // hkv, causal=True)
+        plain = lambda qf=qf, kf=kf, vf=vf: fa.flash_attention_plain(
+            qf, kf, vf, group=hq // hkv, causal=True)
+        shape = (f"train B={B} Hq={hq} Hkv={hkv} D={hd} S=T={S} causal "
+                 f"{prec.dtype_name(dt)}")
+        err = both(f"flash {shape}", kern, plain, tol)
+        if dt == torch.bfloat16:
+            pairs = S * (S + 1) // 2
+            q4, k4, v4 = (t.reshape(B, -1, S, hd) for t in (qf, kf, vf))
+            out.append(dict(
+                name="flash_attention (training shape)", group="flash_fwd",
+                counter=(fa.flash_attention, "launches"), paths=("lmtrain",),
+                source="src/repro_torch/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention.py:102", shape=shape,
+                err=err, bound=_bound_ms((2 * B * hq + 2 * B * hkv) * S * hd * 2,
+                                         4 * B * hq * pairs * hd),
+                kernel=kern, plain=plain,
+                library=lambda q4=q4, k4=k4, v4=v4: F.scaled_dot_product_attention(
+                    q4, k4, v4, is_causal=True, enable_gqa=True)))
+    qm, km, vm = (rnd(2 * 24, 128, 64) for _ in range(3))
+    both("flash musicgen MHA Hq=Hkv=24 D=64 S=T=128 causal bf16",
+         lambda: fa.flash_attention(qm, km, vm, group=1, causal=True),
+         lambda: fa.flash_attention_plain(qm, km, vm, group=1, causal=True),
+         tol_bf16)
+    # kernel 3's fp32 route (the fp32 policy's attention, as the two-layer
+    # cut runs it): the training shape, and D 64 with a ragged S, t_valid <
+    # T, q_offset > 0 and rows with no visible column (exact zeros)
+    q3, k3, v3 = (rnd(B * h_, S, hd, dtype=torch.float32) for h_ in (hq, hkv, hkv))
+    f32 = lambda: fa.flash_attention(q3, k3, v3, group=hq // hkv, causal=True)
+    both(f"flash fp32 train B={B} Hq={hq} Hkv={hkv} D={hd} S=T={S} causal", f32,
+         lambda: fa.flash_attention_plain(q3, k3, v3, group=hq // hkv, causal=True),
+         tol_f32)
+    pairs = S * (S + 1) // 2
+    bound = _bound_ms((2 * B * hq + 2 * B * hkv) * S * hd * 4,
+                      4 * B * hq * pairs * hd, FP32_FLOPS)
+    q4, k4, v4 = (t.reshape(B, -1, S, hd) for t in (q3, k3, v3))
+    times = {
+        "ms": _time_ms(f32),
+        "device_ms": _device_profile(f32, iters=20)["by_kernel"]["flash_fwd"]["ms"],
+        "plain_ms": _time_ms(lambda: fa.flash_attention_plain(
+            q3, k3, v3, group=hq // hkv, causal=True)),
+        "library_ms": _time_ms(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True, enable_gqa=True))}
+    log.append({"check": "flash fp32 route, training shape: time", **times,
+                "bound_ms": bound[0], "bound_by": bound[1], "ok": True})
+    print(f"[time] flash_attention fp32 route (train B={B} Hq={hq} Hkv={hkv} "
+          f"D={hd} S=T={S} causal): {times['ms']:.4f} ms, device "
+          f"{times['device_ms']:.4f} ms, plain {times['plain_ms']:.4f} ms, bound "
+          f"{bound[0]:.4f} ms ({bound[1]}, fp32 peak), library (SDPA, fp32) "
+          f"{times['library_ms']:.4f} ms", flush=True)
+    q6, k6, v6 = (rnd(2 * h_, n, 64, dtype=torch.float32)
+                  for h_, n in ((4, 200), (2, 240), (2, 240)))
+    for kw in (dict(t_valid=210, q_offset=40), dict(t_valid=240, q_offset=-20)):
+        both(f"flash fp32 GQA 4/2 D=64 S=200 T=240 {kw} causal",
+             lambda kw=kw: fa.flash_attention(q6, k6, v6, group=2, **kw),
+             lambda kw=kw: fa.flash_attention_plain(q6, k6, v6, group=2, **kw),
+             tol_f32)
+    got = fa.flash_attention(q6, k6, v6, group=2, q_offset=-20)
+    zero = bool((got[:, :20] == 0).all())
+    log.append({"check": "flash fp32: rows with no visible column are exact "
+                         "zeros", "ok": zero})
+    print(f"[check] flash fp32 rows with no visible column: "
+          f"{'exact zeros' if zero else 'FAIL: not zero'}", flush=True)
+    if not zero:
+        raise AssertionError("flash fp32: a row with no visible column is not 0")
+    torch.cuda.synchronize()
+    return out
 
 
 def _split_counters(ops):
@@ -1376,6 +1600,257 @@ def train_phase(log, counters):
             "peak_mem_main_gib": peak_main / 2**30,
             "peak_mem_step_gib": peak_step / 2**30, "profile": prof,
             "params": out["params"]}
+
+
+def _k2_ranged():
+    """A context in which every GEMM dispatch with a batched operand — the
+    ones the "hopper" backend sends to kernel 2 (its batched launch), by
+    their shapes: a weight of more than two dims, or a "tn" dW of batched
+    rows — runs inside a ``record_function`` range named ``kernel2``, so a
+    profile attributes the attention composition's device time (kernels 1
+    and 2 are one CUDA kernel: their names do not tell them apart).  The
+    caller checks the ranges' count against kernel 2's launches."""
+    import torch
+
+    def ranged(fn, x, w, **kw):
+        if w.ndim == 2 and (x.ndim == 2 or kw["spec"].layout != "tn"):
+            return fn(x, w, **kw)
+        with torch.profiler.record_function("kernel2"):
+            return fn(x, w, **kw)
+
+    return _hopper_wrapped(gemm=ranged)
+
+
+def lmtrain_phase(log, counters):
+    """LM training through its entry point: qwen3-1.7b at full width,
+    batch 4 x seq 256, 3 steps, with the launch counts held to the
+    structural ones; one profiled step (busy / idle share, the GEMM /
+    flash / composition / other split, peak memory); two ``--fp16-scale``
+    steps; a two-layer full-width cut's loss and gradients against the CPU
+    plain path under fp32 and tpu_bf16; and a two-layer full-width serve
+    cut of each dense config the slice added."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import train
+    from repro_torch.optim import AdamW
+
+    cfg = configs.get(ARCH)
+    L = cfg.n_layers
+    argv = ["--arch", ARCH, "--full", "--batch", str(L_BATCH), "--seq", str(L_SEQ),
+            "--seed", str(SEED), "--device", "cuda"]
+    _zero(counters)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = train.main(argv + ["--steps", str(L_STEPS)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read(counters)
+    peak_main = torch.cuda.max_memory_allocated()
+    print(f"[lmtrain] launches on the main path: {launches}", flush=True)
+    hist = out["history"]
+    if len(hist) != L_STEPS or not all(math.isfinite(h["loss"])
+                                       and math.isfinite(h["grad_norm"])
+                                       for h in hist):
+        raise AssertionError(f"lmtrain: non-finite or missing steps: {hist}")
+    # a step: 4 projections a layer and the tied head forward, the layers'
+    # projections again in the remat recompute, dX and dW of each forward
+    # GEMM (kernel 1); the composition's scores and PV and their four
+    # backward launches a layer (kernel 2); flash a layer forward and again
+    # in the recompute (kernel 3)
+    want = {"redmule_matmul": L_STEPS * ((4 * L + 1) + 4 * L + 2 * (4 * L + 1)),
+            "redmule_matmul_batched": L_STEPS * 6 * L,
+            "flash_attention": L_STEPS * 2 * L}
+    got = {k: launches[k] for k in want}
+    print(f"[lmtrain] launches {got}, structural {want} ({L_STEPS} steps x "
+          f"({9 * L + 3}, {6 * L}, {2 * L}))", flush=True)
+    if got != want:
+        raise AssertionError("lmtrain: launches differ from the structural count")
+    for h in hist:
+        print(f"[lmtrain] step {h['step']}: loss {h['loss']:.4f} grad_norm "
+              f"{h['grad_norm']:.4f} step {h['step_ms']:.1f} ms", flush=True)
+
+    # one profiled step after a warm-up step, with its peak memory
+    opt = AdamW(lr=3e-3, warmup_steps=10)
+    step = train.build_train_step(cfg, opt)
+    ds = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=L_SEQ,
+                     global_batch=L_BATCH, seed=SEED)
+    holder = [train.init_state(cfg, opt, seed=SEED, device="cuda")]
+    holder[0], _ = step(holder[0], ds.batch(0))
+
+    def one_step():
+        holder[0], m = step(holder[0], ds.batch(1))
+        return m
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with _k2_ranged():
+        prof = _device_profile(one_step, iters=1, ranges=("kernel2",))
+    peak_step = torch.cuda.max_memory_allocated()
+    del holder, step
+    torch.cuda.empty_cache()
+    if prof["ranges"]["kernel2"]["count"] != 6 * L:
+        raise AssertionError(f"lmtrain profile: {prof['ranges']['kernel2']} "
+                             f"kernel-2 ranges, not {6 * L}")
+    k2_ms = prof["ranges"]["kernel2"]["ms"]
+    split = {"gemm (kernel 1)": prof["by_kernel"]["redmule_gemm"]["ms"] - k2_ms,
+             "composition (kernel 2)": k2_ms,
+             "flash (kernel 3)": prof["by_kernel"].get("flash_fwd", {"ms": 0.0})["ms"],
+             "other": sum(g["ms"] for k, g in prof["by_kernel"].items()
+                          if k not in ("redmule_gemm", "flash_fwd"))}
+    prof["split"] = split
+    print(f"[profile] lmtrain step: wall {prof['wall_ms']:.1f} ms, device busy "
+          f"{prof['device_ms']:.1f} ms (idle {prof['idle_share']:.3f}), peak "
+          f"{peak_step / 2**30:.2f} GiB: "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in split.items())
+          + f"; kernels {', '.join(f'{k} x{g['count']}' for k, g in sorted(prof['by_kernel'].items()))}",
+          flush=True)
+
+    # two loss-scaled fp16 steps: finite, or a counted skip
+    t0 = time.perf_counter()
+    out16 = train.main(argv + ["--steps", "2", "--fp16-scale"])
+    fp16_s = time.perf_counter() - t0
+    for h in out16["history"]:
+        print(f"[lmtrain] fp16-scale step {h['step']}: loss {h['loss']:.4f} "
+              f"grad_norm {h['grad_norm']:.4f} loss_scale {h['loss_scale']:g} "
+              f"finite {h['finite']} step {h['step_ms']:.1f} ms", flush=True)
+        if not math.isfinite(h["loss"]) or not (
+                h["finite"] or h["loss_scale"] < 2.0 ** 15):
+            raise AssertionError(f"lmtrain fp16-scale: {h}")
+    torch.cuda.empty_cache()
+
+    cut = two_layer_train_parity(log, cfg)
+    serve_cuts = dense_serve_cuts(log)
+    return {"train_wall_s": wall, "history": hist, "launches": launches,
+            "structural": want, "peak_mem_main_gib": peak_main / 2**30,
+            "peak_mem_step_gib": peak_step / 2**30, "profile": prof,
+            "fp16_scale": {"history": out16["history"], "wall_s": fp16_s},
+            "two_layer_parity": cut, "dense_serve_cuts": serve_cuts,
+            "params": out["params"]}
+
+
+def two_layer_train_parity(log, cfg):
+    """Loss and gradients of a two-layer cut of the LM at full width
+    (d 2048, vocab 151936, batch 1 x seq 128), card vs the CPU plain path,
+    under fp32 (the card's attention forward on kernel 3's fp32 route, its
+    backward through the composition on kernel 2's fp32 route) and
+    tpu_bf16: the loss and the gradients of ``wqkv`` and ``w_in`` (both
+    layers) and of the embedding (the gather and the tied head's "tn"
+    launch together).  Each is held to 8x the CPU's own spread (one thread
+    against all: another summation order), above a floor of one rounding
+    (fp32 1e-5, bf16 2^-8).  Under both policies the card's run must
+    launch kernel 3 once a layer forward and once in the remat recompute."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import train
+    from repro_torch.models import transformer
+    from repro_torch.optim import tree_map
+
+    batch_np = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=L_CUT_SEQ,
+                           global_batch=1, seed=SEED).batch(0)
+    n_threads = torch.get_num_threads()
+    names = ("loss", "grad wqkv", "grad w_in", "grad embed")
+
+    def run(params, c, dev):
+        wrt = [params["layers"]["attn"]["wqkv"], params["layers"]["mlp"]["w_in"],
+               params["embed"]]
+        wrt = [t.detach().requires_grad_(True) for t in wrt]
+        lay = params["layers"]
+        p = {**params, "embed": wrt[2],
+             "layers": {**lay, "attn": {**lay["attn"], "wqkv": wrt[0]},
+                        "mlp": {**lay["mlp"], "w_in": wrt[1]}}}
+        loss, _ = transformer.loss_fn(p, c, train._to_device(batch_np, dev))
+        return [loss.detach().cpu()] + [t.detach().cpu() for t in
+                                        torch.autograd.grad(loss, wrt)]
+
+    result = {}
+    for policy, floor in (("fp32", 1e-5), (cfg.policy_name, 2.0 ** -8)):
+        c = dataclasses.replace(cfg, n_layers=2, policy_name=policy)
+        p_gpu = transformer.init_params(c, seed=SEED + 4, device="cuda",
+                                        dtype=torch.float32)
+        p_cpu = tree_map(lambda t: t.cpu(), p_gpu)
+        flash0 = fa.flash_attention.launches
+        got = run(p_gpu, c, torch.device("cuda"))
+        flash = fa.flash_attention.launches - flash0
+        print(f"[lmtrain] two-layer cut ({policy}): kernel 3 launched {flash} "
+              f"times (structural {2 * c.n_layers})", flush=True)
+        if flash != 2 * c.n_layers:
+            raise AssertionError(f"lmtrain two-layer cut ({policy}): kernel 3 "
+                                 f"launched {flash} times, not {2 * c.n_layers}")
+        del p_gpu
+        torch.cuda.empty_cache()
+        want = run(p_cpu, c, torch.device("cpu"))
+        torch.set_num_threads(1)
+        try:
+            want_1t = run(p_cpu, c, torch.device("cpu"))
+        finally:
+            torch.set_num_threads(n_threads)
+        rows, failed = {}, []
+        for name, a_, b_, c_ in zip(names, got, want, want_1t):
+            scale = max(b_.abs().max().item(), 1e-30)
+            spread = (c_ - b_).abs().max().item() / scale
+            tol = max(8 * spread, floor)
+            try:
+                err = _check(f"lmtrain two-layer (d 2048, 1x{L_CUT_SEQ}, {policy}) "
+                             f"{name}, card vs CPU plain (CPU spread {spread:.2e})",
+                             a_, b_, tol, log)
+            except AssertionError as e:
+                err = float("nan")
+                failed.append(str(e))
+            rows[name] = {"err_rel": err / scale, "spread": spread, "tol_rel": tol}
+        result[policy] = rows
+        if failed:
+            raise AssertionError("; ".join(failed))
+    return result
+
+
+def dense_serve_cuts(log):
+    """A two-layer cut of each dense config this slice added, at full
+    width under tpu_bf16 (random weights from a seed, made on the card and
+    copied to the CPU): prefill logits of a 16-token prompt and one decode
+    step from one cache (the CPU's), card vs the CPU plain path.  Covers
+    command-r-35b's 8192 / 22528 / 256000-vocab shapes, mistral-nemo's
+    q-projection narrower than d_model, musicgen-medium's MHA at D 64 with
+    layernorm and the fused GELU MLP.  Bound: the serve phase's two-layer
+    bf16 bound (2^-4 of max)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import transformer
+
+    errs = {}
+    gen = torch.Generator().manual_seed(SEED + 5)
+    for arch in DENSE_ARCHS:
+        c = dataclasses.replace(configs.get(arch), n_layers=2)
+        pc = transformer.init_params(c, seed=SEED + 6, device="cuda")
+        pcpu = _to_cpu(pc)
+        sp = torch.randint(0, c.vocab_size, (1, 16), generator=gen)
+        got_l, _ = transformer.prefill(pc, c, {"inputs": sp.cuda()}, 24)
+        want_l, want_c = transformer.prefill(pcpu, c, {"inputs": sp}, 24)
+        e_pre = _check(f"{arch} two-layer prefill logits, card vs CPU plain",
+                       got_l.cpu(), want_l, 2.0 ** -4, log)
+        tok = torch.randint(0, c.vocab_size, (1, 1), generator=gen)
+        p16, s16 = torch.tensor([16]), np.array([17], np.int32)
+        got_d, _ = transformer.serve_step(
+            pc, c, tok.cuda(), {"layers": {k: v.cuda() for k, v in
+                                           want_c["layers"].items()}},
+            p16.cuda(), kv_group_sizes=s16)
+        want_d, _ = transformer.serve_step(pcpu, c, tok, want_c, p16,
+                                           kv_group_sizes=s16)
+        e_dec = _check(f"{arch} two-layer decode step from one cache, card vs "
+                       "CPU plain", got_d.cpu(), want_d, 2.0 ** -4, log)
+        errs[arch] = {"prefill": e_pre, "decode": e_dec}
+        del pc, pcpu
+        torch.cuda.empty_cache()
+    return errs
 
 
 def full_depth_parity(log, cfg):
@@ -1994,34 +2469,197 @@ def serve8_phase(log, counters):
               f"{parts}", flush=True)
     del params, cache
 
-    # a two-layer cut at full width, card vs the CPU plain path: the same
-    # kernels' math on the same inputs, held to a few fp16 ulps of max
+    # a two-layer cut at full width, card vs the CPU plain path, on this
+    # script's prompt and on a second one drawn after it
     small = dataclasses.replace(cfg, n_layers=2)
     pc = transformer.init_params(small, seed=SEED + 1, device="cuda")
     pcpu = _to_cpu(pc)
-    sp = torch.randint(0, cfg.vocab_size, (1, 16), generator=gen_c, device="cuda")
-    got_l, got_c = transformer.prefill(pc, small, {"inputs": sp}, 24)
-    want_l, want_c = transformer.prefill(pcpu, small, {"inputs": sp.cpu()}, 24)
-    err_pre = _check("serve8 two-layer prefill logits, card vs CPU plain",
-                     got_l.cpu(), want_l, SERVE8_TOL, log)
-    # one decode step from the same cache (the CPU's, copied to the card)
-    shared = _to_cpu(want_c)
+    prompts = [torch.randint(0, cfg.vocab_size, (1, 16), generator=gen_c,
+                             device="cuda").cpu() for _ in range(2)]
     tok = torch.randint(0, cfg.vocab_size, (1, 1), generator=gen)
-    p16 = torch.tensor([16])
-    s16 = np.array([17], np.int32)
-    got_d, _ = transformer.serve_step(pc, small, tok.cuda(),
-                                      {"layers": {k: v.cuda() for k, v in
-                                                  shared["layers"].items()}},
-                                      p16.cuda(), kv_group_sizes=s16)
-    want_d, _ = transformer.serve_step(pcpu, small, tok, shared, p16,
-                                       kv_group_sizes=s16)
-    err_dec = _check("serve8 two-layer decode step from one cache, card vs "
-                     "CPU plain", got_d.cpu(), want_d, SERVE8_TOL, log)
-    del got_c
+    cuts = serve8_cuts(log, small, pc, pcpu,
+                       dict(zip(("prompt 1", "prompt 2"), prompts)), tok)
+    del pc, pcpu
     return {"serve_wall_s": wall, "prefill_ms": prefill_ms,
             "decode_step_ms": decode_ms, "quantize_embed_ms": quant_ms,
             "launches": launches, "structural": want, "profiles": profiles,
-            "two_layer_err": {"prefill": err_pre, "decode": err_dec}}
+            "two_layer_cuts": cuts}
+
+
+@contextlib.contextmanager
+def _hopper_wrapped(gemm=None, attention=None):
+    """The engine's "hopper" backend with its GEMM and / or attention
+    dispatch wrapped, registered under another name through the engine's
+    public registry and pinned as the default backend within the context
+    (a remat recompute and a backward keep it: the engine carries the
+    forward's backend).  ``gemm(fn, x, w, **kw)`` and ``attention(fn, kind,
+    operands, **params)`` receive the "hopper" dispatch ``fn`` and call it,
+    so the kernels, their wrappers and their launch counts are the ones the
+    path runs."""
+    from repro_torch.core import engine
+
+    hop = engine.get_backend("hopper")
+    name = "hopper (wrapped by chip_smoke.py)"
+    engine.register_backend(
+        name, hop.fn if gemm is None else (lambda x, w, **kw: gemm(hop.fn, x, w, **kw)),
+        capabilities=hop.capabilities, description=hop.description,
+        attention_fn=hop.attention_fn if attention is None else (
+            lambda kind, operands, **kw: attention(hop.attention_fn, kind, operands, **kw)))
+    try:
+        with engine.use_backend(name):
+            yield
+    finally:
+        engine.unregister_backend(name)
+
+
+def _flash_mismatch(run):
+    """``(run(), f)``: ``f`` the largest fraction of output elements in
+    which one flash (kernel 3) launch of ``run()`` differs from its plain
+    version on the same operands."""
+    from repro_torch.kernels import flash_attention as fa
+
+    worst = [0.0]
+
+    def watch(fn, kind, operands, **kw):
+        out = fn(kind, operands, **kw)
+        if kind == "attention":
+            ref = fa.flash_attention_plain(
+                *operands, **{k: v for k, v in kw.items() if k not in ("bq", "bkv")})
+            worst[0] = max(worst[0], (out != ref).float().mean().item())
+        return out
+
+    with _hopper_wrapped(attention=watch):
+        got = run()
+    return got, worst[0]
+
+
+def _flash_ulp_flips(frac: float, seed: int):
+    """A context in which every flash output (kernel 3's plain version on
+    the CPU) moves by one ulp of its dtype, up or down, in ``frac`` of its
+    elements (at least one), at positions drawn from ``seed``."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    ints = {2: torch.int16, 4: torch.int32}
+
+    def flip(fn, kind, operands, **kw):
+        z = fn(kind, operands, **kw)
+        if kind != "attention":
+            return z
+        z = z.clone()
+        flat = z.reshape(-1)
+        n = max(1, round(frac * flat.numel()))
+        idx = torch.randint(0, flat.numel(), (n,), generator=gen)
+        step = torch.randint(0, 2, (n,), generator=gen) * 2 - 1
+        bits = flat.view(ints[z.element_size()])
+        bits[idx] += step.to(bits.dtype)
+        return z
+
+    return _hopper_wrapped(attention=flip)
+
+
+def serve8_cuts(log, small, pc, pcpu, prompts, tok) -> dict:
+    """The serve8 two-layer cut: prefill logits, and one decode step from
+    one cache (the CPU's, copied to the card), card vs the CPU plain path,
+    on each prompt, held to a bound measured in the run.
+
+    Under ``mixed_fp8_e4m3`` a one-ulp difference in kernel 3's fp16
+    output can cross an E4M3 rounding boundary and grow through the later
+    layers to the size of the FP8 rounding itself, so no fixed tolerance
+    holds on every prompt.  The run measures the largest fraction f of
+    output elements in which one flash launch of the card's cut differs
+    from its plain version on the same operands, then, on each prompt, the
+    CPU plain path's change when f of every flash output (at least one
+    element) moves by one ulp at seeded positions (S8_TRIALS draws).  The
+    largest change over both outputs, prompts and draws is the cut's
+    rounding floor; the card is held to S8_FACTOR times it (at least
+    2^-10).  Two controls must fail that bound on each prompt: row 0 of
+    the first layer's ``wqkv`` zeroed, and the attention scale off by a
+    factor (1 + 2^-6)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import transformer
+
+    def rel(a, b):
+        return (a.float() - b.float()).abs().max().item() / max(
+            b.float().abs().max().item(), 1e-30)
+
+    def scaled(run, e):
+        chunked = attn_mod.chunked_attention
+        off = small.head_dim ** -0.5 * (1 + 2.0 ** -e)
+        attn_mod.chunked_attention = lambda *a, **k: chunked(*a, **{**k, "scale": off})
+        try:
+            return run(pc)
+        finally:
+            attn_mod.chunked_attention = chunked
+
+    what = ("prefill logits", "decode step from one cache")
+    runs = {}
+    for label, prompt in prompts.items():
+        S = prompt.shape[1]
+        T, pos, sizes = S + 8, torch.tensor([S]), np.array([S + 1], np.int32)
+        _, shared = transformer.prefill(pcpu, small, {"inputs": prompt}, T)
+
+        def cache(dev):
+            return {"layers": {k: v.clone().to(dev) for k, v in shared["layers"].items()}}
+
+        def card(params):
+            logits, _ = transformer.prefill(params, small, {"inputs": prompt.cuda()}, T)
+            dec, _ = transformer.serve_step(params, small, tok.cuda(), cache("cuda"),
+                                            pos.cuda(), kv_group_sizes=sizes)
+            return logits.cpu(), dec.cpu()
+
+        def cpu():
+            logits, _ = transformer.prefill(pcpu, small, {"inputs": prompt}, T)
+            dec, _ = transformer.serve_step(pcpu, small, tok, cache("cpu"), pos,
+                                            kv_group_sizes=sizes)
+            return logits, dec
+
+        got, frac = _flash_mismatch(lambda: card(pc))
+        want = cpu()
+        moves = []
+        for trial in range(S8_TRIALS):
+            with _flash_ulp_flips(frac, seed=SEED + trial):
+                moves += [rel(a, b) for a, b in zip(cpu(), want)]
+        lay = pc["layers"]
+        wqkv = lay["attn"]["wqkv"].clone()
+        wqkv[0, 0] = 0
+        runs[label] = dict(
+            got=got, want=want, frac=frac, moves=moves,
+            controls={"wqkv row 0 of layer 0 zeroed": card(
+                          {**pc, "layers": {**lay, "attn": {**lay["attn"], "wqkv": wqkv}}}),
+                      "attention scale x (1 + 2^-6)": scaled(card, 6)})
+        del wqkv
+    floor = max(m for r in runs.values() for m in r["moves"])
+    tol = max(S8_FACTOR * floor, 2.0 ** -10)
+    print(f"[serve8] rounding floor of the cut {floor:.3e} of max (flash launches "
+          f"differ from their plain versions in up to "
+          f"{max(r['frac'] for r in runs.values()):.2e} of outputs; "
+          f"{S8_TRIALS} draws x {len(runs)} prompts x 2 outputs); bound "
+          f"{tol:.3e}", flush=True)
+    out = {"floor": floor, "tol_rel": tol}
+    for label, r in runs.items():
+        errs = [_check(f"serve8 two-layer {w} ({label}), card vs CPU plain", g, c,
+                       tol, log) for w, g, c in zip(what, r["got"], r["want"])]
+        controls = {}
+        for name, outs in r["controls"].items():
+            for w, g, c in zip(what, outs, r["want"]):
+                err = rel(g, c)
+                ok = err > tol
+                controls[f"{name}: {w}"] = err
+                log.append({"check": f"serve8 control ({label}): {name}, {w} "
+                                     "must fail the bound", "err_rel": err,
+                            "tol_rel": tol, "ok": ok})
+                print(f"[check] serve8 control ({label}): {name}, {w}: err "
+                      f"{err:.3e} of max, bound {tol:.3e}: "
+                      f"{'fails, as it must' if ok else 'PASSES: FAIL'}", flush=True)
+                if not ok:
+                    raise AssertionError(f"serve8 control {name} ({w}) passes the bound")
+        out[label] = {"mismatch_fraction": r["frac"], "moves": r["moves"],
+                      "err_abs": dict(zip(what, errs)), "controls": controls}
+    return out
 
 
 def _to_cpu(tree):
@@ -2052,10 +2690,12 @@ def main() -> int:
     kernels, counters, row_paths = kernel_phase(log)
     serve = serve_phase(log, counters)
     train = train_phase(log, counters)
+    lmtrain = lmtrain_phase(log, counters)
     ae = ae_phase(log, counters)
     ae8 = ae8_phase(log, counters)
     serve8 = serve8_phase(log, counters)
     runs = {"serve": serve["launches"], "train": train["launches"],
+            "lmtrain": lmtrain["launches"],
             "ae": ae["launches"], "ae_fp32": ae["launches_fp32"],
             "ae_b4096": ae["launches_b4096"], "ae8": ae8["launches"],
             "ae8_b4096": ae8["launches_b4096"], "ae8_e5m2": ae8["launches_e5m2"],
@@ -2071,7 +2711,8 @@ def main() -> int:
                          if k.startswith("split launches: ")} for p in runs}
     print(f"[report] split launches per path: {json.dumps(split_by_path)}", flush=True)
     out = {"card": card, "build_s": build_s, "checks": log, "serve": serve,
-           "train": train, "ae": ae, "ae8": ae8, "serve8": serve8,
+           "train": train, "lmtrain": lmtrain, "ae": ae, "ae8": ae8,
+           "serve8": serve8,
            "kernels": kernels, "split_launches_by_path": split_by_path}
     (ROOT / "chiprun_out").mkdir(exist_ok=True)
     (ROOT / "chiprun_out" / "chip_smoke.json").write_text(json.dumps(out, indent=1))

@@ -1,17 +1,22 @@
 """Architecture registry: ``get(arch_id)`` / ``get_reduced(arch_id)``.
 
-The ported architectures (dense GQA, xLSTM) are registered; the
-reference's other ids raise ``NotImplementedError`` naming ROADMAP.md.
+The ported architectures (the dense GQA / MHA decoders — token or
+embedding input, rmsnorm or layernorm, GLU or plain GELU MLP — and xLSTM)
+are registered; the reference's other ids raise ``NotImplementedError``
+naming ROADMAP.md.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Dict, Tuple
 
-from repro_torch.configs import base, qwen3_1_7b, xlstm_1_3b, yi_9b
+from repro_torch.configs import (base, command_r_35b, mistral_nemo_12b,
+                                 musicgen_medium, pixtral_12b, qwen3_1_7b,
+                                 xlstm_1_3b, yi_9b)
 from repro_torch.configs.base import ModelConfig
 
-_MODULES = (yi_9b, qwen3_1_7b, xlstm_1_3b)
+_MODULES = (yi_9b, qwen3_1_7b, mistral_nemo_12b, command_r_35b,
+            musicgen_medium, xlstm_1_3b, pixtral_12b)
 
 REGISTRY: Dict[str, Tuple[Callable[[], ModelConfig], Callable[[], ModelConfig]]] = {
     m.ARCH_ID: (m.full, m.reduced) for m in _MODULES
@@ -19,11 +24,9 @@ REGISTRY: Dict[str, Tuple[Callable[[], ModelConfig], Callable[[], ModelConfig]]]
 
 ARCH_IDS = tuple(REGISTRY)
 
-# the reference's architectures whose blocks (MLA, MoE, Mamba / hybrid,
-# audio / vision front ends) are still to be ported
-NOT_YET_PORTED = ("mistral-nemo-12b", "command-r-35b", "deepseek-v2-lite-16b",
-                  "deepseek-moe-16b", "musicgen-medium", "hymba-1.5b",
-                  "pixtral-12b")
+# the reference's architectures whose blocks (MLA, MoE, Mamba / hybrid)
+# are still to be ported
+NOT_YET_PORTED = ("deepseek-v2-lite-16b", "deepseek-moe-16b", "hymba-1.5b")
 
 
 def _entry(arch_id: str):

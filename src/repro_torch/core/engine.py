@@ -18,7 +18,8 @@ goes through this module:
   together and is the default;
 * the ops :func:`matmul`, :func:`linear` (fused epilogue),
   :func:`grouped_matmul` (ragged groups), :func:`einsum2d` (two-operand
-  contractions), :func:`attention` (the flash kernel path) and
+  contractions), :func:`attention` (the flash kernel path, its backward
+  through the reference composition) and
   :func:`linear_attention` (the chunked state sweep);
 * **the backward**: ``matmul``, ``einsum2d`` and epilogue-free ``linear``
   run through one ``torch.autograd.Function`` whose backward dispatches
@@ -64,9 +65,11 @@ the grad storage (E5M2) once and runs dX (grad storage in the x slot) and
 dW (in the w slot).  Scales are device tensors: nothing on the dispatch
 path syncs with the host.  ``attention`` casts q / k / v to the compute
 dtype and runs flash without quantizing, as the reference does.
-The backward of ``grouped_matmul`` and of ``attention`` and the reference
-attention composition arrive with later slices and raise
-``NotImplementedError`` here.
+``attention``'s backward recomputes through the reference composition of
+two :func:`einsum2d` dispatches and differentiates it (the reference's
+``_attention_call_bwd``); the composition also serves operands the flash
+kernel does not take.  The backward of ``grouped_matmul`` arrives with a
+later slice and raises ``NotImplementedError`` here.
 """
 
 from __future__ import annotations
@@ -92,7 +95,7 @@ __all__ = [
     "get_backend", "backend_supports",
     "default_backend", "set_default_backend", "use_backend",
     "matmul", "linear", "grouped_matmul", "einsum2d", "attention",
-    "linear_attention", "is_backward_op", "is_pass_op",
+    "linear_attention", "scores_policy", "is_backward_op", "is_pass_op",
     "instrument", "repeat", "op_scope", "paused", "checkpoint",
     "total_flops", "total_bytes", "summarize", "DEFAULT_ENGINE",
 ]
@@ -457,19 +460,23 @@ def _repeat_multiplier() -> int:
 @dataclasses.dataclass(frozen=True)
 class _EmitContext:
     """The emission state of one thread at one moment: collectors (the
-    lists themselves), op scope, paused flag and repeat multiplier."""
+    lists themselves), op scope, paused flag, repeat multiplier and the
+    backend override (so a remat recompute in the autograd thread runs the
+    forward's backend)."""
 
     collectors: Tuple[List[GemmEvent], ...]
     op_scope: Optional[str]
     paused: bool
     count: int
+    backend: Optional[str]
 
 
 def _capture() -> _EmitContext:
     return _EmitContext(collectors=tuple(_collectors()),
                         op_scope=getattr(_state, "op_scope", None),
                         paused=getattr(_state, "paused", False),
-                        count=_repeat_multiplier())
+                        count=_repeat_multiplier(),
+                        backend=getattr(_state, "backend", None))
 
 
 @contextlib.contextmanager
@@ -480,8 +487,9 @@ def _restored(ctx: _EmitContext, *, recompute: bool = False):
     dispatches pass the count captured at the forward, as the reference's
     VJP rules do; a remat recompute (``recompute=True``) re-enters the
     forward's multiplier and tags its events."""
-    names = ("collectors", "op_scope", "paused", "repeat", "recompute")
+    names = ("collectors", "op_scope", "paused", "repeat", "recompute", "backend")
     prev = {n: getattr(_state, n, None) for n in names}
+    _state.backend = ctx.backend
     _state.collectors = list(ctx.collectors)
     _state.op_scope = ctx.op_scope
     _state.paused = ctx.paused
@@ -821,45 +829,80 @@ def _faithful_block(policy: prec.Policy, m: int, n: int, k: int, *,
 
 
 def _grad_dispatch(spec: GemmSpec, backend: str, a, b, count: int, *,
+                   launch: Optional[str] = None,
                    deriv: Optional[torch.Tensor] = None,
                    want_db: bool = False):
     """One backward GEMM through the registry (transpose layouts read the
     forward's storage in place); returns ``(grad, db)``, the grad in the
-    grad policy's accum dtype.  ``deriv`` / ``want_db`` run the fused
-    backward epilogue (only ever on ``fused_bwd_epilogue`` backends, which
-    have ``layouts``); ``db`` is None otherwise."""
-    a, b, layout = _pretranspose(a, b, spec.layout, backend)
-    if layout != spec.layout:
+    grad policy's accum dtype.  ``launch`` names the layout ``a`` / ``b``
+    are stored in when it is not the event's: the backward of an "nt" /
+    "tn" forward bills the reference's spec (its forward multiplies by the
+    transposed operand) and hands the kernel the forward's storage as it
+    is, with the tile of the launch's own dims.  ``deriv`` / ``want_db``
+    run the fused backward epilogue (only ever on ``fused_bwd_epilogue``
+    backends, which have ``layouts``); ``db`` is None otherwise."""
+    from repro_torch.kernels.redmule_matmul import logical_dims
+
+    run = spec
+    if launch is not None and launch != spec.layout:
+        run = dataclasses.replace(spec, layout=launch, tile=tiling.choose_tiles(
+            *logical_dims(a.shape, b.shape, launch)))
+    a, b, layout = _pretranspose(a, b, run.layout, backend)
+    if layout != run.layout:
+        run = dataclasses.replace(run, layout=layout)
         spec = dataclasses.replace(spec, layout=layout)
     _emit(spec, backend, count=count)
     fn = get_backend(backend).fn
-    if spec.fused_bwd or want_db:
-        out = fn(a, b, spec=spec, deriv=deriv, bias_grad=want_db)
+    if run.fused_bwd or want_db:
+        out = fn(a, b, spec=run, deriv=deriv, bias_grad=want_db)
         out, db = out if want_db else (out, None)
-        return out.to(spec.policy.out_dtype), db
-    return fn(a, b, spec=spec).to(spec.policy.out_dtype), None
+        return out.to(run.policy.out_dtype), db
+    return fn(a, b, spec=run).to(run.policy.out_dtype), None
+
+
+def _bwd_operands(layout: str, x, w, dz):
+    """``((a, b, launch), (a, b, launch))`` of the dX and dW launches for a
+    forward stored as ``layout``, each grad in its primal's storage:
+
+    * "nn": dX = dZ·Wᵀ ("nt"), dW = Xᵀ·dZ ("tn");
+    * "nt" (``w`` stored ``(K, N)``): dX = dZ·W ("nn"), and the stored
+      dW = dZᵀ·X ("tn") — the tied head's embedding gradient, with no
+      transposed copy of the table;
+    * "tn" (``x`` stored ``(N, M)``): the stored dX = W·dZᵀ ("nt"), dW =
+      X·dZ ("nn")."""
+    if layout == "nn":
+        return (dz, w, "nt"), (x, dz, "tn")
+    if layout == "nt":
+        return (dz, w, "nn"), (dz, x, "tn")
+    return (w, dz, "nt"), (x, dz, "nn")
 
 
 def _bwd_gemms(spec: GemmSpec, backend: str, count: int, xc, wc, dzc, *,
                deriv: Optional[torch.Tensor] = None,
                grad_mode: Optional[str] = None, want_db: bool = False):
-    """dX = dZ·Wᵀ ("nt") and dW = Xᵀ·dZ ("tn"), with the reference's specs
-    (``engine.py:1256-1331``); returns ``(dx, dw, db)``.  The residuals
-    ``xc`` / ``wc`` keep the forward's dispatch storage and ``dzc`` rides
-    in the grad storage (the x slot on dX, the w slot on dW); tiles and
-    rounding blocks are sized by those storages.  A 2D weight's dW
-    collapses every leading dim into one contraction; batched grads stay
-    batched and are summed back over broadcast dims.  ``deriv`` (the saved
-    residual, compute dtype) makes both dispatches apply ``act'`` to dZ on
-    load, ``want_db`` makes the dW dispatch return the bias gradient (2D
-    weights only)."""
+    """dX and dW with the reference's specs (``engine.py:1256-1331``:
+    dX = dZ·Wᵀ as "nt", dW = Xᵀ·dZ as "tn", on the logical operands);
+    returns ``(dx, dw, db)``, each grad in its primal's storage shape.
+    The residuals ``xc`` / ``wc`` keep the forward's dispatch storage and
+    ``dzc`` rides in the grad storage (the x slot on dX, the w slot on
+    dW); tiles and rounding blocks are sized by those storages.  A forward
+    stored "nt" / "tn" launches the layouts :func:`_bwd_operands` names.
+    A 2D weight's dW collapses every leading dim into one contraction;
+    batched grads stay batched and are summed back over broadcast dims.
+    ``deriv`` (the saved residual, compute dtype) makes both dispatches
+    apply ``act'`` to dZ on load, ``want_db`` makes the dW dispatch return
+    the bias gradient (2D weights, "nn" only)."""
     gpol = _grad_policy(spec.policy)
     g_store = _dispatch_storage(spec.policy, backend)[2]
     fb = deriv is not None
     act = spec.epilogue if fb else None
     dx_st = dict(x_dtype=g_store, w_dtype=spec.w_dtype)
     dw_st = dict(x_dtype=spec.x_dtype, w_dtype=g_store)
-    if wc.ndim == 2:
+    if (fb or want_db) and (wc.ndim != 2 or spec.layout != "nn"):
+        raise ValueError("the fused backward epilogue is a 2D-weight, "
+                         "'nn'-layout contract")
+    if wc.ndim == 2 and (spec.layout != "tn" or xc.ndim == 2):
+        rows = spec.batch * spec.m
         dx_spec = GemmSpec(
             op="matmul_dx", tag="mk,nk->mn", layout="nt", m=spec.m, n=spec.k,
             k=spec.n, batch=spec.batch, policy=gpol, w_shared=True,
@@ -868,11 +911,6 @@ def _bwd_gemms(spec: GemmSpec, backend: str, count: int, xc, wc, dzc, *,
             **dx_st, scaled=spec.scaled,
             accum_block=_faithful_block(gpol, spec.m, spec.k, spec.n,
                                         fused_bwd=fb, **dx_st))
-        dx, _ = _grad_dispatch(dx_spec, backend, dzc, wc, count, deriv=deriv)
-        x2 = xc.reshape(-1, xc.shape[-1])
-        dz2 = dzc.reshape(-1, dzc.shape[-1])
-        d2 = None if deriv is None else deriv.reshape(-1, deriv.shape[-1])
-        rows = x2.shape[0]
         dw_spec = GemmSpec(
             op="matmul_dw", tag="mn,mk->nk", layout="tn", m=spec.n, n=rows,
             k=spec.k, batch=1, policy=gpol, w_shared=False,
@@ -881,25 +919,32 @@ def _bwd_gemms(spec: GemmSpec, backend: str, count: int, xc, wc, dzc, *,
             fused_bias_grad=want_db, **dw_st, scaled=spec.scaled,
             accum_block=_faithful_block(gpol, spec.n, rows, spec.k,
                                         fused_bwd=fb or want_db, **dw_st))
-        dw, db = _grad_dispatch(dw_spec, backend, x2, dz2, count, deriv=d2,
-                                want_db=want_db)
+        # dW collapses every leading dim of x / dZ into rows ("tn": x is 2D)
+        x2 = xc.reshape(-1, xc.shape[-1])
+        dz2 = dzc.reshape(-1, dzc.shape[-1])
+        d2 = None if deriv is None else deriv.reshape(-1, deriv.shape[-1])
+        ax, bx, lx = _bwd_operands(spec.layout, xc, wc, dzc)[0]
+        aw, bw, lw = _bwd_operands(spec.layout, x2, wc, dz2)[1]
+        dx, _ = _grad_dispatch(dx_spec, backend, ax, bx, count, launch=lx,
+                               deriv=deriv)
+        dw, db = _grad_dispatch(dw_spec, backend, aw, bw, count, launch=lw,
+                                deriv=d2, want_db=want_db)
         return dx, dw, db
-    if fb or want_db:
-        raise ValueError("the fused backward epilogue is a 2D-weight contract")
     dx_spec = GemmSpec(
         op="matmul_dx", tag="bmk,bnk->bmn", layout="nt", m=spec.m, n=spec.k,
         k=spec.n, batch=spec.batch, groups=spec.groups, policy=gpol,
         w_shared=spec.w_shared, tile=tiling.choose_tiles(spec.m, spec.k, spec.n),
         **dx_st, scaled=spec.scaled,
         accum_block=_faithful_block(gpol, spec.m, spec.k, spec.n, **dx_st))
-    dx, _ = _grad_dispatch(dx_spec, backend, dzc, wc, count)
     dw_spec = GemmSpec(
         op="matmul_dw", tag="bmn,bmk->bnk", layout="tn", m=spec.n, n=spec.m,
         k=spec.k, batch=spec.batch, groups=spec.groups, policy=gpol,
         w_shared=False, tile=tiling.choose_tiles(spec.n, spec.m, spec.k),
         **dw_st, scaled=spec.scaled,
         accum_block=_faithful_block(gpol, spec.n, spec.m, spec.k, **dw_st))
-    dw, _ = _grad_dispatch(dw_spec, backend, xc, dzc, count)
+    (ax, bx, lx), (aw, bw, lw) = _bwd_operands(spec.layout, xc, wc, dzc)
+    dx, _ = _grad_dispatch(dx_spec, backend, ax, bx, count, launch=lx)
+    dw, _ = _grad_dispatch(dw_spec, backend, aw, bw, count, launch=lw)
     return _unbroadcast(dx, xc.shape), _unbroadcast(dw, wc.shape), None
 
 
@@ -1082,6 +1127,110 @@ def _gemm_call(spec: GemmSpec, backend: str, x, w) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------- #
+# Attention: reference composition, kernel path and its backward
+# --------------------------------------------------------------------- #
+@functools.lru_cache(maxsize=None)
+def scores_policy(policy: prec.Policy) -> prec.Policy:
+    """The attention scores' policy (the reference's, field for field):
+    the forward's datapath with an fp32 output and no faithful flag
+    (clearing it changes nothing: ``Policy.blockwise_accum``)."""
+    return dataclasses.replace(policy, name=policy.name + "_scores",
+                               output_dtype=torch.float32, faithful_accum=False)
+
+
+def _attention_reference(q, k, v, *, group: int, causal: bool, scale: float,
+                         q_offset: int, t_valid: int, policy: prec.Policy,
+                         backend: str) -> torch.Tensor:
+    """Attention as a composition of two :func:`einsum2d` dispatches
+    (``engine.py:1617-1651`` of the reference): fp32 scores under the
+    scores policy, times ``scale``; the ``t_valid`` / causal mask filled
+    with -1e30; an fp32 softmax, fully masked rows zeroed; P in the compute
+    dtype times V.  Both GEMMs self-bill and differentiate through the
+    registry (on "hopper", kernel 2).  Serves backends or operands the
+    flash sweep does not take, and the kernel path's backward."""
+    B, Hq, S, D = q.shape
+    _, Hkv, T, Dv = v.shape
+    eng = DEFAULT_ENGINE
+    qg = q.reshape(B, Hkv, group, S, D)
+    s = eng.einsum2d("bhgsd,bhtd->bhgst", qg, k,
+                     policy=scores_policy(policy), backend=backend) * scale
+    rows = q_offset + torch.arange(S, device=q.device)
+    cols = torch.arange(T, device=q.device)
+    mask = (cols < t_valid)[None, :].expand(S, T)
+    if causal:
+        mask = mask & (cols[None, :] <= rows[:, None])
+    s = torch.where(mask, s, torch.full((), -1e30, device=q.device))
+    p = torch.softmax(s, dim=-1)
+    p = torch.where(mask.any(dim=-1)[:, None], p, torch.zeros((), device=q.device))
+    out = eng.einsum2d("bhgst,bhtd->bhgsd", p.to(policy.compute_dtype), v,
+                       policy=policy, backend=backend)
+    return out.reshape(B, Hq, S, Dv).to(policy.out_dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class _AttnCtx:
+    specs: Tuple[GemmSpec, GemmSpec]
+    backend: str
+    group: int
+    causal: bool
+    scale: float
+    q_offset: int
+    t_valid: int
+    bq: int
+    bkv: int
+    policy: prec.Policy
+
+
+def _attention_kernel_dispatch(actx: _AttnCtx, q, k, v) -> torch.Tensor:
+    """Emit the sweep's two events and run the backend's flash kernel on
+    ``(B·H, S, D)`` views of the operands in the compute dtype."""
+    B, Hq, S, D = q.shape
+    _, Hkv, T, _ = k.shape
+    for spec in actx.specs:
+        _emit(spec, actx.backend)
+    comp = actx.policy.compute_dtype
+    out = get_backend(actx.backend).attention_fn(
+        "attention",
+        (q.to(comp).reshape(B * Hq, S, D), k.to(comp).reshape(B * Hkv, T, D),
+         v.to(comp).reshape(B * Hkv, T, D)),
+        group=actx.group, causal=actx.causal, scale=actx.scale, bq=actx.bq,
+        bkv=actx.bkv, t_valid=actx.t_valid, q_offset=actx.q_offset)
+    return out.reshape(B, Hq, S, D).to(actx.policy.out_dtype)
+
+
+class _AttentionFn(torch.autograd.Function):
+    """The flash kernel path with the reference's backward
+    (``engine.py:1810-1826``): only q, k, v are saved (no S x T tensor);
+    the backward recomputes through :func:`_attention_reference` on the
+    same backend and differentiates it, so the composition's two GEMMs and
+    their four ``matmul_dx`` / ``matmul_dw`` dispatches run kernel 2 and
+    self-bill under the forward's multiplicity (the composition's forward
+    once and untagged, inside a remat region too, as the reference bills
+    it)."""
+
+    @staticmethod
+    def forward(ctx, actx: _AttnCtx, q, k, v):
+        out = _attention_kernel_dispatch(actx, q, k, v)
+        ctx.save_for_backward(q, k, v)
+        ctx.actx = actx
+        ctx.emit = _capture()
+        return out
+
+    @staticmethod
+    def backward(ctx, d_out):
+        saved = ctx.saved_tensors
+        a = ctx.actx
+        with torch.enable_grad(), _restored(ctx.emit), repeat(ctx.emit.count):
+            ins = [t.detach().requires_grad_(True) for t in saved]
+            out = _attention_reference(
+                *ins, group=a.group, causal=a.causal, scale=a.scale,
+                q_offset=a.q_offset, t_valid=a.t_valid, policy=a.policy,
+                backend=a.backend)
+            grads = torch.autograd.grad(out, ins, d_out)
+        return (None, *(g.to(p.dtype) for g, p in zip(grads, saved)))
+
+
+# --------------------------------------------------------------------- #
 # Chunked linear attention: reference composition, specs, kernel path
 # --------------------------------------------------------------------- #
 def _linear_attention_reference(q, k, v, log_g, *, chunk: int,
@@ -1243,7 +1392,12 @@ class Engine:
         compatible ``(..., N, K)`` (batched GEMM), stored as ``layout``
         names; ``layout="nt"`` reads ``w`` stored ``(K, N)`` — the tied LM
         head multiplies by the ``(V, d)`` embedding as it is stored.
-        Output ``(..., M, K)`` in the policy's output dtype."""
+        Output ``(..., M, K)`` in the policy's output dtype.
+        Differentiable in every layout: the backward reads the forward's
+        storage in place (the tied head's embedding gradient is one "tn"
+        launch, dZᵀ·h, with no transposed copy of the table) and bills the
+        reference's ``matmul_dx`` / ``matmul_dw`` specs, whose forward
+        multiplies by the transposed operand."""
         from repro_torch.kernels.redmule_matmul import logical_dims
 
         policy = self.resolve_policy(policy)
@@ -1264,9 +1418,6 @@ class Engine:
             w_shared=(w.ndim == 2), layout=layout, **st,
             accum_block=_faithful_block(policy, m, n, k, x_dtype=st["x_dtype"],
                                         w_dtype=st["w_dtype"]))
-        if layout != "nn":
-            _no_backward(f"a {layout!r}-layout matmul", x, w)
-            return _gemm_forward(spec, b, x, w)[0]
         return _gemm_call(spec, b, x, w)
 
     def linear(self, x: torch.Tensor, w: torch.Tensor,
@@ -1369,15 +1520,23 @@ class Engine:
                   q_offset: int = 0, t_valid: Optional[int] = None,
                   bq: Optional[int] = None, bkv: Optional[int] = None,
                   policy=None, backend: Optional[str] = None) -> torch.Tensor:
-        """Fused scaled-dot-product attention (the kernel path).
+        """Fused scaled-dot-product attention.
 
-        ``q (B, Hq, S, D)``, ``k / v (B, Hkv, T, D)`` with ``Hq % Hkv ==
-        0``; ``t_valid`` masks the KV tail, ``q_offset`` is the absolute
-        position of query row 0 for the causal mask; rows with no visible
-        KV are exact zeros.  Billed as ``attention_score`` /
-        ``attention_pv`` events whose ``groups`` count executed
-        ``(bq, bkv)`` block pairs; ``bq`` / ``bkv`` default to the flash
-        kernel's own tiles (``tiling.FLASH_BQ`` / ``FLASH_BKV``)."""
+        ``q (B, Hq, S, D)``, ``k (B, Hkv, T, D)``, ``v (B, Hkv, T, Dv)``
+        with ``Hq % Hkv == 0``; ``t_valid`` masks the KV tail,
+        ``q_offset`` is the absolute position of query row 0 for the
+        causal mask; rows with no visible KV are exact zeros.  Output
+        ``(B, Hq, S, Dv)`` in the policy's output dtype.
+
+        Where the backend's flash sweep takes the operands (the
+        ``"attention"`` capability and ``Dv == D``),
+        it runs, billed as ``attention_score`` / ``attention_pv`` events
+        whose ``groups`` count executed ``(bq, bkv)`` block pairs; ``bq`` /
+        ``bkv`` default to the flash kernel's own tiles
+        (``tiling.FLASH_BQ`` / ``FLASH_BKV``).  Its backward recomputes
+        through the reference composition (:class:`_AttentionFn`).
+        Elsewhere the composition itself runs, its two GEMMs self-billing
+        and differentiable (:func:`_attention_reference`)."""
         policy = self.resolve_policy(policy)
         b = self.resolve_backend(backend)
         if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
@@ -1391,27 +1550,25 @@ class Engine:
                              f"{tuple(v.shape)}")
         if Hq % Hkv != 0:
             raise ValueError(f"Hq={Hq} not a multiple of Hkv={Hkv}")
-        if not (get_backend(b).supports("attention") and Dv == D):
-            raise NotImplementedError(
-                f"the reference attention composition is {_ROADMAP}")
-        _no_backward("attention", q, k, v)
         scale = float(D ** -0.5 if scale is None else scale)
         q_offset = int(q_offset)
         t_valid = T if t_valid is None else min(int(t_valid), T)
+        be = get_backend(b)
+        if Dv != D or not be.supports("attention"):
+            return _attention_reference(
+                q, k, v, group=Hq // Hkv, causal=causal, scale=scale,
+                q_offset=q_offset, t_valid=t_valid, policy=policy, backend=b)
         bq = int(bq or tiling.FLASH_BQ)
         bkv = int(bkv or tiling.FLASH_BKV)
-        for spec in _attention_specs(B=B, Hq=Hq, S=S, T=T, D=D, Dv=Dv, bq=bq,
-                                     bkv=bkv, causal=causal,
-                                     q_offset=q_offset, policy=policy):
-            _emit(spec, b)
-        comp = policy.compute_dtype
-        out = get_backend(b).attention_fn(
-            "attention",
-            (q.to(comp).reshape(B * Hq, S, D), k.to(comp).reshape(B * Hkv, T, D),
-             v.to(comp).reshape(B * Hkv, T, D)),
-            group=Hq // Hkv, causal=causal, scale=scale, bq=bq, bkv=bkv,
-            t_valid=t_valid, q_offset=q_offset)
-        return out.reshape(B, Hq, S, D).to(policy.out_dtype)
+        actx = _AttnCtx(
+            specs=_attention_specs(B=B, Hq=Hq, S=S, T=T, D=D, Dv=Dv, bq=bq,
+                                   bkv=bkv, causal=causal, q_offset=q_offset,
+                                   policy=policy),
+            backend=b, group=Hq // Hkv, causal=causal, scale=scale,
+            q_offset=q_offset, t_valid=t_valid, bq=bq, bkv=bkv, policy=policy)
+        if _needs_grad(q, k, v):
+            return _AttentionFn.apply(actx, q, k, v)
+        return _attention_kernel_dispatch(actx, q, k, v)
 
     def einsum2d(self, eq: str, x: torch.Tensor, w: torch.Tensor, *,
                  policy=None, tile: Optional[tiling.TileConfig] = None,

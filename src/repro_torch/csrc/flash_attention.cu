@@ -1,5 +1,5 @@
 // Causal GQA flash attention (forward) for Hopper (sm_90a), on the tensor
-// cores.
+// cores (bf16 / fp16), with an fp32 route in SIMT FMAs (at the end).
 //
 // Replaces the Pallas TPU kernel `flash_attention_pallas`
 // (src/repro/kernels/flash_attention.py:102, body `_kernel` :31).
@@ -389,6 +389,127 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The fp32 route: operands the reference's kernel takes in fp32 (its
+// `astype(jnp.float32)` of fp32 operands is the identity), in SIMT FMAs
+// with fp32 scores, softmax and PV as the reference computes them.  One
+// block of four warps per (16-row q tile, q head), as above; each warp
+// owns 4 of the 16 query rows.  K and V stream through shared memory in
+// tiles of 32 rows: lane j computes row r's score against KV row j (K
+// rows padded by one float, so the 32 lanes' reads fall in 32 banks), the
+// warp's shuffles give the tile's max and sum, and each lane accumulates
+// D / 32 output columns, taking every weight of the tile by shuffle.
+// Causally dead columns past the tile's last row and columns past t_valid
+// are never loaded; a masked column inside a tile weighs exactly 0.
+constexpr int kF32KV = 32;              // KV rows per fp32 tile (one per lane)
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+    flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, float* __restrict__ o, int S,
+                         int T_len, int group, float scale, int t_valid,
+                         int q_offset, int causal) {
+  constexpr int RW = kBQ / kWarps;  // query rows per warp
+  constexpr int DC = D / 32;        // output columns per lane
+  constexpr int LDK = D + 1;        // padded K row
+  __shared__ float qs[kBQ][D];
+  __shared__ float ks[kF32KV][LDK];
+  __shared__ float vs[kF32KV][D];
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int qt = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;  // heavy first
+  const int q0 = qt * kBQ;
+  const int head = blockIdx.y;
+  const int kvh = head / group;
+  const float* kh = k + (long long)kvh * T_len * D;
+  const float* vh = v + (long long)kvh * T_len * D;
+  int kv_end = t_valid < T_len ? t_valid : T_len;
+  const int kv_lim = kv_end;
+  if (causal) {
+    const int last = q0 + kBQ < S ? q0 + kBQ : S;
+    kv_end = kv_end < q_offset + last ? kv_end : q_offset + last;
+  }
+
+  const float* qh = q + ((long long)head * S + q0) * D;
+  for (int e = tid; e < kBQ * D; e += kThreads) {
+    const int r = e / D, c = e % D;
+    qs[r][c] = q0 + r < S ? qh[(long long)r * D + c] : 0.f;
+  }
+  float m[RW], l[RW], acc[RW][DC];
+#pragma unroll
+  for (int i = 0; i < RW; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
+  }
+  const float neg_inf = __int_as_float(0xff800000);
+
+  for (int t0 = 0; t0 < kv_end; t0 += kF32KV) {
+    __syncthreads();  // the last tile is consumed (and q is stored)
+    for (int e = tid; e < kF32KV * D; e += kThreads) {
+      const int r = e / D, c = e % D;
+      const bool ok = t0 + r < kv_end;
+      const long long off = (long long)(ok ? t0 + r : 0) * D + c;
+      ks[r][c] = ok ? kh[off] : 0.f;
+      vs[r][c] = ok ? vh[off] : 0.f;
+    }
+    __syncthreads();
+    const int col = t0 + lane;
+#pragma unroll
+    for (int i = 0; i < RW; ++i) {
+      const int r = warp * RW + i;
+      float s = 0.f;
+#pragma unroll 16
+      for (int d = 0; d < D; ++d) s = fmaf(qs[r][d], ks[lane][d], s);
+      const bool vis = col < kv_lim && (!causal || col <= q_offset + q0 + r);
+      s = vis ? s * scale : neg_inf;
+      float mx = s;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float mn = fmaxf(m[i], mx);  // >= -1e30: a masked weight is 0
+      const float al = expf(m[i] - mn);
+      const float p = expf(s - mn);
+      float ps = p;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        ps += __shfl_xor_sync(0xffffffffu, ps, off);
+      l[i] = l[i] * al + ps;
+      m[i] = mn;
+#pragma unroll
+      for (int c = 0; c < DC; ++c) acc[i][c] *= al;
+#pragma unroll 8
+      for (int j = 0; j < kF32KV; ++j) {
+        const float pj = __shfl_sync(0xffffffffu, p, j);
+#pragma unroll
+        for (int c = 0; c < DC; ++c) acc[i][c] = fmaf(pj, vs[j][lane + 32 * c], acc[i][c]);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < RW; ++i) {
+    const int r = warp * RW + i;
+    if (q0 + r >= S) continue;
+    // l == 0: no visible column, the accumulator is exactly 0
+    const float inv = l[i] == 0.f ? 1.f : 1.f / l[i];
+    float* orow = o + ((long long)head * S + q0 + r) * D;
+#pragma unroll
+    for (int c = 0; c < DC; ++c) orow[lane + 32 * c] = acc[i][c] * inv;
+  }
+}
+
+template <int D>
+int launch_f32(const void* q, const void* k, const void* v, void* o, int BHq, int S,
+               int T_len, int group, float scale, int t_valid, int q_offset,
+               int causal, cudaStream_t stream) {
+  const dim3 grid((S + kBQ - 1) / kBQ, BHq);
+  flash_fwd_f32_kernel<D><<<grid, kThreads, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), S, T_len, group, scale,
+      t_valid, q_offset, causal);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* o, int BHq, int S,
            int T_len, int group, float scale, int t_valid, int q_offset, int causal,
@@ -412,7 +533,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int BHq, int S,
 
 }  // namespace
 
-// dtype: 0 = fp16, 1 = bf16; D in {64, 128}.  q (BHq, S, D), k / v
+// dtype: 0 = fp16, 1 = bf16, 2 = fp32; D in {64, 128}.  q (BHq, S, D), k / v
 // (BHq / group, T, D), o (BHq, S, D), all contiguous and 16-byte aligned.
 // Returns cudaGetLastError() of the launch (0 on success).
 extern "C" int flash_attention_fwd(int dtype, int D, const void* q, const void* k,
@@ -428,6 +549,10 @@ extern "C" int flash_attention_fwd(int dtype, int D, const void* q, const void* 
     return launch<__nv_bfloat16, 64>(q, k, v, o, BHq, S, T, group, scale, t_valid, q_offset, causal, s);
   if (dtype == 1 && D == 128)
     return launch<__nv_bfloat16, 128>(q, k, v, o, BHq, S, T, group, scale, t_valid, q_offset, causal, s);
+  if (dtype == 2 && D == 64)
+    return launch_f32<64>(q, k, v, o, BHq, S, T, group, scale, t_valid, q_offset, causal, s);
+  if (dtype == 2 && D == 128)
+    return launch_f32<128>(q, k, v, o, BHq, S, T, group, scale, t_valid, q_offset, causal, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -8,11 +8,12 @@ row 0 for the causal mask (col <= q_offset + row); a row with no visible
 column returns exact zeros; the output is in q's dtype.
 
 A CPU tensor takes :func:`flash_attention_plain`; a CUDA tensor launches
-``csrc/flash_attention.cu`` (bf16 / fp16, D in {64, 128}; tensor-core
+``csrc/flash_attention.cu`` (D in {64, 128}; bf16 / fp16 on tensor-core
 ``mma.sync`` products, four warps on 16 query rows, each taking 16 KV rows
-at a time — the ``tiling.FLASH_BQ`` x ``FLASH_BKV`` the engine bills) or
-raises.  The kernel masks ragged S and T itself, so nothing is padded.
-``flash_attention.launches`` counts kernel launches.
+at a time — the ``tiling.FLASH_BQ`` x ``FLASH_BKV`` the engine bills;
+fp32, as the reference's kernel takes it, in SIMT FMAs over the same 16
+query rows) or raises.  The kernel masks ragged S and T itself, so nothing
+is padded.  ``flash_attention.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ from repro_torch.kernels import _build
 __all__ = ["flash_attention", "flash_attention_plain"]
 
 NEG_INF = -1e30
-_DTYPE_CODE = {torch.float16: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float16: 0, torch.bfloat16: 1, torch.float32: 2}
 
 
 def _visible(S: int, T: int, *, causal: bool, t_valid: int, q_offset: int,
@@ -106,7 +107,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if D not in (64, 128):
         raise ValueError(f"the flash kernel supports D in (64, 128), got {D}")
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"bf16/fp16 operands of one dtype expected, got "
+        raise TypeError(f"bf16/fp16/fp32 operands of one dtype expected, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if (q.data_ptr() | k.data_ptr() | v.data_ptr()) % 16:

@@ -5,6 +5,10 @@ Counterpart of ``repro.launch.train`` (``TrainState``, ``init_state``,
 ``build_train_step``, the LM branch of ``main`` without a checkpoint
 directory, and ``_ae_main``).  It runs on one device, the card by default::
 
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b --full \\
+        --batch 4 --seq 256 --steps 3
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b --full \\
+        --batch 4 --seq 256 --steps 3 --fp16-scale   # tpu_fp16, loss scaling
     PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-1.3b --full \\
         --batch 4 --seq 256 --steps 3
     PYTHONPATH=src python -m repro_torch.launch.train --arch ae --batch 16 \\
@@ -13,14 +17,17 @@ directory, and ``_ae_main``).  It runs on one device, the card by default::
         --steps 200 --policy mixed_fp8_e4m3   # FP8 storage, per-tensor scales
 
 Weights are random, drawn from ``--seed``; batches are the reference's
-``SyntheticLM`` / ``SyntheticAE`` streams.  ``--device cpu`` runs the plain
-PyTorch versions of the kernels.  The default arch is xlstm-1.3b (the
-reference's default, qwen3-1.7b, needs the attention backward, which is not
-ported yet).  ``--arch ae`` trains the TinyMLPerf AutoEncoder under
+``SyntheticLM`` / ``SyntheticAE`` streams (precomputed embeddings for the
+embedding-input archs, musicgen-medium and pixtral-12b).  ``--device cpu``
+runs the plain PyTorch versions of the kernels.  The default arch is the
+reference's, qwen3-1.7b.  ``--fp16-scale`` trains an LM under ``tpu_fp16``
+with dynamic loss scaling: a step whose gradients overflow skips the
+parameters and the AdamW moments together and halves the scale.
+``--arch ae`` trains the TinyMLPerf AutoEncoder under
 ``--policy`` (default ``paper_fp16``: the RedMulE fp16 accumulator in every
 GEMM; ``mixed_fp8_e4m3`` / ``mixed_fp8_e5m2`` store every GEMM operand in
-FP8 with a per-tensor scale).  LM loss scaling, checkpointing, gradient
-compression / data parallelism and failure injection are not ported yet
+FP8 with a per-tensor scale).  Checkpointing, gradient compression / data
+parallelism, failure injection and resume digests are not ported yet
 (ROADMAP.md): their flags are kept so a command line carries over, and
 each raises ``NotImplementedError``.
 """
@@ -28,6 +35,7 @@ each raises ``NotImplementedError``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
@@ -39,7 +47,9 @@ from repro_torch.core import engine
 from repro_torch.core import precision as prec
 from repro_torch.data import Prefetcher, SyntheticAE, SyntheticLM
 from repro_torch.models import autoencoder, transformer
-from repro_torch.optim import AdamW, OptState, clip_by_global_norm, tree_leaves, tree_map
+from repro_torch.optim import (AdamW, OptState, adjust, clip_by_global_norm,
+                               init_scale, scale_loss, tree_leaves, tree_map,
+                               unscale_and_check)
 
 __all__ = ["TrainState", "init_state", "build_train_step", "ae_grads",
            "build_ae_step", "main"]
@@ -50,26 +60,31 @@ _ROADMAP = "not yet ported (see ROADMAP.md, Queue A)"
 class TrainState(NamedTuple):
     params: Any
     opt: OptState
-    scale: Any          # loss-scale state; () when disabled (always, here)
+    scale: Any          # LossScaleState, or () when loss scaling is off
 
 
 def init_state(cfg, opt, *, seed: int = 0, device="cuda",
                use_scale: bool = False) -> TrainState:
     """fp32 master parameters (``cfg.param_dtype``) drawn from ``seed`` on
-    ``device``, marked as leaves that take gradients, and ``opt``'s state."""
-    if use_scale:
-        raise NotImplementedError(f"dynamic loss scaling is {_ROADMAP}")
+    ``device``, marked as leaves that take gradients, ``opt``'s state, and
+    with ``use_scale`` the dynamic loss scale (``optim.init_scale``)."""
     params = transformer.init_params(cfg, seed=seed, device=device,
                                      dtype=getattr(torch, cfg.param_dtype))
     for p in tree_leaves(params):
         p.requires_grad_(True)
-    return TrainState(params=params, opt=opt.init(params), scale=())
+    dev = tree_leaves(params)[0].device
+    return TrainState(params=params, opt=opt.init(params),
+                      scale=init_scale(device=dev) if use_scale else ())
 
 
 def _to_device(batch: Dict[str, Any], device: torch.device) -> Dict[str, torch.Tensor]:
-    return {k: torch.as_tensor(np.asarray(v) if not isinstance(v, torch.Tensor)
-                               else v).to(device=device, dtype=torch.long)
-            for k, v in batch.items()}
+    """Token ids and labels as int64, embeddings as fp32, on ``device``."""
+    out = {}
+    for k, v in batch.items():
+        t = v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))
+        out[k] = t.to(device=device, dtype=torch.float32 if t.is_floating_point()
+                      else torch.long)
+    return out
 
 
 def build_train_step(cfg, opt, rules=None, *, use_scale: bool = False,
@@ -80,23 +95,38 @@ def build_train_step(cfg, opt, rules=None, *, use_scale: bool = False,
     norm clipping, then ``opt``.  ``cast_params`` casts the fp32 master
     parameters to the compute dtype at step entry (differentiably: the
     gradients arrive in fp32); ``grad_accum`` splits the batch into
-    microbatches and averages their fp32 gradients.  The state's tensors
-    are updated in place and returned (the reference donates them)."""
+    microbatches and averages their fp32 gradients.  ``use_scale``
+    differentiates the loss times ``state.scale``, unscales the gradients
+    in fp32 and, if any is not finite, leaves the parameters and the
+    optimizer state untouched (the reference's ``lax.cond`` over both);
+    the scale adjusts either way and the metrics carry ``loss_scale`` and
+    ``finite``.  The state's tensors are updated in place and returned
+    (the reference donates them)."""
     if rules is not None:
         raise NotImplementedError(f"sharding rules are {_ROADMAP}")
-    if use_scale:
-        raise NotImplementedError(f"dynamic loss scaling is {_ROADMAP}")
 
-    def value_and_grad(params, batch):
-        leaves = tree_leaves(params)
+    # the token table of an embedding-input arch with an untied head is
+    # reached by no batch: it gets a zero gradient, as jax.grad gives it;
+    # any other leaf the loss does not reach is an error
+    unused = cfg.input_mode == "embeddings" and not cfg.tie_embeddings
+
+    def value_and_grad(params, batch, scale):
+        leaves = [t for t in tree_leaves(params)
+                  if not (unused and t is params["embed"])]
         p = params
         if cast_params:
             p = tree_map(lambda x: x.to(cfg.policy.compute_dtype)
                          if x.is_floating_point() else x, params)
         loss, metrics = transformer.loss_fn(p, cfg, batch)
-        grads = torch.autograd.grad(loss, leaves)
-        it = iter(grads)
-        return metrics, tree_map(lambda _: next(it), params)
+        if use_scale:
+            loss = scale_loss(loss, scale)
+        it = iter(torch.autograd.grad(loss, leaves))
+
+        def grad_of(t):
+            return (torch.zeros_like(t) if unused and t is params["embed"]
+                    else next(it))
+
+        return metrics, tree_map(grad_of, params)
 
     def step(state: TrainState, batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         device = tree_leaves(state.params)[0].device
@@ -110,7 +140,7 @@ def build_train_step(cfg, opt, rules=None, *, use_scale: bool = False,
             for mb in range(grad_accum):
                 part = {k: v.reshape(grad_accum, B // grad_accum, *v.shape[1:])[mb]
                         for k, v in batch.items()}
-                m, g = value_and_grad(state.params, part)
+                m, g = value_and_grad(state.params, part, state.scale)
                 g = tree_map(lambda x: x.float(), g)
                 m = {k: v.detach() for k, v in m.items()}
                 if grads is None:
@@ -122,13 +152,22 @@ def build_train_step(cfg, opt, rules=None, *, use_scale: bool = False,
             grads = tree_map(lambda g: g * inv, grads)
             metrics = {k: v * inv for k, v in metrics.items()}
         else:
-            metrics, grads = value_and_grad(state.params, batch)
+            metrics, grads = value_and_grad(state.params, batch, state.scale)
             metrics = {k: v.detach() for k, v in metrics.items()}
+        finite, new_scale = None, state.scale
+        if use_scale:
+            grads, finite = unscale_and_check(grads, state.scale)
+            new_scale = adjust(state.scale, finite)
+            metrics["loss_scale"] = new_scale.scale
+            metrics["finite"] = finite.to(torch.float32)
         grads, gnorm = clip_by_global_norm(grads, clip_norm)
+        metrics["grad_norm"] = gnorm
+        if finite is not None and not bool(finite):
+            # the moments update in place: skip opt.update itself
+            return TrainState(state.params, state.opt, new_scale), metrics
         updates, new_opt = opt.update(grads, state.opt, state.params)
         new_params = opt.apply(state.params, updates)
-        metrics["grad_norm"] = gnorm
-        return TrainState(new_params, new_opt, state.scale), metrics
+        return TrainState(new_params, new_opt, new_scale), metrics
 
     return step
 
@@ -220,7 +259,7 @@ def _instrumented_events(cfg, params, batch, device) -> List[engine.GemmEvent]:
     batch = _to_device(batch, device)
     with engine.instrument() as events:
         loss, _ = transformer.loss_fn(params, cfg, batch)
-        torch.autograd.grad(loss, tree_leaves(params))
+        torch.autograd.grad(loss, tree_leaves(params), allow_unused=True)
     return events
 
 
@@ -251,10 +290,12 @@ class _StepTimer:
 
 
 def main(argv=None) -> Dict[str, Any]:
-    """Train on synthetic data; returns ``{"arch", "device", "params",
-    "history": [{"step", "loss", "grad_norm", "step_ms"}, ...]}``."""
+    """Train on synthetic data; returns ``{"arch", "device", "policy",
+    "params", "history": [{"step", "loss", "grad_norm", "step_ms"}, ...]}``
+    (with ``--fp16-scale`` each step also carries ``loss_scale`` and
+    ``finite``)."""
     p = argparse.ArgumentParser(description=__doc__)
-    p.add_argument("--arch", default="xlstm-1.3b",
+    p.add_argument("--arch", default="qwen3-1.7b",
                    help="an LM arch id, or 'ae' (the paper's AutoEncoder)")
     p.add_argument("--reduced", action="store_true", default=True)
     p.add_argument("--full", dest="reduced", action="store_false")
@@ -269,6 +310,8 @@ def main(argv=None) -> Dict[str, Any]:
                    help="run one step's loss and gradients under "
                         "engine.instrument() and print the per-op GEMM "
                         "summary with the fwd/bwd split before training")
+    p.add_argument("--fp16-scale", action="store_true",
+                   help="LM archs: tpu_fp16 compute with dynamic loss scaling")
     p.add_argument("--policy", default=None,
                    help="precision policy for --arch ae (default paper_fp16; "
                         "tpu_fp16, tpu_bf16, fp32, mixed_fp8_e4m3 and "
@@ -276,7 +319,6 @@ def main(argv=None) -> Dict[str, Any]:
     unported = p.add_argument_group("not yet ported (ROADMAP.md); each raises")
     unported.add_argument("--ckpt-dir", default="")
     unported.add_argument("--save-every", type=int, default=50)
-    unported.add_argument("--fp16-scale", action="store_true")
     unported.add_argument("--compress", default="none",
                           choices=("none", "fp16", "int8", "fp8", "fp8_e4m3",
                                    "fp8_e5m2"))
@@ -287,9 +329,7 @@ def main(argv=None) -> Dict[str, Any]:
     unported.add_argument("--result", default="")
     args = p.parse_args(argv)
 
-    for flag, what in ((args.fp16_scale, "--fp16-scale (dynamic loss scaling "
-                                         "of the LM step)"),
-                       (bool(args.ckpt_dir), "--ckpt-dir (checkpointing, goodput)"),
+    for flag, what in ((bool(args.ckpt_dir), "--ckpt-dir (checkpointing, goodput)"),
                        (args.compress != "none" or args.dp_procs > 0,
                         "--compress / --dp-procs (compressed data parallelism)"),
                        (args.fail_step is not None, "--fail-step (failure injection)"),
@@ -303,18 +343,22 @@ def main(argv=None) -> Dict[str, Any]:
     if args.policy is not None:
         raise ValueError("--policy applies to --arch ae only")
     cfg = configs.get_reduced(args.arch) if args.reduced else configs.get(args.arch)
+    if args.fp16_scale:
+        cfg = dataclasses.replace(cfg, policy_name="tpu_fp16")
     opt = AdamW(lr=args.lr, warmup_steps=10)
-    step = build_train_step(cfg, opt)
-    state = init_state(cfg, opt, seed=args.seed, device=device)
+    step = build_train_step(cfg, opt, use_scale=args.fp16_scale)
+    state = init_state(cfg, opt, seed=args.seed, device=device,
+                       use_scale=args.fp16_scale)
     ds = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=args.seq,
-                     global_batch=args.batch, seed=args.seed)
+                     global_batch=args.batch, seed=args.seed,
+                     embed_dim=cfg.d_model if cfg.input_mode == "embeddings" else 0)
     if args.instrument:
         _print_instrument_summary(
             _instrumented_events(cfg, state.params, ds.batch(0), device))
 
     n_params = transformer.count_params(cfg)
     print(f"arch={cfg.name} params={n_params} device={device} "
-          f"batch={args.batch} seq={args.seq}", flush=True)
+          f"policy={cfg.policy_name} batch={args.batch} seq={args.seq}", flush=True)
     history: List[Dict[str, float]] = []
     batches = Prefetcher(iter(ds), depth=2)
     try:
@@ -324,17 +368,23 @@ def main(argv=None) -> Dict[str, Any]:
                 state, metrics = step(state, batch)
                 loss = float(metrics["loss"])
                 gnorm = float(metrics["grad_norm"])
-            history.append({"step": i, "loss": loss, "grad_norm": gnorm,
-                            "step_ms": timer.ms})
+            row = {"step": i, "loss": loss, "grad_norm": gnorm,
+                   "step_ms": timer.ms}
+            if args.fp16_scale:
+                row["loss_scale"] = float(metrics["loss_scale"])
+                row["finite"] = bool(metrics["finite"])
+            history.append(row)
             if i % 10 == 0 or i == args.steps - 1:
-                print(f"[{i}] loss={loss:.4f} grad_norm={gnorm:.4f} "
+                scale = (f" loss_scale={row['loss_scale']:g} finite={row['finite']}"
+                         if args.fp16_scale else "")
+                print(f"[{i}] loss={loss:.4f} grad_norm={gnorm:.4f}{scale} "
                       f"step={timer.ms:.1f} ms", flush=True)
     finally:
         batches.close()
     if history:
         print(f"final loss: {history[-1]['loss']:.4f}")
-    return {"arch": cfg.name, "device": str(device), "params": n_params,
-            "history": history}
+    return {"arch": cfg.name, "device": str(device), "policy": cfg.policy_name,
+            "params": n_params, "history": history}
 
 
 if __name__ == "__main__":

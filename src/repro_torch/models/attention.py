@@ -1,10 +1,12 @@
 """GQA attention (+ qk-norm) on the engine, with the serving KV cache.
 
-Counterpart of ``repro.models.attention`` for the paths serving runs:
+Counterpart of ``repro.models.attention`` for the paths serving and
+training run:
 
-* prefill and any call with static offsets go to the engine's flash op
-  (the reference's routing rule at ``attention.py:240-256``: static
-  offsets, no window, ``Dv == D``);
+* prefill, training and any call with static offsets go to the engine's
+  flash op (the reference's routing rule at ``attention.py:240-256``:
+  static offsets, no window, ``Dv == D``), whose backward recomputes
+  through the engine's reference composition;
 * a continuous-batching decode step, with per-slot positions and per-slot
   KV lengths, takes the ragged route of ``attention.py:299-339``: scores
   through the engine's ``grouped_matmul`` with one group per (slot, KV
@@ -20,7 +22,6 @@ cache are not ported yet (ROADMAP.md).
 
 from __future__ import annotations
 
-import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -93,15 +94,10 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if kv_group_sizes is not None:
         if S != 1:
             raise ValueError("kv_group_sizes is a decode-only (S == 1) path")
-        # the reference's scores policy, field for field; clearing
-        # faithful_accum changes nothing here (Policy.blockwise_accum)
-        scores_policy = dataclasses.replace(
-            policy, name=policy.name + "_scores", output_dtype=torch.float32,
-            faithful_accum=False)
         return _ragged_decode_attention(
             q, k, v, q_offset=q_offset, kv_valid=kv_valid,
             kv_group_sizes=kv_group_sizes, scale=scale,
-            scores_policy=scores_policy, policy=policy)
+            scores_policy=engine.scores_policy(policy), policy=policy)
     if (window is not None or v.shape[-1] != hd
             or not isinstance(q_offset, int) or not isinstance(kv_valid, int)
             or not engine.backend_supports(engine.default_backend(), "attention")):

@@ -16,15 +16,16 @@ from __future__ import annotations
 
 import dataclasses
 import zlib
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.core import engine
 
-__all__ = ["Param", "init_tree", "stack_schema", "rmsnorm", "rope",
-           "apply_rope", "activation", "mlp_glu", "cross_entropy"]
+__all__ = ["Param", "init_tree", "stack_schema", "rmsnorm", "layernorm",
+           "rope", "apply_rope", "activation", "mlp_glu", "mlp_plain",
+           "cross_entropy"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,6 +88,20 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Te
     return x * inv * scale.to(x.dtype)
 
 
+def layernorm(x: torch.Tensor, scale: torch.Tensor,
+              bias: Optional[torch.Tensor] = None, eps: float = 1e-5) -> torch.Tensor:
+    """Mean and variance (E[x²] - E[x]²) in fp32, application in the
+    activation dtype, op for op as the reference (``layers.py:138-148``)."""
+    xf = x.to(torch.float32)
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.square().mean(dim=-1, keepdim=True) - mu.square()
+    inv = torch.rsqrt(var + eps)
+    y = (x - mu.to(x.dtype)) * inv.to(x.dtype) * scale.to(x.dtype)
+    if bias is not None:
+        y = y + bias.to(x.dtype)
+    return y
+
+
 def activation(x: torch.Tensor, kind: str) -> torch.Tensor:
     if kind == "silu":
         return F.silu(x)
@@ -125,6 +140,16 @@ def mlp_glu(params: Dict[str, torch.Tensor], x: torch.Tensor, *, act: str,
     gate, up = h.chunk(2, dim=-1)
     return engine.matmul(activation(gate, act) * up, params["w_out"],
                          policy=policy)
+
+
+def mlp_plain(params: Dict[str, torch.Tensor], x: torch.Tensor, *, act: str,
+              policy) -> torch.Tensor:
+    """Plain MLP ``act(x @ w_in) @ w_out`` as the reference's attention
+    block writes it (``transformer.py:202-207``): the activation rides in
+    the ``linear`` dispatch (kernel 1's fused epilogue; under autograd its
+    derivative is fused into the backward launches)."""
+    h = engine.linear(x, params["w_in"], activation=act, policy=policy)
+    return engine.matmul(h, params["w_out"], policy=policy)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, z_loss: float = 0.0

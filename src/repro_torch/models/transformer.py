@@ -5,15 +5,19 @@ Counterpart of ``repro.models.transformer``.  Layer parameters are
 stacked along a leading layer dim as in the reference (so its parameter
 trees carry across, see ``repro_torch.convert``); the reference's
 ``lax.scan`` over that dim is a Python loop over ``torch.unbind`` views
-here, so the backward stacks each parameter's gradient once.  xLSTM stacks
-super-blocks of (7 mLSTM + 1 sLSTM); with ``remat="full"`` each
-super-block is a :func:`repro_torch.core.engine.checkpoint` region, as the
-reference checkpoints its layer-scan body.  The tied LM head multiplies by
-the ``(V, d)`` embedding as stored, through the GEMM kernel's "nt" layout
-— no transposed copy.  The serving entry points run under
-``torch.inference_mode()``.  MoE and hybrid blocks, MLA, plain (non-gated)
-MLPs, the xLSTM decode state, the attention backward, ``remat="dots"``
-and the chunked CE are not ported yet (ROADMAP.md).
+here, so the backward stacks each parameter's gradient once.  Attention
+blocks take rmsnorm or layernorm, a GLU or plain MLP, token ids or
+precomputed embeddings (``batch["embeddings"]``: the audio / vision
+front-end stubs); xLSTM stacks super-blocks of (7 mLSTM + 1 sLSTM).  With
+``remat="full"`` each block of the layer loop (each super-block for
+xLSTM) is a :func:`repro_torch.core.engine.checkpoint` region when it is
+trained, as the reference checkpoints its layer-scan body.  The tied LM
+head multiplies by the ``(V, d)`` embedding as stored, through the GEMM
+kernel's "nt" layout, and its backward reads the table in place — no
+transposed copy.  ``ce_chunk`` runs the chunked cross-entropy.  The
+serving entry points run under ``torch.inference_mode()``.  MoE and
+hybrid blocks, MLA, the xLSTM decode state and ``remat="dots"`` are not
+ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -37,7 +41,8 @@ _ROADMAP = "not yet ported (see ROADMAP.md, Queue A)"
 def _check_kind(cfg, *, serving: bool = False) -> None:
     if cfg.block_kind == "xlstm" and not serving:
         return
-    if cfg.block_kind != "attn" or cfg.mla is not None or cfg.mlp != "glu":
+    if (cfg.block_kind != "attn" or cfg.mla is not None
+            or cfg.mlp not in ("glu", "plain")):
         what = ("the xlstm decode state" if cfg.block_kind == "xlstm" else
                 f"block kind {cfg.block_kind!r} / mlp {cfg.mlp!r}")
         raise NotImplementedError(f"{what} (arch {cfg.name!r}) is {_ROADMAP}")
@@ -49,7 +54,8 @@ def _norm_param(cfg) -> Param:
 
 def _mlp_schema(cfg) -> Dict[str, Any]:
     d, ff = cfg.d_model, cfg.d_ff
-    return {"w_in": Param((d, 2 * ff)), "w_out": Param((ff, d))}
+    return {"w_in": Param((d, 2 * ff if cfg.mlp == "glu" else ff)),
+            "w_out": Param((ff, d))}
 
 
 def _xlstm_super_schema(cfg) -> Dict[str, Any]:
@@ -104,8 +110,8 @@ def init_params(cfg, *, seed: int = 0, device="cuda",
 
 
 def _norm(cfg, x, scale):
-    if cfg.norm != "rmsnorm":
-        raise NotImplementedError(f"norm {cfg.norm!r} is {_ROADMAP}")
+    if cfg.norm == "layernorm":
+        return layers.layernorm(x, scale)
     return layers.rmsnorm(x, scale)
 
 
@@ -122,7 +128,9 @@ def _unbind(tree) -> List[Any]:
 
 def _remat(cfg, fn):
     """``remat="full"``: the block is an engine checkpoint region (the
-    reference's ``jax.checkpoint`` of the layer-scan body)."""
+    reference's ``jax.checkpoint`` of the layer-scan body).  ``"dots"``
+    (save the GEMM outputs, recompute the rest) needs a saving policy that
+    sees the ctypes kernels' outputs and is not ported."""
     if cfg.remat == "none":
         return fn
     if cfg.remat != "full":
@@ -148,50 +156,96 @@ def _attn_block(p, h, cfg, *, pos, cache, policy, kv_group_sizes=None):
         p["attn"], _norm(cfg, h, p["ln1"]), cfg, pos_offset=pos, cache=cache,
         policy=policy, kv_group_sizes=kv_group_sizes)
     h = h + a
-    m = layers.mlp_glu(p["mlp"], _norm(cfg, h, p["ln2"]), act=cfg.act,
-                       policy=policy)
+    mlp = layers.mlp_glu if cfg.mlp == "glu" else layers.mlp_plain
+    m = mlp(p["mlp"], _norm(cfg, h, p["ln2"]), act=cfg.act, policy=policy)
     return h + m, cache
+
+
+def _head(params, cfg, h: torch.Tensor) -> torch.Tensor:
+    """The LM head: the tied ``(V, d)`` embedding read in place ("nt"), or
+    the ``(d, V)`` ``lm_head``."""
+    if cfg.tie_embeddings:
+        return engine.matmul(h, params["embed"], policy=cfg.policy, layout="nt")
+    return engine.matmul(h, params["lm_head"], policy=cfg.policy)
 
 
 def forward(params: Dict[str, Any], cfg, batch: Dict[str, torch.Tensor], *,
             cache: Optional[Dict[str, Any]] = None, pos=0,
-            last_only: bool = False,
+            last_only: bool = False, head: bool = True,
             kv_group_sizes=None) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
-    """Logits ``(B, S', V)`` (``S' = 1`` with ``last_only``) and the cache
-    (updated in place).  ``pos`` is an int or a ``(B,)`` tensor of
-    per-slot decode positions."""
+    """Logits ``(B, S', V)`` (``S' = 1`` with ``last_only``; with ``head``
+    False the final-normed hidden states) and the cache (updated in
+    place).  The input is ``batch["embeddings"]`` ``(B, S, d)`` where the
+    batch carries it, else the embedded ``batch["inputs"]``.  ``pos`` is an
+    int or a ``(B,)`` tensor of per-slot decode positions."""
     _check_kind(cfg, serving=cache is not None)
     policy = cfg.policy
-    h = params["embed"][batch["inputs"]].to(policy.compute_dtype)
+    if "embeddings" in batch:
+        h = batch["embeddings"].to(policy.compute_dtype)
+    else:
+        h = params["embed"][batch["inputs"]].to(policy.compute_dtype)
     if cfg.block_kind == "xlstm":
         block = _remat(cfg, lambda lp, hh: _xlstm_super_block(
             lp, hh, cfg, policy=policy))
         for lp in _unbind(params["layers"]):
             h = block(lp, h)
+    elif cache is None:
+        block = _remat(cfg, lambda lp, hh: _attn_block(
+            lp, hh, cfg, pos=pos, cache=None, policy=policy)[0])
+        for lp in _unbind(params["layers"]):
+            h = block(lp, h)
     else:
-        caches = ([None] * cfg.n_layers if cache is None
-                  else _unbind(cache["layers"]))
-        for lp, lc in zip(_unbind(params["layers"]), caches):
+        for lp, lc in zip(_unbind(params["layers"]), _unbind(cache["layers"])):
             h, _ = _attn_block(lp, h, cfg, pos=pos, cache=lc, policy=policy,
                                kv_group_sizes=kv_group_sizes)
     if last_only:
         h = h[:, -1:]   # serving: never materialise (B, S, V) prompt logits
     h = _norm(cfg, h, params["final_norm"])
-    if cfg.tie_embeddings:
-        logits = engine.matmul(h, params["embed"], policy=policy, layout="nt")
-    else:
-        logits = engine.matmul(h, params["lm_head"], policy=policy)
-    return logits, cache
+    return (_head(params, cfg, h) if head else h), cache
+
+
+def _chunked_ce(params, cfg, h: torch.Tensor, labels: torch.Tensor
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The chunked cross-entropy (reference ``transformer.py:394-433``):
+    ``ce_chunk`` batch rows at a time (the batch padded with rows labelled
+    -1), each chunk's head GEMM and fp32 log-softmax one engine checkpoint
+    region, so the backward recomputes a chunk's logits instead of keeping
+    ``(B, S, V)`` of them.  The reference traces the chunk body once under
+    ``repeat(n)``; here it runs n times, so the events sum the same."""
+    B = h.shape[0]
+    c = max(1, min(cfg.ce_chunk, B))
+    n = -(-B // c)
+    pad = n * c - B
+    if pad:
+        h = torch.cat([h, h.new_zeros((pad, *h.shape[1:]))])
+        labels = torch.cat([labels, labels.new_full((pad, labels.shape[1]), -1)])
+
+    def chunk(h_c, y_c):
+        lf = _head(params, cfg, h_c).to(torch.float32)
+        lse = torch.logsumexp(lf, dim=-1)
+        gold = torch.gather(lf, -1, y_c.clamp(min=0)[..., None])[..., 0]
+        mask = (y_c >= 0).to(torch.float32)
+        return ((lse - gold) * mask).sum(), mask.sum()
+
+    tot = cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for h_c, y_c in zip(h.split(c), labels.split(c)):
+        s, m = engine.checkpoint(chunk, h_c, y_c)
+        tot, cnt = tot + s, cnt + m
+    loss = tot / torch.clamp(cnt, min=1.0)
+    return loss, {"loss": loss, "ntokens": cnt}
 
 
 def loss_fn(params: Dict[str, Any], cfg, batch: Dict[str, torch.Tensor]
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Mean token cross-entropy of ``batch["inputs"]`` against
-    ``batch["labels"]`` (labels < 0 masked), with its metrics."""
+    """Mean token cross-entropy of the batch's inputs (token ids or
+    embeddings) against ``batch["labels"]`` (labels < 0 masked), with its
+    metrics; chunked over batch rows when ``cfg.ce_chunk`` is set."""
     if cfg.ce_chunk:
-        raise NotImplementedError(f"the chunked CE (ce_chunk) is {_ROADMAP}")
-    logits, _ = forward(params, cfg, batch)
-    loss, metrics = layers.cross_entropy(logits, batch["labels"])
+        h, _ = forward(params, cfg, batch, head=False)
+        loss, metrics = _chunked_ce(params, cfg, h, batch["labels"])
+    else:
+        logits, _ = forward(params, cfg, batch)
+        loss, metrics = layers.cross_entropy(logits, batch["labels"])
     metrics["loss"] = loss
     return loss, metrics
 

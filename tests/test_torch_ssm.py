@@ -39,6 +39,7 @@ from repro_torch import configs as tconfigs
 from repro_torch import convert
 from repro_torch.core import engine as te
 from repro_torch.models import ssm as tssm
+from repro_torch.models import transformer as tt
 
 
 def _rel(got, want) -> float:
@@ -282,8 +283,13 @@ def test_backwards_of_later_slices_raise():
     torch.testing.assert_close(gx, want, rtol=1e-5, atol=1e-5)
     with pytest.raises(NotImplementedError, match="grouped_matmul"):
         te.grouped_matmul(x[None], w[None].expand(2, 8, 8), policy="fp32")
+    # attention differentiates now (tests/test_torch_lm_train.py); remat
+    # "dots" still raises
     q = torch.randn(1, 2, 8, 16, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="attention"):
-        te.attention(q, q, q, policy="fp32")
+    (gq,) = torch.autograd.grad(te.attention(q, q, q, policy="fp32").sum(), q)
+    assert torch.isfinite(gq).all()
+    with pytest.raises(NotImplementedError, match="remat"):
+        tt._remat(dataclasses.replace(tconfigs.get_reduced("qwen3-1.7b"),
+                                      remat="dots"), lambda h: h)
     with torch.no_grad():                       # inference stays available
         te.linear(x, w, torch.zeros(8), activation="gelu", policy="fp32")

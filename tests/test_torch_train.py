@@ -264,8 +264,8 @@ def test_synthetic_lm_batches_are_identical(step):
 
 
 def test_train_cli_on_cpu(capsys):
-    out = ttrain.main(["--device", "cpu", "--steps", "2", "--batch", "2",
-                       "--seq", "16", "--instrument"])
+    out = ttrain.main(["--device", "cpu", "--arch", "xlstm-1.3b", "--steps", "2",
+                       "--batch", "2", "--seq", "16", "--instrument"])
     assert out["arch"] == "xlstm-1.3b" and out["device"] == "cpu"
     assert len(out["history"]) == 2
     for h in out["history"]:
@@ -289,7 +289,8 @@ def test_train_unported_paths_raise():
     out = ttrain.main(["--device", "cpu", "--arch", "ae", "--policy",
                        "mixed_fp8_e4m3", "--batch", "8", "--steps", "1"])
     assert out["policy"] == "mixed_fp8_e4m3" and np.isfinite(out["history"][0]["loss"])
-    for argv in (["--fp16-scale"], ["--ckpt-dir", "x"],
+    # --fp16-scale trains (tests/test_torch_lm_train.py); --result still raises
+    for argv in (["--result", "x.json"], ["--ckpt-dir", "x"],
                  ["--compress", "fp8"], ["--dp-procs", "2"], ["--fail-step", "3"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ttrain.main(["--device", "cpu", *argv])
