@@ -31,7 +31,13 @@ Phases, any failure exits non-zero:
    shapes: the tied head's backward ("nn" dX, "tn" dW over the 151936 x
    2048 table), the attention composition's six kernel-2 launches and
    flash at the training shape (bf16, fp16 and the fp32 route) and at
-   musicgen-medium's D 64, each launch twice and bitwise equal.  Each kernel, its plain version
+   musicgen-medium's D 64, each launch twice and bitwise equal; then the
+   DeepSeek paths' shapes (deepseek-v2-lite-16b at full width): the
+   grouped expert GEMM at prefill, decode and training, its dX and dW, MLA's
+   q-chunked scores (qk dim 192) and PV, the absorbed decode's five
+   contractions, each launch twice and bitwise equal, and the engine's
+   grouped GEMM with one expert's rows masked, forward and gradients.
+   Each kernel, its plain version
    and — where one exists — one PyTorch library call for the same function
    are timed with CUDA events (decode / prefill rows over weight copies
    that exceed the L2), the kernel alone with torch.profiler, and each
@@ -99,7 +105,28 @@ Phases, any failure exits non-zero:
    ulp as often as the card's flash launches differ from their plain
    version), beside two controls that must fail it (row 0 of the first
    layer's wqkv zeroed, the attention scale off by a factor 1 + 2^-6);
-9. **report** — the GEMM wrappers' split launches (``.launches_split``)
+9. **moeserve** — the counts are set to 0 again, then
+   ``repro_torch.launch.serve`` serves deepseek-v2-lite-16b at full width
+   and depth (27 layers, 64 routed experts top-6 + 2 shared, MLA, random
+   weights from a seed): 4 requests, prompt 128, 16 new tokens; the kernel-1
+   / kernel-2 launches must equal the structural counts printed before the
+   run (3456 / 3936, no flash).  One prefill and one decode step timed and
+   profiled (kernel 1 / kernel 2 / other, no aten GEMM or SDPA op), peak
+   memory;
+10. **moecut** — a two-layer full-width cut (dense layer 0 + one MoE
+   layer) of deepseek-v2-lite-16b and of deepseek-moe-16b: every logit of
+   a 2 x 16 prompt and one decode step from its cache, card vs the CPU
+   plain path; every routing flip must lie on a router tie (within twice
+   the run's measured router-logit error), the tokens that route alike are
+   held to the larger of 8x the CPU's 1-vs-all-thread spread and 2^-4 of
+   max, and a control (two experts' w_out swapped) must fail that bound;
+11. **moetrain** — ``repro_torch.launch.train`` trains deepseek-v2-lite-16b
+   at full width with its depth cut to 3 (``--layers 3``: dense layer 0 +
+   two MoE layers), 4 x 256, 3 steps: losses and router metrics finite,
+   launches structural (88 / 46 a step: forward, the MoE layers' remat
+   recompute, dX and dW), one profiled step (no aten GEMM or SDPA op),
+   peak memory;
+12. **report** — the GEMM wrappers' split launches (``.launches_split``)
    per path, the card (``nvidia-smi``), a ``{"kernels": [...]}`` line, and
    last ``{"ok": true, "device": {...}}``.
 
@@ -146,6 +173,16 @@ S8_TRIALS, S8_FACTOR = 4, 1.25
 L_BATCH, L_SEQ, L_STEPS, L_CUT_SEQ = 4, 256, 3, 128
 # the dense configs of the LM slice, each served as a two-layer cut
 DENSE_ARCHS = ("mistral-nemo-12b", "pixtral-12b", "command-r-35b", "musicgen-medium")
+# the MoE slice: deepseek-v2-lite-16b served at full width and depth (4
+# requests, prompt 128, 16 new tokens) and trained at full width with its
+# depth cut to 3 (4 x 256, 3 steps); two-layer cuts of both DeepSeek
+# configs on 2 x 16 prompts, card vs CPU
+M_ARCH, M_BATCH, M_PROMPT, M_GEN = "deepseek-v2-lite-16b", 4, 128, 16
+MT_LAYERS, MT_BATCH, MT_SEQ, MT_STEPS = 3, 4, 256, 3
+MOE_ARCHS, MC_BATCH, MC_PROMPT = ("deepseek-v2-lite-16b", "deepseek-moe-16b"), 2, 16
+# the aten ops a profiled window of the port must not call on the card
+ATEN_GEMM = ("aten::mm", "aten::bmm", "aten::addmm", "aten::baddbmm",
+             "aten::addbmm", "aten::matmul", "aten::linear")
 
 
 def _card() -> str:
@@ -203,7 +240,10 @@ def _profile_once(fn, iters: int, ranges=()):
         wall = time.perf_counter() - t0
     groups: dict = {}
     spans = {r: {"ms": 0.0, "count": 0} for r in ranges}
+    aten = {}
     for ev in prof.key_averages():
+        if ev.key in ATEN_GEMM or "scaled_dot_product" in ev.key:
+            aten[ev.key] = ev.count / iters
         if ev.key in spans:
             us = getattr(ev, "device_time_total", None)
             if us is None:
@@ -228,7 +268,7 @@ def _profile_once(fn, iters: int, ranges=()):
     wall_ms = wall * 1e3 / iters
     return {"wall_ms": wall_ms, "device_ms": busy,
             "idle_share": max(0.0, 1.0 - busy / wall_ms), "by_kernel": groups,
-            "ranges": spans}
+            "ranges": spans, "aten_gemm": aten}
 
 
 def _bound_ms(n_bytes: float, flops: float, peak: float = BF16_FLOPS):
@@ -1141,6 +1181,7 @@ def kernel_phase(log):
     runs += fp8_kernel_checks(log, g)
     runs += split_checks(log, g)
     runs += lmtrain_kernel_checks(log, g)
+    runs += moe_kernel_checks(log, g)
     kernels = []
     for r in runs:
         # ms: CUDA events around back-to-back calls (host launch cost
@@ -2662,6 +2703,489 @@ def serve8_cuts(log, small, pc, pcpu, prompts, tok) -> dict:
     return out
 
 
+def moe_kernel_checks(log, g):
+    """Kernel 2 at the DeepSeek paths' shapes (deepseek-v2-lite-16b at full
+    width, tpu_bf16), each launch against its plain version and run twice,
+    bitwise equal: the grouped expert GEMM ``(B, 64, C, 2048) x (64, 2048,
+    2816)`` at prefill (B 1, C 16), decode (B 4, C 8) and training (B 4, C
+    32), the training shape's ``w_out`` and its backward — dX ("nt", the
+    expert weights broadcast over B) and dW ("tn", one launch per expert
+    over all B·C rows) with the "+grad" policy's fp32 output; MLA's
+    q-chunked scores (qk dim 192, K through a transposed view, fp32 out)
+    and PV (v dim 128) at the training shape; and the absorbed decode's
+    five contractions (fp32 out) at B 4 against a 144-row cache, on the
+    strided views ``einsum2d`` hands the kernel.  Then the engine's grouped
+    GEMM with ``group_sizes`` masking one expert's rows, forward and
+    gradients, against the same product in fp32 on the card.  Returns the
+    rows to time.
+
+    Tolerances: bf16 outputs two ulps (2^-7), fp32 outputs summation order
+    (1e-4 of max)."""
+    import torch
+
+    from repro_torch.core import engine
+    from repro_torch.core import precision as prec
+    from repro_torch.core.engine import _grad_policy, scores_policy
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import redmule_matmul as rm
+
+    dev = torch.device("cuda")
+    bf = prec.TPU_BF16
+    gbf, scores = _grad_policy(bf), scores_policy(bf)
+    absorbed = prec.Policy("tpu_bf16_absorbed", torch.bfloat16, torch.float32,
+                           torch.float32)
+    tol_bf16, tol_f32 = 2.0 ** -7, 1e-4
+    d, E, f, H, r, dn, dr, dv = 2048, 64, 1408, 16, 512, 128, 64, 128
+    T = M_PROMPT + M_GEN
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(torch.bfloat16)
+
+    src = "src/repro_torch/csrc/redmule_matmul.cu"
+    rep2 = "src/repro/kernels/redmule_matmul.py:478"
+    k2 = (ops.redmule_matmul_batched, "launches")
+    out = []
+
+    def row(name, x, w, layout, pol, paths, bound_dims, shape):
+        kern = (lambda: ops.redmule_matmul_batched(x, w, policy=pol, layout=layout))
+        plain = (lambda: rm.redmule_matmul_plain(x, w, policy=pol, layout=layout))
+        got = kern()
+        _repeat(name, got, kern(), log)
+        tol = tol_f32 if pol.out_dtype == torch.float32 else tol_bf16
+        err = _check(f"{name} {shape}", got, plain(), tol, log)
+        bsz, M, N, K, w_reads = bound_dims
+        ob = pol.out_dtype.itemsize
+        xl = x.transpose(-1, -2) if layout == "tn" else x
+        wl = w.transpose(-1, -2) if layout == "nt" else w
+        out.append(dict(
+            name=name, group="redmule_gemm", counter=k2, paths=paths, source=src,
+            replaces=rep2, shape=shape, err=err,
+            bound=_bound_ms((bsz * M * N + w_reads * N * K) * 2 + bsz * M * K * ob,
+                            2 * bsz * M * N * K),
+            kernel=kern, plain=plain, library=lambda: torch.matmul(xl, wl)))
+
+    w_in, w_out = rnd(E, d, 2 * f, scale=d ** -0.5), rnd(E, f, d, scale=f ** -0.5)
+    for tag, B, C, paths in (("prefill", 1, 16, ("moeserve",)),
+                             ("decode", M_BATCH, 8, ("moeserve",)),
+                             ("train", MT_BATCH, 32, ("moetrain",))):
+        row(f"redmule_matmul_batched (experts w_in, {tag})", rnd(B, E, C, d), w_in,
+            "nn", bf, paths, (B * E, C, d, 2 * f, E),
+            f"nn B={B}x{E} M={C} N={d} K={2 * f} bf16, W per expert")
+    B, C = MT_BATCH, 32
+    row("redmule_matmul_batched (experts w_out, train)", rnd(B, E, C, f), w_out,
+        "nn", bf, ("moetrain",), (B * E, C, f, d, E),
+        f"nn B={B}x{E} M={C} N={f} K={d} bf16, W per expert")
+    dz = rnd(B, E, C, 2 * f, scale=1e-2)
+    row("redmule_matmul_batched (experts w_in dX, train)", dz, w_in, "nt", gbf,
+        ("moetrain",), (B * E, C, 2 * f, d, E),
+        f"nt B={B}x{E} M={C} N={2 * f} K={d} bf16 -> fp32, W broadcast")
+    xg, dzg = rnd(E, B * C, d), rnd(E, B * C, 2 * f, scale=1e-2)
+    row("redmule_matmul_batched (experts w_in dW, train)", xg, dzg, "tn", gbf,
+        ("moetrain",), (E, d, B * C, 2 * f, E),
+        f"tn B={E} M={d} N={B * C} K={2 * f} bf16 -> fp32")
+    # MLA at the training shape: B 4, 16 heads, S = T = 256
+    S = MT_SEQ
+    q, k = rnd(B, H, 1, S, dn + dr), rnd(B, H, S, dn + dr)
+    kt = k.transpose(-1, -2)[:, :, None]
+    row("redmule_matmul_batched (MLA q-chunked scores, train)", q, kt, "nn", scores,
+        ("moetrain",), (B * H, S, dn + dr, S, B * H),
+        f"nn B={B}x{H} M={S} N={dn + dr} K={S} bf16 -> fp32, K^T a view")
+    p = torch.softmax(torch.randn(B, H, 1, S, S, generator=g, device=dev), -1).to(
+        torch.bfloat16)
+    row("redmule_matmul_batched (MLA q-chunked PV, train)", p, rnd(B, H, 1, S, dv),
+        "nn", bf, ("moetrain",), (B * H, S, S, dv, B * H),
+        f"nn B={B}x{H} M={S} N={S} K={dv} bf16")
+    # the absorbed decode, B 4 against a T = 144 cache, as einsum2d lays
+    # the operands out (the weights and the cache read through views)
+    Bd = M_BATCH
+    wuk = rnd(r, H * dn, scale=r ** -0.5).reshape(r, H, dn).permute(1, 2, 0)
+    wuv = rnd(r, H * dv, scale=r ** -0.5).reshape(r, H, dv).permute(1, 0, 2)
+    ckv, kr = rnd(Bd, T, r), rnd(Bd, T, dr)
+    p_dec = torch.softmax(torch.randn(Bd, H, T, generator=g, device=dev), -1)
+    for name, x, w, dims in (
+            ("q_abs bhsd,rhd->bhsr", rnd(H, Bd, dn), wuk, (H, Bd, dn, r, H)),
+            ("scores bhsr,btr->bhst", rnd(Bd, H, r), ckv.transpose(1, 2),
+             (Bd, H, r, T, Bd)),
+            ("rope scores bhsd,btd->bhst", rnd(Bd, H, dr), kr.transpose(1, 2),
+             (Bd, H, dr, T, Bd)),
+            ("ctx bhst,btr->bhsr", p_dec.to(torch.bfloat16), ckv, (Bd, H, T, r, Bd)),
+            ("out bhsr,rhd->bhsd", rnd(H, Bd, r), wuv, (H, Bd, r, dv, H))):
+        row(f"redmule_matmul_batched (MLA absorbed decode {name.split()[0]})", x, w,
+            "nn", absorbed, ("moeserve",), dims,
+            f"{name.split()[1]} nn B={dims[0]} M={dims[1]} N={dims[2]} K={dims[3]} "
+            "bf16 -> fp32")
+
+    # the engine's grouped GEMM with expert 0 holding 5 of its 32 rows:
+    # rows past a group's size are zero and take no gradient
+    x = rnd(B, E, C, f).requires_grad_(True)
+    w = rnd(E, f, d, scale=f ** -0.5).requires_grad_(True)
+    sizes = torch.full((E,), C, dtype=torch.int32)
+    sizes[0] = 5
+    dzo = rnd(B, E, C, d, scale=1e-2)
+    z = engine.grouped_matmul(x, w, group_sizes=sizes, policy=bf)
+    gx, gw = torch.autograd.grad(z, (x, w), dzo)
+    valid = (torch.arange(C, device=dev)[None, :] < sizes.to(dev)[:, None])[..., None]
+    want_z = torch.where(valid, x.detach().float() @ w.detach().float(), 0.0)
+    dzm = torch.where(valid, dzo.float(), 0.0)
+    want_gx = dzm @ w.detach().float().transpose(-1, -2)
+    want_gw = (x.detach().float().transpose(-1, -2) @ dzm).sum(0)
+    for name, a_, b_ in (("forward", z, want_z), ("dX", gx, want_gx),
+                         ("dW", gw, want_gw)):
+        _check(f"engine grouped_matmul with group_sizes (expert 0: 5 of {C} rows) "
+               f"{name}, B={B}x{E} M={C} N={f} K={d}", a_, b_, tol_bf16, log)
+    masked_zero = bool((gx[:, 0, 5:] == 0).all() and (z[:, 0, 5:] == 0).all())
+    log.append({"check": "grouped_matmul: masked rows and their dX are zero",
+                "ok": masked_zero})
+    print(f"[check] grouped_matmul masked rows: "
+          f"{'zero' if masked_zero else 'FAIL: not zero'}", flush=True)
+    if not masked_zero:
+        raise AssertionError("grouped_matmul: a masked row is not zero")
+    torch.cuda.synchronize()
+    return out
+
+
+def _moe_structural(n_moe: int, *, prefills: int, decodes: int) -> dict:
+    """deepseek-v2-lite-16b's kernel-1 / kernel-2 launches for ``prefills``
+    batch-1 prefills and ``decodes`` decode steps with ``n_moe`` MoE layers
+    after the dense layer 0.  A prefill: wq, wdkv, wuk, wuv, wo a layer,
+    the dense GLU's two, the router and the shared experts' two a MoE
+    layer, the LM head (kernel 1); the q-chunked scores and PV a layer,
+    the two grouped expert GEMMs and the combine a MoE layer (kernel 2).
+    A decode step: wq, wdkv, wo a layer (kernel 1, with the same FFN
+    launches and the head) and the five absorbed contractions (kernel 2)."""
+    pre1, pre2 = (5 + 2) + 8 * n_moe + 1, 2 + 5 * n_moe
+    dec1, dec2 = (3 + 2) + 6 * n_moe + 1, 5 + 8 * n_moe
+    return {"redmule_matmul": prefills * pre1 + decodes * dec1,
+            "redmule_matmul_batched": prefills * pre2 + decodes * dec2,
+            "flash_attention": 0}
+
+
+def _no_library_gemm(prof: dict, what: str) -> None:
+    """A profiled window of the port must call no aten GEMM or SDPA op."""
+    if prof["aten_gemm"]:
+        raise AssertionError(f"{what}: library GEMM / attention ops in the "
+                             f"profile: {prof['aten_gemm']}")
+
+
+def _print_profile(what: str, prof: dict) -> None:
+    parts = ", ".join(f"{k} {g['ms']:.3f} ms x{g['count']}"
+                      for k, g in sorted(prof["by_kernel"].items()))
+    split = "".join(f"; {k} {v:.3f} ms" for k, v in prof.get("split", {}).items())
+    print(f"[profile] {what}: wall {prof['wall_ms']:.3f} ms, device busy "
+          f"{prof['device_ms']:.3f} ms (idle {prof['idle_share']:.3f}){split}: "
+          f"{parts}; aten GEMM / SDPA ops {prof['aten_gemm'] or 'none'}", flush=True)
+
+
+def _k2_profile(fn, iters: int, k2_launches: int, attempts: int = 3) -> dict:
+    """``_device_profile`` of ``fn`` inside :func:`_k2_ranged`, with the
+    GEMM time split: kernels 1 and 2 are one CUDA kernel, so the
+    ``kernel2`` ranges attribute kernel 2's share.  The ranges must number
+    kernel 2's structural launches a call; a window in which the profiler
+    dropped some (CUPTI now and then loses records) is taken again, up to
+    ``attempts`` windows in all; then it raises."""
+    for attempt in range(attempts):
+        with _k2_ranged():
+            prof = _device_profile(fn, iters=iters, ranges=("kernel2",))
+        rng = prof["ranges"]["kernel2"]
+        if round(rng["count"] * iters) == k2_launches * iters:
+            gemm = prof["by_kernel"].get("redmule_gemm", {"ms": 0.0})["ms"]
+            prof["split"] = {"gemm (kernel 1)": gemm - rng["ms"],
+                             "batched (kernel 2)": rng["ms"],
+                             "other": sum(g["ms"] for k, g in prof["by_kernel"].items()
+                                          if k != "redmule_gemm")}
+            return prof
+        print(f"[profile] {rng['count']} kernel-2 ranges a call, not {k2_launches} "
+              f"(window {attempt + 1} of {attempts})", flush=True)
+    raise AssertionError(f"profile: kernel-2 ranges never matched {k2_launches}")
+
+
+def moeserve_phase(log, counters):
+    """deepseek-v2-lite-16b at full width and depth (27 layers, 64 routed
+    experts, MLA) through ``repro_torch.launch.serve``: 4 requests, prompt
+    128, 16 new tokens, with the counts set to 0 just before and held to
+    the structural ones after; tokens in range.  Then one prefill and one
+    decode step timed with CUDA events and profiled (busy / idle share,
+    kernel 1 / kernel 2 / other split, no aten GEMM or SDPA op), with the
+    peak memory."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+
+    cfg = configs.get(M_ARCH)
+    n_moe = cfg.n_layers - 1
+    want = _moe_structural(n_moe, prefills=M_BATCH, decodes=M_GEN)
+    print(f"[moeserve] predicted launches {want}", flush=True)
+    _zero(counters)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    seqs = serve.main(["--arch", M_ARCH, "--full", "--batch", str(M_BATCH),
+                       "--prompt-len", str(M_PROMPT), "--gen", str(M_GEN),
+                       "--seed", str(SEED), "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read(counters)
+    peak_main = torch.cuda.max_memory_allocated()
+    print(f"[moeserve] launches on the main path: {launches}", flush=True)
+    if seqs.shape != (M_BATCH, M_PROMPT + M_GEN) or not (
+            (seqs >= 0) & (seqs < cfg.vocab_size)).all():
+        raise AssertionError(f"moeserve: generate returned {seqs.shape} / tokens "
+                             "out of range")
+    got = {k: launches[k] for k in want}
+    print(f"[moeserve] launches {got}, structural {want}", flush=True)
+    if got != want:
+        raise AssertionError("moeserve: launches differ from the structural count")
+
+    params = transformer.init_params(cfg, seed=SEED, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    T = M_PROMPT + M_GEN
+    prompt = torch.randint(0, cfg.vocab_size, (1, M_PROMPT), generator=gen,
+                           device="cuda")
+    logits, _ = transformer.prefill(params, cfg, {"inputs": prompt}, T)
+    prefill_ms = _time_ms(lambda: transformer.prefill(
+        params, cfg, {"inputs": prompt}, T), iters=5, warmup=1)
+    cache = transformer.init_cache(cfg, M_BATCH, T, device="cuda")
+    toks = torch.randint(0, cfg.vocab_size, (M_BATCH, 1), generator=gen,
+                         device="cuda")
+    pos = torch.full((M_BATCH,), M_PROMPT, device="cuda")
+    sizes = np.full((M_BATCH,), M_PROMPT + 1, np.int32)
+
+    def decode():
+        return transformer.serve_step(params, cfg, toks, cache, pos,
+                                      kv_group_sizes=sizes)
+
+    dec_logits, _ = decode()
+    decode_ms = _time_ms(decode, iters=10, warmup=2)
+    for name, t in (("prefill", logits), ("decode", dec_logits)):
+        if not torch.isfinite(t.float()).all():
+            raise AssertionError(f"moeserve: {name} logits are not finite")
+    print(f"[moeserve] generate {M_BATCH}x({M_PROMPT}+{M_GEN}) {wall:.3f}s wall; "
+          f"prefill(1x{M_PROMPT}) {prefill_ms:.3f} ms; decode step (B={M_BATCH}) "
+          f"{decode_ms:.3f} ms; peak {peak_main / 2**30:.2f} GiB", flush=True)
+    one_pre = _moe_structural(n_moe, prefills=1, decodes=0)
+    one_dec = _moe_structural(n_moe, prefills=0, decodes=1)
+    profiles = {
+        "prefill": _k2_profile(lambda: transformer.prefill(
+            params, cfg, {"inputs": prompt}, T), 3, one_pre["redmule_matmul_batched"]),
+        "decode_step": _k2_profile(decode, 5, one_dec["redmule_matmul_batched"])}
+    for name, prof in profiles.items():
+        _print_profile(f"moeserve {name}", prof)
+        _no_library_gemm(prof, f"moeserve {name}")
+    del params, cache
+    torch.cuda.empty_cache()
+    return {"serve_wall_s": wall, "prefill_ms": prefill_ms,
+            "decode_step_ms": decode_ms, "launches": launches, "structural": want,
+            "peak_mem_gib": peak_main / 2**30, "profiles": profiles}
+
+
+def _router_capture():
+    """``(context, logits)``: within the context every router GEMM's output
+    (the fp32 logits, by its policy's name) is appended to ``logits`` — the
+    "hopper" backend wrapped through the engine's registry, so card and CPU
+    runs route exactly as the path does."""
+    got = []
+
+    def capture(fn, x, w, **kw):
+        z = fn(x, w, **kw)
+        if kw["spec"].policy.name == "router":
+            got.append(z.float().cpu())
+        return z
+
+    return _hopper_wrapped(gemm=capture), got
+
+
+def _moe_cut_run(params, c, toks, tok, dev):
+    """Logits of every prompt token, then of one decode step (per-slot
+    positions, as the scheduler runs it) from the prefill's cache, with the
+    router logits of both; on ``dev``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import transformer
+
+    B, S = toks.shape
+    ctx, routers = _router_capture()
+    with ctx, torch.inference_mode():
+        cache = transformer.init_cache(c, B, S + 8, device=dev)
+        pre, cache, _ = transformer.forward(params, c, {"inputs": toks.to(dev)},
+                                            cache=cache, pos=0)
+        dec, _ = transformer.serve_step(
+            params, c, tok.to(dev), cache, torch.full((B,), S, device=dev),
+            kv_group_sizes=np.full((B,), S + 1, np.int32))
+    logits = torch.cat([pre.float().cpu(), dec.float().cpu()[:, None]], dim=1)
+    return logits, torch.cat(routers, dim=1)        # (B, S + 1, V), (B, S + 1, E)
+
+
+def moe_cuts(log):
+    """A two-layer full-width cut (dense layer 0 + one MoE layer, random
+    weights from a seed made on the card and copied to the CPU) of each
+    DeepSeek config: every logit of a 2 x 16 prompt and of one decode step
+    from the prefill's cache, card vs the CPU plain path.
+
+    Routing is discrete: where a token's k-th and (k+1)-th router logits
+    nearly tie, the card's and the CPU's rounding may pick different
+    experts and move the token by O(1).  So: (1) the flipped tokens are
+    counted; (2) each must lie on a tie — a gap between its k-th and
+    (k+1)-th router logit (on the CPU) of at most twice the run's measured
+    router-logit error (the largest |card - CPU| of any router logit);
+    (3) the tokens whose routing agrees are held to the larger of 8x the
+    CPU's own spread (1 thread vs all: another summation order), measured
+    in this run, and the repo's two-layer bf16 bound 2^-4 of max; (4) a
+    control must fail that bound: the card run again with the w_out of two
+    experts swapped (the one most used by the held tokens and one they do
+    not use)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import moe, transformer
+
+    out = {}
+    gen = torch.Generator().manual_seed(SEED + 8)
+    n_threads = torch.get_num_threads()
+    for arch in MOE_ARCHS:
+        c = dataclasses.replace(configs.get(arch), n_layers=2)
+        k = c.moe.top_k
+        pc = transformer.init_params(c, seed=SEED + 9, device="cuda")
+        pcpu = _to_cpu(pc)
+        toks = torch.randint(0, c.vocab_size, (MC_BATCH, MC_PROMPT), generator=gen)
+        tok = torch.randint(0, c.vocab_size, (MC_BATCH, 1), generator=gen)
+        got, r_card = _moe_cut_run(pc, c, toks, tok, "cuda")
+        want, r_cpu = _moe_cut_run(pcpu, c, toks, tok, "cpu")
+        torch.set_num_threads(1)
+        try:
+            want_1t, _ = _moe_cut_run(pcpu, c, toks, tok, "cpu")
+        finally:
+            torch.set_num_threads(n_threads)
+        ids_card = torch.sort(moe.top_k(r_card, k)[1], -1).values
+        top_cpu = torch.sort(r_cpu, dim=-1, descending=True, stable=True)
+        ids_cpu = torch.sort(top_cpu.indices[..., :k], -1).values
+        flipped = (ids_card != ids_cpu).any(-1)                  # (B, S + 1)
+        delta = (r_card - r_cpu).abs().max().item()
+        gap = top_cpu.values[..., k - 1] - top_cpu.values[..., k]
+        unexplained = flipped & (gap > 2 * delta)
+        scale = want.abs().max().item()
+        agree = ~flipped
+        err = ((got - want).abs().amax(-1) / scale)[agree].max().item()
+        spread = ((want_1t - want).abs().amax(-1) / scale)[agree].max().item()
+        tol = max(8 * spread, 2.0 ** -4)
+        # the control: swap the held tokens' most used expert with one they
+        # do not use, in the card's MoE layer
+        used = torch.bincount(ids_cpu[agree].reshape(-1), minlength=c.moe.n_routed)
+        e1, e2 = int(used.argmax()), int(used.argmin())
+        w_out = pc["layers"]["moe"]["w_out"][0]
+        w_out[[e1, e2]] = w_out[[e2, e1]].clone()
+        ctl, _ = _moe_cut_run(pc, c, toks, tok, "cuda")
+        ctl_err = ((ctl - want).abs().amax(-1) / scale)[agree].max().item()
+        row = {"tokens": int(flipped.numel()), "flipped": int(flipped.sum()),
+               "unexplained_flips": int(unexplained.sum()), "router_err": delta,
+               "flip_gaps": gap[flipped].tolist(), "err_rel": err,
+               "cpu_spread": spread, "tol_rel": tol, "control_err_rel": ctl_err,
+               "control_experts": [e1, e2]}
+        out[arch] = row
+        log.append({"check": f"moecut {arch}", **row,
+                    "ok": not unexplained.any() and err <= tol and ctl_err > tol})
+        print(f"[moecut] {arch} two-layer (d 2048, {MC_BATCH}x{MC_PROMPT} + 1 "
+              f"decode step): {row['flipped']} of {row['tokens']} tokens routed "
+              f"differently (gaps {[f'{x:.2e}' for x in row['flip_gaps']]}, "
+              f"router-logit error {delta:.3e}), {row['unexplained_flips']} off "
+              f"a tie; agreeing tokens err {err:.3e} of max, tol {tol:.3e} "
+              f"(CPU spread {spread:.3e}); control (experts {e1}<->{e2} "
+              f"swapped) {ctl_err:.3e}", flush=True)
+        if unexplained.any():
+            raise AssertionError(f"moecut {arch}: a routing flip off a tie")
+        if not err <= tol:
+            raise AssertionError(f"moecut {arch}: card vs CPU plain {err} > {tol}")
+        if not ctl_err > tol:
+            raise AssertionError(f"moecut {arch}: the control passed the bound")
+        del pc, pcpu, w_out
+        torch.cuda.empty_cache()
+    return out
+
+
+def moetrain_phase(log, counters):
+    """deepseek-v2-lite-16b trained through ``repro_torch.launch.train`` at
+    full width, depth cut to 3 (dense layer 0 + two MoE layers), batch 4 x
+    seq 256, 3 steps: losses and router metrics finite, kernel-1 / kernel-2
+    launches equal to the structural counts (forward, the MoE layers' remat
+    recompute, dX and dW of every forward GEMM); one profiled step (busy /
+    idle share, the kernel 1 / kernel 2 / other split, no aten GEMM or SDPA
+    op, peak memory)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import train
+    from repro_torch.optim import AdamW
+
+    cfg = dataclasses.replace(configs.get(M_ARCH), n_layers=MT_LAYERS)
+    n_moe = MT_LAYERS - 1
+    # a step's forward: the layer-0 block 7 (kernel 1) + 2 (kernel 2), each
+    # MoE layer 8 + 5, the head 1; the MoE layers again in the recompute;
+    # each forward GEMM's dX and dW
+    fwd1, fwd2 = 7 + 8 * n_moe + 1, 2 + 5 * n_moe
+    per_step = {"redmule_matmul": 3 * fwd1 + 8 * n_moe,
+                "redmule_matmul_batched": 3 * fwd2 + 5 * n_moe, "flash_attention": 0}
+    want = {k: MT_STEPS * v for k, v in per_step.items()}
+    print(f"[moetrain] predicted launches {want} ({MT_STEPS} steps x {per_step})",
+          flush=True)
+    argv = ["--arch", M_ARCH, "--full", "--layers", str(MT_LAYERS), "--batch",
+            str(MT_BATCH), "--seq", str(MT_SEQ), "--seed", str(SEED),
+            "--device", "cuda"]
+    _zero(counters)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = train.main(argv + ["--steps", str(MT_STEPS)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read(counters)
+    peak_main = torch.cuda.max_memory_allocated()
+    print(f"[moetrain] launches on the main path: {launches}", flush=True)
+    hist = out["history"]
+    keys = ("loss", "grad_norm", "moe_aux_loss", "moe_z_loss", "moe_drop_frac")
+    if len(hist) != MT_STEPS or not all(math.isfinite(h[k]) for h in hist for k in keys):
+        raise AssertionError(f"moetrain: non-finite or missing steps: {hist}")
+    for h in hist:
+        print(f"[moetrain] step {h['step']}: " + " ".join(
+            f"{k} {h[k]:.4f}" for k in keys) + f" step {h['step_ms']:.1f} ms",
+            flush=True)
+    got = {k: launches[k] for k in want}
+    print(f"[moetrain] launches {got}, structural {want}", flush=True)
+    if got != want:
+        raise AssertionError("moetrain: launches differ from the structural count")
+
+    opt = AdamW(lr=3e-3, warmup_steps=10)
+    step = train.build_train_step(cfg, opt)
+    ds = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=MT_SEQ,
+                     global_batch=MT_BATCH, seed=SEED)
+    holder = [train.init_state(cfg, opt, seed=SEED, device="cuda")]
+    holder[0], _ = step(holder[0], ds.batch(0))
+
+    def one_step():
+        holder[0], m = step(holder[0], ds.batch(1))
+        return m
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    prof = _k2_profile(one_step, 1, per_step["redmule_matmul_batched"])
+    peak_step = torch.cuda.max_memory_allocated()
+    del holder, step
+    torch.cuda.empty_cache()
+    _print_profile("moetrain step", prof)
+    print(f"[moetrain] peak {peak_step / 2**30:.2f} GiB (profiled step), "
+          f"{peak_main / 2**30:.2f} GiB (the entry point's run)", flush=True)
+    _no_library_gemm(prof, "moetrain step")
+    return {"train_wall_s": wall, "history": hist, "launches": launches,
+            "structural": want, "peak_mem_main_gib": peak_main / 2**30,
+            "peak_mem_step_gib": peak_step / 2**30, "profile": prof,
+            "params": out["params"]}
+
+
 def _to_cpu(tree):
     if hasattr(tree, "cpu"):
         return tree.cpu()
@@ -2687,19 +3211,32 @@ def main() -> int:
             if "registers" in line or "error" in line.lower():
                 print(f"[ptxas] {name}: {line.strip()}")
     log: list = []
-    kernels, counters, row_paths = kernel_phase(log)
-    serve = serve_phase(log, counters)
-    train = train_phase(log, counters)
-    lmtrain = lmtrain_phase(log, counters)
-    ae = ae_phase(log, counters)
-    ae8 = ae8_phase(log, counters)
-    serve8 = serve8_phase(log, counters)
+    phase_s = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        result = fn(*args)
+        phase_s[name] = time.perf_counter() - t
+        print(f"[phase] {name} {phase_s[name]:.1f}s", flush=True)
+        return result
+
+    kernels, counters, row_paths = timed("kernels", kernel_phase, log)
+    serve = timed("serve", serve_phase, log, counters)
+    train = timed("train", train_phase, log, counters)
+    lmtrain = timed("lmtrain", lmtrain_phase, log, counters)
+    ae = timed("ae", ae_phase, log, counters)
+    ae8 = timed("ae8", ae8_phase, log, counters)
+    serve8 = timed("serve8", serve8_phase, log, counters)
+    moeserve = timed("moeserve", moeserve_phase, log, counters)
+    moecut = timed("moecut", moe_cuts, log)
+    moetrain = timed("moetrain", moetrain_phase, log, counters)
     runs = {"serve": serve["launches"], "train": train["launches"],
             "lmtrain": lmtrain["launches"],
             "ae": ae["launches"], "ae_fp32": ae["launches_fp32"],
             "ae_b4096": ae["launches_b4096"], "ae8": ae8["launches"],
             "ae8_b4096": ae8["launches_b4096"], "ae8_e5m2": ae8["launches_e5m2"],
-            "serve8": serve8["launches"]}
+            "serve8": serve8["launches"], "moeserve": moeserve["launches"],
+            "moetrain": moetrain["launches"]}
     for kern in kernels:
         # a path outside the row's ``paths`` does not run its shape: null
         paths = row_paths.get(kern["name"], tuple(runs))
@@ -2710,9 +3247,11 @@ def main() -> int:
     split_by_path = {p: {k.split(": ")[1]: v for k, v in runs[p].items()
                          if k.startswith("split launches: ")} for p in runs}
     print(f"[report] split launches per path: {json.dumps(split_by_path)}", flush=True)
-    out = {"card": card, "build_s": build_s, "checks": log, "serve": serve,
+    out = {"card": card, "build_s": build_s, "phase_s": phase_s, "checks": log,
+           "serve": serve,
            "train": train, "lmtrain": lmtrain, "ae": ae, "ae8": ae8,
-           "serve8": serve8,
+           "serve8": serve8, "moeserve": moeserve, "moecut": moecut,
+           "moetrain": moetrain,
            "kernels": kernels, "split_launches_by_path": split_by_path}
     (ROOT / "chiprun_out").mkdir(exist_ok=True)
     (ROOT / "chiprun_out" / "chip_smoke.json").write_text(json.dumps(out, indent=1))

@@ -1,22 +1,25 @@
 """Architecture registry: ``get(arch_id)`` / ``get_reduced(arch_id)``.
 
 The ported architectures (the dense GQA / MHA decoders — token or
-embedding input, rmsnorm or layernorm, GLU or plain GELU MLP — and xLSTM)
-are registered; the reference's other ids raise ``NotImplementedError``
-naming ROADMAP.md.
+embedding input, rmsnorm or layernorm, GLU or plain GELU MLP — xLSTM, and
+the DeepSeek MoE decoders, with MHA or MLA attention) are registered; the
+reference's other id (hymba-1.5b) raises ``NotImplementedError`` naming
+ROADMAP.md.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Dict, Tuple
 
-from repro_torch.configs import (base, command_r_35b, mistral_nemo_12b,
+from repro_torch.configs import (base, command_r_35b, deepseek_moe_16b,
+                                 deepseek_v2_lite_16b, mistral_nemo_12b,
                                  musicgen_medium, pixtral_12b, qwen3_1_7b,
                                  xlstm_1_3b, yi_9b)
 from repro_torch.configs.base import ModelConfig
 
 _MODULES = (yi_9b, qwen3_1_7b, mistral_nemo_12b, command_r_35b,
-            musicgen_medium, xlstm_1_3b, pixtral_12b)
+            deepseek_v2_lite_16b, deepseek_moe_16b, musicgen_medium,
+            xlstm_1_3b, pixtral_12b)
 
 REGISTRY: Dict[str, Tuple[Callable[[], ModelConfig], Callable[[], ModelConfig]]] = {
     m.ARCH_ID: (m.full, m.reduced) for m in _MODULES
@@ -24,9 +27,9 @@ REGISTRY: Dict[str, Tuple[Callable[[], ModelConfig], Callable[[], ModelConfig]]]
 
 ARCH_IDS = tuple(REGISTRY)
 
-# the reference's architectures whose blocks (MLA, MoE, Mamba / hybrid)
-# are still to be ported
-NOT_YET_PORTED = ("deepseek-v2-lite-16b", "deepseek-moe-16b", "hymba-1.5b")
+# the reference's architectures whose blocks (Mamba / hybrid) are still to
+# be ported
+NOT_YET_PORTED = ("hymba-1.5b",)
 
 
 def _entry(arch_id: str):

@@ -1,19 +1,42 @@
 """The architecture config schema (counterpart of ``repro.configs.base``).
 
 The ``ModelConfig`` dataclass with the reference's fields and defaults,
-and the ``SSMConfig`` of the xLSTM / SSM families.  The MLA and MoE
-sub-configs and the shape helpers of the reference are not ported yet
-(ROADMAP.md): their ``mla`` / ``moe`` fields stay ``None``.
+and its sub-configs: ``MLAConfig`` (DeepSeek-V2's compressed-KV
+attention), ``MoEConfig`` (fine-grained routed + shared experts) and the
+``SSMConfig`` of the xLSTM / SSM families.  The shape helpers of the
+reference are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Tuple
+from typing import Optional, Tuple
 
 from repro_torch.core import precision as prec
 
-__all__ = ["ModelConfig", "SSMConfig"]
+__all__ = ["MLAConfig", "MoEConfig", "ModelConfig", "SSMConfig"]
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    kv_lora_rank: int = 512
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_head_dim: int = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_routed: int
+    n_shared: int
+    top_k: int
+    d_expert: int
+    dense_ff: int            # FFN width of the leading dense layer(s)
+    first_dense: int = 1
+    capacity_factor: float = 1.25
+    norm_topk_prob: bool = True
+    aux_weight: float = 0.01
+    z_weight: float = 1e-4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,8 +67,8 @@ class ModelConfig:
     rope_theta: float = 1e4
     sliding_window: Optional[int] = None
     full_attn_layers: Tuple[int, ...] = ()
-    mla: Optional[Any] = None
-    moe: Optional[Any] = None
+    mla: Optional[MLAConfig] = None
+    moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     norm: str = "rmsnorm"     # rmsnorm | layernorm
     act: str = "silu"
@@ -56,6 +79,8 @@ class ModelConfig:
     param_dtype: str = "float32"
     q_chunk: int = 1024
     ce_chunk: int = 0
+    # MoE expert parallelism: gspmd (one device: the plain dispatch) |
+    # shard_map (manual all_to_all: not ported, raises)
     moe_impl: str = "gspmd"
     remat: str = "full"
     notes: str = ""

@@ -68,8 +68,9 @@ dtype and runs flash without quantizing, as the reference does.
 ``attention``'s backward recomputes through the reference composition of
 two :func:`einsum2d` dispatches and differentiates it (the reference's
 ``_attention_call_bwd``); the composition also serves operands the flash
-kernel does not take.  The backward of ``grouped_matmul`` arrives with a
-later slice and raises ``NotImplementedError`` here.
+kernel does not take.  ``grouped_matmul`` differentiates through the same
+Function as ``matmul``: dX per group, dW one launch per group over all the
+rows of its lead dims.
 """
 
 from __future__ import annotations
@@ -114,8 +115,9 @@ def _itemsize(d) -> int:
 class GemmSpec:
     """One contraction, fully described (the reference's fields).
     ``m, n, k`` keep their logical meaning in every ``layout``;
-    ``valid_rows`` replaces ``groups * M`` in ragged grouped GEMMs (the
-    reference's ``ragged_dim == "m"``); ``io_bytes`` carries the exact
+    ``valid_rows`` replaces ``groups * <ragged_dim>`` in ragged grouped
+    GEMMs: ``ragged_dim == "m"`` on the forward and its dX, ``"n"`` (the
+    contraction rows) on its dW; ``io_bytes`` carries the exact
     traffic of an attention sweep.  On a backward dispatch
     ``grad_epilogue`` names the activation whose derivative scales dZ,
     ``grad_mode`` how it is recovered ("output" or "preact"),
@@ -140,6 +142,7 @@ class GemmSpec:
     w_shared: bool = False
     layout: str = "nn"
     valid_rows: Optional[int] = None
+    ragged_dim: str = "m"
     io_bytes: Optional[int] = None
     grad_epilogue: Optional[str] = None
     grad_mode: Optional[str] = None
@@ -154,24 +157,30 @@ class GemmSpec:
         if self.layout not in ("nn", "nt", "tn"):
             raise ValueError(
                 f"GemmSpec.layout = {self.layout!r}; known: ('nn', 'nt', 'tn')")
+        if self.ragged_dim not in ("m", "n"):
+            raise ValueError(
+                f"GemmSpec.ragged_dim = {self.ragged_dim!r}; known: ('m', 'n')")
         for f in ("x_dtype", "w_dtype"):
             prec._validate_dtype("GemmSpec", f, getattr(self, f), optional=True)
 
     @property
     def flops(self) -> int:
         """2 * B * G * M * N * K; ragged GEMMs bill ``valid_rows`` instead of
-        ``G * M``; pass events carry no MACs."""
+        ``G * <ragged_dim>``; pass events carry no MACs."""
         if is_pass_op(self.op):
             return 0
         if self.valid_rows is None:
             return 2 * self.batch * self.groups * self.m * self.n * self.k
-        return 2 * self.batch * self.valid_rows * self.n * self.k
+        if self.ragged_dim == "m":
+            return 2 * self.batch * self.valid_rows * self.n * self.k
+        return 2 * self.batch * self.m * self.valid_rows * self.k
 
     @property
     def bytes(self) -> int:
         """Operand + result bytes of one execution in device memory
         (``engine.py:320-396`` of the reference): a shared weight is read
-        once per group, ragged GEMMs bill valid rows only, each operand
+        once per group, ragged GEMMs bill the valid rows of the ragged
+        operand(s) only (and, ragged in M, of the output), each operand
         slot at its storage width (``x_dtype`` / ``w_dtype``: an FP8
         operand pays one byte per element) and the result at the output
         width.  A ``*_dact`` pass reads dZ and the residual and writes ds;
@@ -195,10 +204,20 @@ class GemmSpec:
             return bg * self.m * self.k * cb + self.k * ab
         if self.op.endswith("_postep"):
             return 2 * bg * self.m * self.k * ob + self.k * ab
-        rows = bg * self.m if self.valid_rows is None else self.batch * self.valid_rows
-        x_elems = rows * self.n
-        w_elems = (self.groups if self.w_shared else bg) * self.n * self.k
-        total = x_elems * xb + rows * self.k * ob + w_elems * wb
+        if self.valid_rows is None:
+            x_elems = bg * self.m * self.n
+            z_elems = bg * self.m * self.k
+            w_elems = (self.groups if self.w_shared else bg) * self.n * self.k
+        elif self.ragged_dim == "m":
+            x_elems = self.batch * self.valid_rows * self.n
+            z_elems = self.batch * self.valid_rows * self.k
+            w_elems = (self.groups if self.w_shared else bg) * self.n * self.k
+        else:  # ragged contraction rows (the grouped dW dispatch)
+            x_elems = self.batch * self.m * self.valid_rows
+            z_elems = bg * self.m * self.k
+            w_elems = (self.groups * self.n if self.w_shared
+                       else self.batch * self.valid_rows) * self.k
+        total = x_elems * xb + z_elems * ob + w_elems * wb
         if self.fused_bwd and self.grad_epilogue is not None:
             total += (x_elems if self.op.endswith("_dx") else w_elems) * cb
         if self.fused_bias_grad:
@@ -783,14 +802,6 @@ def _needs_grad(*tensors) -> bool:
         t is not None and t.requires_grad for t in tensors)
 
 
-def _no_backward(what: str, *tensors) -> None:
-    """Raise when autograd would have to differentiate an op whose backward
-    is not ported: a CUDA kernel's output carries no graph, so the
-    gradient would silently be lost."""
-    if _needs_grad(*tensors):
-        raise NotImplementedError(f"the backward of {what} is {_ROADMAP}")
-
-
 # --------------------------------------------------------------------- #
 # The backward: one autograd Function around the GEMM dispatch
 # --------------------------------------------------------------------- #
@@ -893,6 +904,11 @@ def _bwd_gemms(spec: GemmSpec, backend: str, count: int, xc, wc, dzc, *,
     apply ``act'`` to dZ on load, ``want_db`` makes the dW dispatch return
     the bias gradient (2D weights, "nn" only)."""
     gpol = _grad_policy(spec.policy)
+    if spec.valid_rows == 0:
+        # every group empty: the masked cotangent is zero, no dispatch (the
+        # reference's short-circuit, engine.py:1246)
+        zeros = lambda t: torch.zeros(t.shape, dtype=gpol.out_dtype, device=t.device)
+        return zeros(xc), zeros(wc), None
     g_store = _dispatch_storage(spec.policy, backend)[2]
     fb = deriv is not None
     act = spec.epilogue if fb else None
@@ -930,20 +946,33 @@ def _bwd_gemms(spec: GemmSpec, backend: str, count: int, xc, wc, dzc, *,
         dw, db = _grad_dispatch(dw_spec, backend, aw, bw, count, launch=lw,
                                 deriv=d2, want_db=want_db)
         return dx, dw, db
+    # batched / grouped: the specs carry the forward's ragged rows (dX
+    # ragged in M, dW in its contraction rows), as the reference bills them
     dx_spec = GemmSpec(
         op="matmul_dx", tag="bmk,bnk->bmn", layout="nt", m=spec.m, n=spec.k,
         k=spec.n, batch=spec.batch, groups=spec.groups, policy=gpol,
         w_shared=spec.w_shared, tile=tiling.choose_tiles(spec.m, spec.k, spec.n),
+        valid_rows=spec.valid_rows, ragged_dim="m",
         **dx_st, scaled=spec.scaled,
         accum_block=_faithful_block(gpol, spec.m, spec.k, spec.n, **dx_st))
     dw_spec = GemmSpec(
         op="matmul_dw", tag="bmn,bmk->bnk", layout="tn", m=spec.n, n=spec.m,
         k=spec.k, batch=spec.batch, groups=spec.groups, policy=gpol,
         w_shared=False, tile=tiling.choose_tiles(spec.n, spec.m, spec.k),
+        valid_rows=spec.valid_rows,
+        ragged_dim="n" if spec.valid_rows is not None else "m",
         **dw_st, scaled=spec.scaled,
         accum_block=_faithful_block(gpol, spec.n, spec.m, spec.k, **dw_st))
     (ax, bx, lx), (aw, bw, lw) = _bwd_operands(spec.layout, xc, wc, dzc)
     dx, _ = _grad_dispatch(dx_spec, backend, ax, bx, count, launch=lx)
+    if spec.groups > 1 and spec.layout == "nn" and not gpol.blockwise_accum:
+        # grouped (the experts): one "tn" launch per group over all B·M rows
+        # of x and dZ laid out (G, B·M, ·) — not a (B, G, N, K) fp32 grad
+        # summed down afterwards (5.9 GB at the MoE training shape).  An fp16
+        # accumulator keeps the reference's per-(b, g) rounding below.
+        G = wc.shape[0]
+        aw = xc.movedim(-3, 0).reshape(G, -1, xc.shape[-1])
+        bw = dzc.movedim(-3, 0).reshape(G, -1, dzc.shape[-1])
     dw, _ = _grad_dispatch(dw_spec, backend, aw, bw, count, launch=lw)
     return _unbroadcast(dx, xc.shape), _unbroadcast(dw, wc.shape), None
 
@@ -1484,7 +1513,13 @@ class Engine:
 
         ``group_sizes`` (``(G,)`` ints) marks the valid M rows per group:
         rows at or beyond a group's size come back zero, and the event
-        bills ``valid_rows = sum(min(size, M))`` instead of ``G * M``."""
+        bills ``valid_rows = sum(min(size, M))`` instead of ``G * M``.
+
+        Differentiable: dX is an "nt" launch per group (W broadcast over
+        the lead dims), dW one "tn" launch per group over the rows of every
+        lead index, billed as the reference's per-(b, g) ``matmul_dx`` /
+        ``matmul_dw`` specs with the forward's ``valid_rows``; the masked
+        rows' cotangent is zeroed by the mask's own backward."""
         policy = self.resolve_policy(policy)
         b = self.resolve_backend(backend)
         if x.ndim < 3 or w.ndim != 3:
@@ -1496,7 +1531,6 @@ class Engine:
         if x.shape[-1] != w.shape[-2]:
             raise ValueError(f"contraction mismatch: {tuple(x.shape)} @ "
                              f"{tuple(w.shape)}")
-        _no_backward("grouped_matmul", x, w)
         lead = tuple(x.shape[:-3])
         m, n, k = x.shape[-2], x.shape[-1], w.shape[-1]
         st = _storage(policy, b)
@@ -1507,7 +1541,7 @@ class Engine:
             valid_rows=_static_valid_rows(group_sizes, m), **st,
             accum_block=_faithful_block(policy, m, n, k, x_dtype=st["x_dtype"],
                                         w_dtype=st["w_dtype"]))
-        z, _ = _gemm_forward(spec, b, x, w)
+        z = _gemm_call(spec, b, x, w)
         if group_sizes is not None:
             sizes = torch.as_tensor(group_sizes, device=z.device)
             valid = (torch.arange(m, device=z.device)[None, :]

@@ -11,6 +11,9 @@ directory, and ``_ae_main``).  It runs on one device, the card by default::
         --batch 4 --seq 256 --steps 3 --fp16-scale   # tpu_fp16, loss scaling
     PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-1.3b --full \\
         --batch 4 --seq 256 --steps 3
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch deepseek-v2-lite-16b --full --layers 3 --batch 4 --seq 256 \\
+        --steps 3              # MoE + MLA at full width, depth cut to 3
     PYTHONPATH=src python -m repro_torch.launch.train --arch ae --batch 16 \\
         --steps 200            # the paper's AutoEncoder, paper_fp16
     PYTHONPATH=src python -m repro_torch.launch.train --arch ae --batch 16 \\
@@ -23,6 +26,10 @@ runs the plain PyTorch versions of the kernels.  The default arch is the
 reference's, qwen3-1.7b.  ``--fp16-scale`` trains an LM under ``tpu_fp16``
 with dynamic loss scaling: a step whose gradients overflow skips the
 parameters and the AdamW moments together and halves the scale.
+``--layers N`` cuts an LM's depth to N layers at its width (a MoE arch
+keeps its dense layer 0 and N - 1 MoE layers); a MoE arch prints its
+router metrics (``moe_aux_loss``, ``moe_z_loss``, ``moe_drop_frac``,
+summed over the MoE layers) every step and its history carries them.
 ``--arch ae`` trains the TinyMLPerf AutoEncoder under
 ``--policy`` (default ``paper_fp16``: the RedMulE fp16 accumulator in every
 GEMM; ``mixed_fp8_e4m3`` / ``mixed_fp8_e5m2`` store every GEMM operand in
@@ -46,7 +53,7 @@ from repro_torch import configs, resolve_device
 from repro_torch.core import engine
 from repro_torch.core import precision as prec
 from repro_torch.data import Prefetcher, SyntheticAE, SyntheticLM
-from repro_torch.models import autoencoder, transformer
+from repro_torch.models import autoencoder, moe, transformer
 from repro_torch.optim import (AdamW, OptState, adjust, clip_by_global_norm,
                                init_scale, scale_loss, tree_leaves, tree_map,
                                unscale_and_check)
@@ -293,7 +300,7 @@ def main(argv=None) -> Dict[str, Any]:
     """Train on synthetic data; returns ``{"arch", "device", "policy",
     "params", "history": [{"step", "loss", "grad_norm", "step_ms"}, ...]}``
     (with ``--fp16-scale`` each step also carries ``loss_scale`` and
-    ``finite``)."""
+    ``finite``, a MoE arch's the three router metrics)."""
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--arch", default="qwen3-1.7b",
                    help="an LM arch id, or 'ae' (the paper's AutoEncoder)")
@@ -302,6 +309,8 @@ def main(argv=None) -> Dict[str, Any]:
     p.add_argument("--steps", type=int, default=100)
     p.add_argument("--batch", type=int, default=8)
     p.add_argument("--seq", type=int, default=128)
+    p.add_argument("--layers", type=int, default=None,
+                   help="LM archs: cut the depth to this many layers")
     p.add_argument("--lr", type=float, default=3e-3)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
@@ -343,6 +352,8 @@ def main(argv=None) -> Dict[str, Any]:
     if args.policy is not None:
         raise ValueError("--policy applies to --arch ae only")
     cfg = configs.get_reduced(args.arch) if args.reduced else configs.get(args.arch)
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     if args.fp16_scale:
         cfg = dataclasses.replace(cfg, policy_name="tpu_fp16")
     opt = AdamW(lr=args.lr, warmup_steps=10)
@@ -373,12 +384,15 @@ def main(argv=None) -> Dict[str, Any]:
             if args.fp16_scale:
                 row["loss_scale"] = float(metrics["loss_scale"])
                 row["finite"] = bool(metrics["finite"])
+            row.update({k: float(metrics[k]) for k in moe.METRICS if k in metrics})
             history.append(row)
-            if i % 10 == 0 or i == args.steps - 1:
+            if cfg.moe or i % 10 == 0 or i == args.steps - 1:
                 scale = (f" loss_scale={row['loss_scale']:g} finite={row['finite']}"
                          if args.fp16_scale else "")
-                print(f"[{i}] loss={loss:.4f} grad_norm={gnorm:.4f}{scale} "
-                      f"step={timer.ms:.1f} ms", flush=True)
+                router = "".join(f" {k}={row[k]:.4f}" for k in moe.METRICS
+                                 if k in row)
+                print(f"[{i}] loss={loss:.4f} grad_norm={gnorm:.4f}{scale}"
+                      f"{router} step={timer.ms:.1f} ms", flush=True)
     finally:
         batches.close()
     if history:

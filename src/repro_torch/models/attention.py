@@ -1,23 +1,33 @@
-"""GQA attention (+ qk-norm) on the engine, with the serving KV cache.
+"""GQA attention (+ qk-norm) and MLA on the engine, with the serving caches.
 
-Counterpart of ``repro.models.attention`` for the paths serving and
-training run:
+Counterpart of ``repro.models.attention``.  :func:`chunked_attention`
+routes as the reference does (``attention.py:240-296``):
 
-* prefill, training and any call with static offsets go to the engine's
-  flash op (the reference's routing rule at ``attention.py:240-256``:
-  static offsets, no window, ``Dv == D``), whose backward recomputes
-  through the engine's reference composition;
-* a continuous-batching decode step, with per-slot positions and per-slot
-  KV lengths, takes the ragged route of ``attention.py:299-339``: scores
-  through the engine's ``grouped_matmul`` with one group per (slot, KV
-  head), PV through the batched ``matmul`` with V broadcast over the query
-  heads of a group.
+* static offsets, no window and ``Dv == D`` (prefill and training of the
+  GQA / MHA models) go to the engine's flash op, whose backward
+  recomputes through the engine's reference composition;
+* a continuous-batching decode step with per-slot KV lengths
+  (``kv_group_sizes``) takes the ragged route of ``attention.py:299-339``:
+  scores through the engine's ``grouped_matmul`` with one group per (slot,
+  KV head), PV through the batched ``matmul`` with V broadcast over the
+  query heads of a group;
+* everything else — ``Dv != D`` (MLA's prefill and training), a sliding
+  ``window``, per-slot offsets without group sizes — takes the q-chunked
+  path: per chunk of ``q_chunk`` query rows an fp32 score GEMM (K read
+  through a transposed view), the masked fp32 softmax, P cast to the
+  compute dtype and one PV GEMM, both on the batched GEMM kernel and
+  differentiable through the engine.
 
-The cache is ``k`` / ``v`` of shape ``(B, Hkv, T, hd)``.  New rows are
-written in place at their positions; the reference's decode merges with a
-whole-cache ``jnp.where`` (``attention.py:393-402``) instead — the values
-are the same.  MLA, sliding windows, the q-chunked fallback and the FP8 KV
-cache are not ported yet (ROADMAP.md).
+MLA (DeepSeek-V2) caches the compressed ``(c_kv, k_rope)`` pair; prefill and
+training re-expand it through ``wuk`` / ``wuv`` into the q-chunked path, and
+a decode step attends the compressed cache directly (the absorbed form:
+five fp32-out ``einsum2d`` contractions).
+
+The GQA cache is ``k`` / ``v`` ``(B, Hkv, T, hd)``, the MLA cache ``ckv``
+``(B, T, r)`` / ``kr`` ``(B, T, dr)``.  New rows are written in place at
+their positions; the reference's decode merges with a whole-cache
+``jnp.where`` (``attention.py:393-402``) instead — the values are the
+same.  The FP8 KV caches are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -26,13 +36,15 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core import engine
 from repro_torch.core import precision as prec
 from repro_torch.models import layers
 from repro_torch.models.layers import Param
 
-__all__ = ["gqa_schema", "init_gqa_cache", "chunked_attention", "gqa_attention"]
+__all__ = ["gqa_schema", "mla_schema", "init_gqa_cache", "init_mla_cache",
+           "chunked_attention", "gqa_attention", "mla_attention"]
 
 NEG_INF = -1e30
 _ROADMAP = "not yet ported (see ROADMAP.md, Queue A)"
@@ -53,6 +65,20 @@ def gqa_schema(cfg) -> Dict[str, Any]:
     return s
 
 
+def mla_schema(cfg) -> Dict[str, Any]:
+    m = cfg.mla
+    d, hq = cfg.d_model, cfg.n_heads
+    return {
+        "wq": Param((d, hq * (m.qk_nope_dim + m.qk_rope_dim))),
+        # fused down-projection: compressed kv rank + shared rope key
+        "wdkv": Param((d, m.kv_lora_rank + m.qk_rope_dim)),
+        "kv_norm": Param((m.kv_lora_rank,), init="ones"),
+        "wuk": Param((m.kv_lora_rank, hq * m.qk_nope_dim)),
+        "wuv": Param((m.kv_lora_rank, hq * m.v_head_dim)),
+        "wo": Param((hq * m.v_head_dim, d)),
+    }
+
+
 def init_gqa_cache(cfg, batch: int, max_len: int, dtype, storage_dtype=None,
                    *, device) -> Dict[str, torch.Tensor]:
     if storage_dtype is not None:
@@ -62,32 +88,47 @@ def init_gqa_cache(cfg, batch: int, max_len: int, dtype, storage_dtype=None,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def _masked_softmax_block(s: torch.Tensor, rows: torch.Tensor,
-                          kv_valid: torch.Tensor, causal: bool) -> torch.Tensor:
+def init_mla_cache(cfg, batch: int, max_len: int, dtype, storage_dtype=None,
+                   *, device) -> Dict[str, torch.Tensor]:
+    """The compressed MLA cache: ``ckv (B, T, r)`` and ``kr (B, T, dr)``."""
+    if storage_dtype is not None:
+        raise NotImplementedError(f"the FP8 MLA cache is {_ROADMAP}")
+    m = cfg.mla
+    return {"ckv": torch.zeros((batch, max_len, m.kv_lora_rank), dtype=dtype,
+                               device=device),
+            "kr": torch.zeros((batch, max_len, m.qk_rope_dim), dtype=dtype,
+                              device=device)}
+
+
+def _masked_softmax_block(s: torch.Tensor, rows: torch.Tensor, kv_valid,
+                          causal: bool, window=None) -> torch.Tensor:
     """fp32 softmax of scores ``s (B, Hkv, G, qc, T)`` over the columns
-    each query row sees; ``rows`` (qc,) or (B, qc), ``kv_valid`` scalar or
-    (B,)."""
+    each query row sees; ``rows`` (qc,) or (B, qc), ``kv_valid`` an int or
+    a scalar or (B,) tensor; ``window`` keeps ``col > row - window``."""
     cols = torch.arange(s.shape[-1], device=s.device)
     rows2 = rows if rows.ndim == 2 else rows[None]              # (Bm, qc)
-    kv = kv_valid.reshape(-1, 1, 1)                              # (Bm, 1, 1)
-    mask = cols[None, None, :] < kv
+    kv = torch.as_tensor(kv_valid, device=s.device).reshape(-1, 1, 1)
+    mask = cols[None, None, :] < kv                              # (Bm, 1, T)
     if causal:
         mask = mask & (cols[None, None, :] <= rows2[:, :, None])
+    if window is not None:
+        mask = mask & (cols[None, None, :] > rows2[:, :, None] - window)
     s = torch.where(mask[:, None, None], s, torch.full((), NEG_INF, device=s.device))
     return torch.softmax(s, dim=-1)
 
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       q_offset, kv_valid, causal: bool = True, window=None,
-                      scale: Optional[float] = None, kv_group_sizes=None,
-                      policy: prec.Policy) -> torch.Tensor:
-    """q ``(B, Hkv, G, S, hd)``, k / v ``(B, Hkv, T, hd)`` -> ``(B, Hkv, G,
-    S, hd)``.
+                      q_chunk: int = 1024, scale: Optional[float] = None,
+                      kv_group_sizes=None, policy: prec.Policy) -> torch.Tensor:
+    """q ``(B, Hkv, G, S, hd)``, k ``(B, Hkv, T, hd)``, v ``(B, Hkv, T,
+    hdv)`` -> ``(B, Hkv, G, S, hdv)``; ``q_offset`` / ``kv_valid`` are ints
+    or ``(B,)`` tensors (per-slot decode).
 
     ``kv_group_sizes`` (decode, S == 1): per-slot valid KV lengths; the
     score GEMM then bills only those rows (ragged ``grouped_matmul``).
-    Otherwise ``q_offset`` and ``kv_valid`` must be ints and the engine's
-    flash op runs."""
+    Static offsets with no window and ``hdv == hd`` run the engine's flash
+    op; anything else the q-chunked path (see the module docstring)."""
     B, Hkv, G, S, hd = q.shape
     if scale is None:
         scale = hd ** -0.5
@@ -95,23 +136,53 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if S != 1:
             raise ValueError("kv_group_sizes is a decode-only (S == 1) path")
         return _ragged_decode_attention(
-            q, k, v, q_offset=q_offset, kv_valid=kv_valid,
+            q, k, v, q_offset=q_offset, kv_valid=kv_valid, window=window,
             kv_group_sizes=kv_group_sizes, scale=scale,
             scores_policy=engine.scores_policy(policy), policy=policy)
-    if (window is not None or v.shape[-1] != hd
-            or not isinstance(q_offset, int) or not isinstance(kv_valid, int)
-            or not engine.backend_supports(engine.default_backend(), "attention")):
-        raise NotImplementedError(
-            f"the q-chunked attention path (windows, Dv != D, per-slot "
-            f"offsets without kv_group_sizes) is {_ROADMAP}")
-    out = engine.attention(q.reshape(B, Hkv * G, S, hd), k, v, causal=causal,
-                           scale=scale, q_offset=q_offset, t_valid=kv_valid,
-                           policy=policy)
-    return out.reshape(B, Hkv, G, S, -1)
+    if (window is None and v.shape[-1] == hd
+            and isinstance(q_offset, int) and isinstance(kv_valid, int)
+            and engine.backend_supports(engine.default_backend(), "attention")):
+        out = engine.attention(q.reshape(B, Hkv * G, S, hd), k, v,
+                               causal=causal, scale=scale, q_offset=q_offset,
+                               t_valid=kv_valid, policy=policy)
+        return out.reshape(B, Hkv, G, S, -1)
+    return _q_chunked_attention(q, k, v, q_offset=q_offset, kv_valid=kv_valid,
+                                causal=causal, window=window, q_chunk=q_chunk,
+                                scale=scale, policy=policy)
 
 
-def _ragged_decode_attention(q, k, v, *, q_offset, kv_valid, kv_group_sizes,
-                             scale: float, scores_policy: prec.Policy,
+def _q_chunked_attention(q, k, v, *, q_offset, kv_valid, causal: bool, window,
+                         q_chunk: int, scale: float,
+                         policy: prec.Policy) -> torch.Tensor:
+    """The reference's q-chunked path (``attention.py:257-296``): scores
+    never materialised beyond one chunk of query rows; ``S > q_chunk``
+    pads q to whole chunks and drops the pad rows after."""
+    B, Hkv, G, S, hd = q.shape
+    spol = engine.scores_policy(policy)
+    kt = k.transpose(-1, -2)[:, :, None]          # (B, Hkv, 1, hd, T), a view
+    vb = v[:, :, None]
+    per_slot = isinstance(q_offset, torch.Tensor) and q_offset.ndim == 1
+    n_rows = min(q_chunk, S)
+
+    def block(q_blk, start):
+        r = torch.arange(n_rows, device=q.device) + start
+        rows = q_offset[:, None] + r[None] if per_slot else q_offset + r
+        s = engine.matmul(q_blk, kt, policy=spol) * scale
+        p = _masked_softmax_block(s, rows, kv_valid, causal, window)
+        return engine.matmul(p.to(policy.compute_dtype), vb, policy=policy)
+
+    if S <= q_chunk:
+        return block(q, 0)
+    n = -(-S // q_chunk)
+    q = F.pad(q, (0, 0, 0, n * q_chunk - S))
+    out = torch.cat([block(q[:, :, :, i * q_chunk:(i + 1) * q_chunk], i * q_chunk)
+                     for i in range(n)], dim=3)
+    return out[:, :, :, :S]
+
+
+def _ragged_decode_attention(q, k, v, *, q_offset, kv_valid, window,
+                             kv_group_sizes, scale: float,
+                             scores_policy: prec.Policy,
                              policy: prec.Policy) -> torch.Tensor:
     """Mixed-length decode batch (the reference's ``attention.py:299``).
 
@@ -129,23 +200,25 @@ def _ragged_decode_attention(q, k, v, *, q_offset, kv_valid, kv_group_sizes,
     s = st.reshape(B, Hkv, T, G).transpose(-1, -2)[:, :, :, None, :] * scale
     rows = q_offset[:, None] if q_offset.ndim == 1 else q_offset + torch.arange(
         1, device=q.device)
-    p = _masked_softmax_block(s, rows, kv_valid, True)
+    p = _masked_softmax_block(s, rows, kv_valid, True, window)
     return engine.matmul(p.to(policy.compute_dtype), v[:, :, None], policy=policy)
 
 
 def _write_rows(cache: torch.Tensor, rows: torch.Tensor, pos) -> None:
-    """Write ``rows (B, Hkv, S, hd)`` into ``cache (B, Hkv, T, hd)`` in
-    place at position ``pos`` (int) or per-slot positions ``(B,)`` (S == 1)."""
+    """Write ``rows (B, ..., S, c)`` into ``cache (B, ..., T, c)`` (a GQA
+    leaf with its head dim, or an MLA leaf without) in place at position
+    ``pos`` (int) or per-slot positions ``(B,)`` (S == 1)."""
     if isinstance(pos, int):
-        cache[:, :, pos:pos + rows.shape[2]] = rows.to(cache.dtype)
+        cache[..., pos:pos + rows.shape[-2], :] = rows.to(cache.dtype)
     else:
         slots = torch.arange(cache.shape[0], device=cache.device)
-        cache[slots, :, pos] = rows[:, :, 0].to(cache.dtype)
+        cache.movedim(-2, 1)[slots, pos] = rows.movedim(-2, 1)[:, 0].to(cache.dtype)
 
 
 def gqa_attention(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg, *,
                   pos_offset, cache: Optional[Dict[str, torch.Tensor]] = None,
-                  window=None, policy: prec.Policy, kv_group_sizes=None
+                  window=None, policy: prec.Policy, q_chunk: int = 1024,
+                  kv_group_sizes=None
                   ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """x ``(B, S, d)`` -> ``(B, S, d)``; ``pos_offset`` is an int or, for
     a decode step, a ``(B,)`` tensor of per-slot positions.  With a cache
@@ -185,7 +258,87 @@ def gqa_attention(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg, *,
 
     o = chunked_attention(q.reshape(B, hkv, g, S, hd), k_all, v_all,
                           q_offset=pos_offset, kv_valid=kv_valid, causal=True,
-                          window=window, policy=policy,
+                          window=window, q_chunk=q_chunk, policy=policy,
                           kv_group_sizes=kv_group_sizes)
     o = o.reshape(B, hq, S, hd).transpose(1, 2).reshape(B, S, hq * hd)
+    return engine.matmul(o, params["wo"], policy=policy), cache
+
+
+def mla_attention(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg, *,
+                  pos_offset, cache: Optional[Dict[str, torch.Tensor]] = None,
+                  policy: prec.Policy, q_chunk: int = 1024, kv_group_sizes=None
+                  ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """MLA (reference ``attention.py:447-570``): x ``(B, S, d)`` -> ``(B,
+    S, d)``.  The compressed ``ckv`` / ``kr`` rows are written into the
+    cache in place.  A decode step (S == 1 with a cache) runs the absorbed
+    form; prefill and training re-expand k / v and take the q-chunked path
+    (qk dim ``dn + dr`` != v dim).  ``kv_group_sizes`` is accepted for the
+    GQA signature: the absorbed decode is einsum-shaped, so per-slot
+    lengths drive only the mask, as in the reference."""
+    del kv_group_sizes
+    m = cfg.mla
+    B, S, _ = x.shape
+    hq = cfg.n_heads
+    dn, dr, dv, r = m.qk_nope_dim, m.qk_rope_dim, m.v_head_dim, m.kv_lora_rank
+    per_slot = isinstance(pos_offset, torch.Tensor)
+    if per_slot and S != 1:
+        raise ValueError("per-slot pos_offset is a decode-only (S == 1) path")
+
+    q = engine.matmul(x, params["wq"], policy=policy).reshape(B, S, hq, dn + dr)
+    q = q.transpose(1, 2)                                   # (B, Hq, S, dn+dr)
+    qn, qr = q[..., :dn], q[..., dn:]
+    dkv = engine.matmul(x, params["wdkv"], policy=policy)  # (B, S, r + dr)
+    ckv = layers.rmsnorm(dkv[..., :r], params["kv_norm"])
+    kr = dkv[..., r:]
+
+    steps = torch.arange(S, device=x.device)
+    positions = pos_offset[:, None] + steps[None] if per_slot else pos_offset + steps
+    cos, sin = layers.rope(positions, dr, cfg.rope_theta)
+    qr = layers.apply_rope(qr, cos, sin)
+    kr = layers.apply_rope(kr[:, None], cos, sin)[:, 0]     # (B, S, dr)
+
+    if cache is not None:
+        _write_rows(cache["ckv"], ckv, pos_offset)
+        _write_rows(cache["kr"], kr, pos_offset)
+        ckv_all, kr_all = cache["ckv"], cache["kr"]
+        kv_valid = pos_offset + S
+    else:
+        ckv_all, kr_all, kv_valid = ckv, kr, S
+    T = ckv_all.shape[1]
+    scale = (dn + dr) ** -0.5
+
+    if S == 1 and cache is not None:
+        # absorbed decode: W_uk folds into the query and W_uv into the
+        # context, so the compressed cache is attended directly; every
+        # contraction accumulates and returns fp32 (the operands are cast
+        # to the compute dtype in the engine)
+        abs_policy = prec.Policy(policy.name + "_absorbed", policy.compute_dtype,
+                                 torch.float32, torch.float32)
+        wuk = params["wuk"].reshape(r, hq, dn)
+        wuv = params["wuv"].reshape(r, hq, dv)
+        q_abs = engine.einsum2d("bhsd,rhd->bhsr", qn, wuk, policy=abs_policy)
+        s = engine.einsum2d("bhsr,btr->bhst", q_abs, ckv_all, policy=abs_policy)
+        s = s + engine.einsum2d("bhsd,btd->bhst", qr, kr_all, policy=abs_policy)
+        s = s * scale
+        kv = torch.as_tensor(kv_valid, device=x.device).reshape(-1, 1, 1, 1)
+        mask = torch.arange(T, device=x.device)[None, None, None, :] < kv
+        s = torch.where(mask, s, torch.full((), NEG_INF, device=x.device))
+        p = torch.softmax(s, dim=-1)
+        ctx = engine.einsum2d("bhst,btr->bhsr", p, ckv_all, policy=abs_policy)
+        o = engine.einsum2d("bhsr,rhd->bhsd", ctx, wuv, policy=abs_policy)
+        o = o.to(policy.compute_dtype).transpose(1, 2).reshape(B, S, hq * dv)
+        return engine.matmul(o, params["wo"], policy=policy), cache
+
+    # prefill / training: re-expand the compressed rows (the MLA trade:
+    # a small cache, an extra GEMM)
+    kn = engine.matmul(ckv_all, params["wuk"], policy=policy)
+    vv = engine.matmul(ckv_all, params["wuv"], policy=policy)
+    kn = kn.reshape(B, T, hq, dn).transpose(1, 2)           # (B, Hq, T, dn)
+    vv = vv.reshape(B, T, hq, dv).transpose(1, 2)
+    k_full = torch.cat([kn, kr_all[:, None].expand(B, hq, T, dr)], dim=-1)
+    q_full = torch.cat([qn, qr], dim=-1)
+    o = chunked_attention(q_full[:, :, None], k_full, vv, q_offset=pos_offset,
+                          kv_valid=kv_valid, causal=True, q_chunk=q_chunk,
+                          scale=scale, policy=policy)
+    o = o[:, :, 0].transpose(1, 2).reshape(B, S, hq * dv)
     return engine.matmul(o, params["wo"], policy=policy), cache

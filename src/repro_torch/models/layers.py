@@ -15,6 +15,7 @@ d_out)`` and ``x @ W`` is the GEMM kernel's "nn".  All GEMMs go through
 from __future__ import annotations
 
 import dataclasses
+import math
 import zlib
 from typing import Any, Dict, Optional, Tuple
 
@@ -30,12 +31,22 @@ __all__ = ["Param", "init_tree", "stack_schema", "rmsnorm", "layernorm",
 
 @dataclasses.dataclass(frozen=True)
 class Param:
-    """One parameter: shape and initializer (proj | he | embed | zeros |
-    ones)."""
+    """One parameter: shape, initializer (proj | he | embed | zeros |
+    ones) and whether it is a routed expert's weight (the reference's
+    ``"experts"`` logical axis: ``count_params(active_only=True)`` counts
+    only ``top_k`` of ``n_routed`` of it)."""
 
     shape: Tuple[int, ...]
     init: str = "proj"
     fan_in_dim: int = -2
+    experts: bool = False
+
+
+# a stacked leaf (>= 3 dims) above this many elements is drawn one slice of
+# its leading dim at a time: the fp32 draw and its scaled copy are then one
+# slice, not the whole leaf (deepseek-v2-lite-16b's stacked expert w_in is
+# 9.6e9 elements: 38 GB in fp32, twice over, beside the 31 GB bf16 model)
+SLICE_DRAW_ELEMS = 1 << 30
 
 
 def _path_seed(seed: int, path: Tuple[str, ...]) -> int:
@@ -47,8 +58,14 @@ def init_tree(schema: Dict[str, Any], *, seed: int, device: torch.device,
               dtype: torch.dtype) -> Dict[str, Any]:
     """Materialise a schema on ``device``: normal * fan_in^-0.5 for
     projections, normal * (2 / fan_in)^0.5 for He init, normal * 0.02 for
-    embeddings, drawn in fp32 and cast to ``dtype``."""
+    embeddings, drawn in fp32 and cast to ``dtype``.  A stacked leaf above
+    :data:`SLICE_DRAW_ELEMS` is drawn slice by slice along its leading dim,
+    slice ``i`` from the seed of its path extended by ``i``."""
     gen = torch.Generator(device=device)
+
+    def draw(shape, path, scale):
+        gen.manual_seed(_path_seed(seed, path))
+        return (torch.randn(shape, generator=gen, device=device) * scale).to(dtype)
 
     def go(node, path):
         if isinstance(node, Param):
@@ -56,13 +73,17 @@ def init_tree(schema: Dict[str, Any], *, seed: int, device: torch.device,
                 return torch.zeros(node.shape, dtype=dtype, device=device)
             if node.init == "ones":
                 return torch.ones(node.shape, dtype=dtype, device=device)
-            gen.manual_seed(_path_seed(seed, path))
-            r = torch.randn(node.shape, generator=gen, device=device)
             if node.init == "embed":
-                return (r * 0.02).to(dtype)
-            fan_in = node.shape[node.fan_in_dim] if node.shape else 1
-            scale = (2.0 / fan_in) ** 0.5 if node.init == "he" else fan_in ** -0.5
-            return (r * scale).to(dtype)
+                scale = 0.02
+            else:
+                fan_in = node.shape[node.fan_in_dim] if node.shape else 1
+                scale = (2.0 / fan_in) ** 0.5 if node.init == "he" else fan_in ** -0.5
+            if len(node.shape) < 3 or math.prod(node.shape) <= SLICE_DRAW_ELEMS:
+                return draw(node.shape, path, scale)
+            out = torch.empty(node.shape, dtype=dtype, device=device)
+            for i in range(node.shape[0]):
+                out[i] = draw(node.shape[1:], path + (str(i),), scale)
+            return out
         return {k: go(v, path + (k,)) for k, v in node.items()}
 
     return go(schema, ())
@@ -74,7 +95,8 @@ def stack_schema(schema: Dict[str, Any], n: int) -> Dict[str, Any]:
     def go(node):
         if isinstance(node, Param):
             fd = node.fan_in_dim if node.fan_in_dim < 0 else node.fan_in_dim + 1
-            return Param(shape=(n, *node.shape), init=node.init, fan_in_dim=fd)
+            return Param(shape=(n, *node.shape), init=node.init, fan_in_dim=fd,
+                         experts=node.experts)
         return {k: go(v) for k, v in node.items()}
 
     return go(schema)

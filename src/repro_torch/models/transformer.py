@@ -1,5 +1,5 @@
-"""Decoder LM composition: the reference's ``"attn"`` and ``"xlstm"``
-block kinds.
+"""Decoder LM composition: the reference's ``"attn"``, ``"moe"`` and
+``"xlstm"`` block kinds.
 
 Counterpart of ``repro.models.transformer``.  Layer parameters are
 stacked along a leading layer dim as in the reference (so its parameter
@@ -8,20 +8,26 @@ trees carry across, see ``repro_torch.convert``); the reference's
 here, so the backward stacks each parameter's gradient once.  Attention
 blocks take rmsnorm or layernorm, a GLU or plain MLP, token ids or
 precomputed embeddings (``batch["embeddings"]``: the audio / vision
-front-end stubs); xLSTM stacks super-blocks of (7 mLSTM + 1 sLSTM).  With
-``remat="full"`` each block of the layer loop (each super-block for
-xLSTM) is a :func:`repro_torch.core.engine.checkpoint` region when it is
-trained, as the reference checkpoints its layer-scan body.  The tied LM
-head multiplies by the ``(V, d)`` embedding as stored, through the GEMM
-kernel's "nt" layout, and its backward reads the table in place — no
-transposed copy.  ``ce_chunk`` runs the chunked cross-entropy.  The
-serving entry points run under ``torch.inference_mode()``.  MoE and
-hybrid blocks, MLA, the xLSTM decode state and ``remat="dots"`` are not
-ported yet (ROADMAP.md).
+front-end stubs) and GQA or MLA attention; the MoE kind (DeepSeek) is an
+unstacked dense ``layer0`` (FFN width ``moe.dense_ff``) and a stack of
+MoE blocks, whose router metrics ``forward`` sums over layers and
+``loss_fn`` adds (``aux_weight`` / ``z_weight`` per MoE layer); xLSTM
+stacks super-blocks of (7 mLSTM + 1 sLSTM).  With ``remat="full"`` each
+block of the layer loop (each super-block for xLSTM) is a
+:func:`repro_torch.core.engine.checkpoint` region when it is trained, as
+the reference checkpoints its layer-scan body (``layer0`` stays outside,
+as in the reference).  The tied LM head multiplies by the ``(V, d)``
+embedding as stored, through the GEMM kernel's "nt" layout, and its
+backward reads the table in place — no transposed copy.  ``ce_chunk``
+runs the chunked cross-entropy.  The serving entry points run under
+``torch.inference_mode()``.  Hybrid (Hymba) blocks, the xLSTM decode
+state, ``moe_impl="shard_map"`` and ``remat="dots"`` are not ported yet
+(ROADMAP.md).
 """
 
 from __future__ import annotations
 
+import itertools
 import math
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -29,7 +35,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core import engine
-from repro_torch.models import attention, layers, ssm
+from repro_torch.models import attention, layers, moe, ssm
 from repro_torch.models.layers import Param
 
 __all__ = ["schema", "init_params", "count_params", "forward", "loss_fn",
@@ -39,12 +45,16 @@ _ROADMAP = "not yet ported (see ROADMAP.md, Queue A)"
 
 
 def _check_kind(cfg, *, serving: bool = False) -> None:
-    if cfg.block_kind == "xlstm" and not serving:
-        return
-    if (cfg.block_kind != "attn" or cfg.mla is not None
-            or cfg.mlp not in ("glu", "plain")):
-        what = ("the xlstm decode state" if cfg.block_kind == "xlstm" else
-                f"block kind {cfg.block_kind!r} / mlp {cfg.mlp!r}")
+    kind = cfg.block_kind
+    what = None
+    if kind == "xlstm":
+        what = "the xlstm decode state" if serving else None
+    elif kind not in ("attn", "moe") or cfg.mlp not in ("glu", "plain"):
+        what = f"block kind {kind!r} / mlp {cfg.mlp!r}"
+    elif kind == "moe" and cfg.moe_impl != "gspmd":
+        what = (f"moe_impl {cfg.moe_impl!r} (manual expert parallelism needs "
+                "the sharding runtime)")
+    if what:
         raise NotImplementedError(f"{what} (arch {cfg.name!r}) is {_ROADMAP}")
 
 
@@ -52,10 +62,19 @@ def _norm_param(cfg) -> Param:
     return Param((cfg.d_model,), init="ones")
 
 
-def _mlp_schema(cfg) -> Dict[str, Any]:
-    d, ff = cfg.d_model, cfg.d_ff
+def _mlp_schema(cfg, d_ff: Optional[int] = None) -> Dict[str, Any]:
+    d, ff = cfg.d_model, d_ff or cfg.d_ff
     return {"w_in": Param((d, 2 * ff if cfg.mlp == "glu" else ff)),
             "w_out": Param((ff, d))}
+
+
+def _attn_schema(cfg) -> Dict[str, Any]:
+    return attention.mla_schema(cfg) if cfg.mla else attention.gqa_schema(cfg)
+
+
+def _attn_block_schema(cfg, d_ff: Optional[int] = None) -> Dict[str, Any]:
+    return {"ln1": _norm_param(cfg), "attn": _attn_schema(cfg),
+            "ln2": _norm_param(cfg), "mlp": _mlp_schema(cfg, d_ff)}
 
 
 def _xlstm_super_schema(cfg) -> Dict[str, Any]:
@@ -79,21 +98,41 @@ def schema(cfg) -> Dict[str, Any]:
             raise ValueError(f"n_layers {cfg.n_layers} is not a multiple of "
                              f"slstm_period {cfg.ssm.slstm_period}")
         s["layers"] = layers.stack_schema(_xlstm_super_schema(cfg), n_super)
+    elif cfg.block_kind == "moe":
+        if cfg.moe.first_dense != 1:
+            raise ValueError(f"moe.first_dense {cfg.moe.first_dense}: only 1 "
+                             "leading dense layer is supported (as in the "
+                             "reference)")
+        s["layer0"] = _attn_block_schema(cfg, cfg.moe.dense_ff)
+        block = {"ln1": _norm_param(cfg), "attn": _attn_schema(cfg),
+                 "ln2": _norm_param(cfg), "moe": moe.moe_schema(cfg)}
+        s["layers"] = layers.stack_schema(block, cfg.n_layers - 1)
     else:
-        block = {"ln1": _norm_param(cfg), "attn": attention.gqa_schema(cfg),
-                 "ln2": _norm_param(cfg), "mlp": _mlp_schema(cfg)}
-        s["layers"] = layers.stack_schema(block, cfg.n_layers)
+        s["layers"] = layers.stack_schema(_attn_block_schema(cfg), cfg.n_layers)
     return s
 
 
-def count_params(cfg) -> int:
-    """Total parameters (embedding included), from the schema."""
-    def go(node):
-        if isinstance(node, Param):
-            return math.prod(node.shape)
-        return sum(go(v) for v in node.values())
+def count_params(cfg, active_only: bool = False) -> int:
+    """Total parameters (embedding included), from the schema; with
+    ``active_only`` a token's active ones (``top_k`` of ``n_routed`` of the
+    routed experts' weights, as the reference rounds it)."""
+    total = routed = 0
 
-    return go(schema(cfg))
+    def go(node):
+        nonlocal total, routed
+        if isinstance(node, Param):
+            n = math.prod(node.shape)
+            total += n
+            routed += n if node.experts else 0
+            return
+        for v in node.values():
+            go(v)
+
+    go(schema(cfg))
+    if active_only and cfg.moe:
+        return int(total - routed * (cfg.moe.n_routed - cfg.moe.top_k)
+                   / cfg.moe.n_routed)
+    return total
 
 
 def init_params(cfg, *, seed: int = 0, device="cuda",
@@ -151,14 +190,29 @@ def _xlstm_super_block(p, h, cfg, *, policy):
     return h + out
 
 
+def _run_attn(cfg, p, h, *, pos, cache, policy, kv_group_sizes):
+    """GQA or MLA attention (the cache, if any, is written in place)."""
+    fn = attention.mla_attention if cfg.mla else attention.gqa_attention
+    a, _ = fn(p, h, cfg, pos_offset=pos, cache=cache, policy=policy,
+              q_chunk=cfg.q_chunk, kv_group_sizes=kv_group_sizes)
+    return a
+
+
 def _attn_block(p, h, cfg, *, pos, cache, policy, kv_group_sizes=None):
-    a, cache = attention.gqa_attention(
-        p["attn"], _norm(cfg, h, p["ln1"]), cfg, pos_offset=pos, cache=cache,
-        policy=policy, kv_group_sizes=kv_group_sizes)
-    h = h + a
+    h = h + _run_attn(cfg, p["attn"], _norm(cfg, h, p["ln1"]), pos=pos,
+                      cache=cache, policy=policy, kv_group_sizes=kv_group_sizes)
     mlp = layers.mlp_glu if cfg.mlp == "glu" else layers.mlp_plain
-    m = mlp(p["mlp"], _norm(cfg, h, p["ln2"]), act=cfg.act, policy=policy)
-    return h + m, cache
+    return h + mlp(p["mlp"], _norm(cfg, h, p["ln2"]), act=cfg.act, policy=policy)
+
+
+def _moe_block(p, h, cfg, *, pos, cache, policy, kv_group_sizes=None):
+    """Attention, then the MoE FFN; returns ``(h, metrics)`` with the
+    metrics as a tuple in :data:`moe.METRICS` order."""
+    h = h + _run_attn(cfg, p["attn"], _norm(cfg, h, p["ln1"]), pos=pos,
+                      cache=cache, policy=policy, kv_group_sizes=kv_group_sizes)
+    m, metrics = moe.moe_forward(p["moe"], _norm(cfg, h, p["ln2"]), cfg,
+                                 policy=policy)
+    return h + m, tuple(metrics[k] for k in moe.METRICS)
 
 
 def _head(params, cfg, h: torch.Tensor) -> torch.Tensor:
@@ -171,11 +225,12 @@ def _head(params, cfg, h: torch.Tensor) -> torch.Tensor:
 
 def forward(params: Dict[str, Any], cfg, batch: Dict[str, torch.Tensor], *,
             cache: Optional[Dict[str, Any]] = None, pos=0,
-            last_only: bool = False, head: bool = True,
-            kv_group_sizes=None) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
+            last_only: bool = False, head: bool = True, kv_group_sizes=None
+            ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]], Dict[str, torch.Tensor]]:
     """Logits ``(B, S', V)`` (``S' = 1`` with ``last_only``; with ``head``
-    False the final-normed hidden states) and the cache (updated in
-    place).  The input is ``batch["embeddings"]`` ``(B, S, d)`` where the
+    False the final-normed hidden states), the cache (updated in place)
+    and the MoE metrics summed over the MoE layers (empty for other
+    kinds).  The input is ``batch["embeddings"]`` ``(B, S, d)`` where the
     batch carries it, else the embedded ``batch["inputs"]``.  ``pos`` is an
     int or a ``(B,)`` tensor of per-slot decode positions."""
     _check_kind(cfg, serving=cache is not None)
@@ -184,24 +239,34 @@ def forward(params: Dict[str, Any], cfg, batch: Dict[str, torch.Tensor], *,
         h = batch["embeddings"].to(policy.compute_dtype)
     else:
         h = params["embed"][batch["inputs"]].to(policy.compute_dtype)
+    aux: Dict[str, torch.Tensor] = {}
     if cfg.block_kind == "xlstm":
         block = _remat(cfg, lambda lp, hh: _xlstm_super_block(
             lp, hh, cfg, policy=policy))
         for lp in _unbind(params["layers"]):
             h = block(lp, h)
-    elif cache is None:
-        block = _remat(cfg, lambda lp, hh: _attn_block(
-            lp, hh, cfg, pos=pos, cache=None, policy=policy)[0])
-        for lp in _unbind(params["layers"]):
-            h = block(lp, h)
     else:
-        for lp, lc in zip(_unbind(params["layers"]), _unbind(cache["layers"])):
-            h, _ = _attn_block(lp, h, cfg, pos=pos, cache=lc, policy=policy,
-                               kv_group_sizes=kv_group_sizes)
+        kw = dict(pos=pos, policy=policy, kv_group_sizes=kv_group_sizes)
+        if cfg.block_kind == "moe":
+            # the dense layer 0, outside the remat (as the reference's scan)
+            h = _attn_block(params["layer0"], h, cfg,
+                            cache=None if cache is None else cache["layer0"], **kw)
+            layer = lambda lp, hh, lc: _moe_block(lp, hh, cfg, cache=lc, **kw)
+        else:
+            layer = lambda lp, hh, lc: (_attn_block(lp, hh, cfg, cache=lc, **kw), ())
+        block = layer if cache is not None else _remat(cfg, layer)
+        caches = (itertools.repeat(None) if cache is None
+                  else _unbind(cache["layers"]))
+        sums = None
+        for lp, lc in zip(_unbind(params["layers"]), caches):
+            h, m = block(lp, h, lc)
+            sums = m if sums is None else tuple(a + b for a, b in zip(sums, m))
+        if cfg.block_kind == "moe":
+            aux = dict(zip(moe.METRICS, sums))
     if last_only:
         h = h[:, -1:]   # serving: never materialise (B, S, V) prompt logits
     h = _norm(cfg, h, params["final_norm"])
-    return (_head(params, cfg, h) if head else h), cache
+    return (_head(params, cfg, h) if head else h), cache, aux
 
 
 def _chunked_ce(params, cfg, h: torch.Tensor, labels: torch.Tensor
@@ -241,11 +306,17 @@ def loss_fn(params: Dict[str, Any], cfg, batch: Dict[str, torch.Tensor]
     embeddings) against ``batch["labels"]`` (labels < 0 masked), with its
     metrics; chunked over batch rows when ``cfg.ce_chunk`` is set."""
     if cfg.ce_chunk:
-        h, _ = forward(params, cfg, batch, head=False)
+        h, _, aux = forward(params, cfg, batch, head=False)
         loss, metrics = _chunked_ce(params, cfg, h, batch["labels"])
     else:
-        logits, _ = forward(params, cfg, batch)
+        logits, _, aux = forward(params, cfg, batch)
         loss, metrics = layers.cross_entropy(logits, batch["labels"])
+    if cfg.moe:
+        # the reference's per-MoE-layer weighting (transformer.py:444-448)
+        n = max(cfg.n_layers - 1, 1)
+        loss = loss + cfg.moe.aux_weight * aux["moe_aux_loss"] / n
+        loss = loss + cfg.moe.z_weight * aux["moe_z_loss"] / n
+        metrics.update(aux)
     metrics["loss"] = loss
     return loss, metrics
 
@@ -257,8 +328,8 @@ def serve_step(params, cfg, tokens: torch.Tensor, cache, pos, *,
     ``(B, V)``, cache).  ``pos`` is an int (uniform batch) or a ``(B,)``
     tensor (the scheduler's continuous batch, with ``kv_group_sizes`` the
     per-slot valid KV lengths after this step's append)."""
-    logits, cache = forward(params, cfg, {"inputs": tokens}, cache=cache,
-                            pos=pos, kv_group_sizes=kv_group_sizes)
+    logits, cache, _ = forward(params, cfg, {"inputs": tokens}, cache=cache,
+                               pos=pos, kv_group_sizes=kv_group_sizes)
     return logits[:, -1], cache
 
 
@@ -270,17 +341,22 @@ def prefill(params, cfg, batch, max_len: int, storage_dtype=None):
     cache = init_cache(cfg, B, max_len, dtype=cfg.policy.compute_dtype,
                        storage_dtype=storage_dtype,
                        device=params["embed"].device)
-    logits, cache = forward(params, cfg, batch, cache=cache, pos=0,
-                            last_only=True)
+    logits, cache, _ = forward(params, cfg, batch, cache=cache, pos=0,
+                               last_only=True)
     return logits[:, -1], cache
 
 
 def init_cache(cfg, batch: int, max_len: int, dtype=None, storage_dtype=None,
                *, device="cuda"):
-    """The decode cache ``{"layers": {"k", "v": (L, B, Hkv, T, hd)}}``."""
+    """The decode cache ``{"layers": {"k", "v": (L, B, Hkv, T, hd)}}``
+    (MLA: ``{"ckv": (L, B, T, r), "kr": (L, B, T, dr)}``); the MoE kind
+    also has the unstacked ``"layer0"``."""
     _check_kind(cfg, serving=True)
-    one = attention.init_gqa_cache(
-        cfg, batch, max_len, dtype or cfg.policy.compute_dtype, storage_dtype,
-        device=resolve_device(device))
-    return {"layers": {k: v[None].repeat(cfg.n_layers, *([1] * v.ndim))
-                       for k, v in one.items()}}
+    init = attention.init_mla_cache if cfg.mla else attention.init_gqa_cache
+    one = init(cfg, batch, max_len, dtype or cfg.policy.compute_dtype,
+               storage_dtype, device=resolve_device(device))
+    n = cfg.n_layers - (cfg.block_kind == "moe")
+    out = {"layers": {k: v[None].repeat(n, *([1] * v.ndim)) for k, v in one.items()}}
+    if cfg.block_kind == "moe":
+        out["layer0"] = one
+    return out

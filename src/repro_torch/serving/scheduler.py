@@ -87,7 +87,7 @@ class Scheduler:
     on the device the parameters live on."""
 
     def __init__(self, params, cfg, scfg: SchedulerConfig):
-        if cfg.block_kind != "attn":
+        if cfg.block_kind not in ("attn", "moe"):
             raise NotImplementedError(
                 f"serving block kind {cfg.block_kind!r} is {_ROADMAP}")
         if scfg.n_slots < 1:

@@ -187,7 +187,7 @@ def test_prefill_logits_bf16_bound(arch):
 def test_unported_paths_raise(fp32):
     _, tcfg, _, tparams = fp32
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tconfigs.get("deepseek-moe-16b")
+        tconfigs.get("hymba-1.5b")
     with pytest.raises(NotImplementedError, match="FP8"):
         tt.init_cache(tcfg, 1, 8, storage_dtype="float8_e4m3fn", device="cpu")
     with pytest.raises(NotImplementedError, match="resilience"):

@@ -281,8 +281,15 @@ def test_backwards_of_later_slices_raise():
     (want,) = torch.autograd.grad(
         torch.nn.functional.gelu(xr @ w, approximate="tanh").sum(), xr)
     torch.testing.assert_close(gx, want, rtol=1e-5, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="grouped_matmul"):
-        te.grouped_matmul(x[None], w[None].expand(2, 8, 8), policy="fp32")
+    # grouped_matmul differentiates now: its gradient is the plain one
+    wg = w[None].expand(2, 8, 8).detach().requires_grad_(True)
+    (gx, gw) = torch.autograd.grad(
+        te.grouped_matmul(x[None], wg, policy="fp32").sum(), (x, wg))
+    xr = x.detach().requires_grad_(True)
+    wr = wg.detach().requires_grad_(True)
+    want = torch.autograd.grad((xr[None] @ wr).sum(), (xr, wr))
+    torch.testing.assert_close(gx, want[0], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(gw, want[1], rtol=1e-5, atol=1e-5)
     # attention differentiates now (tests/test_torch_lm_train.py); remat
     # "dots" still raises
     q = torch.randn(1, 2, 8, 16, requires_grad=True)
