@@ -1,10 +1,9 @@
 """Architecture registry: ``get(arch_id)`` / ``get_reduced(arch_id)``.
 
-The ported architectures (the dense GQA / MHA decoders — token or
-embedding input, rmsnorm or layernorm, GLU or plain GELU MLP — xLSTM, and
-the DeepSeek MoE decoders, with MHA or MLA attention) are registered; the
-reference's other id (hymba-1.5b) raises ``NotImplementedError`` naming
-ROADMAP.md.
+Every architecture of the reference is registered: the dense GQA / MHA
+decoders (token or embedding input, rmsnorm or layernorm, GLU or plain
+GELU MLP), xLSTM, the hybrid attention + Mamba2 / SSD hymba-1.5b, and the
+DeepSeek MoE decoders, with MHA or MLA attention.
 """
 
 from __future__ import annotations
@@ -12,14 +11,14 @@ from __future__ import annotations
 from typing import Callable, Dict, Tuple
 
 from repro_torch.configs import (base, command_r_35b, deepseek_moe_16b,
-                                 deepseek_v2_lite_16b, mistral_nemo_12b,
-                                 musicgen_medium, pixtral_12b, qwen3_1_7b,
-                                 xlstm_1_3b, yi_9b)
+                                 deepseek_v2_lite_16b, hymba_1_5b,
+                                 mistral_nemo_12b, musicgen_medium,
+                                 pixtral_12b, qwen3_1_7b, xlstm_1_3b, yi_9b)
 from repro_torch.configs.base import ModelConfig
 
 _MODULES = (yi_9b, qwen3_1_7b, mistral_nemo_12b, command_r_35b,
             deepseek_v2_lite_16b, deepseek_moe_16b, musicgen_medium,
-            xlstm_1_3b, pixtral_12b)
+            xlstm_1_3b, hymba_1_5b, pixtral_12b)
 
 REGISTRY: Dict[str, Tuple[Callable[[], ModelConfig], Callable[[], ModelConfig]]] = {
     m.ARCH_ID: (m.full, m.reduced) for m in _MODULES
@@ -27,16 +26,8 @@ REGISTRY: Dict[str, Tuple[Callable[[], ModelConfig], Callable[[], ModelConfig]]]
 
 ARCH_IDS = tuple(REGISTRY)
 
-# the reference's architectures whose blocks (Mamba / hybrid) are still to
-# be ported
-NOT_YET_PORTED = ("hymba-1.5b",)
-
 
 def _entry(arch_id: str):
-    if arch_id in NOT_YET_PORTED:
-        raise NotImplementedError(
-            f"arch {arch_id!r} is not yet ported (see ROADMAP.md, Queue A); "
-            f"ported: {ARCH_IDS}")
     try:
         return REGISTRY[arch_id]
     except KeyError as e:
@@ -51,5 +42,4 @@ def get_reduced(arch_id: str) -> ModelConfig:
     return _entry(arch_id)[1]()
 
 
-__all__ = ["REGISTRY", "ARCH_IDS", "NOT_YET_PORTED", "get", "get_reduced",
-           "ModelConfig", "base"]
+__all__ = ["REGISTRY", "ARCH_IDS", "get", "get_reduced", "ModelConfig", "base"]

@@ -1269,7 +1269,14 @@ def _linear_attention_reference(q, k, v, log_g, *, chunk: int,
     (``engine.py:1654-1706``): per chunk an fp32 score GEMM with the decay
     matrix, the intra-chunk PV GEMM, the inter-chunk ``q·exp(L) @ state``
     read and the decayed ``kᵀv`` state update, all under the FP32 policy.
-    Returns ``(out fp32, state fp32)``; differentiable."""
+    Returns ``(out fp32, state fp32)``; differentiable.
+
+    The decay matrix exponentiates ``L_i - L_j`` only where ``i >= j``
+    (there it is <= 0); the reference exponentiates every entry and masks
+    after, so where a chunk's decays sum below about -88 the masked
+    entries overflow to inf and its gradient is 0 · inf = NaN (Mamba2's
+    ``dt·exp(a_log)`` reaches that at full width).  The values are the
+    same."""
     B, H, S, dk = q.shape
     dv = v.shape[-1]
     f32 = prec.FP32
@@ -1292,7 +1299,8 @@ def _linear_attention_reference(q, k, v, log_g, *, chunk: int,
         qc, kc, vc, gc = qf[:, :, i], kf[:, :, i], vf[:, :, i], gf[:, :, i]
         L = torch.cumsum(gc, dim=-1)
         ltot = L[..., -1:]
-        A = torch.where(causal, torch.exp(L[..., :, None] - L[..., None, :]), zero)
+        A = torch.where(causal, torch.exp(torch.where(
+            causal, L[..., :, None] - L[..., None, :], zero)), zero)
         s = eng.einsum2d("bhik,bhjk->bhij", qc, kc, policy=f32, backend=backend) * A
         out = eng.matmul(s, vc, policy=f32, backend=backend)
         out = out + eng.matmul(qc * torch.exp(L)[..., None], s_prev, policy=f32,

@@ -11,7 +11,11 @@
 //   S     <- exp(L_C) S + (k * exp(L_C - L))^T v
 // with S (dk x dv) starting at zero and stored once, after the last chunk
 // (the reference's store-once rule applied to the recurrent state).  `out`
-// is stored in the input dtype, the state in fp32.
+// is stored in q's dtype, the state in fp32.  v may have its own element
+// type: Mamba2 / SSD (hymba) feeds fp32 q / k (C and B, from an fp32 GEMM)
+// with bf16 or fp16 v = dt x, as the reference kernel accepts by widening
+// every operand to fp32 on load; here v is widened on load into the same
+// fp32 / TF32-piece path (a 16-bit v is exact in one TF32 piece).
 //
 // Two launches, one wrapper call.
 // 1. `chunked_linear_attention_scores_kernel`, one block per (head, chunk,
@@ -64,9 +68,14 @@
 // and k again from L2 (512 MB of L2 reads a call; a cluster sharing slabs
 // by TMA multicast would cut that).
 //
+// At hymba's dk = 16 (the SSM state size) the sweep still gives each warp
+// 128 dk columns: warps 1-7 of each block idle and 7/8 of warp 0's columns
+// are zero padding (ROADMAP Queue B).
+//
 // Contract (checked by the Python wrapper): S is a multiple of C (callers
 // pad with g = 0, k = 0, which is inert); C in {16, 32, 64, 128}; dk <=
-// 1024; any dv; BH <= 65535.
+// 1024; any dv; BH <= 65535; (q / k, v) in (fp16, fp16), (bf16, bf16),
+// (fp32, fp32), (fp32, bf16) or (fp32, fp16).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -342,16 +351,18 @@ __global__ void __launch_bounds__(32 * kScoreWarps)
 // are the eight consecutive dk columns 32 a + 8 t .. + 7: one 16-byte read
 // of a q row feeds the four n-tiles of the inter-chunk read.
 // ------------------------------------------------------------------------
-template <typename T, int C>
+template <typename T, typename TV, int C>
 struct Sweep {
   static constexpr bool kSplitIn = std::is_same<T, float>::value;
+  static constexpr bool kSplitV = std::is_same<TV, float>::value;
   static constexpr int CE = 16 / sizeof(T);             // elements per 16 bytes
+  static constexpr int CEV = 16 / sizeof(TV);           // v elements per 16 bytes
   static constexpr int RG0 = 64 / sizeof(T);            // slab rows: 32 (16 fp32)
   static constexpr int RG = C < RG0 ? C : RG0;
   static constexpr int NG = C / RG;                     // slabs of q (and of k) per chunk
   static constexpr int RNT = RG / 8;                    // chunk-row n-tiles per slab
   static constexpr int ALD = C + 8;                     // padded row of staged scores
-  static constexpr int VLD = kTV + CE;                  // padded row of the v chunk
+  static constexpr int VLD = kTV + CEV;                 // padded row of the v chunk
   static constexpr int RED = 2 * RNT * 4 * 32;          // partial sums per warp
 
   // shared memory, in bytes, for a slab row of dks elements
@@ -359,7 +370,7 @@ struct Sweep {
     return (long long)RG * dks * sizeof(T);
   }
   static __host__ __device__ long long smem_bytes(int dks) {
-    return 2 * slab_bytes(dks) + 2LL * RG * ALD * 4 + 2LL * C * VLD * sizeof(T) +
+    return 2 * slab_bytes(dks) + 2LL * RG * ALD * 4 + 2LL * C * VLD * sizeof(TV) +
            2LL * C * 4 + (long long)kWarps * RED * 4;
   }
 };
@@ -373,24 +384,24 @@ __device__ __forceinline__ int slab_off(int row, int col, int dks) {
   return row * dks + (((col / CE) ^ ((row & 1) * SW)) * CE) + col % CE;
 }
 
-template <typename T, int C>
+template <typename T, typename TV, int C>
 __global__ void __launch_bounds__(kThreads, 1)
     chunked_linear_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                                    const T* __restrict__ v,
+                                    const TV* __restrict__ v,
                                     const float* __restrict__ Lg,
                                     const float* __restrict__ Ag, T* __restrict__ out,
                                     float* __restrict__ state, int S, int dk, int dv,
                                     int vec_dk, int vec_dv) {
-  using P = Sweep<T, C>;
-  constexpr bool kSp = P::kSplitIn;
-  constexpr int CE = P::CE, RG = P::RG, NG = P::NG, RNT = P::RNT;
+  using P = Sweep<T, TV, C>;
+  constexpr bool kSp = P::kSplitIn, kSpV = P::kSplitV;
+  constexpr int CE = P::CE, CEV = P::CEV, RG = P::RG, NG = P::NG, RNT = P::RNT;
   constexpr int ALD = P::ALD, VLD = P::VLD, RED = P::RED;
   const int dks = (dk + kDKW - 1) / kDKW * kDKW;
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* slab = reinterpret_cast<T*>(smem_raw);                       // [2][RG][dks]
   float* As = reinterpret_cast<float*>(smem_raw + 2 * P::slab_bytes(dks));  // [2][RG][ALD]
-  T* vbuf = reinterpret_cast<T*>(As + 2 * RG * ALD);              // [2][C][VLD]
+  TV* vbuf = reinterpret_cast<TV*>(As + 2 * RG * ALD);            // [2][C][VLD]
   float* Lbuf = reinterpret_cast<float*>(vbuf + 2 * C * VLD);     // [2][C]
   float* red = Lbuf + 2 * C;                                      // [kWarps][RED]
 
@@ -405,7 +416,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   const T* qh = q + (long long)bh * S * dk;
   const T* kh = k + (long long)bh * S * dk;
-  const T* vh = v + (long long)bh * S * dv;
+  const TV* vh = v + (long long)bh * S * dv;
   const float* Lh = Lg + (long long)bh * S;
   const float* Ah = Ag + (long long)bh * n_ch * C * C;
 
@@ -431,13 +442,13 @@ __global__ void __launch_bounds__(kThreads, 1)
         cp_async16(adst + r * ALD + col, asrc + (long long)r * C + col);
       }
       if (x == 0) {
-        T* vd = vbuf + (c & 1) * C * VLD;
-        const T* vs = vh + (long long)c * C * dv + j0;
-        constexpr int VC = kTV / CE;
+        TV* vd = vbuf + (c & 1) * C * VLD;
+        const TV* vs = vh + (long long)c * C * dv + j0;
+        constexpr int VC = kTV / CEV;
         for (int e = tid; e < C * VC; e += kThreads) {
-          const int r = e / VC, col = (e % VC) * CE;
-          copy_chunk<T>(vd + r * VLD + col, vs + (long long)r * dv + col,
-                        dv - (j0 + col), vdv);
+          const int r = e / VC, col = (e % VC) * CEV;
+          copy_chunk<TV>(vd + r * VLD + col, vs + (long long)r * dv + col,
+                         dv - (j0 + col), vdv);
         }
         float* ld = Lbuf + (c & 1) * C;
         for (int e = tid; e < C / 4; e += kThreads)
@@ -462,16 +473,16 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int c = u / (2 * NG), x = u % (2 * NG);
     const T* sl = slab + (u & 1) * RG * dks;
     const float* Lc = Lbuf + (c & 1) * C;
-    const T* vc = vbuf + (c & 1) * C * VLD;
+    const TV* vc = vbuf + (c & 1) * C * VLD;
 
     // A fragments of v^T for chunk rows r, r + 1 (k positions t, t + 4)
     auto vfrag = [&](Pc (&a)[2][4], int r) {
 #pragma unroll
       for (int m = 0; m < 2; ++m) {
-        a[m][0] = pieces<kSp>(to_f(vc[r * VLD + 16 * m + gq]));
-        a[m][1] = pieces<kSp>(to_f(vc[r * VLD + 16 * m + gq + 8]));
-        a[m][2] = pieces<kSp>(to_f(vc[(r + 1) * VLD + 16 * m + gq]));
-        a[m][3] = pieces<kSp>(to_f(vc[(r + 1) * VLD + 16 * m + gq + 8]));
+        a[m][0] = pieces<kSpV>(to_f(vc[r * VLD + 16 * m + gq]));
+        a[m][1] = pieces<kSpV>(to_f(vc[r * VLD + 16 * m + gq + 8]));
+        a[m][2] = pieces<kSpV>(to_f(vc[(r + 1) * VLD + 16 * m + gq]));
+        a[m][3] = pieces<kSpV>(to_f(vc[(r + 1) * VLD + 16 * m + gq + 8]));
       }
     };
 
@@ -535,7 +546,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           const float2 b = *reinterpret_cast<const float2*>(Ar + (8 * n + gq) * ALD + 8 * kk + 2 * t);
           const Pc b0 = split(b.x), b1 = split(b.y);
 #pragma unroll
-          for (int m = 0; m < 2; ++m) mma3<kSp, true>(acc[m][n], av[m], b0, b1);
+          for (int m = 0; m < 2; ++m) mma3<kSpV, true>(acc[m][n], av[m], b0, b1);
         }
       }
       float* rw = red + warp * RED;
@@ -584,7 +595,7 @@ __global__ void __launch_bounds__(kThreads, 1)
             const Pc b0 = split(to_f(sl[slab_off<T>(ra, col, dks)]) * fa);
             const Pc b1 = split(to_f(sl[slab_off<T>(ra + 1, col, dks)]) * fb);
 #pragma unroll
-            for (int m = 0; m < 2; ++m) mma3<kSp, true>(st[m][nt], av[m], b0, b1);
+            for (int m = 0; m < 2; ++m) mma3<kSpV, true>(st[m][nt], av[m], b0, b1);
           }
         }
       }
@@ -608,13 +619,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-template <typename T, int C>
+template <typename T, typename TV, int C>
 int launch(const void* q, const void* k, const void* v, const float* g, void* out,
            float* state, float* Ls, float* As, int BH, int S, int dk, int dv,
            cudaStream_t stream) {
   const int dks = (dk + kDKW - 1) / kDKW * kDKW;
-  const long long bytes = Sweep<T, C>::smem_bytes(dks);
-  cudaError_t err = cudaFuncSetAttribute(chunked_linear_attention_kernel<T, C>,
+  const long long bytes = Sweep<T, TV, C>::smem_bytes(dks);
+  cudaError_t err = cudaFuncSetAttribute(chunked_linear_attention_kernel<T, TV, C>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)bytes);
   if (err != cudaSuccess) return (int)err;
@@ -622,7 +633,7 @@ int launch(const void* q, const void* k, const void* v, const float* g, void* ou
     return reinterpret_cast<uintptr_t>(p) % 16 == 0;
   };
   const int vec_dk = aligned(q) && aligned(k) && (dk * sizeof(T)) % 16 == 0;
-  const int vec_dv = aligned(v) && (dv * sizeof(T)) % 16 == 0;
+  const int vec_dv = aligned(v) && (dv * sizeof(TV)) % 16 == 0;
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   chunked_linear_attention_scores_kernel<T, C>
@@ -630,72 +641,88 @@ int launch(const void* q, const void* k, const void* v, const float* g, void* ou
                                                                   dk, vec_dk);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  chunked_linear_attention_kernel<T, C>
+  chunked_linear_attention_kernel<T, TV, C>
       <<<dim3((dv + kTV - 1) / kTV, BH), kThreads, bytes, stream>>>(
-          qt, kt, static_cast<const T*>(v), Ls, As, static_cast<T*>(out), state, S,
+          qt, kt, static_cast<const TV*>(v), Ls, As, static_cast<T*>(out), state, S,
           dk, dv, vec_dk, vec_dv);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename TV>
 int by_chunk(int chunk, const void* q, const void* k, const void* v, const float* g,
              void* out, float* state, float* Ls, float* As, int BH, int S, int dk,
              int dv, cudaStream_t s) {
   switch (chunk) {
-    case 16: return launch<T, 16>(q, k, v, g, out, state, Ls, As, BH, S, dk, dv, s);
-    case 32: return launch<T, 32>(q, k, v, g, out, state, Ls, As, BH, S, dk, dv, s);
-    case 64: return launch<T, 64>(q, k, v, g, out, state, Ls, As, BH, S, dk, dv, s);
-    case 128: return launch<T, 128>(q, k, v, g, out, state, Ls, As, BH, S, dk, dv, s);
+    case 16: return launch<T, TV, 16>(q, k, v, g, out, state, Ls, As, BH, S, dk, dv, s);
+    case 32: return launch<T, TV, 32>(q, k, v, g, out, state, Ls, As, BH, S, dk, dv, s);
+    case 64: return launch<T, TV, 64>(q, k, v, g, out, state, Ls, As, BH, S, dk, dv, s);
+    case 128: return launch<T, TV, 128>(q, k, v, g, out, state, Ls, As, BH, S, dk, dv, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-template <typename T>
+template <typename T, typename TV>
 long long smem_by_chunk(int chunk, int dks) {
   switch (chunk) {
-    case 16: return Sweep<T, 16>::smem_bytes(dks);
-    case 32: return Sweep<T, 32>::smem_bytes(dks);
-    case 64: return Sweep<T, 64>::smem_bytes(dks);
-    case 128: return Sweep<T, 128>::smem_bytes(dks);
+    case 16: return Sweep<T, TV, 16>::smem_bytes(dks);
+    case 32: return Sweep<T, TV, 32>::smem_bytes(dks);
+    case 64: return Sweep<T, TV, 64>::smem_bytes(dks);
+    case 128: return Sweep<T, TV, 128>::smem_bytes(dks);
     default: return -1;
   }
 }
 
+// The compiled (q / k, v) dtype pairs: 0 = fp16, 1 = bf16, 2 = fp32.  Calls
+// F<T, TV>::run(args...), or returns `bad` for a pair that is not compiled.
+template <template <typename, typename> class F, typename R, typename... A>
+R by_dtypes(int dtype, int vdtype, R bad, A... args) {
+  if (dtype == 0 && vdtype == 0) return F<__half, __half>::run(args...);
+  if (dtype == 1 && vdtype == 1) return F<__nv_bfloat16, __nv_bfloat16>::run(args...);
+  if (dtype == 2 && vdtype == 2) return F<float, float>::run(args...);
+  if (dtype == 2 && vdtype == 1) return F<float, __nv_bfloat16>::run(args...);
+  if (dtype == 2 && vdtype == 0) return F<float, __half>::run(args...);
+  return bad;
+}
+
+template <typename T, typename TV>
+struct SmemOf {
+  static long long run(int chunk, int dks) { return smem_by_chunk<T, TV>(chunk, dks); }
+};
+
+template <typename T, typename TV>
+struct LaunchOf {
+  static int run(int chunk, const void* q, const void* k, const void* v, const float* g,
+                 void* out, float* state, float* Ls, float* As, int BH, int S, int dk,
+                 int dv, cudaStream_t s) {
+    return by_chunk<T, TV>(chunk, q, k, v, g, out, state, Ls, As, BH, S, dk, dv, s);
+  }
+};
+
 }  // namespace
 
 // Shared memory of one sweep block in bytes (the wrapper checks the
-// budget), or -1 for an unsupported dtype / chunk.
-extern "C" long long cla_smem_bytes(int dtype, int chunk, int dk) {
+// budget), or -1 for an unsupported dtype pair / chunk.
+extern "C" long long cla_smem_bytes(int dtype, int vdtype, int chunk, int dk) {
   const int dks = (dk + kDKW - 1) / kDKW * kDKW;
-  if (dtype == 0) return smem_by_chunk<__half>(chunk, dks);
-  if (dtype == 1) return smem_by_chunk<__nv_bfloat16>(chunk, dks);
-  if (dtype == 2) return smem_by_chunk<float>(chunk, dks);
-  return -1;
+  return by_dtypes<SmemOf, long long>(dtype, vdtype, -1LL, chunk, dks);
 }
 
-// dtype: 0 = fp16, 1 = bf16, 2 = fp32 (q, k, v and out); g and state fp32.
-// q, k (BH, S, dk), v / out (BH, S, dv), g (BH, S), state (BH, dk, dv), all
-// contiguous; scratch: L (BH, S) and the scores (BH, S, chunk), fp32.
-// Launches the scores kernel, then the sweep, on `stream`.  Returns
-// cudaGetLastError() after the launches (0 on success).
-extern "C" int chunked_linear_attention(int dtype, int chunk, const void* q,
+// dtype: q, k and out; vdtype: v (0 = fp16, 1 = bf16, 2 = fp32; the pairs
+// of `by_dtypes`); g and state fp32.  q, k (BH, S, dk), v / out (BH, S, dv),
+// g (BH, S), state (BH, dk, dv), all contiguous; scratch: L (BH, S) and the
+// scores (BH, S, chunk), fp32.  Launches the scores kernel, then the sweep,
+// on `stream`.  Returns cudaGetLastError() after the launches (0 on success).
+extern "C" int chunked_linear_attention(int dtype, int vdtype, int chunk, const void* q,
                                         const void* k, const void* v, const void* g,
                                         void* out, void* state, void* L_scratch,
                                         void* A_scratch, int BH, int S, int dk, int dv,
                                         void* stream) {
-  const float* gf = static_cast<const float*>(g);
-  float* sf = static_cast<float*>(state);
-  float* Ls = static_cast<float*>(L_scratch);
-  float* As = static_cast<float*>(A_scratch);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dk > kMaxDK) return (int)cudaErrorInvalidValue;
-  if (dtype == 0)
-    return by_chunk<__half>(chunk, q, k, v, gf, out, sf, Ls, As, BH, S, dk, dv, s);
-  if (dtype == 1)
-    return by_chunk<__nv_bfloat16>(chunk, q, k, v, gf, out, sf, Ls, As, BH, S, dk, dv, s);
-  if (dtype == 2)
-    return by_chunk<float>(chunk, q, k, v, gf, out, sf, Ls, As, BH, S, dk, dv, s);
-  return (int)cudaErrorInvalidValue;
+  return by_dtypes<LaunchOf, int>(
+      dtype, vdtype, (int)cudaErrorInvalidValue, chunk, q, k, v,
+      static_cast<const float*>(g), out, static_cast<float*>(state),
+      static_cast<float*>(L_scratch), static_cast<float*>(A_scratch), BH, S, dk, dv,
+      static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* cla_error_string(int err) {

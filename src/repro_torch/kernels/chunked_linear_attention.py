@@ -11,9 +11,14 @@ once at the end.  q, k ``(BH, S, dk)``, v ``(BH, S, dv)``, log_g ``(BH, S)``
 fp32)``.  ``S`` must be a multiple of ``chunk``: callers pad with g = 0,
 k = 0, which is inert (``repro_torch.core.engine`` does).
 
+q and k share a dtype; v has q's, or, with fp32 q / k, bf16 or fp16 (the
+Mamba2 / SSD mixer's C and B come from an fp32 GEMM, its v = dt·x in the
+compute dtype: the reference kernel widens every operand to fp32 on load).
+
 A CPU tensor takes :func:`chunked_linear_attention_plain`; a CUDA tensor
-launches ``csrc/chunked_linear_attention.cu`` (fp16 / bf16 / fp32 inputs,
-chunk in {16, 32, 64, 128}, dk up to 1024, any dv) or raises: first its
+launches ``csrc/chunked_linear_attention.cu`` (the dtype pairs of
+:data:`DTYPE_PAIRS`, chunk in {16, 32, 64, 128}, dk up to 1024, any dv)
+or raises: first its
 scores kernel (``L`` and the decayed masked scores of every chunk, into
 scratch — :func:`chunk_scores_plain` is their plain version), then the
 sweep on the tensor cores, with the fp32 operands split into TF32 pieces.
@@ -31,21 +36,28 @@ from repro_torch.core import tiling
 from repro_torch.kernels import _build
 
 __all__ = ["chunked_linear_attention", "chunked_linear_attention_plain",
-           "chunk_scores_plain", "CHUNKS", "MAX_DK"]
+           "chunk_scores_plain", "CHUNKS", "MAX_DK", "DTYPE_PAIRS"]
 
 CHUNKS = (16, 32, 64, 128)     # the kernel's compiled chunk sizes
 MAX_DK = 1024                  # the sweep holds S^T (32 x dk) in registers
 _DTYPE_CODE = {torch.float16: 0, torch.bfloat16: 1, torch.float32: 2}
+# the kernel's compiled (q / k, v) dtype pairs; out takes q's dtype
+DTYPE_PAIRS = ((torch.float16, torch.float16), (torch.bfloat16, torch.bfloat16),
+               (torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+               (torch.float32, torch.float16))
 
 
 def chunked_linear_attention_plain(q: torch.Tensor, k: torch.Tensor,
                                    v: torch.Tensor, log_g: torch.Tensor, *,
                                    chunk: int = 128):
     """The kernel's function in plain PyTorch, chunk by chunk in fp32 (the
-    reference kernel's per-chunk step, batched over heads)."""
+    reference kernel's per-chunk step, batched over heads): every operand
+    widened to fp32, out in q's dtype (the dtype rule of
+    :data:`DTYPE_PAIRS`)."""
     BH, S, dk = q.shape
     dv = v.shape[-1]
     _check_shapes(q, k, v, log_g, chunk)
+    _check_dtypes(q, k, v)
     state = torch.zeros((BH, dk, dv), dtype=torch.float32, device=q.device)
     outs = []
     idx = torch.arange(chunk, device=q.device)
@@ -101,14 +113,20 @@ def _check_shapes(q, k, v, log_g, chunk: int) -> None:
                          f"chunk = {chunk} (pad with g = 0, k = 0)")
 
 
+def _check_dtypes(q, k, v) -> None:
+    if (q.dtype, v.dtype) not in DTYPE_PAIRS or k.dtype != q.dtype:
+        raise TypeError(f"q, k, v dtypes {q.dtype} / {k.dtype} / {v.dtype}: q and "
+                        "k share one, v has q's or, with fp32 q / k, bf16 / fp16")
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("chunked_linear_attention")
     if lib.chunked_linear_attention.argtypes is None:
         i, p = ctypes.c_int, ctypes.c_void_p
-        lib.chunked_linear_attention.argtypes = [i, i, p, p, p, p, p, p, p, p,
-                                                 i, i, i, i, p]
+        lib.chunked_linear_attention.argtypes = [i, i, i, p, p, p, p, p, p, p,
+                                                 p, i, i, i, i, p]
         lib.chunked_linear_attention.restype = i
-        lib.cla_smem_bytes.argtypes = [i, i, i]
+        lib.cla_smem_bytes.argtypes = [i, i, i, i]
         lib.cla_smem_bytes.restype = ctypes.c_longlong
         lib.cla_error_string.argtypes = [i]
         lib.cla_error_string.restype = ctypes.c_char_p
@@ -126,9 +144,7 @@ def chunked_linear_attention(q: torch.Tensor, k: torch.Tensor,
         return chunked_linear_attention_plain(q, k, v, log_g, chunk=chunk)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"q, k, v must share one of {sorted(map(str, _DTYPE_CODE))}, "
-                        f"got {q.dtype} / {k.dtype} / {v.dtype}")
+    _check_dtypes(q, k, v)
     if log_g.dtype != torch.float32:
         raise TypeError(f"log_g must be float32, got {log_g.dtype}")
     if chunk not in CHUNKS:
@@ -142,7 +158,8 @@ def chunked_linear_attention(q: torch.Tensor, k: torch.Tensor,
         raise NotImplementedError(f"dk = {dk}: the sweep holds its state in "
                                   f"registers up to dk = {MAX_DK}")
     lib = _lib()
-    smem = lib.cla_smem_bytes(_DTYPE_CODE[q.dtype], chunk, dk)
+    codes = (_DTYPE_CODE[q.dtype], _DTYPE_CODE[v.dtype])
+    smem = lib.cla_smem_bytes(*codes, chunk, dk)
     if smem > tiling.SMEM_BUDGET:
         raise NotImplementedError(
             f"dk = {dk} at chunk {chunk} needs {smem} B of shared memory "
@@ -156,7 +173,7 @@ def chunked_linear_attention(q: torch.Tensor, k: torch.Tensor,
     scratch = torch.empty(BH * S * (chunk + 1), dtype=torch.float32,
                           device=q.device)
     err = lib.chunked_linear_attention(
-        _DTYPE_CODE[q.dtype], chunk, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        *codes, chunk, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         log_g.data_ptr(), out.data_ptr(), state.data_ptr(), scratch.data_ptr(),
         scratch.data_ptr() + BH * S * 4, BH, S, dk, dv,
         torch.cuda.current_stream(q.device).cuda_stream)

@@ -11,6 +11,8 @@ directory, and ``_ae_main``).  It runs on one device, the card by default::
         --batch 4 --seq 256 --steps 3 --fp16-scale   # tpu_fp16, loss scaling
     PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-1.3b --full \\
         --batch 4 --seq 256 --steps 3
+    PYTHONPATH=src python -m repro_torch.launch.train --arch hymba-1.5b --full \\
+        --batch 4 --seq 256 --steps 3   # attention + Mamba2 / SSD heads
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch deepseek-v2-lite-16b --full --layers 3 --batch 4 --seq 256 \\
         --steps 3              # MoE + MLA at full width, depth cut to 3

@@ -50,8 +50,13 @@ SLICE_DRAW_ELEMS = 1 << 30
 
 
 def _path_seed(seed: int, path: Tuple[str, ...]) -> int:
-    """Deterministic across processes (Python's hash() is salted)."""
-    return (int(seed) << 32) ^ (zlib.crc32("/".join(path).encode()) & 0x7FFFFFFF)
+    """Deterministic across processes (Python's hash() is salted).  The
+    seed enters the low 32 bits (a CPU generator's Mersenne twister reads
+    only those) and the high ones (CUDA's Philox reads all 64); seed 0
+    gives the path's CRC alone."""
+    s = int(seed)
+    crc = zlib.crc32("/".join(path).encode()) & 0x7FFFFFFF
+    return crc ^ ((s * 0x9E3779B1) & 0xFFFFFFFF) ^ (s << 32)
 
 
 def init_tree(schema: Dict[str, Any], *, seed: int, device: torch.device,

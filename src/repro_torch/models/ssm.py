@@ -1,12 +1,13 @@
-"""SSM blocks: xLSTM's mLSTM and sLSTM.
+"""SSM blocks: xLSTM's mLSTM and sLSTM, and the Mamba2 / SSD mixer.
 
-Counterpart of ``repro.models.ssm``.  The mLSTM runs its matrix-memory
-recurrence through the engine's chunked linear-attention op (the
-hand-written sweep kernel on the card, when no state is carried in); the
-sLSTM is a sequential scalar recurrence: its input projection is hoisted
-into one GEMM and the reference's ``lax.scan`` over time is a Python loop
-here, one fp32 recurrent GEMM per step.  The Mamba2 / SSD mixer (hymba)
-is not ported yet (ROADMAP.md).
+Counterpart of ``repro.models.ssm``.  The mLSTM and the SSD mixer (hymba's
+SSM heads) run their matrix-memory recurrence through the engine's chunked
+linear-attention op (the hand-written sweep kernel on the card, when no
+state is carried in; a decode step with a state takes
+:func:`linear_attention_step`); the sLSTM is a sequential scalar
+recurrence: its input projection is hoisted into one GEMM and the
+reference's ``lax.scan`` over time is a Python loop here, one fp32
+recurrent GEMM per step.
 """
 
 from __future__ import annotations
@@ -28,6 +29,8 @@ __all__ = [
     "mlstm_block",
     "slstm_schema",
     "slstm_block",
+    "mamba_schema",
+    "mamba_mixer",
 ]
 
 _F32 = prec.FP32
@@ -180,3 +183,59 @@ def slstm_block(params, x, cfg, *, policy, state=None):
     h = layers.rmsnorm(h, params["norm"])
     y = h + layers.mlp_glu(params["ffn"], h, act=cfg.act, policy=policy)
     return y, st
+
+
+# --------------------------------------------------------------------- #
+# Mamba2 / SSD mixer (hymba's SSM heads)
+# --------------------------------------------------------------------- #
+def mamba_schema(cfg) -> Dict[str, Any]:
+    d = cfg.d_model
+    di = cfg.ssm.mamba_expand * d
+    H, N = cfg.n_heads, cfg.ssm.state_dim
+    return {
+        "w_xz": Param((d, 2 * di)),
+        "w_bcdt": Param((d, 2 * N + H)),
+        "a_log": Param((H,), init="zeros"),
+        "skip_d": Param((H,), init="ones"),
+        "dt_bias": Param((H,), init="zeros"),
+        "norm": Param((di,), init="ones"),
+        "w_out": Param((di, d)),
+    }
+
+
+def mamba_mixer(params, x, cfg, *, policy, state=None):
+    """SSD as linear attention: q = C, k = B (fp32, from the fp32 ``w_bcdt``
+    GEMM, shared by the heads), v = dt·x (the compute dtype), decay
+    ``exp(-exp(a_log)·dt)``.  x (B, S, d) -> (y (B, S, d), state (B, H, N,
+    P) fp32)."""
+    B_, S, d = x.shape
+    H, N = cfg.n_heads, cfg.ssm.state_dim
+    di = cfg.ssm.mamba_expand * d
+    P = di // H
+
+    xz = engine.matmul(x, params["w_xz"], policy=policy)
+    xin, z = xz.chunk(2, dim=-1)
+    bcdt = engine.matmul(x, params["w_bcdt"], policy=_F32)      # (B, S, 2N + H)
+    bmat, cmat, dt = torch.split(bcdt, [N, N, H], dim=-1)
+    dt = F.softplus(dt + params["dt_bias"].float())             # (B, S, H)
+    a = -torch.exp(params["a_log"].float())
+    log_g = (dt * a).permute(0, 2, 1)                           # (B, H, S) <= 0
+
+    v = xin.reshape(B_, S, H, P).permute(0, 2, 1, 3)            # (B, H, S, P)
+    v_in = v * dt.permute(0, 2, 1)[..., None].to(v.dtype)
+    q = cmat[:, None].expand(B_, H, S, N)
+    k = bmat[:, None].expand(B_, H, S, N)
+
+    if S == 1 and state is not None:
+        o, state = linear_attention_step(state, q[:, :, 0], k[:, :, 0],
+                                         v_in[:, :, 0], log_g[:, :, 0])
+        o = o[:, :, None]
+    else:
+        o, state = chunked_linear_attention(q, k, v_in, log_g,
+                                            chunk=cfg.ssm.chunk, state=state)
+
+    o = o + v.float() * params["skip_d"].float()[None, :, None, None]
+    o = o.permute(0, 2, 1, 3).reshape(B_, S, di).to(x.dtype)
+    o = _per_head_rmsnorm(o, params["norm"], H)
+    o = o * F.silu(z)
+    return engine.matmul(o, params["w_out"], policy=policy), state

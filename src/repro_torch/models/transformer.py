@@ -1,5 +1,5 @@
-"""Decoder LM composition: the reference's ``"attn"``, ``"moe"`` and
-``"xlstm"`` block kinds.
+"""Decoder LM composition: the reference's ``"attn"``, ``"moe"``,
+``"xlstm"`` and ``"hymba"`` block kinds.
 
 Counterpart of ``repro.models.transformer``.  Layer parameters are
 stacked along a leading layer dim as in the reference (so its parameter
@@ -12,7 +12,10 @@ front-end stubs) and GQA or MLA attention; the MoE kind (DeepSeek) is an
 unstacked dense ``layer0`` (FFN width ``moe.dense_ff``) and a stack of
 MoE blocks, whose router metrics ``forward`` sums over layers and
 ``loss_fn`` adds (``aux_weight`` / ``z_weight`` per MoE layer); xLSTM
-stacks super-blocks of (7 mLSTM + 1 sLSTM).  With ``remat="full"`` each
+stacks super-blocks of (7 mLSTM + 1 sLSTM); hymba stacks blocks of
+attention and a Mamba2 / SSD mixer in parallel on the same normed input,
+with a per-layer window (:func:`window_array`, ``BIG_WINDOW`` on the full
+layers).  With ``remat="full"`` each
 block of the layer loop (each super-block for xLSTM) is a
 :func:`repro_torch.core.engine.checkpoint` region when it is trained, as
 the reference checkpoints its layer-scan body (``layer0`` stays outside,
@@ -20,9 +23,13 @@ as in the reference).  The tied LM head multiplies by the ``(V, d)``
 embedding as stored, through the GEMM kernel's "nt" layout, and its
 backward reads the table in place — no transposed copy.  ``ce_chunk``
 runs the chunked cross-entropy.  The serving entry points run under
-``torch.inference_mode()``.  Hybrid (Hymba) blocks, the xLSTM decode
-state, ``moe_impl="shard_map"`` and ``remat="dots"`` are not ported yet
-(ROADMAP.md).
+``torch.inference_mode()``; the cache is updated in place, the recurrent
+states (xLSTM's mLSTM / sLSTM, hymba's SSD) by ``copy_`` into the stacked
+tensors.  A fresh prefill (``pos`` 0) hands the sweeps no state, so they
+run the sweep kernel from zero (the reference hands them the zero state
+of its cache and runs the composition: the same values up to fp32
+rounding).  ``moe_impl="shard_map"`` and ``remat="dots"`` are not ported
+yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -39,19 +46,18 @@ from repro_torch.models import attention, layers, moe, ssm
 from repro_torch.models.layers import Param
 
 __all__ = ["schema", "init_params", "count_params", "forward", "loss_fn",
-           "serve_step", "prefill", "init_cache"]
+           "serve_step", "prefill", "init_cache", "window_array", "BIG_WINDOW"]
 
 _ROADMAP = "not yet ported (see ROADMAP.md, Queue A)"
 
+BIG_WINDOW = 1 << 30     # the window of hymba's full-attention layers
 
-def _check_kind(cfg, *, serving: bool = False) -> None:
-    kind = cfg.block_kind
+
+def _check_kind(cfg) -> None:
     what = None
-    if kind == "xlstm":
-        what = "the xlstm decode state" if serving else None
-    elif kind not in ("attn", "moe") or cfg.mlp not in ("glu", "plain"):
-        what = f"block kind {kind!r} / mlp {cfg.mlp!r}"
-    elif kind == "moe" and cfg.moe_impl != "gspmd":
+    if cfg.mlp not in ("glu", "plain"):
+        what = f"mlp {cfg.mlp!r}"
+    elif cfg.block_kind == "moe" and cfg.moe_impl != "gspmd":
         what = (f"moe_impl {cfg.moe_impl!r} (manual expert parallelism needs "
                 "the sharding runtime)")
     if what:
@@ -75,6 +81,13 @@ def _attn_schema(cfg) -> Dict[str, Any]:
 def _attn_block_schema(cfg, d_ff: Optional[int] = None) -> Dict[str, Any]:
     return {"ln1": _norm_param(cfg), "attn": _attn_schema(cfg),
             "ln2": _norm_param(cfg), "mlp": _mlp_schema(cfg, d_ff)}
+
+
+def _hymba_block_schema(cfg) -> Dict[str, Any]:
+    return {"ln1": _norm_param(cfg), "attn": attention.gqa_schema(cfg),
+            "attn_out_norm": _norm_param(cfg), "mamba": ssm.mamba_schema(cfg),
+            "mamba_out_norm": _norm_param(cfg), "ln2": _norm_param(cfg),
+            "mlp": _mlp_schema(cfg)}
 
 
 def _xlstm_super_schema(cfg) -> Dict[str, Any]:
@@ -107,6 +120,8 @@ def schema(cfg) -> Dict[str, Any]:
         block = {"ln1": _norm_param(cfg), "attn": _attn_schema(cfg),
                  "ln2": _norm_param(cfg), "moe": moe.moe_schema(cfg)}
         s["layers"] = layers.stack_schema(block, cfg.n_layers - 1)
+    elif cfg.block_kind == "hymba":
+        s["layers"] = layers.stack_schema(_hymba_block_schema(cfg), cfg.n_layers)
     else:
         s["layers"] = layers.stack_schema(_attn_block_schema(cfg), cfg.n_layers)
     return s
@@ -177,17 +192,55 @@ def _remat(cfg, fn):
     return lambda *args: engine.checkpoint(fn, *args)
 
 
-def _xlstm_super_block(p, h, cfg, *, policy):
-    """7 mLSTM blocks + 1 sLSTM block, no state carried in (training and
-    prefill from zero: the in-sequence state starts at zero inside the
-    chunked sweep)."""
-    for lp in _unbind(p["mlstm"]):
-        out, _ = ssm.mlstm_block(lp["cell"], _norm(cfg, h, lp["ln"]), cfg,
-                                 policy=policy)
+def window_array(cfg, device=None) -> Optional[torch.Tensor]:
+    """Per-layer attention windows ``(L,)`` int32 (hymba: ``BIG_WINDOW`` on
+    the full-attention layers); None without a sliding window."""
+    if cfg.sliding_window is None:
+        return None
+    return torch.tensor([BIG_WINDOW if i in cfg.full_attn_layers
+                         else cfg.sliding_window for i in range(cfg.n_layers)],
+                        dtype=torch.int32, device=device)
+
+
+def _xlstm_super_block(p, h, cfg, *, policy, cache=None, fresh=True):
+    """7 mLSTM blocks + 1 sLSTM block.  With a cache the blocks start from
+    its states (from none on a ``fresh`` prefill: the sLSTM's initial state
+    is the cache's initial value) and their final states are written back
+    into it in place."""
+    m_cache = None if cache is None else cache["mlstm"]      # (7, B, H, hd, hd)
+    for i, lp in enumerate(_unbind(p["mlstm"])):
+        st = None if m_cache is None or fresh else m_cache[i]
+        out, st = ssm.mlstm_block(lp["cell"], _norm(cfg, h, lp["ln"]), cfg,
+                                  policy=policy, state=st)
+        if m_cache is not None:
+            m_cache[i].copy_(st)
         h = h + out
-    out, _ = ssm.slstm_block(p["slstm"]["cell"], _norm(cfg, h, p["slstm"]["ln"]),
-                             cfg, policy=policy)
+    s_cache = None if cache is None else cache["slstm"]
+    out, st = ssm.slstm_block(p["slstm"]["cell"], _norm(cfg, h, p["slstm"]["ln"]),
+                              cfg, policy=policy,
+                              state=None if fresh else s_cache)
+    if s_cache is not None:
+        for k, v in st.items():
+            s_cache[k].copy_(v)
     return h + out
+
+
+def _hymba_block(p, h, cfg, *, pos, cache, window, policy, fresh=True):
+    """Attention and the SSD mixer read the same normed input; their
+    normed outputs are averaged (reference ``transformer.py:222-235``)."""
+    hn = _norm(cfg, h, p["ln1"])
+    a, _ = attention.gqa_attention(
+        p["attn"], hn, cfg, pos_offset=pos,
+        cache=None if cache is None else cache["attn"], window=window,
+        policy=policy, q_chunk=cfg.q_chunk)
+    state = None if cache is None or fresh else cache["ssm"]
+    m, state = ssm.mamba_mixer(p["mamba"], hn, cfg, policy=policy, state=state)
+    if cache is not None:
+        cache["ssm"].copy_(state)
+    h = h + 0.5 * (_norm(cfg, a, p["attn_out_norm"])
+                   + _norm(cfg, m, p["mamba_out_norm"]))
+    return h + layers.mlp_glu(p["mlp"], _norm(cfg, h, p["ln2"]), act=cfg.act,
+                              policy=policy)
 
 
 def _run_attn(cfg, p, h, *, pos, cache, policy, kv_group_sizes):
@@ -233,36 +286,41 @@ def forward(params: Dict[str, Any], cfg, batch: Dict[str, torch.Tensor], *,
     kinds).  The input is ``batch["embeddings"]`` ``(B, S, d)`` where the
     batch carries it, else the embedded ``batch["inputs"]``.  ``pos`` is an
     int or a ``(B,)`` tensor of per-slot decode positions."""
-    _check_kind(cfg, serving=cache is not None)
+    _check_kind(cfg)
     policy = cfg.policy
+    kind = cfg.block_kind
     if "embeddings" in batch:
         h = batch["embeddings"].to(policy.compute_dtype)
     else:
         h = params["embed"][batch["inputs"]].to(policy.compute_dtype)
     aux: Dict[str, torch.Tensor] = {}
-    if cfg.block_kind == "xlstm":
-        block = _remat(cfg, lambda lp, hh: _xlstm_super_block(
-            lp, hh, cfg, policy=policy))
-        for lp in _unbind(params["layers"]):
-            h = block(lp, h)
+    # a fresh prefill: the recurrent sweeps start from no state (kernel 4)
+    fresh = not isinstance(pos, torch.Tensor) and pos == 0
+    kw = dict(pos=pos, policy=policy, kv_group_sizes=kv_group_sizes)
+    caches = itertools.repeat(None) if cache is None else _unbind(cache["layers"])
+    per_layer = [_unbind(params["layers"]), caches]
+    if kind == "xlstm":
+        layer = lambda lp, hh, lc: (_xlstm_super_block(
+            lp, hh, cfg, policy=policy, cache=lc, fresh=fresh), ())
+    elif kind == "hymba":
+        per_layer.append(window_array(cfg, device=h.device).unbind(0))
+        layer = lambda lp, hh, lc, win: (_hymba_block(
+            lp, hh, cfg, pos=pos, cache=lc, window=win, policy=policy,
+            fresh=fresh), ())
+    elif kind == "moe":
+        # the dense layer 0, outside the remat (as the reference's scan)
+        h = _attn_block(params["layer0"], h, cfg,
+                        cache=None if cache is None else cache["layer0"], **kw)
+        layer = lambda lp, hh, lc: _moe_block(lp, hh, cfg, cache=lc, **kw)
     else:
-        kw = dict(pos=pos, policy=policy, kv_group_sizes=kv_group_sizes)
-        if cfg.block_kind == "moe":
-            # the dense layer 0, outside the remat (as the reference's scan)
-            h = _attn_block(params["layer0"], h, cfg,
-                            cache=None if cache is None else cache["layer0"], **kw)
-            layer = lambda lp, hh, lc: _moe_block(lp, hh, cfg, cache=lc, **kw)
-        else:
-            layer = lambda lp, hh, lc: (_attn_block(lp, hh, cfg, cache=lc, **kw), ())
-        block = layer if cache is not None else _remat(cfg, layer)
-        caches = (itertools.repeat(None) if cache is None
-                  else _unbind(cache["layers"]))
-        sums = None
-        for lp, lc in zip(_unbind(params["layers"]), caches):
-            h, m = block(lp, h, lc)
-            sums = m if sums is None else tuple(a + b for a, b in zip(sums, m))
-        if cfg.block_kind == "moe":
-            aux = dict(zip(moe.METRICS, sums))
+        layer = lambda lp, hh, lc: (_attn_block(lp, hh, cfg, cache=lc, **kw), ())
+    block = layer if cache is not None else _remat(cfg, layer)
+    sums = None
+    for lp, lc, *win in zip(*per_layer):
+        h, m = block(lp, h, lc, *win)
+        sums = m if sums is None else tuple(a + b for a, b in zip(sums, m))
+    if kind == "moe":
+        aux = dict(zip(moe.METRICS, sums))
     if last_only:
         h = h[:, -1:]   # serving: never materialise (B, S, V) prompt logits
     h = _norm(cfg, h, params["final_norm"])
@@ -346,17 +404,53 @@ def prefill(params, cfg, batch, max_len: int, storage_dtype=None):
     return logits[:, -1], cache
 
 
+def _stack(tree, n: int):
+    """``n`` copies of every leaf, stacked along a new leading dim."""
+    if isinstance(tree, torch.Tensor):
+        return tree[None].repeat(n, *([1] * tree.ndim))
+    return {k: _stack(v, n) for k, v in tree.items()}
+
+
 def init_cache(cfg, batch: int, max_len: int, dtype=None, storage_dtype=None,
                *, device="cuda"):
-    """The decode cache ``{"layers": {"k", "v": (L, B, Hkv, T, hd)}}``
-    (MLA: ``{"ckv": (L, B, T, r), "kr": (L, B, T, dr)}``); the MoE kind
-    also has the unstacked ``"layer0"``."""
-    _check_kind(cfg, serving=True)
+    """The decode cache, leaf for leaf the reference's
+    (``transformer.py:544-568``): ``{"layers": {"k", "v": (L, B, Hkv, T,
+    hd)}}`` (MLA: ``{"ckv": (L, B, T, r), "kr": (L, B, T, dr)}``; the MoE
+    kind also has the unstacked ``"layer0"``); hymba ``{"layers": {"attn":
+    {"k", "v"}, "ssm": (L, B, H, N, P) fp32}}``; xLSTM ``{"layers":
+    {"mlstm": (n_super, 7, B, H, hd, hd), "slstm": {"c", "n", "h", "m":
+    (n_super, B, H, hd)}}}`` fp32, ``m`` at -1e30."""
+    _check_kind(cfg)
+    kind = cfg.block_kind
+    if storage_dtype is not None and kind not in ("attn", "moe"):
+        raise ValueError(
+            f"FP8 cache storage supports attn/moe block kinds, not {kind!r}")
+    dev = resolve_device(device)
+    dtype = dtype or cfg.policy.compute_dtype
+    f32 = dict(dtype=torch.float32, device=dev)
+    if kind == "xlstm":
+        n_super = cfg.n_layers // cfg.ssm.slstm_period
+        H = cfg.n_heads
+        hd_m = cfg.ssm.mlstm_proj_factor * cfg.d_model // H
+        hd_s = cfg.d_model // H
+        s_shape = (n_super, batch, H, hd_s)
+        return {"layers": {
+            "mlstm": torch.zeros((n_super, cfg.ssm.slstm_period - 1, batch, H,
+                                  hd_m, hd_m), **f32),
+            "slstm": {"c": torch.zeros(s_shape, **f32),
+                      "n": torch.zeros(s_shape, **f32),
+                      "h": torch.zeros(s_shape, **f32),
+                      "m": torch.full(s_shape, -1e30, **f32)}}}
+    if kind == "hymba":
+        di = cfg.ssm.mamba_expand * cfg.d_model
+        one = {"attn": attention.init_gqa_cache(cfg, batch, max_len, dtype,
+                                                device=dev),
+               "ssm": torch.zeros((batch, cfg.n_heads, cfg.ssm.state_dim,
+                                   di // cfg.n_heads), **f32)}
+        return {"layers": _stack(one, cfg.n_layers)}
     init = attention.init_mla_cache if cfg.mla else attention.init_gqa_cache
-    one = init(cfg, batch, max_len, dtype or cfg.policy.compute_dtype,
-               storage_dtype, device=resolve_device(device))
-    n = cfg.n_layers - (cfg.block_kind == "moe")
-    out = {"layers": {k: v[None].repeat(n, *([1] * v.ndim)) for k, v in one.items()}}
-    if cfg.block_kind == "moe":
+    one = init(cfg, batch, max_len, dtype, storage_dtype, device=dev)
+    out = {"layers": _stack(one, cfg.n_layers - (kind == "moe"))}
+    if kind == "moe":
         out["layer0"] = one
     return out

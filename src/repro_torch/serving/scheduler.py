@@ -88,8 +88,9 @@ class Scheduler:
 
     def __init__(self, params, cfg, scfg: SchedulerConfig):
         if cfg.block_kind not in ("attn", "moe"):
-            raise NotImplementedError(
-                f"serving block kind {cfg.block_kind!r} is {_ROADMAP}")
+            raise ValueError(
+                f"the serving scheduler drives attn/moe decode caches, "
+                f"not {cfg.block_kind!r}")
         if scfg.n_slots < 1:
             raise ValueError("need at least one decode slot")
         if scfg.storage_dtype is not None:

@@ -294,11 +294,13 @@ def test_train_unported_paths_raise():
                  ["--compress", "fp8"], ["--dp-procs", "2"], ["--fail-step", "3"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ttrain.main(["--device", "cpu", *argv])
+    # hymba-1.5b trains and xlstm serves from its decode state now
+    # (tests/test_torch_recurrent.py); remat "dots" is still to port
+    cfg = dataclasses.replace(tconfigs.get_reduced("xlstm-1.3b"), remat="dots")
+    params = tt.init_params(cfg, seed=0, device="cpu")
+    toks = torch.zeros((1, 8), dtype=torch.long)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttrain.main(["--device", "cpu", "--arch", "hymba-1.5b"])
-    cfg = tconfigs.get_reduced("xlstm-1.3b")
-    with pytest.raises(NotImplementedError, match="decode state"):
-        tt.init_cache(cfg, 1, 8, device="cpu")
+        tt.loss_fn(params, cfg, {"inputs": toks, "labels": toks})
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             ttrain.main(["--steps", "1"])
