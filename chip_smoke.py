@@ -67,8 +67,10 @@ Phases, any failure exits non-zero:
    full-width super-block (7 mLSTM + 1 sLSTM, batch 1, seq 128) is held
    against the plain path on the CPU: loss and the gradients of w_up,
    w_qkv and r_gates, to 8x the CPU's own spread (1 vs all threads) —
-   under fp32 with the sweep composed on kernels 1 / 2, each kernel-4
-   launch of the path held to its plain version instead; then step 0 of
+   under fp32 both with the sweep composed on kernels 1 / 2 and on kernel
+   4 (fp32 operands in three TF32 pieces), each kernel-4 launch also held
+   to its plain version, beside a control that must fail (one w_qkv row
+   scaled by 1 + 2^-10 on the card only); then step 0 of
    the whole model (48 blocks, full
    width, batch 1 x seq 128): its loss and the gradients of w_up, w_qkv and
    r_gates of the first and the last super-block, card vs CPU, under fp32
@@ -160,7 +162,32 @@ Phases, any failure exits non-zero:
    (fp32: 1e-5), beside two controls that must fail (hymba layer 1's ``a_log`` raised by
    ``HC_CONTROL``; the fp32 xLSTM cut's first mLSTM state zeroed after the
    prefill);
-16. **report** — the GEMM wrappers' split launches (``.launches_split``)
+16. **sched** — serving under load: the counts are set to 0 again, then
+   ``repro_torch.launch.serve --sched`` runs yi-9b at full width and depth
+   (48 layers, d 4096, random weights from a seed) with the reference's
+   defaults: 4 slots, 8 requests at each of the rates 0.25 and 1.0,
+   prompt 128, 16 new tokens, the FP8 E4M3 KV cache, ``mixed_fp8_e4m3``;
+   every request must finish, the launches equal the structural count of
+   the traces, every kernel-1 launch FP8, and the rate-1.0 point run
+   again the same trace and tokens.  Then ``benchmarks/baselines/
+   serve_slo.json``'s scenario at full width under yi-9b's own policy
+   (tpu_bf16) as the file states it (FP8 cache: no fault, nan_logits@2,
+   kv_corrupt@2, prefill_crash@1; the 16-bit cache: no fault,
+   kv_corrupt@2), each against its floors, with a recovery where a fault
+   fired, the goodput and event log of its reduced CPU twin, the victim's
+   tokens equal to the uninjected run's and structural launches;
+   the recovery contract under tpu_bf16 (the co-resident slot bitwise
+   unmoved on the 16-bit cache; on the FP8 cache bitwise where the pool's
+   scale did not move, else within one E4M3 step; the victim's rebuilt
+   rows within one E4M3 step plus the 16-bit prefill-versus-decode gap of
+   a full prefill, beside a control that must fail); two-layer FP8 cuts
+   of yi-9b and deepseek-v2-lite-16b (MLA) against the CPU plain path
+   (cache rows within one E4M3 step plus the 16-bit cut's gap, decode
+   logits against the 16-bit cache within the reference's band, each
+   beside a control that must fail); the KV bytes of a decode step and
+   the resident cache, one profiled FP8 and bf16 decode step (no aten
+   GEMM or SDPA op) and the checksum audit's time;
+17. **report** — the GEMM wrappers' split launches (``.launches_split``)
    per path, the card (``nvidia-smi``), a ``{"kernels": [...]}`` line, and
    last ``{"ok": true, "device": {...}}``.
 
@@ -198,10 +225,14 @@ AE_BATCH, AE_STEPS, AE_BIG = 16, 200, 4096
 # weight scaled by this (on the CPU it moves the gradients by 9.1e-2 of max,
 # against a bound of 6.1e-2)
 AE_CONTROL = 1.25
+# kernel 4 on fp32 inputs against its plain version, out and state, of max:
+# 4x the largest distance of the three-piece CPU emulation from the plain
+# version at this script's fp32 shapes (5e-7; tests/test_torch_kernel4_fp32.py)
+K4_FP32_TOL = 2e-6
 # the xLSTM super-block parity under fp32: each kernel-4 launch against its
-# plain version on the same operands (kernel 4's fp32 limit in the kernel
-# phase)
-SB_K4_TOL = 1e-4
+# plain version on the same operands; the control scales one w_qkv row by
+# 1 + SB_CONTROL on the card only
+SB_K4_TOL, SB_CONTROL = K4_FP32_TOL, 2.0 ** -10
 # the FP8 AE step with BatchNorm in float64 on both sides, card vs CPU:
 # two fp16 ulps of the largest gradient
 AE8_STATS_TOL = 2.0 ** -9
@@ -237,6 +268,18 @@ HC_BATCH, HC_PROMPT, XC_BATCH, XC_PROMPT, C_GEN = 2, 1088, 2, 128, 2
 # the cut's 2^-4 bound (the CPU plain path against itself); 2^-1 moves
 # them by ~0.14 / 0.18
 HC_CONTROL = 2.0 ** -1
+# the sched phase: yi-9b at full width and depth through launch/serve.py's
+# --sched path with the reference's defaults (4 slots, 8 requests at each
+# rate, prompt 128, 16 new tokens, the FP8 E4M3 cache, mixed_fp8_e4m3)
+S_ARCH, S_SLOTS, S_REQUESTS, S_RATES, S_PROMPT, S_GEN = "yi-9b", 4, 8, (0.25, 1.0), 128, 16
+FP8_STORAGE = "float8_e4m3fn"
+# one E4M3 step of a dequantized cache value x at scale s: E4M3_EPS |x| +
+# s E4M3_SUB (relative precision 2^-3, the subnormal grid below s 2^-6;
+# tests/test_serving.py:47-69)
+E4M3_EPS, E4M3_SUB = 2.0 ** -3, 2.0 ** -9
+# the reference's band for FP8 decode logits against the 16-bit cache's
+# (tests/test_serving.py:71-97): max and mean over the decode steps
+FP8_BAND_MAX, FP8_BAND_MEAN = 0.5, 0.3
 # the aten ops a profiled window of the port must not call on the card
 ATEN_GEMM = ("aten::mm", "aten::bmm", "aten::addmm", "aten::baddbmm",
              "aten::addbmm", "aten::matmul", "aten::linear")
@@ -264,16 +307,19 @@ def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _device_profile(fn, iters: int = 5, attempts: int = 3, ranges=()) -> dict:
+def _device_profile(fn, iters: int = 5, attempts: int = 3, ranges=(),
+                    cpu: bool = True) -> dict:
     """Device time of ``iters`` calls of ``fn`` from torch.profiler, by
     kernel group, beside the host wall time of the same calls, and the
     device time of the kernels launched inside each ``record_function``
-    range named in ``ranges``.  A profile that recorded no CUDA activity
-    (CUPTI now and then drops a whole window right after a step of ~200k
-    kernels) is taken again, up to ``attempts`` windows in all; then it
-    raises."""
+    range named in ``ranges``.  ``cpu=False`` records the device alone (no
+    ranges, no aten ops: a step of ~200k kernels makes ~1M host events to
+    post-process).  A profile that recorded no CUDA activity (CUPTI now and
+    then drops a whole window right after a step of ~200k kernels) is
+    taken again, with the host recorded too, up to ``attempts`` windows in
+    all; then it raises."""
     for attempt in range(attempts):
-        out = _profile_once(fn, iters, ranges)
+        out = _profile_once(fn, iters, ranges, cpu or attempt > 0)
         if out is not None:
             return out
         print(f"[profile] no device time recorded (window {attempt + 1} of "
@@ -282,14 +328,15 @@ def _device_profile(fn, iters: int = 5, attempts: int = 3, ranges=()) -> dict:
     raise RuntimeError("torch.profiler recorded no device time")
 
 
-def _profile_once(fn, iters: int, ranges=()):
+def _profile_once(fn, iters: int, ranges=(), cpu: bool = True):
     """One profiled window of ``_device_profile``; None if it recorded no
     device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CPU] * cpu + [ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(iters):
             fn()
@@ -1104,9 +1151,10 @@ def kernel_phase(log):
 
     # kernel 4: the training shape (16 (batch, head) pairs, S 256, dk = dv =
     # 1024, chunk 64, bf16), a ragged dk != dv shape at chunk 16, fp32 input.
-    # fp32 inside; the state (fp32) differs in summation order over up to
-    # 4 x 64 x 1024 terms (1e-4); the output is stored in the input dtype
-    # (bf16: one-ulp flips, 2^-7).
+    # fp32 inside; for 16-bit inputs the state (fp32) differs in summation
+    # order over up to 4 x 64 x 1024 terms and L's fp32 scan (1e-4), the
+    # output is stored in the input dtype (bf16: one-ulp flips, 2^-7); fp32
+    # inputs (three TF32 pieces, L in fp64): K4_FP32_TOL for both.
     def sweep(BH_, S_, dk_, dv_, dtype):
         q = (torch.randn(BH_, S_, dk_, generator=g, device=dev) * dk_ ** -0.5).to(dtype)
         k = (torch.randn(BH_, S_, dk_, generator=g, device=dev) * 0.5).to(dtype)
@@ -1138,9 +1186,10 @@ def kernel_phase(log):
         out, state = cla.chunked_linear_attention(*ins, chunk=chunk)
         want_o, want_s = cla.chunked_linear_attention_plain(*ins, chunk=chunk)
         tol_o = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -9,
-                 torch.float32: 1e-4}[shape[-1]]
+                 torch.float32: K4_FP32_TOL}[shape[-1]]
+        tol_s = K4_FP32_TOL if shape[-1] == torch.float32 else 1e-4
         err = _check(f"sweep {name} out", out, want_o, tol_o, log)
-        _check(f"sweep {name} state", state, want_s, 1e-4, log)
+        _check(f"sweep {name} state", state, want_s, tol_s, log)
         out2, state2 = cla.chunked_linear_attention(*ins, chunk=chunk)
         _repeat(f"sweep {name} out", out, out2, log)
         _repeat(f"sweep {name} state", state, state2, log)
@@ -1480,8 +1529,9 @@ def recurrent_kernel_checks(log, g):
     M = 1 decode readouts ``bhk,bhkv->bhv`` (xlstm 16 x (1 x 1024 x 1024),
     hymba 100 x (1 x 16 x 64)).  Returns the rows to time.
 
-    Tolerances: kernel 4's output and state are fp32 on TF32 pieces (1e-4
-    of max, as the fp32 sweep above); bf16 outputs two ulps (2^-7); the fp32
+    Tolerances: kernel 4's output and state on fp32 q / k are fp32 on three
+    TF32 pieces (``K4_FP32_TOL`` of max, as the fp32 sweep above), its
+    state on bf16 inputs 1e-4; bf16 outputs two ulps (2^-7); the fp32
     route summation order (1e-5)."""
     import torch
 
@@ -1506,7 +1556,10 @@ def recurrent_kernel_checks(log, g):
     def sweep_bound(ins, chunk):
         # q, k, v, g read once, out and the fp32 state written once; the
         # causal score / PV pairs plus the inter-chunk read and the state
-        # update, fp32 FMAs (the kernel's TF32 pieces: bound_tc)
+        # update, fp32 FMAs.  bound_tc: the products as the kernel runs them
+        # on TF32 tensor cores, an MMA per piece product: fp32 q / k in three
+        # pieces, the fp32 state, A and kdec in three beside fp32 inputs (two
+        # beside 16-bit ones), a 16-bit operand in one; i + j < max pieces
         q, k, v, _ = ins
         BH, S, dk = q.shape
         dv = v.shape[-1]
@@ -1514,11 +1567,16 @@ def recurrent_kernel_checks(log, g):
         nbytes = (q.numel() * q.element_size() + k.numel() * k.element_size()
                   + v.numel() * v.element_size() + BH * S * 4
                   + BH * S * dv * q.element_size() + BH * dk * dv * 4)
-        split_v = 2 if v.dtype == torch.float32 else 1
-        split_qk = 3 if q.dtype == torch.float32 else 1
+        n_in = 3 if q.dtype == torch.float32 else 1
+        n_f32 = 3 if q.dtype == torch.float32 else 2
+        n_v = 3 if v.dtype == torch.float32 else 1
+        mmas = lambda a, b: sum(1 for i in range(a) for j in range(b)
+                                if i + j < max(a, b))
         flops = BH * n_ch * (2 * pairs * (dk + dv) + 4 * chunk * dk * dv)
-        tc = BH * n_ch * (split_qk * 2 * pairs * dk
-                          + 2 * (2 * pairs * dv + 4 * chunk * dk * dv) * split_v)
+        tc = BH * n_ch * (mmas(n_in, n_in) * 2 * pairs * dk        # q k^T
+                          + mmas(n_f32, n_in) * 2 * chunk * dk * dv  # q S
+                          + mmas(n_v, n_f32) * 2 * pairs * dv        # A v
+                          + mmas(n_v, n_f32) * 2 * chunk * dk * dv)  # kdec^T v
         return _bound_ms(nbytes, flops, FP32_FLOPS), _bound_ms(nbytes, tc, TF32_FLOPS)
 
     hc = configs.get(H_ARCH)
@@ -1538,9 +1596,10 @@ def recurrent_kernel_checks(log, g):
         want_o, want_s = cla.chunked_linear_attention_plain(*ins, chunk=chunk)
         if o.dtype != qk_dt:
             raise AssertionError(f"sweep {tag}: out is {o.dtype}, not q's {qk_dt}")
-        tol_o = 1e-4 if qk_dt == torch.float32 else 2.0 ** -7
+        tol_o = K4_FP32_TOL if qk_dt == torch.float32 else 2.0 ** -7
+        tol_s = K4_FP32_TOL if qk_dt == torch.float32 else 1e-4
         err = _check(f"sweep {tag} {shape} out", o, want_o, tol_o, log)
-        _check(f"sweep {tag} {shape} state", st, want_s, 1e-4, log)
+        _check(f"sweep {tag} {shape} state", st, want_s, tol_s, log)
         o2, st2 = cla.chunked_linear_attention(*ins, chunk=chunk)
         _repeat(f"sweep {tag} out", o, o2, log)
         _repeat(f"sweep {tag} state", st, st2, log)
@@ -1717,8 +1776,8 @@ def serve_phase(log, counters):
           f"{decode_ms:.3f} ms", flush=True)
     profiles = {
         "prefill": _device_profile(lambda: transformer.prefill(
-            params, cfg, {"inputs": prompt}, PROMPT + GEN), iters=3),
-        "decode_step": _device_profile(decode, iters=5)}
+            params, cfg, {"inputs": prompt}, PROMPT + GEN), iters=1),
+        "decode_step": _device_profile(decode, iters=2)}
     for name, prof in profiles.items():
         parts = ", ".join(f"{k} {g['ms']:.3f} ms x{g['count']}"
                           for k, g in sorted(prof["by_kernel"].items()))
@@ -1805,7 +1864,7 @@ def train_phase(log, counters):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    prof = _device_profile(one_step, iters=1)
+    prof = _device_profile(one_step, iters=1, cpu=False)
     peak_step = torch.cuda.max_memory_allocated()
     del holder, step
     torch.cuda.empty_cache()
@@ -1841,16 +1900,15 @@ def super_block_parity(log, cfg) -> dict:
     and holds the card to 8x it, above a floor of one rounding's worth
     (fp32 1e-5, bf16 2^-8); a broken kernel is off by O(1).
 
-    Under fp32 the card runs the block twice.  With the sweep as the
-    reference composition of kernel-1 / 2 dispatches on the card, it is
-    held to that bound.  As the path runs it (the sweep on kernel 4),
-    every kernel-4 launch is held against its plain version on the same
-    operands (out and state within ``SB_K4_TOL`` of max, kernel 4's fp32
-    limit in the kernel phase), and its end-to-end distance is printed
-    beside the bound, not held: kernel 4's fp32 route (operands in two
-    TF32 pieces) has read 11x the composition's distance there (1.19e-3
-    against 1.05e-4 of max for w_up), above 8x the CPU's spread.  Under
-    the training policy the path as it runs is held to the bound."""
+    Under fp32 the card runs the block twice: with the sweep as the
+    reference composition of kernel-1 / 2 dispatches, and as the path runs
+    it, the sweep on kernel 4 (fp32 operands in three TF32 pieces, L summed
+    in fp64); both are held to that bound, and every kernel-4 launch of the
+    path to its plain version on the same operands (out and state within
+    ``SB_K4_TOL`` of max).  Beside them a control must fail the bound: the
+    kernel-4 route with row 0 of the first mLSTM block's ``w_qkv`` scaled
+    by 1 + 2^-10 on the card only.  Under the training policy the path as
+    it runs is held to the bound."""
     import dataclasses
 
     import torch
@@ -1901,10 +1959,14 @@ def super_block_parity(log, cfg) -> dict:
 
         with _hopper_wrapped(attention=watch):
             got = block_grads(p_gpu, h0.cuda(), proj.cuda())
-        composed = None
+        composed = control = None
         if policy == "fp32":
             with _hopper_wrapped(without=("attention",)):
                 composed = block_grads(p_gpu, h0.cuda(), proj.cuda())
+            p_ctl = tree_map(lambda t: t.clone(), p_gpu)
+            p_ctl["mlstm"]["cell"]["w_qkv"][0, 0, 0].mul_(1 + SB_CONTROL)
+            control = block_grads(p_ctl, h0.cuda(), proj.cuda())
+            del p_ctl
         want = block_grads(p_cpu, h0, proj)
         torch.set_num_threads(1)
         try:
@@ -1920,29 +1982,44 @@ def super_block_parity(log, cfg) -> dict:
         if policy == "fp32" and not max(k4["out"], k4["state"]) <= SB_K4_TOL:
             failed.append(f"super-block fp32: a kernel-4 launch off its plain "
                           f"version beyond {SB_K4_TOL}: {k4}")
+        control_worst = 0.0
         for i, name in enumerate(names):
             b_ = want[i]
             scale = max(b_.abs().max().item(), 1e-30)
             spread = (want_1t[i] - b_).abs().max().item() / scale
             tol = max(8 * spread, floor)
-            err_k4 = (got[i].cpu() - b_).abs().max().item() / scale
-            rows[name] = {"spread": spread, "tol_rel": tol, "err_rel": err_k4}
+            rows[name] = {"spread": spread, "tol_rel": tol}
             print(f"[train] super-block {policy} {name}: CPU spread (1 vs "
                   f"{n_threads} threads) {spread:.3e} of max", flush=True)
-            held = got if composed is None else composed
-            route = "" if composed is None else " (sweep composed on kernels 1 / 2)"
-            try:
-                _check(f"super-block (7 mLSTM + 1 sLSTM, 1x128, {policy}){route} "
-                       f"{name}, card vs CPU plain", held[i].cpu(), b_, tol, log)
-            except AssertionError as e:
-                failed.append(str(e))
+            held = [("", got)]
             if composed is not None:
-                err_c = (composed[i].cpu() - b_).abs().max().item() / scale
-                rows[name]["err_rel_composed"] = err_c
-                print(f"[train] super-block fp32 {name}, sweep on kernel 4 (not "
-                      f"held end to end): {err_k4:.3e} of max against the bound "
-                      f"{tol:.3e} ({err_k4 / tol:.2f}x; composed {err_c:.3e})",
-                      flush=True)
+                held = [(" (sweep composed on kernels 1 / 2)", composed),
+                        (" (sweep on kernel 4)", got)]
+            for route, out in held:
+                try:
+                    err = _check(f"super-block (7 mLSTM + 1 sLSTM, 1x128, {policy}){route} "
+                                 f"{name}, card vs CPU plain", out[i].cpu(), b_, tol, log)
+                except AssertionError as e:
+                    failed.append(str(e))
+                    err = (out[i].cpu() - b_).abs().max().item()
+                rows[name]["err_rel" + ("_composed" if "composed" in route else "")] = \
+                    err / scale
+            if control is not None:
+                c_err = (control[i].cpu() - b_).abs().max().item() / scale
+                rows[name]["control_err_rel"] = c_err
+                control_worst = max(control_worst, c_err / tol)
+                print(f"[train] super-block fp32 {name}, control (w_qkv row 0 x "
+                      f"(1 + 2^-10), sweep on kernel 4): {c_err:.3e} of max, bound "
+                      f"{tol:.3e} ({c_err / tol:.2f}x)", flush=True)
+        if control is not None:
+            ok = control_worst > 1
+            log.append({"check": "super-block fp32 control fails the bound",
+                        "ok": ok, "worst_over_bound": control_worst})
+            print(f"[check] super-block fp32 control: {control_worst:.2f}x the bound "
+                  f"at its worst item: {'fails, as it must' if ok else 'FAIL: holds'}",
+                  flush=True)
+            if not ok:
+                failed.append("super-block fp32: the control holds the bound")
         result[policy] = {"rows": rows, "kernel4": dict(k4)}
         if failed:
             raise AssertionError("; ".join(failed))
@@ -2830,8 +2907,8 @@ def serve8_phase(log, counters):
           flush=True)
     profiles = {
         "prefill": _device_profile(lambda: transformer.prefill(
-            params, cfg, {"inputs": prompt}, PROMPT + GEN), iters=3),
-        "decode_step": _device_profile(decode, iters=5)}
+            params, cfg, {"inputs": prompt}, PROMPT + GEN), iters=1),
+        "decode_step": _device_profile(decode, iters=2)}
     for name, prof in profiles.items():
         parts = ", ".join(f"{k} {g['ms']:.3f} ms x{g['count']}"
                           for k, g in sorted(prof["by_kernel"].items()))
@@ -3304,8 +3381,8 @@ def moeserve_phase(log, counters):
     one_dec = _moe_structural(n_moe, prefills=0, decodes=1)
     profiles = {
         "prefill": _k2_profile(lambda: transformer.prefill(
-            params, cfg, {"inputs": prompt}, T), 3, one_pre["redmule_matmul_batched"]),
-        "decode_step": _k2_profile(decode, 5, one_dec["redmule_matmul_batched"])}
+            params, cfg, {"inputs": prompt}, T), 1, one_pre["redmule_matmul_batched"]),
+        "decode_step": _k2_profile(decode, 2, one_dec["redmule_matmul_batched"])}
     for name, prof in profiles.items():
         _print_profile(f"moeserve {name}", prof)
         _no_library_gemm(prof, f"moeserve {name}")
@@ -3657,7 +3734,7 @@ def _recurrent_serve(log, counters, arch: str, tag: str, batch: int, prompt: int
     profiles = {
         "prefill": _k2_profile(lambda: transformer.prefill(
             params, cfg, {"inputs": toks}, T), 1, pre["redmule_matmul_batched"]),
-        "decode_step": _k2_profile(decode, 5, dec["redmule_matmul_batched"])}
+        "decode_step": _k2_profile(decode, 2, dec["redmule_matmul_batched"])}
     for name, prof in profiles.items():
         _print_profile(f"{tag} {name}", prof)
         _no_library_gemm(prof, f"{tag} {name}")
@@ -3924,6 +4001,459 @@ def ssm_cuts(log):
     return out
 
 
+def _sched_structural(sched) -> dict:
+    """yi-9b's kernel launches for one drained scheduler, from its trace:
+    a batch-1 prefill (an admission, or a recovery's re-prefill) runs the
+    4 projections of each layer and the head on kernel 1 and flash once a
+    layer; a batched decode step (and a ``nan_logits`` recovery's batch-1
+    replay) the same kernel-1 launches and the ragged scores and PV a
+    layer on kernel 2."""
+    L = sched.cfg.n_layers
+    ev = [e[0] for e in sched.trace]
+    pre = ev.count("prefill") + ev.count("recover")
+    dec = len(sched.health) + ev.count("nan_detect")
+    return {"redmule_matmul": (pre + dec) * (4 * L + 1),
+            "redmule_matmul_batched": dec * 2 * L, "flash_attention": pre * L}
+
+
+def _dequant_leaf(sub, name):
+    """A cache leaf as fp32 values: FP8 codes times their scales, or the
+    16-bit values as stored."""
+    leaf = sub[name]
+    sc = sub.get(f"{name}_scale")
+    if sc is None:
+        return leaf.float()
+    s = sc["scale"]
+    tail = (1, -1, 1, 1) if name in ("k", "v") else (1, 1, 1)
+    return leaf.float() * s.reshape(*leaf.shape[:leaf.ndim - len(tail)], *tail)
+
+
+def _scale_grid(sub, name, like):
+    """``scale 2^-9`` (the E4M3 subnormal grid) broadcast like ``like``."""
+    s = sub[f"{name}_scale"]["scale"]
+    tail = (1, -1, 1, 1) if name in ("k", "v") else (1, 1, 1)
+    return (s.reshape(*like.shape[:like.ndim - len(tail)], *tail) * E4M3_SUB
+            ).expand_as(like)
+
+
+def _e4m3_excess(got, want, grid, extra=0.0) -> float:
+    """The largest |got - want| over its bound ``E4M3_EPS |want| + grid +
+    extra`` (<= 1 holds)."""
+    bound = E4M3_EPS * want.abs() + grid + extra
+    return ((got - want).abs() / bound).max().item()
+
+
+def _slo_runs(log, counters, params, cfg, pcpu, cfg_cpu, storage, modes) -> dict:
+    """``serve_slo.json``'s scenario on the card and on its reduced CPU
+    twin (the same arrivals on the virtual clock), for each fault mode:
+    goodput and deadline hit rate at the floors, a recovery where a fault
+    fired, the card's goodput and event log equal the CPU port's, all
+    requests finished, the victim's tokens equal the uninjected run's, and
+    the launches equal the structural count of the trace.  (The other
+    requests' tokens are printed: the reference pins them only on its
+    bitwise 16-bit recovery, and on the card a rebuilt FP8 slot may move
+    the pool's scale.)"""
+    from repro_torch.runtime import FailureInjector
+    from repro_torch.serving import loadgen
+    from repro_torch.serving import scheduler as sl
+
+    slo = json.loads((ROOT / "benchmarks" / "baselines" / "serve_slo.json").read_text())
+    sc = slo["scenario"]
+    scfg = sl.SchedulerConfig(n_slots=sc["n_slots"], max_len=sc["max_len"],
+                              storage_dtype=storage, max_queue=sc["max_queue"],
+                              audit_every=sc["audit_every"])
+    lc = loadgen.LoadConfig(rate=sc["rate"], n_requests=sc["n_requests"],
+                            prompt_len=sc["prompt_len"], gen_len=sc["gen_len"],
+                            seed=sc["seed"], deadline_ticks=sc["deadline_ticks"],
+                            max_retries=sc["max_retries"])
+    tag = storage or "16-bit"
+    out, base = {}, None
+    for mode in modes:
+        at = 1 if mode == "prefill_crash" else sc["inject_step"]
+        inj = lambda: mode and FailureInjector(fail_at_step=at, mode=mode)
+        card, twin = [], []
+        _zero(counters)
+        _, m = loadgen.slo_rows(params, cfg, scfg, cfg.name, lc, injector=inj(),
+                                scheduler=card)
+        launches = _read(counters)
+        ref = loadgen.run_load(pcpu, cfg_cpu, scfg, lc, injector=inj(), scheduler=twin)
+        s, t = card[0], twin[0]
+        want = _sched_structural(s)
+        floor = slo["goodput_floor_uninjected"] if mode is None \
+            else slo["goodput_floor_injected"]
+        events = [e for e in s.trace if e[0] in ("nan_detect", "kv_quarantine",
+                                                   "prefill_retry", "recover")]
+        victim = events[0][2] if events else None
+        tokens = {rid: r.tokens for rid, r in s.results.items()}
+        if mode is None:
+            base = tokens
+        row = {"goodput": m["slo_goodput"], "cpu_goodput": ref["slo_goodput"],
+               "hit": m["deadline_hit_rate"], "recoveries": m["slo_recoveries"],
+               "finished": m["n_finished"], "events": events,
+               "victim_tokens_equal": victim is None or tokens[victim] == base[victim],
+               "all_tokens_equal": tokens == base, "s_per_tick": m["s_per_tick"],
+               "launches": {k: launches[k] for k in want}, "structural": want}
+        out[f"{mode} {tag}"] = row
+        print(f"[slo] {mode or 'none'}@{at if mode else '-'} {tag}: goodput "
+              f"{row['goodput']!r} (CPU port {row['cpu_goodput']!r}), hit {row['hit']}, "
+              f"recoveries {row['recoveries']:.0f}, finished {row['finished']}/"
+              f"{sc['n_requests']}, events {events}, victim tokens equal "
+              f"{row['victim_tokens_equal']}, all tokens equal {row['all_tokens_equal']}, "
+              f"{row['s_per_tick']:.4f} s/tick, launches {row['launches']} (structural "
+              f"{want})", flush=True)
+        ok = (row["goodput"] >= floor and row["hit"] >= slo["deadline_hit_rate_floor"]
+              and row["goodput"] == row["cpu_goodput"] and s.trace == t.trace
+              and row["finished"] == sc["n_requests"] and row["launches"] == want
+              and (mode is None or row["recoveries"] >= slo["recoveries_min"]))
+        ok = ok and row["victim_tokens_equal"]
+        log.append({"check": f"slo {mode} {tag}", "ok": ok, **{
+            k: row[k] for k in ("goodput", "cpu_goodput", "hit", "recoveries")}})
+        if not ok:
+            raise AssertionError(f"sched: the SLO scenario {mode} {tag} fails: {row}")
+    return out
+
+
+def _recovery_contract(log, params, cfg, storage, gap=None):
+    """The reference's recovery scenario (``tests/test_serve_resilience.py:
+    333-380``) at full width: two slots, two requests, four scheduler
+    steps, then slot 0's rows 0 and pos - 1 bit-flipped and the audit run.
+    Holds: the audit quarantines exactly that request; on the 16-bit
+    cache the co-resident slot's stored bytes unmoved, bitwise; on the FP8
+    cache its codes bitwise where the pool's applied scale did not move,
+    else its values within one E4M3 step of theirs before; the victim's
+    rebuilt rows within one E4M3 step plus ``gap`` of a 16-bit full
+    prefill of its absorbed tokens, beside a control (the prefill of the
+    absorbed tokens with the last one changed) that must fail.  Returns
+    the 16-bit cache's prefill-versus-decode gap (the decode-built rows
+    against the same prefill) for the FP8 run's bound, beside the row."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import transformer
+    from repro_torch.serving import kv_cache
+    from repro_torch.serving import scheduler as sl
+
+    tag = storage or "16-bit"
+    rng = np.random.default_rng(11)
+    sched = sl.Scheduler(params, cfg, sl.SchedulerConfig(
+        n_slots=2, max_len=16, storage_dtype=storage, audit_every=1))
+    sched.submit([sl.Request(rid=i, arrival=0.0, max_new_tokens=6, prompt=rng.integers(
+        0, cfg.vocab_size, size=4 + i).astype(np.int32)) for i in range(2)])
+    for _ in range(4):
+        sched.step()
+    s0 = sched.slots[0]
+    names = [(k, n, b) for k, n, _, b in kv_cache.iter_kv_leaves(sched.cache)]
+    wide = lambda c, k, n, b, slot: _dequant_leaf(c[k], n).select(b, slot)
+    decode_built = {(k, n): wide(sched.cache, k, n, b, 0) for k, n, b in names}
+    co_codes = {(k, n): sched.cache[k][n].select(b, 1).clone() for k, n, b in names}
+    co_wide = {(k, n): wide(sched.cache, k, n, b, 1) for k, n, b in names}
+    scales = {(k, n): sched.cache[k][f"{n}_scale"]["scale"].clone()
+              for k, n, b in names if storage}
+    sched.cache = kv_cache.corrupt_slot_rows(sched.cache, 0, [0, s0.pos - 1])
+    t0 = time.perf_counter()
+    sched._audit_slots()
+    torch.cuda.synchronize()
+    audit_ms = (time.perf_counter() - t0) * 1e3   # checksums, re-prefill, insert
+    if [e[2] for e in sched.trace if e[0] == "kv_quarantine"] != [s0.rid]:
+        raise AssertionError(f"sched recovery {tag}: the audit did not quarantine "
+                             f"exactly request {s0.rid}: {sched.trace}")
+    absorbed = np.concatenate([s0.prompt, np.asarray(
+        sched.results[s0.rid].tokens[:s0.fed], np.int32)])
+    nrow = len(absorbed)
+
+    def oracle(seq):
+        _, c = transformer.prefill(params, cfg, {"inputs": torch.as_tensor(
+            seq, dtype=torch.long, device=params["embed"].device)[None]}, 16)
+        return c
+
+    good = oracle(absorbed)
+    bad_seq = absorbed.copy()
+    bad_seq[-1] = (bad_seq[-1] + 1) % cfg.vocab_size
+    bad = oracle(bad_seq)
+    moved = {(k, n): bool(storage) and not torch.equal(
+        sched.cache[k][f"{n}_scale"]["scale"], scales[(k, n)]) for k, n, b in names}
+    row = {"scale_moved": any(moved.values()), "audit_ms_incl_rebuild": audit_ms,
+           "leaves": {}}
+    gaps = {}
+    for k, n, b in names:
+        w = good[k][n].float().select(b, 0)[..., :nrow, :]
+        rebuilt = wide(sched.cache, k, n, b, 0)[..., :nrow, :]
+        db = decode_built[(k, n)][..., :nrow, :]
+        gaps[(k, n)] = (db - w).abs().max().item()
+        co_bitwise = torch.equal(sched.cache[k][n].select(b, 1).view(torch.uint8),
+                                 co_codes[(k, n)].view(torch.uint8))
+        leaf = {"co_resident_bitwise": co_bitwise, "scale_moved": moved[(k, n)],
+                "prefill_vs_decode_gap": gaps[(k, n)],
+                "rebuilt_vs_prefill": (rebuilt - w).abs().max().item()}
+        if storage:
+            sub = sched.cache[k]
+            grid = _scale_grid(sub, n, _dequant_leaf(sub, n)).select(b, 0)[..., :nrow, :]
+            g = gap[(k, n)]
+            leaf["victim_excess"] = _e4m3_excess(rebuilt, w, grid, g)
+            leaf["control_excess"] = _e4m3_excess(
+                rebuilt, bad[k][n].float().select(b, 0)[..., :nrow, :], grid, g)
+            if not co_bitwise:
+                cgrid = _scale_grid(sub, n, _dequant_leaf(sub, n)).select(b, 1)
+                leaf["co_resident_excess"] = _e4m3_excess(
+                    wide(sched.cache, k, n, b, 1), co_wide[(k, n)], cgrid)
+        row["leaves"][f"{k}/{n}"] = leaf
+    print(f"[sched] recovery {tag} ({cfg.policy_name}): applied scale moved "
+          f"{row['scale_moved']}; audit + rebuild {audit_ms:.1f} ms; {row['leaves']}",
+          flush=True)
+    fails = []
+    for name, leaf in row["leaves"].items():
+        # codes bitwise, or (under FP8, where the leaf's applied scale
+        # moved) values within one E4M3 step of theirs before
+        if not leaf["co_resident_bitwise"] and not (
+                leaf["scale_moved"] and leaf["co_resident_excess"] <= 1):
+            fails.append(f"{name}: co-resident slot moved")
+        if storage:
+            if not leaf["victim_excess"] <= 1:
+                fails.append(f"{name}: rebuilt rows beyond the bound")
+            if not leaf["control_excess"] > 1:
+                fails.append(f"{name}: the control (last token changed) holds")
+    log.append({"check": f"sched recovery contract {tag}", "ok": not fails, **row})
+    if fails:
+        raise AssertionError(f"sched recovery {tag}: {fails}")
+    row["gaps"] = {f"{k}/{n}": g for (k, n), g in gaps.items()}
+    return row, gaps
+
+
+def _fp8_cut(log, arch) -> dict:
+    """A two-layer full-width cut of ``arch`` under its serving policy, a
+    1 x 16 prompt and 2 decode steps, with and without the FP8 cache, on
+    the card and on the CPU plain path.  Holds every FP8 cache row of the
+    card within one E4M3 step of the CPU's plus the 16-bit cut's own
+    card-vs-CPU gap of that leaf; the card's FP8 decode logits against its
+    16-bit cache's within the reference's band; beside each, a control
+    that must fail (layer 0's first cache scale doubled; for the logits
+    every layer-0 key scale doubled)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import transformer
+
+    cfg = dataclasses.replace(configs.get(arch), n_layers=2)
+    pc = transformer.init_params(cfg, seed=SEED + 5, device="cuda")
+    pcpu = _to_cpu(pc)
+    gen = torch.Generator().manual_seed(SEED + 5)
+    toks = torch.randint(0, cfg.vocab_size, (1, 16), generator=gen)
+    nxt = torch.randint(0, cfg.vocab_size, (1, 2), generator=gen)
+
+    def run(params, dev, storage, fault=None):
+        with torch.inference_mode():
+            lg, cache = transformer.prefill(params, cfg, {"inputs": toks.to(dev)}, 18,
+                                            storage_dtype=storage)
+            logits = [lg.float().cpu()]
+            for i in range(2):
+                if fault is not None and i == 0:
+                    fault(cache)
+                lg, cache = transformer.serve_step(params, cfg, nxt[:, i:i + 1].to(dev),
+                                                   cache, 16 + i)
+                logits.append(lg.float().cpu())
+        return logits, _to_cpu(cache)
+
+    names = ("ckv", "kr") if cfg.mla else ("k", "v")
+    dev = pc["embed"].device
+    card16, cpu16 = run(pc, dev, None), run(pcpu, "cpu", None)
+    card8, cpu8 = run(pc, dev, FP8_STORAGE), run(pcpu, "cpu", FP8_STORAGE)
+    key0 = "layer0" if "layer0" in card8[1] else "layers"
+
+    def double_keys(cache):           # every layer-0 key scale doubled
+        s = cache[key0][f"{names[0]}_scale"]["scale"]
+        (s if key0 == "layer0" else s[0]).mul_(2)
+
+    row = {"leaves": {}}
+    fails = []
+    for key in card8[1]:
+        for n in names:
+            gap = (card16[1][key][n].float() - cpu16[1][key][n].float()).abs().max().item()
+            got, want = _dequant_leaf(card8[1][key], n), _dequant_leaf(cpu8[1][key], n)
+            grid = _scale_grid(cpu8[1][key], n, want)
+            excess = _e4m3_excess(got, want, grid, gap)
+            ctl = {key: {**card8[1][key]}}
+            ctl[key][f"{n}_scale"] = {**card8[1][key][f"{n}_scale"]}
+            ctl[key][f"{n}_scale"]["scale"] = card8[1][key][f"{n}_scale"]["scale"].clone()
+            s = ctl[key][f"{n}_scale"]["scale"]
+            s.view(-1)[0] *= 2
+            c_excess = _e4m3_excess(_dequant_leaf(ctl[key], n), want, grid, gap)
+            codes = (card8[1][key][n].view(torch.uint8) != cpu8[1][key][n].view(
+                torch.uint8)).float().mean().item()
+            row["leaves"][f"{key}/{n}"] = {"excess": excess, "control_excess": c_excess,
+                                           "gap16": gap, "codes_differing": codes}
+            if not excess <= 1:
+                fails.append(f"{key}/{n}: FP8 rows card vs CPU beyond the bound")
+            if not c_excess > 1:
+                fails.append(f"{key}/{n}: the control (one scale doubled) holds")
+    diffs = [(a - b).abs().max().item() for a, b in zip(card8[0][1:], card16[0][1:])]
+    ctl_logits = run(pc, dev, FP8_STORAGE, fault=double_keys)[0]
+    c_diffs = [(a - b).abs().max().item() for a, b in zip(ctl_logits[1:], card16[0][1:])]
+    band = lambda d: max(d) < FP8_BAND_MAX and sum(d) / len(d) < FP8_BAND_MEAN
+    row.update({"decode_diffs": diffs, "control_decode_diffs": c_diffs,
+                "logit_max": max(x.abs().max().item() for x in card16[0]),
+                "prefill_diff": (card8[0][0] - card16[0][0]).abs().max().item()})
+    if not band(diffs):
+        fails.append(f"FP8 decode logits outside the band: {diffs}")
+    if band(c_diffs):
+        fails.append(f"the logits control (layer-0 key scales doubled) holds: {c_diffs}")
+    print(f"[fp8cut] {arch} two layers: {row}", flush=True)
+    log.append({"check": f"fp8 cut {arch}", "ok": not fails, **row})
+    if fails:
+        raise AssertionError(f"fp8 cut {arch}: {fails}")
+    del pc, pcpu
+    return row
+
+
+def sched_phase(log, counters):
+    """Serving under load: ``repro_torch.launch.serve --sched`` on yi-9b at
+    full width and depth (48 layers, d 4096, 8.8 B parameters) with the
+    reference's defaults — 4 slots, 8 requests at each of the rates 0.25
+    and 1.0, prompt 128, 16 new tokens, the FP8 E4M3 KV cache and
+    ``mixed_fp8_e4m3`` — with the counts set to 0 just before.  Holds:
+    every request finishes, the launches equal the structural count of the
+    traces and every kernel-1 launch is FP8; the rate-1.0 point run again
+    gives the same trace and tokens.  Then ``serve_slo.json``'s scenario
+    on the card and on its CPU twin under yi-9b's own policy (tpu_bf16),
+    as the file states it (FP8 cache: no fault, ``nan_logits@2``,
+    ``kv_corrupt@2``, ``prefill_crash@1``; the 16-bit cache: no fault,
+    ``kv_corrupt@2``), the recovery contract under
+    tpu_bf16 on both caches, the FP8 cuts of yi-9b and deepseek-v2-lite-16b
+    against the CPU, and the accounting: KV bytes, one profiled FP8 and
+    bf16 decode step, the audit's time."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+    from repro_torch.optim import tree_map
+    from repro_torch.serving import kv_cache, loadgen
+
+    card = _card()
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
+    argv = ["--sched", "--arch", S_ARCH, "--full", "--slots", str(S_SLOTS),
+            "--requests", str(S_REQUESTS), "--rates", ",".join(f"{r:g}" for r in S_RATES),
+            "--prompt-len", str(S_PROMPT), "--gen", str(S_GEN), "--seed", str(SEED),
+            "--device", "cuda", "--json", str(ROOT / "chiprun_out" / "BENCH_sched.json")]
+    _zero(counters)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = serve.main(argv)
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    launches = _read(counters)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[sched] launches on the main path: {launches}", flush=True)
+    scheds = res["schedulers"]
+    want = {k: sum(_sched_structural(s)[k] for s in scheds)
+            for k in ("redmule_matmul", "redmule_matmul_batched", "flash_attention")}
+    got = {k: launches[k] for k in want}
+    fp8 = launches["redmule_matmul (FP8 e4m3, faithful)"]
+    print(f"[sched] launches {got}, structural {want} (from the traces: "
+          f"{sum(len(s.health) for s in scheds)} decode steps); FP8 kernel-1 "
+          f"launches {fp8}", flush=True)
+    if got != want or fp8 != got["redmule_matmul"]:
+        raise AssertionError("sched: launches differ from the structural count, "
+                             "or not every kernel-1 launch is FP8")
+    for rate, m in zip(S_RATES, res["points"]):
+        print(f"[sched] rate {rate:g} ({card}): TTFT p50 {m['p50_ttft_ticks']:.3f} / "
+              f"p99 {m['p99_ttft_ticks']:.3f} ticks, tokens/s p50 "
+              f"{m['p50_tokens_per_s']:.3f} / p99 {m['p99_tokens_per_s']:.3f}, batch "
+              f"fill {m['mean_batch_fill']:.3f}, {m['s_per_tick']:.4f} s/tick, "
+              f"{m['decode_steps']} decode steps in {m['wall_s']:.2f} s", flush=True)
+        if m["n_finished"] != S_REQUESTS:
+            raise AssertionError(f"sched: rate {rate}: {m['n_finished']} of "
+                                 f"{S_REQUESTS} requests finished")
+    params, cfg, scfg = scheds[0].params, scheds[0].cfg, scheds[0].scfg
+    again = []
+    loadgen.run_load(params, cfg, scfg, loadgen.LoadConfig(
+        rate=S_RATES[-1], n_requests=S_REQUESTS, prompt_len=S_PROMPT, gen_len=S_GEN,
+        seed=SEED, max_retries=2), scheduler=again)
+    first, second = scheds[-1], again[0]
+    same = (first.trace == second.trace and
+            {k: r.tokens for k, r in first.results.items()}
+            == {k: r.tokens for k, r in second.results.items()})
+    points = res["points"]
+    print(f"[sched] rate {S_RATES[-1]:g} run again: the same trace "
+          f"({len(first.trace)} events) and tokens: {same}", flush=True)
+    log.append({"check": "sched rate point run twice: same trace and tokens", "ok": same})
+    if not same:
+        raise AssertionError("sched: the same seed gave another trace or other tokens")
+    del scheds, first, second, again, res
+
+    parts = {"sweep": sweep_s, "rerun": time.perf_counter() - t0 - sweep_s}
+
+    # the SLO scenario, card and reduced CPU twin, as serve_slo.json states
+    # it: yi-9b's own policy (tpu_bf16; the sweep's weights cast) with the
+    # FP8 cache, and with the 16-bit cache
+    t1 = time.perf_counter()
+    bf_cfg = configs.get(S_ARCH)
+    p_bf = tree_map(lambda t: t.to(bf_cfg.policy.compute_dtype), params)
+    red = configs.get_reduced(S_ARCH)
+    p_red = transformer.init_params(red, seed=SEED, device="cpu")
+    slo = _slo_runs(log, counters, p_bf, bf_cfg, p_red, red, FP8_STORAGE,
+                    (None, "nan_logits", "kv_corrupt", "prefill_crash"))
+    slo.update(_slo_runs(log, counters, p_bf, bf_cfg, p_red, red, None,
+                         (None, "kv_corrupt")))
+    parts["slo"] = time.perf_counter() - t1
+
+    # the recovery contract under tpu_bf16: the 16-bit cache first (its
+    # prefill-versus-decode gap bounds the FP8 run's)
+    t1 = time.perf_counter()
+    rec16, gaps = _recovery_contract(log, p_bf, bf_cfg, None)
+    rec8, _ = _recovery_contract(log, p_bf, bf_cfg, FP8_STORAGE, gap=gaps)
+    parts["recovery"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+
+    # accounting, and one profiled decode step on each cache: 4 slots with
+    # 128 rows cached
+    L, T = cfg.n_layers, S_PROMPT + S_GEN + 4
+    lengths = [S_PROMPT] * S_SLOTS
+    acct = {"token_elems": kv_cache.token_elems(cfg)}
+    for tag, sd in (("fp8", FP8_STORAGE), ("bf16", None)):
+        acct[f"decode_step_kv_bytes_{tag}"] = kv_cache.decode_step_kv_bytes(cfg, lengths, sd)
+        acct[f"cache_size_bytes_{tag}"] = kv_cache.cache_size_bytes(cfg, S_SLOTS, T, sd)
+    dev = params["embed"].device
+    toks = torch.zeros((S_SLOTS, 1), dtype=torch.long, device=dev)
+    pos = torch.full((S_SLOTS,), S_PROMPT, device=dev)
+    sizes = np.full((S_SLOTS,), S_PROMPT + 1, np.int32)
+    profiles = {}
+    for tag, pp, cc, sd in (("fp8", params, cfg, FP8_STORAGE), ("bf16", p_bf, bf_cfg, None)):
+        cache = transformer.init_cache(cc, S_SLOTS, T, storage_dtype=sd, device=dev)
+        step = lambda pp=pp, cc=cc, cache=cache: transformer.serve_step(
+            pp, cc, toks, cache, pos, kv_group_sizes=sizes)
+        step()
+        acct[f"decode_step_ms_{tag}"] = _time_ms(step, iters=3, warmup=1)
+        # one call a window: an FP8 step launches ~18,700 kernels, and the
+        # profiler's post-processing of three took ~30 s
+        profiles[tag] = _k2_profile(step, 1, 2 * L)
+        _print_profile(f"sched decode_step, {tag} cache", profiles[tag])
+        _no_library_gemm(profiles[tag], f"sched decode step ({tag} cache)")
+        if tag == "fp8":
+            t0 = time.perf_counter()
+            for i in range(S_SLOTS):
+                kv_cache.slot_checksum(cache, i, S_PROMPT)
+            acct["audit_ms_4_slots"] = (time.perf_counter() - t0) * 1e3
+        del cache
+    print(f"[sched] accounting ({card}): {acct}; sweep peak {peak / 2**30:.2f} GiB",
+          flush=True)
+    del params, p_bf
+    torch.cuda.empty_cache()
+    parts["accounting"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    cuts = {arch: _fp8_cut(log, arch) for arch in (S_ARCH, "deepseek-v2-lite-16b")}
+    parts["fp8_cuts"] = time.perf_counter() - t1
+    print(f"[sched] seconds by part: " + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()),
+          flush=True)
+    return {"sweep_s": sweep_s, "launches": launches, "structural": want,
+            "points": points,
+            "slo": slo, "recovery": {"16-bit": rec16, "fp8": rec8},
+            "accounting": acct, "profiles": profiles, "fp8_cuts": cuts,
+            "peak_mem_gib": peak / 2**30, "seconds": parts}
+
+
 def _to_cpu(tree):
     if hasattr(tree, "cpu"):
         return tree.cpu()
@@ -3972,6 +4502,7 @@ def main() -> int:
     hymbaserve = timed("hymbaserve", hymbaserve_phase, log, counters)
     hymbatrain = timed("hymbatrain", hymbatrain_phase, log, counters)
     ssmcut = timed("ssmcut", ssm_cuts, log)
+    sched = timed("sched", sched_phase, log, counters)
     runs = {"serve": serve["launches"], "train": train["launches"],
             "lmtrain": lmtrain["launches"],
             "ae": ae["launches"], "ae_fp32": ae["launches_fp32"],
@@ -3979,7 +4510,8 @@ def main() -> int:
             "ae8_b4096": ae8["launches_b4096"], "ae8_e5m2": ae8["launches_e5m2"],
             "serve8": serve8["launches"], "moeserve": moeserve["launches"],
             "moetrain": moetrain["launches"], "ssmserve": ssmserve["launches"],
-            "hymbaserve": hymbaserve["launches"], "hymbatrain": hymbatrain["launches"]}
+            "hymbaserve": hymbaserve["launches"], "hymbatrain": hymbatrain["launches"],
+            "sched": sched["launches"]}
     for kern in kernels:
         # a path outside the row's ``paths`` does not run its shape: null
         paths = row_paths.get(kern["name"], tuple(runs))
@@ -3995,7 +4527,7 @@ def main() -> int:
            "train": train, "lmtrain": lmtrain, "ae": ae, "ae8": ae8,
            "serve8": serve8, "moeserve": moeserve, "moecut": moecut,
            "moetrain": moetrain, "ssmserve": ssmserve, "hymbaserve": hymbaserve,
-           "hymbatrain": hymbatrain, "ssmcut": ssmcut,
+           "hymbatrain": hymbatrain, "ssmcut": ssmcut, "sched": sched,
            "kernels": kernels, "split_launches_by_path": split_by_path}
     (ROOT / "chiprun_out").mkdir(exist_ok=True)
     (ROOT / "chiprun_out" / "chip_smoke.json").write_text(json.dumps(out, indent=1))

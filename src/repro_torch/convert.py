@@ -7,7 +7,9 @@ reference's tree arrives as numpy arrays (``jax.device_get`` of
 ``repro.models.transformer.init_params``), with stacked leading layer dims;
 the port keeps that structure and layout, so the conversion is a checked
 copy.  The AutoEncoder's tree (``fc{i}.{w,b,gamma,beta}``) converts the same
-way (:func:`ae_params_from_jax`).  This module imports neither JAX nor
+way (:func:`ae_params_from_jax`), and a decode cache — FP8 codes and their
+``*_scale`` leaves included — bit for bit (:func:`cache_from_jax`), so both
+packages can start from one pool.  This module imports neither JAX nor
 ``repro``.
 """
 
@@ -22,7 +24,7 @@ from repro_torch import resolve_device
 from repro_torch.models import autoencoder, transformer
 from repro_torch.models.layers import Param
 
-__all__ = ["params_from_jax", "ae_params_from_jax"]
+__all__ = ["params_from_jax", "ae_params_from_jax", "cache_from_jax"]
 
 
 def params_from_jax(tree: Dict[str, Any], cfg, device="cuda",
@@ -61,3 +63,27 @@ def _convert(schema: Dict[str, Any], tree: Dict[str, Any],
         return {k: go(v, src[k], path + (k,)) for k, v in node.items()}
 
     return go(schema, tree, ())
+
+
+# numpy dtype name -> (the integer view carrying its bits, the torch dtype);
+# bfloat16 and the FP8 formats arrive as ml_dtypes arrays
+_BITS = {"bfloat16": (np.int16, torch.bfloat16),
+         "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn),
+         "float8_e5m2": (np.uint8, torch.float8_e5m2)}
+
+
+def cache_from_jax(tree: Dict[str, Any], device="cuda") -> Dict[str, Any]:
+    """The port's decode cache from the reference's (numpy leaves, the same
+    nested dict): every leaf copied bit for bit in its own dtype."""
+    dev = resolve_device(device)
+
+    def go(node):
+        if isinstance(node, dict):
+            return {k: go(v) for k, v in node.items()}
+        a = np.asarray(node)
+        if a.dtype.name in _BITS:
+            view, dt = _BITS[a.dtype.name]
+            return torch.from_numpy(a.view(view).copy()).view(dt).to(dev)
+        return torch.from_numpy(a.copy()).to(dev)
+
+    return go(tree)

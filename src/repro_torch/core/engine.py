@@ -63,7 +63,10 @@ and bills the post-op pass as a ``linear_postep`` event.  The residuals
 stay in FP8 with their scales; the backward quantizes the cotangent to
 the grad storage (E5M2) once and runs dX (grad storage in the x slot) and
 dW (in the w slot).  Scales are device tensors: nothing on the dispatch
-path syncs with the host.  ``attention`` casts q / k / v to the compute
+path syncs with the host.  Under ``torch.inference_mode`` (serving) an
+operand made outside it and not requiring grad — a weight — keeps its
+quantization until the tensor changes (:func:`_frozen_fp8`): the same
+``(q, s)`` the dispatch would compute, once instead of every step.  ``attention`` casts q / k / v to the compute
 dtype and runs flash without quantizing, as the reference does.
 ``attention``'s backward recomputes through the reference composition of
 two :func:`einsum2d` dispatches and differentiates it (the reference's
@@ -80,6 +83,7 @@ import dataclasses
 import functools
 import math
 import threading
+import weakref
 from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -673,6 +677,33 @@ def _dispatch_storage(policy: prec.Policy, backend: str
             nm(policy.grad_storage_dtype))
 
 
+# quantized operands kept across dispatches, keyed by (id of the base
+# tensor, view offset / shape / strides, FP8 dtype); each entry holds a
+# weak reference to the base and its version, and dies with the base
+_FP8_FROZEN: Dict[tuple, tuple] = {}
+
+
+def _frozen_fp8(v: torch.Tensor, storage_dtype):
+    """``prec.quantize_fp8(v, storage_dtype)``, kept while ``v``'s base
+    tensor is alive and unmodified, for a tensor made outside inference
+    mode that needs no grad, dispatched inside it (a weight while serving);
+    None otherwise.  The values are the ones a fresh quantization gives:
+    the key pins the view, the base's identity and its version counter
+    (bumped by every in-place write)."""
+    if not torch.is_inference_mode_enabled() or v.is_inference() or v.requires_grad:
+        return None
+    base = v if v._base is None else v._base
+    key = (id(base), v.storage_offset(), tuple(v.shape), v.stride(),
+           prec.dtype_name(storage_dtype))
+    hit = _FP8_FROZEN.get(key)
+    if hit is not None and hit[0]() is base and hit[1] == base._version:
+        return hit[2]
+    out = prec.quantize_fp8(v, storage_dtype)
+    ref = weakref.ref(base, lambda _r, k=key: _FP8_FROZEN.pop(k, None))
+    _FP8_FROZEN[key] = (ref, base._version, out)
+    return out
+
+
 def _prep_operand(v: torch.Tensor, storage_dtype, store_name: Optional[str],
                   policy: prec.Policy
                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
@@ -684,7 +715,7 @@ def _prep_operand(v: torch.Tensor, storage_dtype, store_name: Optional[str],
     dtype, so the quantization point does not depend on the backend."""
     comp = policy.compute_dtype
     if prec.is_fp8(storage_dtype):
-        q, s = prec.quantize_fp8(v, storage_dtype)
+        q, s = _frozen_fp8(v, storage_dtype) or prec.quantize_fp8(v, storage_dtype)
         return (q.to(comp) if store_name is None else q), s
     q = v.to(storage_dtype)
     if store_name is None and q.dtype != comp:
@@ -1294,10 +1325,11 @@ def _linear_attention_reference(q, k, v, log_g, *, chunk: int,
     causal = torch.ones((chunk, chunk), dtype=torch.bool, device=q.device).tril()
     zero = torch.zeros((), device=q.device)
     eng = DEFAULT_ENGINE
+    from repro_torch.kernels.chunked_linear_attention import chunk_cumsum
     outs = []
     for i in range(n):     # the reference's lax.scan over chunks
         qc, kc, vc, gc = qf[:, :, i], kf[:, :, i], vf[:, :, i], gf[:, :, i]
-        L = torch.cumsum(gc, dim=-1)
+        L = chunk_cumsum(gc)
         ltot = L[..., -1:]
         A = torch.where(causal, torch.exp(torch.where(
             causal, L[..., :, None] - L[..., None, :], zero)), zero)

@@ -41,18 +41,30 @@
 //    the whole dk, with the next chunk's v, L and scores behind them.
 //
 // fp32 accuracy from TF32 tensor cores.  bf16 and fp16 values are exact in
-// TF32 (8 and 11 significant bits of TF32's 11); the fp32 operands — the
-// state, the decayed scores A, kdec = k exp(L_C - L), and q, k, v
-// themselves for fp32 input — are split into big + small TF32 pieces
-// (big = x rounded to TF32, small = x - big, ~22 bits together, CUTLASS's
-// "3xTF32"), and every piece product but small x small accumulates in
-// fp32: two MMAs per product for 16-bit inputs, three for fp32 inputs (one
-// code path for every input dtype).  Measured against the plain version
-// on one H100 (chip_smoke.py, training shape, bf16): the state within
-// 5e-7 of its max, the output within 2.6e-3 of max (one bf16 rounding), as
-// the SIMT kernel this replaces; in a CPU emulation the same products with
-// S, A or kdec in one TF32 piece are off by 1-2.4e-4 of max where the
-// pieces are off by ~2e-7 (tests/test_torch_attn_numerics.py).
+// TF32 (8 and 11 significant bits of TF32's 11).  For bf16 / fp16 inputs the
+// fp32 operands — the state, the decayed scores A and kdec = k exp(L_C - L)
+// — are split into two TF32 pieces (big = x rounded to TF32, small = x -
+// big, which the MMA reads truncated to TF32: ~22 bits together, CUTLASS's
+// "3xTF32"), and big x big, big x small and small x big accumulate in fp32;
+// the output is rounded to bf16 / fp16 after.  For fp32 inputs every fp32
+// operand — q, k and (if fp32) v as well as the state, A and kdec — is split
+// into three pieces: big = cvt.rna(x), mid = cvt.rna(x - big), small = x -
+// big - mid (a few bits, exact in TF32), so the pieces carry x whole; every
+// piece product at or above fp32's rounding accumulates in fp32 (big x big,
+// big x mid, mid x big, big x small, small x big, mid x mid; a 16-bit v has
+// one piece, so only its products with A's or kdec's three), each k-step's
+// products summed apart and added to the running sum in fp32 (mma_acc),
+// and L summed in fp64.  Two pieces into the running sum and an fp32 scan
+// of L left ~21-22 significant bits of each operand and a few ulps of |L|,
+// and the fp32 xLSTM super-block's gradients sat 11x further from the CPU
+// than the same block with the sweep composed on the fp32 GEMM route.  Measured against the
+// plain version on one H100 (chip_smoke.py, training shape, bf16): the state
+// within 5e-7 of its max, the output within 2.6e-3 of max (one bf16
+// rounding), as the SIMT kernel this replaces; in a CPU emulation
+// (tests/test_torch_attn_numerics.py, tests/test_torch_kernel4_fp32.py) the
+// pieces are off by ~2e-7 of max where S, A or kdec in one piece are off by
+// 1-2.4e-4, and on fp32 inputs three pieces sit at the fp32 composition's
+// distance from an fp64 recurrence where two do not.
 //
 // What bounds it.  At the training shape (BH 16, S 256, dk = dv = 1024,
 // C 64, bf16 inputs) the function moves ~101 MB (mostly the fp32 state
@@ -69,8 +81,11 @@
 // by TMA multicast would cut that).
 //
 // At hymba's dk = 16 (the SSM state size) the sweep still gives each warp
-// 128 dk columns: warps 1-7 of each block idle and 7/8 of warp 0's columns
-// are zero padding (ROADMAP Queue B).
+// 128 dk columns: warps 1-7 of each block idle.  On fp32 q / k (hymba's C
+// and B) warp 0 skips the 32-column groups past dk, whose products are
+// exact zeros, and runs one, half of it padding; the 16-bit instantiations
+// keep the full loops, which the test costs ~10 % at dk = 1024 (ROADMAP
+// Queue B).
 //
 // Contract (checked by the Python wrapper): S is a multiple of C (callers
 // pad with g = 0, k = 0, which is inert); C in {16, 32, 64, 128}; dk <=
@@ -152,21 +167,27 @@ template <> __device__ __forceinline__ float2 pair_at<float>(const uint4* raw, i
   return make_float2(__uint_as_float(w[2 * s]), __uint_as_float(w[2 * s + 1]));
 }
 
-// TF32 pieces: big = x rounded to TF32, small = x - big (exact in fp32;
-// the MMA reads its top 19 bits).  An operand exact in TF32 (a bf16 / fp16
-// value) has no small piece.
+// TF32 pieces of an fp32 value x = hi + mid + lo.  N = 1: x is exact in
+// TF32 (a bf16 / fp16 value), hi = x.  N = 2: hi = x rounded to TF32 and
+// mid = x - hi (exact in fp32; the MMA reads its top 19 bits).  N = 3: hi,
+// mid = (x - hi) rounded to TF32 and lo = x - hi - mid (a few bits, exact in
+// TF32), so the three carry x whole.
 struct Pc {
-  uint32_t hi, lo;
+  uint32_t hi, mid, lo;
 };
-__device__ __forceinline__ Pc split(float x) {
+__device__ __forceinline__ uint32_t to_tf32(float x) {
   uint32_t h;
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(h) : "f"(x));
-  return {h, __float_as_uint(x - __uint_as_float(h))};
+  return h;
 }
-template <bool kSplit>
+template <int N>
 __device__ __forceinline__ Pc pieces(float x) {
-  if constexpr (kSplit) return split(x);
-  return {__float_as_uint(x), 0u};
+  if constexpr (N == 1) return {__float_as_uint(x), 0u, 0u};
+  const uint32_t h = to_tf32(x);
+  const float r = x - __uint_as_float(h);
+  if constexpr (N == 2) return {h, __float_as_uint(r), 0u};
+  const uint32_t m = to_tf32(r);
+  return {h, m, __float_as_uint(r - __uint_as_float(m))};
 }
 
 __device__ __forceinline__ void mma_tf32(float (&d)[4], uint32_t a0, uint32_t a1,
@@ -177,14 +198,57 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], uint32_t a0, uint32_t a1
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
-// d += A B over the pieces: big x big, big x small (B split), small x big
-// (A split); small x small is below fp32's rounding and is dropped.
-template <bool kSplitA, bool kSplitB>
-__device__ __forceinline__ void mma3(float (&d)[4], const Pc (&a)[4], Pc b0, Pc b1) {
+// d += A B over the piece products a_i b_j with i + j < max(NA, NB), those
+// at or above fp32's rounding: with two pieces big x big, big x small and
+// small x big (small x small is dropped); with three also big x lo, lo x
+// big and mid x mid.
+template <int NA, int NB>
+__device__ __forceinline__ void mma_p(float (&d)[4], const Pc (&a)[4], Pc b0, Pc b1) {
+  constexpr int N = NA > NB ? NA : NB;
   mma_tf32(d, a[0].hi, a[1].hi, a[2].hi, a[3].hi, b0.hi, b1.hi);
-  if constexpr (kSplitB) mma_tf32(d, a[0].hi, a[1].hi, a[2].hi, a[3].hi, b0.lo, b1.lo);
-  if constexpr (kSplitA) mma_tf32(d, a[0].lo, a[1].lo, a[2].lo, a[3].lo, b0.hi, b1.hi);
+  if constexpr (NB >= 2) mma_tf32(d, a[0].hi, a[1].hi, a[2].hi, a[3].hi, b0.mid, b1.mid);
+  if constexpr (NA >= 2) mma_tf32(d, a[0].mid, a[1].mid, a[2].mid, a[3].mid, b0.hi, b1.hi);
+  if constexpr (N == 3) {
+    if constexpr (NB == 3) mma_tf32(d, a[0].hi, a[1].hi, a[2].hi, a[3].hi, b0.lo, b1.lo);
+    if constexpr (NA == 3) mma_tf32(d, a[0].lo, a[1].lo, a[2].lo, a[3].lo, b0.hi, b1.hi);
+    if constexpr (NA >= 2 && NB >= 2)
+      mma_tf32(d, a[0].mid, a[1].mid, a[2].mid, a[3].mid, b0.mid, b1.mid);
+  }
 }
+
+// d += A B as mma_p does.  For fp32 inputs (three pieces) a k-step's piece
+// products are summed into a zeroed accumulator and that is added to d in
+// fp32, round to nearest: an MMA does not round its fp32 sum to nearest (it
+// aligns the terms to the largest and drops the bits below), so six MMAs a
+// k-step straight into a long running sum drift with the sum's magnitude
+// (2.1e-6 of max against the plain version at dk = 1024, where the exact
+// products predict 5e-7); summed apart, a k-step's error scales with its
+// own products.
+template <int NA, int NB>
+__device__ __forceinline__ void mma_acc(float (&d)[4], const Pc (&a)[4], Pc b0, Pc b1) {
+  if constexpr (NA == 3 || NB == 3) {
+    float t[4] = {0.f, 0.f, 0.f, 0.f};
+    mma_p<NA, NB>(t, a, b0, b1);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) d[e] += t[e];
+  } else {
+    mma_p<NA, NB>(d, a, b0, b1);
+  }
+}
+
+// Pieces per operand: q / k (and v) in their own dtype, and the fp32
+// quantities (the state, A, kdec), by the input element type; and the type
+// the chunk's cumsum L accumulates in.  For fp32 inputs L is summed in fp64
+// and rounded once (as PyTorch's CPU cumsum does, and the plain version on
+// every device): an fp32 scan is off by 2-5 ulps of |L| (7.6e-6 at |L| ~
+// 58), and exp(L) turns that into a relative error of the same size, 10x
+// what the products' pieces leave.
+template <typename T> struct NPieces {
+  static constexpr int kIn = std::is_same<T, float>::value ? 3 : 1;
+  static constexpr int kF32 = std::is_same<T, float>::value ? 3 : 2;
+  using Acc = typename std::conditional<std::is_same<T, float>::value, double,
+                                        float>::type;
+};
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -246,7 +310,7 @@ __global__ void __launch_bounds__(32 * kScoreWarps)
                                            float* __restrict__ L_out,
                                            float* __restrict__ A_out, int S, int dk,
                                            int vec) {
-  constexpr bool kSplit = std::is_same<T, float>::value;
+  constexpr int kIn = NPieces<T>::kIn;
   constexpr int NTM = C / 8;    // n-tiles of a full chunk row
   constexpr int RLD = C + 8;    // padded row of the partial sums
   constexpr int E = C >= 32 ? C / 32 : 1;  // cumsum elements per lane
@@ -260,25 +324,26 @@ __global__ void __launch_bounds__(32 * kScoreWarps)
   const long long s0 = (long long)ci * C;
 
   if (warp == 0) {  // inclusive cumsum of the chunk's log decays
-    float x[E];
-    float run = 0.f;
+    using Acc = typename NPieces<T>::Acc;
+    Acc x[E];
+    Acc run = 0;
 #pragma unroll
     for (int e = 0; e < E; ++e) {
       const int i = lane * E + e;
       run += i < C ? g[(long long)bh * S + s0 + i] : 0.f;
       x[e] = run;
     }
-    float incl = run;
+    Acc incl = run;
 #pragma unroll
     for (int o = 1; o < 32; o <<= 1) {
-      const float y = __shfl_up_sync(0xffffffffu, incl, o);
+      const Acc y = __shfl_up_sync(0xffffffffu, incl, o);
       if (lane >= o) incl += y;
     }
-    const float excl = incl - run;
+    const Acc excl = incl - run;
 #pragma unroll
     for (int e = 0; e < E; ++e) {
       const int i = lane * E + e;
-      if (i < C) Ls[i] = excl + x[e];
+      if (i < C) Ls[i] = (float)(excl + x[e]);
     }
   }
 
@@ -298,10 +363,10 @@ __global__ void __launch_bounds__(32 * kScoreWarps)
     Pc a[4][4];
 #pragma unroll
     for (int s = 0; s < 4; ++s) {
-      a[s][0] = pieces<kSplit>(fa[2 * s]);
-      a[s][1] = pieces<kSplit>(fb[2 * s]);
-      a[s][2] = pieces<kSplit>(fa[2 * s + 1]);
-      a[s][3] = pieces<kSplit>(fb[2 * s + 1]);
+      a[s][0] = pieces<kIn>(fa[2 * s]);
+      a[s][1] = pieces<kIn>(fb[2 * s]);
+      a[s][2] = pieces<kIn>(fa[2 * s + 1]);
+      a[s][3] = pieces<kIn>(fb[2 * s + 1]);
     }
 #pragma unroll
     for (int nt = 0; nt < NTM; ++nt) {
@@ -310,8 +375,8 @@ __global__ void __launch_bounds__(32 * kScoreWarps)
         load8<T>(fk, kc + 8LL * nt * dk, col, dk, v16);
 #pragma unroll
         for (int s = 0; s < 4; ++s)
-          mma3<kSplit, kSplit>(acc[nt], a[s], pieces<kSplit>(fk[2 * s]),
-                               pieces<kSplit>(fk[2 * s + 1]));
+          mma_acc<kIn, kIn>(acc[nt], a[s], pieces<kIn>(fk[2 * s]),
+                            pieces<kIn>(fk[2 * s + 1]));
       }
     }
   }
@@ -353,8 +418,9 @@ __global__ void __launch_bounds__(32 * kScoreWarps)
 // ------------------------------------------------------------------------
 template <typename T, typename TV, int C>
 struct Sweep {
-  static constexpr bool kSplitIn = std::is_same<T, float>::value;
-  static constexpr bool kSplitV = std::is_same<TV, float>::value;
+  static constexpr int kIn = NPieces<T>::kIn;     // pieces of q and k
+  static constexpr int kF32 = NPieces<T>::kF32;   // of the state, A and kdec
+  static constexpr int kV = NPieces<TV>::kIn;     // of v
   static constexpr int CE = 16 / sizeof(T);             // elements per 16 bytes
   static constexpr int CEV = 16 / sizeof(TV);           // v elements per 16 bytes
   static constexpr int RG0 = 64 / sizeof(T);            // slab rows: 32 (16 fp32)
@@ -393,7 +459,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                                     float* __restrict__ state, int S, int dk, int dv,
                                     int vec_dk, int vec_dv) {
   using P = Sweep<T, TV, C>;
-  constexpr bool kSp = P::kSplitIn, kSpV = P::kSplitV;
+  constexpr int kIn = P::kIn, kF32 = P::kF32, kV = P::kV;
   constexpr int CE = P::CE, CEV = P::CEV, RG = P::RG, NG = P::NG, RNT = P::RNT;
   constexpr int ALD = P::ALD, VLD = P::VLD, RED = P::RED;
   const int dks = (dk + kDKW - 1) / kDKW * kDKW;
@@ -479,10 +545,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     auto vfrag = [&](Pc (&a)[2][4], int r) {
 #pragma unroll
       for (int m = 0; m < 2; ++m) {
-        a[m][0] = pieces<kSpV>(to_f(vc[r * VLD + 16 * m + gq]));
-        a[m][1] = pieces<kSpV>(to_f(vc[r * VLD + 16 * m + gq + 8]));
-        a[m][2] = pieces<kSpV>(to_f(vc[(r + 1) * VLD + 16 * m + gq]));
-        a[m][3] = pieces<kSpV>(to_f(vc[(r + 1) * VLD + 16 * m + gq + 8]));
+        a[m][0] = pieces<kV>(to_f(vc[r * VLD + 16 * m + gq]));
+        a[m][1] = pieces<kV>(to_f(vc[r * VLD + 16 * m + gq + 8]));
+        a[m][2] = pieces<kV>(to_f(vc[(r + 1) * VLD + 16 * m + gq]));
+        a[m][3] = pieces<kV>(to_f(vc[(r + 1) * VLD + 16 * m + gq + 8]));
       }
     };
 
@@ -496,6 +562,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (active && c > 0) {  // the state is zero before the first chunk
 #pragma unroll
         for (int a = 0; a < kNT / 4; ++a) {
+          if (kIn == 3 && wc0 + 32 * a >= dk) continue;  // zero padding
           uint4 qv[RNT][8 / CE];  // 8 elements of a q row, still packed
 #pragma unroll
           for (int n = 0; n < RNT; ++n) {
@@ -510,16 +577,16 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
             for (int n = 0; n < RNT; ++n) {
               const float2 f = pair_at<T>(qv[n], s);
-              b0[n] = pieces<kSp>(f.x);
-              b1[n] = pieces<kSp>(f.y);
+              b0[n] = pieces<kIn>(f.x);
+              b1[n] = pieces<kIn>(f.y);
             }
 #pragma unroll
             for (int m = 0; m < 2; ++m) {
               const int nt = 4 * a + s;
-              const Pc am[4] = {split(st[m][nt][0]), split(st[m][nt][2]),
-                                split(st[m][nt][1]), split(st[m][nt][3])};
+              const Pc am[4] = {pieces<kF32>(st[m][nt][0]), pieces<kF32>(st[m][nt][2]),
+                                pieces<kF32>(st[m][nt][1]), pieces<kF32>(st[m][nt][3])};
 #pragma unroll
-              for (int n = 0; n < RNT; ++n) mma3<true, kSp>(acc[m][n], am, b0[n], b1[n]);
+              for (int n = 0; n < RNT; ++n) mma_acc<kF32, kIn>(acc[m][n], am, b0[n], b1[n]);
             }
           }
         }
@@ -544,9 +611,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
         for (int n = 0; n < RNT; ++n) {
           const float2 b = *reinterpret_cast<const float2*>(Ar + (8 * n + gq) * ALD + 8 * kk + 2 * t);
-          const Pc b0 = split(b.x), b1 = split(b.y);
+          const Pc b0 = pieces<kF32>(b.x), b1 = pieces<kF32>(b.y);
 #pragma unroll
-          for (int m = 0; m < 2; ++m) mma3<kSpV, true>(acc[m][n], av[m], b0, b1);
+          for (int m = 0; m < 2; ++m) mma_acc<kV, kF32>(acc[m][n], av[m], b0, b1);
         }
       }
       float* rw = red + warp * RED;
@@ -591,11 +658,12 @@ __global__ void __launch_bounds__(kThreads, 1)
           vfrag(av, ia);
 #pragma unroll
           for (int nt = 0; nt < kNT; ++nt) {
+            if (kIn == 3 && wc0 + 32 * (nt >> 2) >= dk) continue;  // zero padding
             const int col = wc0 + 32 * (nt >> 2) + 8 * (gq >> 1) + 2 * (nt & 3) + (gq & 1);
-            const Pc b0 = split(to_f(sl[slab_off<T>(ra, col, dks)]) * fa);
-            const Pc b1 = split(to_f(sl[slab_off<T>(ra + 1, col, dks)]) * fb);
+            const Pc b0 = pieces<kF32>(to_f(sl[slab_off<T>(ra, col, dks)]) * fa);
+            const Pc b1 = pieces<kF32>(to_f(sl[slab_off<T>(ra + 1, col, dks)]) * fb);
 #pragma unroll
-            for (int m = 0; m < 2; ++m) mma3<kSpV, true>(st[m][nt], av[m], b0, b1);
+            for (int m = 0; m < 2; ++m) mma_acc<kV, kF32>(st[m][nt], av[m], b0, b1);
           }
         }
       }

@@ -36,7 +36,7 @@ from repro_torch.core import tiling
 from repro_torch.kernels import _build
 
 __all__ = ["chunked_linear_attention", "chunked_linear_attention_plain",
-           "chunk_scores_plain", "CHUNKS", "MAX_DK", "DTYPE_PAIRS"]
+           "chunk_scores_plain", "chunk_cumsum", "CHUNKS", "MAX_DK", "DTYPE_PAIRS"]
 
 CHUNKS = (16, 32, 64, 128)     # the kernel's compiled chunk sizes
 MAX_DK = 1024                  # the sweep holds S^T (32 x dk) in registers
@@ -45,6 +45,15 @@ _DTYPE_CODE = {torch.float16: 0, torch.bfloat16: 1, torch.float32: 2}
 DTYPE_PAIRS = ((torch.float16, torch.float16), (torch.bfloat16, torch.bfloat16),
                (torch.float32, torch.float32), (torch.float32, torch.bfloat16),
                (torch.float32, torch.float16))
+
+
+def chunk_cumsum(log_g: torch.Tensor) -> torch.Tensor:
+    """The inclusive cumsum over the last dim, accumulated in fp64 and
+    rounded once to fp32: the same values on every device (PyTorch's CPU
+    cumsum of fp32 accumulates in fp64, its CUDA one in fp32) and the
+    kernel's for fp32 inputs.  exp(L) turns an error in L into a relative
+    error of the same size, and an fp32 scan is off by a few ulps of |L|."""
+    return torch.cumsum(log_g.double(), dim=-1).float()
 
 
 def chunked_linear_attention_plain(q: torch.Tensor, k: torch.Tensor,
@@ -66,7 +75,7 @@ def chunked_linear_attention_plain(q: torch.Tensor, k: torch.Tensor,
         qc = q[:, s0:s0 + chunk].float()
         kc = k[:, s0:s0 + chunk].float()
         vc = v[:, s0:s0 + chunk].float()
-        L = torch.cumsum(log_g[:, s0:s0 + chunk].float(), dim=-1)   # (BH, c)
+        L = chunk_cumsum(log_g[:, s0:s0 + chunk])                # (BH, c)
         ltot = L[:, -1:]
         A = torch.where(causal, torch.exp(L[:, :, None] - L[:, None, :]),
                         torch.zeros((), device=q.device))
@@ -91,7 +100,7 @@ def chunk_scores_plain(q: torch.Tensor, k: torch.Tensor, log_g: torch.Tensor,
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, log_g "
                          f"{tuple(log_g.shape)} at chunk {chunk}")
     n = S // chunk
-    L = torch.cumsum(log_g.float().reshape(BH, n, chunk), dim=-1)
+    L = chunk_cumsum(log_g.reshape(BH, n, chunk))
     idx = torch.arange(chunk, device=q.device)
     causal = idx[:, None] >= idx[None, :]
     decay = torch.where(causal, torch.exp(L[..., :, None] - L[..., None, :]),

@@ -27,7 +27,20 @@ The GQA cache is ``k`` / ``v`` ``(B, Hkv, T, hd)``, the MLA cache ``ckv``
 ``(B, T, r)`` / ``kr`` ``(B, T, dr)``.  New rows are written in place at
 their positions; the reference's decode merges with a whole-cache
 ``jnp.where`` (``attention.py:393-402``) instead — the values are the
-same.  The FP8 KV caches are not ported yet (ROADMAP.md).
+same.
+
+With ``storage_dtype`` (an FP8 format) the cache stores the k / v (MLA:
+``ckv`` / ``kr``) codes narrow, beside delayed-scaling leaves
+``{name}_scale = {"scale", "amax_history", "overflow_count"}`` — per KV
+head for GQA, per tensor for MLA (the compressed latent has no head dim).
+A step does what the reference does (``attention.py:383-421, 485-520``):
+it dequantizes the whole cache to the compute dtype under the stored
+scales, writes the new rows, folds the new rows' amax into the window, and
+requantizes the whole cache under the applied scale, which ratchets (the
+larger of the stored and the refreshed scale, so rows quantized under an
+older scale can only shrink).  Attention reads the wide merged cache; the
+codes and scales are written back in place.  The dequantize, refresh and
+requantize are plain PyTorch, as the reference's are plain ``jnp``.
 """
 
 from __future__ import annotations
@@ -42,12 +55,14 @@ from repro_torch.core import engine
 from repro_torch.core import precision as prec
 from repro_torch.models import layers
 from repro_torch.models.layers import Param
+from repro_torch.optim import scale as oscale
 
 __all__ = ["gqa_schema", "mla_schema", "init_gqa_cache", "init_mla_cache",
-           "chunked_attention", "gqa_attention", "mla_attention"]
+           "chunked_attention", "gqa_attention", "mla_attention",
+           "SCALE_HISTORY"]
 
 NEG_INF = -1e30
-_ROADMAP = "not yet ported (see ROADMAP.md, Queue A)"
+SCALE_HISTORY = 16  # the delayed-scaling amax window of a cache scale leaf
 
 
 def gqa_schema(cfg) -> Dict[str, Any]:
@@ -79,25 +94,64 @@ def mla_schema(cfg) -> Dict[str, Any]:
     }
 
 
+def _init_scale_leaves(lead, device) -> Dict[str, torch.Tensor]:
+    """The delayed-scaling state of one quantized cache tensor, per head
+    (``lead = (Hkv,)``) or per tensor (``()``): the three fields of
+    :class:`repro_torch.optim.scale.Fp8ScaleState` as cache leaves."""
+    st = oscale.init_fp8_scale(SCALE_HISTORY, lead, device)
+    return {"scale": st.scale, "amax_history": st.amax_history,
+            "overflow_count": st.overflow_count}
+
+
+def _refresh_scale(sc: Dict[str, torch.Tensor], new_rows: torch.Tensor,
+                   reduce_dims) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+    """Fold the amax of ``new_rows`` over ``reduce_dims`` into the window
+    (one observation per leading layer / head) and return ``(updated
+    leaves, applied scale)``; the applied scale ratchets: the larger of the
+    stored scale and the refreshed one."""
+    amax = new_rows.float().abs().amax(dim=reduce_dims)
+    st = oscale.update_fp8_scale(oscale.Fp8ScaleState(
+        sc["scale"], sc["amax_history"], sc["overflow_count"]), amax)
+    applied = torch.maximum(sc["scale"], st.scale)
+    return ({"scale": applied, "amax_history": st.amax_history,
+             "overflow_count": st.overflow_count}, applied)
+
+
+def _fp8_storage(storage_dtype) -> torch.dtype:
+    st = prec.as_dtype(storage_dtype)
+    if not prec.is_fp8(st):
+        raise ValueError(f"storage_dtype must be an FP8 format {prec.FP8_FORMATS}, "
+                         f"got {prec.dtype_name(st)!r}")
+    return st
+
+
 def init_gqa_cache(cfg, batch: int, max_len: int, dtype, storage_dtype=None,
                    *, device) -> Dict[str, torch.Tensor]:
-    if storage_dtype is not None:
-        raise NotImplementedError(f"the FP8 KV cache is {_ROADMAP}")
     shape = (batch, cfg.n_kv_heads, max_len, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if storage_dtype is None:
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+    st = _fp8_storage(storage_dtype)
+    return {"k": torch.zeros(shape, dtype=st, device=device),
+            "v": torch.zeros(shape, dtype=st, device=device),
+            "k_scale": _init_scale_leaves((cfg.n_kv_heads,), device),
+            "v_scale": _init_scale_leaves((cfg.n_kv_heads,), device)}
 
 
 def init_mla_cache(cfg, batch: int, max_len: int, dtype, storage_dtype=None,
                    *, device) -> Dict[str, torch.Tensor]:
-    """The compressed MLA cache: ``ckv (B, T, r)`` and ``kr (B, T, dr)``."""
-    if storage_dtype is not None:
-        raise NotImplementedError(f"the FP8 MLA cache is {_ROADMAP}")
+    """The compressed MLA cache: ``ckv (B, T, r)`` and ``kr (B, T, dr)``
+    (FP8: per-tensor scales, the latent has no head dim)."""
     m = cfg.mla
-    return {"ckv": torch.zeros((batch, max_len, m.kv_lora_rank), dtype=dtype,
-                               device=device),
-            "kr": torch.zeros((batch, max_len, m.qk_rope_dim), dtype=dtype,
-                              device=device)}
+    st = dtype if storage_dtype is None else _fp8_storage(storage_dtype)
+    out = {"ckv": torch.zeros((batch, max_len, m.kv_lora_rank), dtype=st,
+                              device=device),
+           "kr": torch.zeros((batch, max_len, m.qk_rope_dim), dtype=st,
+                             device=device)}
+    if storage_dtype is not None:
+        out["ckv_scale"] = _init_scale_leaves((), device)
+        out["kr_scale"] = _init_scale_leaves((), device)
+    return out
 
 
 def _masked_softmax_block(s: torch.Tensor, rows: torch.Tensor, kv_valid,
@@ -215,6 +269,33 @@ def _write_rows(cache: torch.Tensor, rows: torch.Tensor, pos) -> None:
         cache.movedim(-2, 1)[slots, pos] = rows.movedim(-2, 1)[:, 0].to(cache.dtype)
 
 
+def _update_cache(cache: Dict[str, Any], names, rows, pos, scale_shape,
+                  reduce_dims, dtype) -> list:
+    """Write the new ``rows`` (one per name) into the cache at ``pos`` and
+    return the full caches in ``dtype`` that attention reads.  A wide
+    cache is written in place and read as it is; an FP8 cache is
+    dequantized whole, merged, its scales refreshed from the new rows and
+    requantized whole under the applied scale, codes and scale leaves
+    written back in place (the reference's read / write-back)."""
+    if f"{names[0]}_scale" not in cache:
+        for name, r in zip(names, rows):
+            _write_rows(cache[name], r, pos)
+        return [cache[name] for name in names]
+    out = []
+    for name, r in zip(names, rows):
+        sc = cache[f"{name}_scale"]
+        wide = prec.dequantize_fp8(cache[name], sc["scale"].reshape(scale_shape), dtype)
+        _write_rows(wide, r, pos)
+        new_sc, applied = _refresh_scale(sc, r, reduce_dims)
+        q, _ = prec.quantize_fp8(wide, cache[name].dtype,
+                                 scale=applied.reshape(scale_shape))
+        cache[name].copy_(q)
+        for key, val in new_sc.items():
+            sc[key].copy_(val)
+        out.append(wide)
+    return out
+
+
 def gqa_attention(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg, *,
                   pos_offset, cache: Optional[Dict[str, torch.Tensor]] = None,
                   window=None, policy: prec.Policy, q_chunk: int = 1024,
@@ -222,7 +303,8 @@ def gqa_attention(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg, *,
                   ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """x ``(B, S, d)`` -> ``(B, S, d)``; ``pos_offset`` is an int or, for
     a decode step, a ``(B,)`` tensor of per-slot positions.  With a cache
-    the new k / v rows are written into it in place (and it is returned)."""
+    the new k / v rows are written into it in place (and it is returned);
+    an FP8 cache is requantized in place (:func:`_update_cache`)."""
     B, S, _ = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     g = hq // hkv
@@ -249,9 +331,8 @@ def gqa_attention(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg, *,
     kk = layers.apply_rope(kk, cos, sin)
 
     if cache is not None:
-        _write_rows(cache["k"], kk, pos_offset)
-        _write_rows(cache["v"], vv, pos_offset)
-        k_all, v_all = cache["k"], cache["v"]
+        k_all, v_all = _update_cache(cache, ("k", "v"), (kk, vv), pos_offset,
+                                     (1, -1, 1, 1), (0, 2, 3), kk.dtype)
         kv_valid = pos_offset + S
     else:
         k_all, v_all, kv_valid = kk, vv, S
@@ -298,9 +379,8 @@ def mla_attention(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg, *,
     kr = layers.apply_rope(kr[:, None], cos, sin)[:, 0]     # (B, S, dr)
 
     if cache is not None:
-        _write_rows(cache["ckv"], ckv, pos_offset)
-        _write_rows(cache["kr"], kr, pos_offset)
-        ckv_all, kr_all = cache["ckv"], cache["kr"]
+        ckv_all, kr_all = _update_cache(cache, ("ckv", "kr"), (ckv, kr),
+                                        pos_offset, (), (0, 1, 2), ckv.dtype)
         kv_valid = pos_offset + S
     else:
         ckv_all, kr_all, kv_valid = ckv, kr, S

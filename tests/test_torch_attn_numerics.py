@@ -10,12 +10,14 @@ agree is arithmetic that plain PyTorch can repeat exactly on the CPU:
   rest of the last, rounded) and accumulates the three products in fp32
   (its score products are exact); its four warps each keep a softmax
   state over every fourth KV tile and merge them at the end;
-* the chunked sweep runs on TF32 tensor cores (``mma.sync`` m16n8k8): each
-  fp32 operand — the state S, the decayed scores A, kdec = k exp(L_C - L),
-  and q, k, v themselves for fp32 input — is split into a big TF32 piece
+* the chunked sweep runs on TF32 tensor cores (``mma.sync`` m16n8k8): for
+  bf16 / fp16 inputs (exact in TF32) each fp32 operand — the state S, the
+  decayed scores A, kdec = k exp(L_C - L) — is split into a big TF32 piece
   (``cvt.rna``: round to nearest, ties away) and the small rest (which the
   MMA reads truncated to TF32), and every piece product but small x small
-  accumulates in fp32; bf16 / fp16 inputs are exact in TF32.
+  accumulates in fp32; for fp32 inputs every fp32 operand, q, k and v
+  included, is split into three pieces (big, the rest rounded to TF32, and
+  what is left) and every product a_i b_j with i + j < 3 accumulates.
 
 Each emulation below is held against the plain version
 (``flash_attention_plain``, ``chunked_linear_attention_plain``) and the JAX
@@ -177,30 +179,49 @@ def _tf32(x):
     return ((u + 0x1000) & -0x2000).view(torch.float32)
 
 
+def _trunc(x):
+    """The TF32 operand the MMA reads from an fp32 register: the low 13
+    bits dropped."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
 def _pieces(x, n):
-    """x as n TF32 pieces: the big one, and (n = 2) the rest as the MMA
-    reads it (truncated to TF32)."""
+    """x as n TF32 pieces as the MMA reads them: the big one; (n = 2) the
+    rest, truncated; (n = 3) the rest rounded to TF32, and what is left
+    (a few bits, exact)."""
+    x = x.float()
     hi = _tf32(x)
     if n == 1:
         return [hi]
-    return [hi, ((x.float() - hi).contiguous().view(torch.int32) & -0x2000)
-            .view(torch.float32)]
+    if n == 2:
+        return [hi, _trunc(x - hi)]
+    mid = _tf32(x - hi)
+    return [hi, mid, _trunc(x - hi - mid)]
 
 
 def _mm(a, b):
-    """sum over the piece products a_i @ b_j, small x small dropped."""
+    """sum over the piece products a_i @ b_j with i + j < max(len(a),
+    len(b)): two pieces drop small x small, three the products below
+    fp32's rounding."""
+    n = max(len(a), len(b))
     out = 0
     for i, ai in enumerate(a):
         for j, bj in enumerate(b):
-            if i + j < 2:
+            if i + j < n:
                 out = out + torch.matmul(ai, bj)
     return out
 
 
-def chunk_scores_emulated(q, k, log_g, *, chunk):
+def _n_pieces(dt):
+    """(pieces of q / k / v, pieces of the fp32 S, A and kdec) for inputs
+    of ``dt``, as the kernel splits them."""
+    return (3, 3) if dt == torch.float32 else (1, 2)
+
+
+def chunk_scores_emulated(q, k, log_g, *, chunk, in_pieces=None):
     """The scores launch: L by cumsum, q k^T on TF32 pieces (one piece for
     bf16 / fp16 inputs, where it is exact), then decayed and masked."""
-    n_in = 2 if q.dtype == torch.float32 else 1
+    n_in = in_pieces or _n_pieces(q.dtype)[0]
     BH, S, dk = q.shape
     n = S // chunk
     L = torch.cumsum(log_g.float().reshape(BH, n, chunk), -1)
@@ -214,21 +235,26 @@ def chunk_scores_emulated(q, k, log_g, *, chunk):
     return L.reshape(BH, S), A
 
 
-def sweep_emulated(q, k, v, log_g, *, chunk, s_pieces=2, a_pieces=2, kdec_pieces=2):
+def sweep_emulated(q, k, v, log_g, *, chunk, s_pieces=None, a_pieces=None,
+                   kdec_pieces=None, in_pieces=None):
     """The sweep on TF32 pieces, chunk by chunk, from the scores launch's L
     and A: out = exp(L) (q S) + A v, S <- exp(L_C) S + kdec^T v.  Returns
-    (out in fp32, the fp32 state)."""
-    n_in = 2 if q.dtype == torch.float32 else 1
+    (out in fp32, the fp32 state).  The piece counts default to the
+    kernel's for the input dtype; a control passes fewer."""
+    n_in, n32 = _n_pieces(q.dtype)
+    n_in = in_pieces or n_in
+    s_pieces, a_pieces, kdec_pieces = (n or n32 for n in
+                                       (s_pieces, a_pieces, kdec_pieces))
     BH, S, dk = q.shape
     dv = v.shape[-1]
-    L, A = chunk_scores_emulated(q, k, log_g, chunk=chunk)
+    L, A = chunk_scores_emulated(q, k, log_g, chunk=chunk, in_pieces=in_pieces)
     state = torch.zeros(BH, dk, dv)
     outs = []
     for c in range(S // chunk):
         rows = slice(c * chunk, (c + 1) * chunk)
         qc, kc, vc = (t[:, rows].float() for t in (q, k, v))
         Lc = L[:, rows]
-        vp = _pieces(vc, n_in)
+        vp = _pieces(vc, _n_pieces(v.dtype)[0] if in_pieces is None else n_in)
         inter = _mm(_pieces(qc, n_in), _pieces(state, s_pieces))
         out = torch.exp(Lc)[..., None] * inter + _mm(_pieces(A[:, c], a_pieces), vp)
         kdec = kc * torch.exp(Lc[:, -1:] - Lc)[..., None]

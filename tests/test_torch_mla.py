@@ -227,6 +227,20 @@ def test_insert_slot_on_mla_leaves_matches_reference(mla, stacked):
 
 
 def test_fp8_mla_cache_is_refused(mla):
-    with pytest.raises(NotImplementedError, match="FP8 MLA cache"):
-        tattn.init_mla_cache(mla[1], 1, 8, torch.float32,
-                             storage_dtype="float8_e4m3fn", device="cpu")
+    """The FP8 MLA cache is ported (per-tensor delayed scales on ckv / kr,
+    leaf for leaf the reference's: ``tests/test_torch_serve_fp8.py`` holds
+    its numerics); a storage dtype that is not FP8 is refused, as the
+    reference refuses it."""
+    with pytest.raises(ValueError, match="storage_dtype must be an FP8 format"):
+        tattn.init_mla_cache(mla[1], 1, 8, torch.float32, storage_dtype="float16",
+                             device="cpu")
+    with pytest.raises(ValueError, match="storage_dtype must be an FP8 format"):
+        jattn.init_mla_cache(mla[0], 1, 8, jnp.float32, storage_dtype="float16")
+    got = tattn.init_mla_cache(mla[1], 1, 8, torch.float32,
+                               storage_dtype="float8_e4m3fn", device="cpu")
+    want = jattn.init_mla_cache(mla[0], 1, 8, jnp.float32, storage_dtype="float8_e4m3fn")
+    flat = lambda tree, f: {k: (flat(v, f) if isinstance(v, dict) else f(v))
+                            for k, v in tree.items()}
+    assert flat(got, lambda t: (tuple(t.shape), str(t.dtype).split(".")[-1],
+                                t.float().sum().item())) == \
+        flat(want, lambda a: (tuple(a.shape), a.dtype.name, float(np.asarray(a, np.float32).sum())))

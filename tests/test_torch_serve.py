@@ -187,16 +187,20 @@ def test_prefill_logits_bf16_bound(arch):
 def test_unported_paths_raise(fp32):
     _, tcfg, _, tparams = fp32
     # every reference arch is registered now (hymba-1.5b since the recurrent
-    # slice); manual expert parallelism is still to port
+    # slice), and the FP8 KV cache, the resilience layer and --sched are
+    # ported; manual expert parallelism and the injector's checkpoint modes
+    # are still to port
+    from repro_torch import serving
+    from repro_torch.runtime import FailureInjector
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tt.init_params(dataclasses.replace(tconfigs.get_reduced("deepseek-moe-16b"),
                                            moe_impl="shard_map"), device="cpu")
-    with pytest.raises(NotImplementedError, match="FP8"):
-        tt.init_cache(tcfg, 1, 8, storage_dtype="float8_e4m3fn", device="cpu")
-    with pytest.raises(NotImplementedError, match="resilience"):
-        tsched.Scheduler(tparams, tcfg, tsched.SchedulerConfig(max_queue=2))
-    with pytest.raises(SystemExit, match="not yet ported"):
-        tserve.main(["--sched", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        FailureInjector(fail_at_step=1, mode="ckpt_crash")
+    assert not hasattr(serving, "decode_cache_specs")       # needs sharding
+    cache = tt.init_cache(tcfg, 1, 8, storage_dtype="float8_e4m3fn", device="cpu")
+    assert cache["layers"]["k"].dtype == torch.float8_e4m3fn
+    tsched.Scheduler(tparams, tcfg, tsched.SchedulerConfig(max_queue=2, audit_every=1))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             resolve_device("cuda")
@@ -209,6 +213,21 @@ def test_serve_cli_on_cpu(capsys):
     out = capsys.readouterr().out
     assert "[engine] prefill attention_score" in out
     assert "[engine] decode total" in out
+    # --sched on reduced yi-9b: the load sweep's serve/* rows under the FP8
+    # cache and mixed_fp8_e4m3 (the defaults), then serve_slo.json's
+    # scenario with a fault, its [slo] line and rows
+    res = tserve.main(["--sched", "--device", "cpu", "--arch", "yi-9b", "--slots", "2",
+                       "--requests", "6", "--rates", "1.5", "--prompt-len", "4",
+                       "--gen", "4", "--max-queue", "2", "--deadline", "18",
+                       "--inject", "kv_corrupt@2", "--json", "", "--instrument"])
+    out = capsys.readouterr().out
+    for row in ("serve/yi-9b/r1.5/ttft", "serve/yi-9b/r1.5/tps",
+                "serve/yi-9b/slo_kv_corrupt_goodput"):
+        assert f"\n{row}," in out, row
+    assert "[slo] goodput=0.9600 deadline_hit=1.000 finished=6/6" in out
+    assert "[kv] layers/k: max_scale=" in out and "kv_bytes=" in out
+    assert res["slo"]["slo_recoveries"] == 1
+    assert all(p["n_finished"] == 6 for p in res["points"])
 
 
 def test_no_jax_in_the_port():
@@ -219,6 +238,9 @@ def test_no_jax_in_the_port():
 
     root = Path(__file__).resolve().parents[1]
     files = sorted((root / "src" / "repro_torch").rglob("*.py")) + [root / "chip_smoke.py"]
+    names = {f.relative_to(root / "src").as_posix() for f in files[:-1]}
+    assert {"repro_torch/runtime/fault_tolerance.py", "repro_torch/serving/loadgen.py",
+            "repro_torch/serving/resilience.py"} <= names
     assert len(files) > 15
     for f in files:
         for node in ast.walk(ast.parse(f.read_text(), str(f))):
@@ -231,7 +253,7 @@ def test_no_jax_in_the_port():
                 top = n.split(".")[0]
                 assert top not in ("jax", "jaxlib", "repro", "flax"), (f, n)
     code = ("import sys, repro_torch.launch.serve, repro_torch.launch.train, "
-            "repro_torch.convert; "
+            "repro_torch.convert, repro_torch.runtime, repro_torch.serving; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(1 if bad else 0)")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,

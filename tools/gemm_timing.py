@@ -9,8 +9,8 @@ same calls on every tree since they were ported: the RedMulE GEMMs
 (``ops.redmule_matmul`` / ``ops.redmule_matmul_batched``, rows 1* and 2*,
 since PR 11), flash attention (``flash_attention.flash_attention``, row 3,
 since PR 11) and the chunked linear-attention sweep
-(``chunked_linear_attention.chunked_linear_attention``, row 4, since PR
-12).  A row's time is the device time of one call from torch.profiler
+(``chunked_linear_attention.chunked_linear_attention``, rows 4*, since PR
+12; 4h / 4t / 4x at the recurrent slice's shapes).  A row's time is the device time of one call from torch.profiler
 (the row's kernels alone — for row 4 every kernel the call launches — not
 the host's enqueue), averaged over a window of calls.  A decode or prefill
 row reads, call after call, the next of enough weight copies to exceed the
@@ -147,6 +147,22 @@ def _rows(torch, prec, dev):
             4 * BH * S * DK * 2 + BH * S * 4 + BH * DK * DK * 4,
             BH * (S // C) * (4 * pairs * DK + 4 * C * DK * DK), "fp32")
 
+    def mk_sweep(BH, S, dk, dv, qk_dtype, v_dtype, C=64):
+        # the recurrent slice's sweeps: hymba's fp32 C / B with a bf16
+        # dt·x at dk 16, and the xLSTM prefill
+        def make():
+            from repro_torch.kernels import chunked_linear_attention as cla
+            q = rnd(BH, S, dk, scale=dk ** -0.5, dtype=qk_dtype)
+            k, v = rnd(BH, S, dk, scale=0.5, dtype=qk_dtype), rnd(BH, S, dv, dtype=v_dtype)
+            lg = -torch.rand(BH, S, generator=g, device=dev) * 0.7
+            pairs = C * (C + 1) // 2
+            size = lambda dt: torch.tensor([], dtype=dt).element_size()
+            n_bytes = (2 * BH * S * dk * size(qk_dtype) + BH * S * dv * size(v_dtype)
+                       + BH * S * 4 + BH * S * dv * size(qk_dtype) + BH * dk * dv * 4)
+            return (lambda: cla.chunked_linear_attention(q, k, v, lg, chunk=C)), (
+                n_bytes, BH * (S // C) * (2 * pairs * (dk + dv) + 4 * C * dk * dv), "fp32")
+        return make
+
     return [
         ("1", "tied head nt 4 x 2048 x 151936 bf16", mk_1),
         ("1a", "AE fc0 nn 16 x 640 x 128 +bias paper_fp16", mk_1a),
@@ -164,11 +180,19 @@ def _rows(torch, prec, dev):
         ("2i", "sLSTM recurrence dX nt 4 x (4 x 2048 x 512) fp32", mk_2i),
         ("3", "flash prefill 16/8 heads D 128 S 128 T 144 t_valid 128 bf16", mk_3),
         ("4", "sweep BH 16 S 256 dk = dv = 1024 chunk 64 bf16", mk_4),
+        ("4h", "sweep hymba prefill BH 100 S 1152 dk 16 dv 64, fp32 q / k, bf16 v",
+         mk_sweep(100, 1152, 16, 64, torch.float32, torch.bfloat16)),
+        ("4t", "sweep hymba train BH 100 S 256 dk 16 dv 64, fp32 q / k, bf16 v",
+         mk_sweep(100, 256, 16, 64, torch.float32, torch.bfloat16)),
+        ("4x", "sweep xlstm prefill BH 16 S 128 dk = dv = 1024 bf16",
+         mk_sweep(16, 128, 1024, 1024, torch.bfloat16, torch.bfloat16)),
     ]
 
 
 # the kernels a row's device time sums, by a substring of their names
-KERNEL_KEY = {"3": "flash_fwd", "4": "chunked_linear_attention"}
+KERNEL_KEY = {"3": "flash_fwd", "4": "chunked_linear_attention",
+              "4h": "chunked_linear_attention", "4t": "chunked_linear_attention",
+              "4x": "chunked_linear_attention"}
 
 
 def device_ms(torch, fn, key: str = "redmule_gemm", iters: int = 30,
