@@ -100,7 +100,10 @@ Phases, any failure exits non-zero:
    profiled, the loss-scaled example runs 200 steps, and one step is held
    against the CPU plain path: its loss at batch 16 and 4096, its gradients
    at batch 4096 (where the dW reductions span 2 to 4 rounding blocks),
-   beside a control that must fail (one weight row scaled by 1.25);
+   beside a control that must fail (one weight row scaled by 1.25).  The
+   paper's RedMulE cycle model (``core/perf_model.py``) prices one step's
+   events captured on the card, which must equal the CPU's, beside its
+   Fig 4c/4d ``autoencoder_report`` at batch 1 and 16;
 7. **ae8** — the same entry point under FP8 storage: 200
    ``mixed_fp8_e4m3`` steps at batch 16 (the mse must fall to the
    reference's level), 3 at batch 4096 and 3 ``mixed_fp8_e5m2`` steps,
@@ -187,7 +190,21 @@ Phases, any failure exits non-zero:
    beside a control that must fail); the KV bytes of a decode step and
    the resident cache, one profiled FP8 and bf16 decode step (no aten
    GEMM or SDPA op) and the checksum audit's time;
-17. **report** — the GEMM wrappers' split launches (``.launches_split``)
+17. **tune** — the autotuner (``repro_torch.core.autotune``) on the card:
+   kernel 1 at qwen3-1.7b's serving shapes (the tied head, decode w_out
+   and wqkv, prefill w_in: PERF.md rows 1, 1i, 1j, 1k) over every compiled
+   tile and split S, and kernel 4's chunk at the xLSTM training shape (row
+   4; each chunk held to the plain version at that chunk, bf16 and fp32),
+   every candidate's device time printed beside the heuristic's and the
+   pick, into ``chiprun_out/autotune_cache.json``; then, with the LRU
+   reloaded from that file, a two-layer full-width qwen3-1.7b cut (prefill
+   1 x 128, a decode step at batch 4): every launch of a tuned shape ran
+   the cached tile and split, and the logits sit within ``TUNE_TOL`` of the
+   uncached run's, and again from a file of each shape's fastest
+   non-heuristic candidate, beside a control (an entry naming an uncompiled
+   tile) that must raise; and a paper_fp16 AE step with every launch on a cached
+   tile other than the heuristic's, bitwise equal to the uncached step;
+18. **report** — the GEMM wrappers' split launches (``.launches_split``)
    per path, the card (``nvidia-smi``), a ``{"kernels": [...]}`` line, and
    last ``{"ok": true, "device": {...}}``.
 
@@ -801,26 +818,36 @@ def fp8_kernel_checks(log, g):
     ]
 
 
-def _with_splits(fn):
-    """``(fn(), S)``: what one call returns, and the number of slices its
-    GEMM launch split the reduction into (``core/tiling.split_plan``, read
-    as the launch asks for it); S is None where ``fn`` launches no GEMM."""
-    from repro_torch.core import tiling
+@contextlib.contextmanager
+def _launch_log():
+    """Record every GEMM kernel launch while open: its logical (M, N, K),
+    layout, the tile it ran and the split plan it took (as
+    ``kernels/redmule_matmul.py::launch`` receives them)."""
+    from repro_torch.kernels import redmule_matmul as rm
 
     seen = []
-    plan_of = tiling.split_plan
+    real = rm.launch
 
-    def record(*a, **k):
-        plan = plan_of(*a, **k)
-        seen.append(plan.splits)
-        return plan
+    def spy(x, w, *, tile, plan, layout, **kw):
+        seen.append({"mnk": rm.logical_dims(x.shape, w.shape, layout),
+                     "layout": layout, "tile": (tile.bm, tile.bn, tile.bk),
+                     "splits": plan.splits, "depth": plan.depth})
+        return real(x, w, tile=tile, plan=plan, layout=layout, **kw)
 
-    tiling.split_plan = record
+    rm.launch = spy
     try:
-        out = fn()
+        yield seen
     finally:
-        tiling.split_plan = plan_of
-    return out, (max(seen) if seen else None)
+        rm.launch = real
+
+
+def _with_splits(fn):
+    """``(fn(), S)``: what one call returns, and the number of slices its
+    GEMM launch split the reduction into (the plan the launch ran); S is
+    None where ``fn`` launches no GEMM."""
+    with _launch_log() as seen:
+        out = fn()
+    return out, (max(r["splits"] for r in seen) if seen else None)
 
 
 def split_checks(log, g):
@@ -2669,12 +2696,13 @@ def ae_phase(log, counters):
     16 and 4096."""
     import torch
 
+    from repro_torch.core import engine, perf_model
     from repro_torch.core import precision as prec
     from repro_torch.data import SyntheticAE
     from repro_torch.examples import train_autoencoder as example
     from repro_torch.launch import train
     from repro_torch.models import autoencoder
-    from repro_torch.optim import AdamW, tree_leaves
+    from repro_torch.optim import AdamW, tree_leaves, tree_map
 
     k1, faithful, multi = ("redmule_matmul", "redmule_matmul (faithful fp16)",
                            "redmule_matmul (faithful fp16, multi-block)")
@@ -2737,8 +2765,32 @@ def ae_phase(log, counters):
           f"{ex['overflows']}, final scale {ex['loss_scale']}, mse "
           f"{ex['losses'][0]:.4f} -> {ex['losses'][-1]:.4f}", flush=True)
 
+    # the paper's cycle model from the events of one step on the card,
+    # equal to the CPU's (counts), beside its Fig 4c/4d report
+    cycles = {}
+    for dev in ("cuda", "cpu"):
+        p = tree_map(lambda t: t.detach().to(dev).requires_grad_(True), params)
+        with engine.instrument() as events:
+            train.ae_grads(p, xb.to(dev), prec.PAPER_FP16)
+        cycles[dev] = perf_model.workload_cycles_by_direction(
+            perf_model.DEFAULT_MODEL, events)
+    report = {b: perf_model.autoencoder_report(perf_model.DEFAULT_MODEL, b)
+              for b in (1, AE_BATCH)}
+    print(f"[ae] RedMulE cycle model (the paper's cluster) from the card's events, "
+          f"B={AE_BATCH}: {cycles['cuda']}; CPU events "
+          f"{'equal' if cycles['cuda'] == cycles['cpu'] else 'DIFFER'}", flush=True)
+    for b, r in report.items():
+        print(f"[ae] autoencoder_report B={b}: speedup {r['speedup']:.2f}x (fwd "
+              f"{r['speedup_fwd']:.2f}x / bwd {r['speedup_bwd']:.2f}x), "
+              f"{r['hw_macs_per_cycle']:.2f} MAC/cycle", flush=True)
+    log.append({"check": "ae cycle model, card events == CPU events",
+                "ok": cycles["cuda"] == cycles["cpu"]})
+    if cycles["cuda"] != cycles["cpu"]:
+        raise AssertionError(f"cycle model: card {cycles['cuda']} vs CPU {cycles['cpu']}")
+
     parity = [_ae_step_parity(log, b) for b in (AE_BATCH, AE_BIG)]
-    return {"ae_wall_s": ae_s, "history": hist, "launches": launches,
+    return {"ae_wall_s": ae_s, "cycles_by_direction": cycles["cuda"],
+            "autoencoder_report": report, "history": hist, "launches": launches,
             "launches_fp32": launches_fp32, "launches_b4096": launches_b4096,
             "launches_per_step": per_step,
             "step_ms_median": step_ms[len(step_ms) // 2],
@@ -4454,6 +4506,250 @@ def sched_phase(log, counters):
             "peak_mem_gib": peak / 2**30, "seconds": parts}
 
 
+# the tune phase: kernel 1 at qwen3-1.7b's serving shapes (PERF.md rows 1,
+# 1i, 1j, 1k: the tied head "nt", decode w_out and wqkv, prefill w_in) and
+# kernel 4's chunk at the xLSTM training shape (row 4), each candidate timed
+# on the card; the cache file it writes then serves a two-layer full-width
+# qwen3 cut and a paper_fp16 AE step
+TUNE_GEMMS = (("1", BATCH, 2048, 151936, "nt"), ("1i", BATCH, 6144, 2048, "nn"),
+              ("1j", BATCH, 2048, 4096, "nn"), ("1k", PROMPT, 2048, 12288, "nn"))
+# the cut's logits, cached vs uncached: the split checks' bf16 tolerance
+TUNE_TOL = 2.0 ** -7
+
+
+@contextlib.contextmanager
+def _autotune_file(path):
+    """``REPRO_AUTOTUNE_CACHE`` set to ``path`` (None: unset) with a fresh
+    in-process LRU, restored after."""
+    import os
+
+    from repro_torch.core import autotune
+
+    old = os.environ.pop(autotune.ENV_VAR, None)
+    if path is not None:
+        os.environ[autotune.ENV_VAR] = str(path)
+    autotune.clear_cache()
+    try:
+        yield
+    finally:
+        os.environ.pop(autotune.ENV_VAR, None)
+        if old is not None:
+            os.environ[autotune.ENV_VAR] = old
+        autotune.clear_cache()
+
+
+def _print_tuning(what: str, res, card: str) -> dict:
+    """Every candidate's time, the heuristic's and the pick, one line each."""
+    scores = dict(res.scores)
+    h = res.heuristic
+    heur = (h.bm, h.bn, h.bk, h.splits)
+    geom = lambda t: f"{t[0]}x{t[1]}x{t[2]} S={t[3]}"
+    print(f"[tune] {what} ({card}): {len(scores)} candidates, "
+          f"{res.source} us: " + ", ".join(f"{geom(t)} {us:.2f}"
+                                           for t, us in res.scores), flush=True)
+    pick = (res.tile.bm, res.tile.bn, res.tile.bk, res.tile.splits)
+    print(f"[tune] {what}: heuristic {geom(heur)} {scores[heur]:.2f} us, pick "
+          f"{geom(pick)} {res.us:.2f} us ({scores[heur] / res.us:.3f}x)", flush=True)
+    return {"key": res.key.to_str(), "scores_us": [[list(t), us] for t, us in res.scores],
+            "heuristic": list(heur), "heuristic_us": scores[heur],
+            "pick": list(pick), "pick_us": res.us}
+
+
+def tune_phase(log):
+    """The autotuner on the card: each tuned shape's candidates timed with
+    CUDA events (weights cycled past the L2) and the pick recorded in
+    ``chiprun_out/autotune_cache.json``; kernel 4 held to its plain version
+    at every candidate chunk; then the cache, reloaded from disk, serves a
+    two-layer full-width qwen3-1.7b cut (prefill 1 x PROMPT, a decode step
+    at batch BATCH): every launch of a tuned shape ran the cached tile and
+    split, and the logits sit within TUNE_TOL of the uncached run's; the
+    same from a second file holding each shape's fastest candidate other
+    than the heuristic's (a geometry the heuristic never runs), beside a
+    control (an entry naming an uncompiled tile) that must raise; a
+    paper_fp16 AE step whose every launch runs a cached tile other than the
+    heuristic's is bitwise equal to the uncached step."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.core import autotune, tiling
+    from repro_torch.core import precision as prec
+    from repro_torch.data import SyntheticAE
+    from repro_torch.kernels import chunked_linear_attention as cla
+    from repro_torch.launch import train
+    from repro_torch.models import autoencoder, transformer
+    from repro_torch.optim import tree_leaves
+
+    card = _card()
+    path = ROOT / "chiprun_out" / "autotune_cache.json"
+    path.parent.mkdir(exist_ok=True)
+    path.unlink(missing_ok=True)
+    out = {"card": card, "gemm": {}}
+    with _autotune_file(path):
+        for row, M, N, K, layout in TUNE_GEMMS:
+            res = autotune.autotune_gemm(M, N, K, policy=prec.TPU_BF16,
+                                         layout=layout, mode="measured")
+            out["gemm"][row] = _print_tuning(
+                f"row {row} {layout} {M}x{N}x{K} bf16", res, card)
+        # kernel 4's chunk at the training shape (16 heads, S 256, dk = dv
+        # = 1024, bf16), each chunk held to the plain version at that chunk
+        # (bf16: out 2^-7, state 1e-4), and fp32 inputs at K4_FP32_TOL
+        BH4, DK4 = T_BATCH * 4, 1024
+        res4 = autotune.autotune_attention(T_SEQ, DK4, DK4, kind="linear_attention",
+                                           policy=prec.TPU_BF16, batch=BH4,
+                                           mode="measured")
+        out["k4"] = _print_tuning(f"row 4 chunk BH={BH4} S={T_SEQ} dk=dv={DK4} bf16",
+                                  res4, card)
+        g = torch.Generator(device="cuda").manual_seed(SEED + 11)
+        for c in cla.CHUNKS:
+            for BH_, dt, tol_o, tol_s in ((BH4, torch.bfloat16, 2.0 ** -7, 1e-4),
+                                          (2, torch.float32, K4_FP32_TOL, K4_FP32_TOL)):
+                q = (torch.randn(BH_, T_SEQ, DK4, generator=g, device="cuda")
+                     * DK4 ** -0.5).to(dt)
+                k = (torch.randn(BH_, T_SEQ, DK4, generator=g, device="cuda")
+                     * 0.5).to(dt)
+                v = torch.randn(BH_, T_SEQ, DK4, generator=g, device="cuda").to(dt)
+                lg = -torch.rand(BH_, T_SEQ, generator=g, device="cuda") * 0.1
+                o, st = cla.chunked_linear_attention(q, k, v, lg, chunk=c)
+                po, ps = cla.chunked_linear_attention_plain(q, k, v, lg, chunk=c)
+                name = f"tune sweep chunk {c} BH={BH_} dk=dv={DK4} {prec.dtype_name(dt)}"
+                _check(f"{name} out", o, po, tol_o, log)
+                _check(f"{name} state", st, ps, tol_s, log)
+        # flash: one compiled block pair, so one candidate
+        resf = autotune.autotune_attention(PROMPT, PROMPT, 128, kind="attention",
+                                           policy=prec.TPU_BF16, batch=BATCH * 16,
+                                           mode="measured")
+        out["flash"] = _print_tuning(f"flash S=T={PROMPT} D=128 bf16", resf, card)
+
+    cfg = dataclasses.replace(configs.get(ARCH), n_layers=2)
+    pc = transformer.init_params(cfg, seed=SEED + 9, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    prompt = torch.randint(0, cfg.vocab_size, (1, PROMPT), generator=gen, device="cuda")
+    toks = torch.randint(0, cfg.vocab_size, (BATCH, 1), generator=gen, device="cuda")
+
+    def cut():
+        pre, _ = transformer.prefill(pc, cfg, {"inputs": prompt}, PROMPT + GEN)
+        cache = transformer.init_cache(cfg, BATCH, PROMPT + GEN, device="cuda")
+        dec, _ = transformer.serve_step(
+            pc, cfg, toks, cache, torch.full((BATCH,), PROMPT, device="cuda"),
+            kv_group_sizes=np.full((BATCH,), PROMPT + 1, np.int32))
+        return pre, dec
+
+    with _autotune_file(None), _launch_log() as plain_log:
+        want = cut()
+
+    def from_file(what, file, picks):
+        """The cut with the LRU reloaded from ``file``: every launch of a
+        tuned shape must run its entry's tile and split, the logits within
+        TUNE_TOL of the uncached run's."""
+        with _autotune_file(file), _launch_log() as tuned_log:
+            got = cut()
+            stats = autotune.cache_stats()
+        ran = {row: 0 for row in picks}
+        rows = {(M, N, K, layout): row for row, M, N, K, layout in TUNE_GEMMS}
+        for r in tuned_log:
+            row = rows.get((*r["mnk"], r["layout"]))
+            if row is None:
+                continue
+            t = picks[row]
+            plan = tiling.plan_for_splits(r["mnk"][1], t.splits) if t.splits else None
+            if r["tile"] != (t.bm, t.bn, t.bk) or (
+                    plan is not None and (r["splits"], r["depth"]) != tuple(plan)):
+                raise AssertionError(f"tune cut ({what}): a row-{row} launch ran "
+                                     f"{r}, not the cached {t} / {plan}")
+            ran[row] += 1
+        print(f"[tune] cut ({what}): launches of a tuned shape on the cached tile "
+              f"and split: {ran}; LRU from disk {stats}", flush=True)
+        if min(ran.values()) < 1 or len(tuned_log) != len(plain_log):
+            raise AssertionError(f"tune cut ({what}): tuned shapes not all run from "
+                                 f"the cache ({ran}), or launches differ "
+                                 f"({len(tuned_log)} vs {len(plain_log)})")
+        return ran, [_check(f"tune cut ({what}) {name} logits, cached vs uncached",
+                            a.cpu(), b.cpu(), TUNE_TOL, log)
+                     for name, a, b in zip(("prefill", "decode"), got, want)]
+
+    picks = {row: tiling.TileConfig(*out["gemm"][row]["pick"]) for row, *_ in TUNE_GEMMS}
+    ran, errs = from_file("the picks", path, picks)
+    # each shape's fastest candidate other than the heuristic's: a tile or
+    # split the heuristic never runs, through the same file and checks
+    runner = ROOT / "chiprun_out" / "autotune_runner_up.json"
+    runner.unlink(missing_ok=True)
+    seconds = {}
+    with _autotune_file(runner):
+        for row, M, N, K, layout in TUNE_GEMMS:
+            g_ = out["gemm"][row]
+            geom, _ = min(((t, us) for t, us in g_["scores_us"] if t != g_["heuristic"]),
+                          key=lambda c: c[1])
+            seconds[row] = tiling.TileConfig(*geom)
+            autotune.record_tile(autotune.canonical_key(
+                M, N, K, policy=prec.TPU_BF16, backend="hopper", layout=layout),
+                seconds[row], source="runner-up")
+    ran2, errs2 = from_file("the runners-up", runner, seconds)
+    bad = ROOT / "chiprun_out" / "autotune_bad.json"
+    key = autotune.canonical_key(BATCH, 2048, 4096, policy=prec.TPU_BF16,
+                                 backend="hopper")
+    bad.write_text(json.dumps({key.to_str(): {"bm": 32, "bn": 32, "bk": 64,
+                                              "source": "manual"}}))
+    with _autotune_file(bad):
+        try:
+            cut()
+        except ValueError as e:
+            print(f"[tune] control (an entry naming an uncompiled tile) raised: {e}",
+                  flush=True)
+        else:
+            raise AssertionError("tune control: an uncompiled tile ran")
+    log.append({"check": "tune control: uncompiled cached tile raises", "ok": True})
+    del pc
+
+    # the faithful accumulator: every launch of a paper_fp16 AE step from a
+    # cached tile other than the heuristic's, bitwise equal to the uncached
+    params = autoencoder.init_ae(seed=SEED, device="cuda")
+    for t in tree_leaves(params):
+        t.requires_grad_(True)
+    xb = torch.from_numpy(SyntheticAE(batch=AE_BATCH, seed=SEED).sample(0)).cuda()
+    asked = []
+    lookup = autotune.cached_tile
+
+    def spy(*a, **kw):
+        asked.append((a, kw))
+        return lookup(*a, **kw)
+
+    autotune.cached_tile = spy
+    try:
+        with _autotune_file(None), _launch_log() as plain_ae:
+            loss0, grads0 = train.ae_grads(params, xb, prec.PAPER_FP16)
+    finally:
+        autotune.cached_tile = lookup
+    ae_path = ROOT / "chiprun_out" / "autotune_ae.json"
+    ae_path.unlink(missing_ok=True)
+    with _autotune_file(ae_path), _launch_log() as cached_ae:
+        for (m, n, k), kw in asked:
+            h = tiling.choose_tiles(m, n, k)
+            other = next(t for t in tiling.GEMM_TILES if t != h)
+            autotune.record_tile(autotune.canonical_key(m, n, k, **kw), other)
+        autotune.clear_cache()             # served from the file
+        loss1, grads1 = train.ae_grads(params, xb, prec.PAPER_FP16)
+    moved = sum(a["tile"] != b["tile"] for a, b in zip(plain_ae, cached_ae))
+    same = bool(torch.equal(loss0, loss1)) and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(grads0), tree_leaves(grads1)))
+    plans = all((a["splits"], a["depth"]) == (b["splits"], b["depth"])
+                for a, b in zip(plain_ae, cached_ae))
+    print(f"[tune] paper_fp16 AE step: {moved} of {len(cached_ae)} launches on a "
+          f"cached non-heuristic tile (split plans {'equal' if plans else 'DIFFER'}); "
+          f"loss and every gradient {'bitwise equal' if same else 'DIFFER'}",
+          flush=True)
+    log.append({"check": "tune faithful AE step cached vs uncached, bitwise",
+                "moved": moved, "ok": same})
+    if not (same and plans) or moved != len(cached_ae) or len(cached_ae) != 30:
+        raise AssertionError("tune: a cached tile changed the faithful AE step")
+    out.update(cut_errs=errs, cut_ran=ran, runner_up_errs=errs2,
+               runner_up_ran=ran2, ae_moved=moved, ae_bitwise=same,
+               runner_up={r: list(dataclasses.astuple(t)) for r, t in seconds.items()})
+    return out
+
+
 def _to_cpu(tree):
     if hasattr(tree, "cpu"):
         return tree.cpu()
@@ -4503,6 +4799,7 @@ def main() -> int:
     hymbatrain = timed("hymbatrain", hymbatrain_phase, log, counters)
     ssmcut = timed("ssmcut", ssm_cuts, log)
     sched = timed("sched", sched_phase, log, counters)
+    tune = timed("tune", tune_phase, log)
     runs = {"serve": serve["launches"], "train": train["launches"],
             "lmtrain": lmtrain["launches"],
             "ae": ae["launches"], "ae_fp32": ae["launches_fp32"],
@@ -4528,7 +4825,7 @@ def main() -> int:
            "serve8": serve8, "moeserve": moeserve, "moecut": moecut,
            "moetrain": moetrain, "ssmserve": ssmserve, "hymbaserve": hymbaserve,
            "hymbatrain": hymbatrain, "ssmcut": ssmcut, "sched": sched,
-           "kernels": kernels, "split_launches_by_path": split_by_path}
+           "tune": tune, "kernels": kernels, "split_launches_by_path": split_by_path}
     (ROOT / "chiprun_out").mkdir(exist_ok=True)
     (ROOT / "chiprun_out" / "chip_smoke.json").write_text(json.dumps(out, indent=1))
     print(card)

@@ -3,18 +3,21 @@
 The ``ModelConfig`` dataclass with the reference's fields and defaults,
 and its sub-configs: ``MLAConfig`` (DeepSeek-V2's compressed-KV
 attention), ``MoEConfig`` (fine-grained routed + shared experts) and the
-``SSMConfig`` of the xLSTM / SSM families.  The shape helpers of the
-reference are not ported yet (ROADMAP.md).
+``SSMConfig`` of the xLSTM / SSM families, and the reference's shape suite
+(``ShapeSpec`` / ``SHAPES``, what ``roofline.analysis.model_flops`` reads).
+Its ``input_specs`` (JAX shape stand-ins for a dry run) waits for the
+port's dry run (ROADMAP.md Queue A 6).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 from repro_torch.core import precision as prec
 
-__all__ = ["MLAConfig", "MoEConfig", "ModelConfig", "SSMConfig"]
+__all__ = ["MLAConfig", "MoEConfig", "ModelConfig", "SSMConfig", "ShapeSpec",
+           "SHAPES"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,3 +109,34 @@ class ModelConfig:
         if self.family == "hybrid":
             return "hymba"
         return "attn"
+
+    def param_count(self) -> int:
+        """Total parameters (embedding included), for MODEL_FLOPS."""
+        from repro_torch.models import transformer  # the models import configs
+
+        return transformer.count_params(self)
+
+    def active_param_count(self) -> int:
+        """A token's active parameters (MoE: top-k of the routed experts)."""
+        from repro_torch.models import transformer
+
+        return transformer.count_params(self, active_only=True)
+
+
+# --------------------------------------------------------------------- #
+# The shape suite
+# --------------------------------------------------------------------- #
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    kind: str           # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+SHAPES: Dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", "train", 4_096, 256),
+    "prefill_32k": ShapeSpec("prefill_32k", "prefill", 32_768, 32),
+    "decode_32k": ShapeSpec("decode_32k", "decode", 32_768, 128),
+    "long_500k": ShapeSpec("long_500k", "decode", 524_288, 1),
+}

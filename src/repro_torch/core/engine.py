@@ -37,6 +37,10 @@ goes through this module:
   reference composition of :func:`einsum2d` / :func:`matmul` calls on the
   same backend and differentiates it, so its GEMMs are fp32 dispatches of
   the GEMM kernels (the reference's ``_linear_attention_call_bwd``);
+* **launch geometry** — every GEMM dispatch resolves its tile and split
+  as the explicit ``tile`` > the autotune cache (``core/autotune.py``,
+  keyed on the launch's own dims and batch) > the heuristic, the sweeps
+  their block pair / chunk likewise, and the event carries what runs;
 * **instrumentation** — every dispatch emits a :class:`GemmEvent` into the
   thread-local :func:`instrument` collectors; :func:`repeat` multiplies the
   count, :func:`op_scope` prefixes the op name, :func:`paused` suppresses
@@ -90,6 +94,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import autotune
 from repro_torch.core import epilogues as epi
 from repro_torch.core import precision as prec
 from repro_torch.core import tiling
@@ -631,6 +636,42 @@ register_backend(
 
 
 # --------------------------------------------------------------------- #
+# Launch geometry: explicit > autotune cache > heuristic
+# --------------------------------------------------------------------- #
+def _launch_dims(x_shape, w_shape, layout: str) -> Tuple[int, int, int, int]:
+    """``(M, N, K, batch)`` of the kernel launch the "hopper" backend makes
+    for these stored operands (:func:`_hopper_fn`): a 2D weight folds x's
+    leading dims into M (kernel 1, batch 1); anything else is a batched
+    launch over the broadcast leading dims (kernel 2)."""
+    from repro_torch.kernels.redmule_matmul import logical_dims
+
+    M, N, K = logical_dims(x_shape, w_shape, layout)
+    if len(w_shape) == 2 and (len(x_shape) == 2 or layout != "tn"):
+        return M * math.prod(x_shape[:-2]), N, K, 1
+    lead = torch.broadcast_shapes(tuple(x_shape[:-2]), tuple(w_shape[:-2]))
+    return M, N, K, math.prod(lead)
+
+
+def _resolve_tile(tile: Optional[tiling.TileConfig], x_shape, w_shape,
+                  layout: str, *, policy: prec.Policy, backend: str,
+                  epilogue: Optional[str] = None, fused_bwd: bool = False,
+                  x_dtype: Optional[str] = None,
+                  w_dtype: Optional[str] = None) -> tiling.TileConfig:
+    """The geometry a GEMM dispatch launches, stamped on its event: the
+    explicit ``tile``, else the autotune cache's entry for the launch
+    (keyed on its own dims and batch, ``core/autotune.py``), else
+    ``choose_tiles`` with the heuristic split (``splits`` 0)."""
+    if tile is not None:
+        return tile
+    M, N, K, batch = _launch_dims(x_shape, w_shape, layout)
+    t = autotune.cached_tile(M, N, K, policy=policy, backend=backend,
+                             epilogue=epilogue, layout=layout,
+                             fused_bwd=fused_bwd, x_dtype=x_dtype,
+                             w_dtype=w_dtype, batch=batch)
+    return t if t is not None else tiling.choose_tiles(M, N, K)
+
+
+# --------------------------------------------------------------------- #
 # Dispatch helpers
 # --------------------------------------------------------------------- #
 def _check_policy(policy: prec.Policy) -> None:
@@ -793,25 +834,13 @@ def _static_valid_rows(group_sizes, m: int) -> Optional[int]:
     return int(np.clip(np.asarray(group_sizes), 0, m).sum())
 
 
-def _attn_pairs(s: int, t: int, bq: int, bkv: int, *, causal: bool,
-                q_offset: int = 0) -> int:
-    """Executed (q-block, kv-block) pairs of one flash sweep (causally dead
-    KV blocks are skipped)."""
-    s_pad = -(-max(int(s), 1) // bq) * bq
-    t_pad = -(-max(int(t), 1) // bkv) * bkv
-    if not causal:
-        return (s_pad // bq) * (t_pad // bkv)
-    return sum(1 for qi in range(s_pad // bq) for ki in range(t_pad // bkv)
-               if ki * bkv < q_offset + qi * bq + bq)
-
-
 def _attention_specs(*, B: int, Hq: int, S: int, T: int, D: int, Dv: int,
                      bq: int, bkv: int, causal: bool, q_offset: int,
                      policy: prec.Policy) -> Tuple[GemmSpec, GemmSpec]:
     """The sweep's score / PV event specs, exactly as the reference bills
     them (``engine.py:1709-1734``): ``groups`` = executed block pairs,
     ``io_bytes`` = Q once per row, K/V once per executed pair, O once."""
-    pairs = _attn_pairs(S, T, bq, bkv, causal=causal, q_offset=q_offset)
+    pairs = tiling.attn_pairs(S, T, bq, bkv, causal=causal, q_offset=q_offset)
     S_pad = -(-S // bq) * bq
     BHq = B * Hq
     cb = _itemsize(policy.compute_dtype)
@@ -880,19 +909,23 @@ def _grad_dispatch(spec: GemmSpec, backend: str, a, b, count: int, *,
     are stored in when it is not the event's: the backward of an "nt" /
     "tn" forward bills the reference's spec (its forward multiplies by the
     transposed operand) and hands the kernel the forward's storage as it
-    is, with the tile of the launch's own dims.  ``deriv`` / ``want_db``
+    is.  The geometry is resolved for the launch's own operands and
+    stamped on the event (:func:`_resolve_tile`).  ``deriv`` / ``want_db``
     run the fused backward epilogue (only ever on ``fused_bwd_epilogue``
     backends, which have ``layouts``); ``db`` is None otherwise."""
-    from repro_torch.kernels.redmule_matmul import logical_dims
-
     run = spec
     if launch is not None and launch != spec.layout:
-        run = dataclasses.replace(spec, layout=launch, tile=tiling.choose_tiles(
-            *logical_dims(a.shape, b.shape, launch)))
+        run = dataclasses.replace(spec, layout=launch)
     a, b, layout = _pretranspose(a, b, run.layout, backend)
     if layout != run.layout:
         run = dataclasses.replace(run, layout=layout)
         spec = dataclasses.replace(spec, layout=layout)
+    tile = _resolve_tile(None, a.shape, b.shape, run.layout,
+                         policy=run.policy, backend=backend,
+                         fused_bwd=run.fused_bwd or want_db,
+                         x_dtype=run.x_dtype, w_dtype=run.w_dtype)
+    run = dataclasses.replace(run, tile=tile)
+    spec = dataclasses.replace(spec, tile=tile)
     _emit(spec, backend, count=count)
     fn = get_backend(backend).fn
     if run.fused_bwd or want_db:
@@ -953,7 +986,6 @@ def _bwd_gemms(spec: GemmSpec, backend: str, count: int, xc, wc, dzc, *,
         dx_spec = GemmSpec(
             op="matmul_dx", tag="mk,nk->mn", layout="nt", m=spec.m, n=spec.k,
             k=spec.n, batch=spec.batch, policy=gpol, w_shared=True,
-            tile=tiling.choose_tiles(spec.m, spec.k, spec.n),
             grad_epilogue=act, grad_mode=grad_mode, fused_bwd=fb,
             **dx_st, scaled=spec.scaled,
             accum_block=_faithful_block(gpol, spec.m, spec.k, spec.n,
@@ -961,7 +993,6 @@ def _bwd_gemms(spec: GemmSpec, backend: str, count: int, xc, wc, dzc, *,
         dw_spec = GemmSpec(
             op="matmul_dw", tag="mn,mk->nk", layout="tn", m=spec.n, n=rows,
             k=spec.k, batch=1, policy=gpol, w_shared=False,
-            tile=tiling.choose_tiles(spec.n, rows, spec.k),
             grad_epilogue=act, grad_mode=grad_mode, fused_bwd=fb,
             fused_bias_grad=want_db, **dw_st, scaled=spec.scaled,
             accum_block=_faithful_block(gpol, spec.n, rows, spec.k,
@@ -982,15 +1013,13 @@ def _bwd_gemms(spec: GemmSpec, backend: str, count: int, xc, wc, dzc, *,
     dx_spec = GemmSpec(
         op="matmul_dx", tag="bmk,bnk->bmn", layout="nt", m=spec.m, n=spec.k,
         k=spec.n, batch=spec.batch, groups=spec.groups, policy=gpol,
-        w_shared=spec.w_shared, tile=tiling.choose_tiles(spec.m, spec.k, spec.n),
-        valid_rows=spec.valid_rows, ragged_dim="m",
+        w_shared=spec.w_shared, valid_rows=spec.valid_rows, ragged_dim="m",
         **dx_st, scaled=spec.scaled,
         accum_block=_faithful_block(gpol, spec.m, spec.k, spec.n, **dx_st))
     dw_spec = GemmSpec(
         op="matmul_dw", tag="bmn,bmk->bnk", layout="tn", m=spec.n, n=spec.m,
         k=spec.k, batch=spec.batch, groups=spec.groups, policy=gpol,
-        w_shared=False, tile=tiling.choose_tiles(spec.n, spec.m, spec.k),
-        valid_rows=spec.valid_rows,
+        w_shared=False, valid_rows=spec.valid_rows,
         ragged_dim="n" if spec.valid_rows is not None else "m",
         **dw_st, scaled=spec.scaled,
         accum_block=_faithful_block(gpol, spec.n, spec.m, spec.k, **dw_st))
@@ -1483,8 +1512,10 @@ class Engine:
         st = _storage(policy, b)
         spec = GemmSpec(
             op="matmul", tag=tag, m=m, n=n, k=k, batch=math.prod(lead),
-            policy=policy, tile=tile or tiling.choose_tiles(m, n, k),
-            w_shared=(w.ndim == 2), layout=layout, **st,
+            policy=policy, w_shared=(w.ndim == 2), layout=layout, **st,
+            tile=_resolve_tile(tile, x.shape, w.shape, layout, policy=policy,
+                               backend=b, x_dtype=st["x_dtype"],
+                               w_dtype=st["w_dtype"]),
             accum_block=_faithful_block(policy, m, n, k, x_dtype=st["x_dtype"],
                                         w_dtype=st["w_dtype"]))
         return _gemm_call(spec, b, x, w)
@@ -1524,8 +1555,10 @@ class Engine:
         st = _storage(policy, bk)
         spec = GemmSpec(
             op="linear", tag=tag, m=m, n=n, k=k, batch=math.prod(lead),
-            policy=policy, tile=tile or tiling.choose_tiles(m, n, k),
-            epilogue=activation, w_shared=(w.ndim == 2), **st,
+            policy=policy, epilogue=activation, w_shared=(w.ndim == 2), **st,
+            tile=_resolve_tile(tile, x.shape, w.shape, "nn", policy=policy,
+                               backend=bk, epilogue=activation,
+                               x_dtype=st["x_dtype"], w_dtype=st["w_dtype"]),
             accum_block=_faithful_block(policy, m, n, k, x_dtype=st["x_dtype"],
                                         w_dtype=st["w_dtype"]))
         if b is None and activation is None:
@@ -1577,7 +1610,9 @@ class Engine:
         spec = GemmSpec(
             op="grouped_matmul", tag="gmn,gnk->gmk", m=m, n=n, k=k,
             batch=math.prod(lead), groups=w.shape[0], policy=policy,
-            tile=tile or tiling.choose_tiles(m, n, k), w_shared=True,
+            tile=_resolve_tile(tile, x.shape, w.shape, "nn", policy=policy,
+                               backend=b, x_dtype=st["x_dtype"],
+                               w_dtype=st["w_dtype"]), w_shared=True,
             valid_rows=_static_valid_rows(group_sizes, m), **st,
             accum_block=_faithful_block(policy, m, n, k, x_dtype=st["x_dtype"],
                                         w_dtype=st["w_dtype"]))
@@ -1606,8 +1641,9 @@ class Engine:
         ``"attention"`` capability and ``Dv == D``),
         it runs, billed as ``attention_score`` / ``attention_pv`` events
         whose ``groups`` count executed ``(bq, bkv)`` block pairs; ``bq`` /
-        ``bkv`` default to the flash kernel's own tiles
-        (``tiling.FLASH_BQ`` / ``FLASH_BKV``).  Its backward recomputes
+        ``bkv`` resolve explicit > the autotune cache (sweep key ``attnc``
+        / ``attn``) > the flash kernel's own tiles (``tiling.FLASH_BQ`` /
+        ``FLASH_BKV``, the one pair it is compiled for).  Its backward recomputes
         through the reference composition (:class:`_AttentionFn`).
         Elsewhere the composition itself runs, its two GEMMs self-billing
         and differentiable (:func:`_attention_reference`)."""
@@ -1632,6 +1668,11 @@ class Engine:
             return _attention_reference(
                 q, k, v, group=Hq // Hkv, causal=causal, scale=scale,
                 q_offset=q_offset, t_valid=t_valid, policy=policy, backend=b)
+        if bq is None or bkv is None:
+            t = autotune.cached_tile(S, T, D, policy=policy, backend=b,
+                                     sweep="attnc" if causal else "attn")
+            if t is not None:
+                bq, bkv = bq or t.bm, bkv or t.bn
         bq = int(bq or tiling.FLASH_BQ)
         bkv = int(bkv or tiling.FLASH_BKV)
         actx = _AttnCtx(
@@ -1669,17 +1710,19 @@ class Engine:
         wt = w.permute([b_lab.index(l) for l in batch_l + c_l + k_l])
         size = lambda labels: math.prod(dims[l] for l in labels)
         bsz, m, k, c = size(batch_l), size(m_l), size(k_l), size(c_l)
-        st = _storage(policy, b)
-        spec = GemmSpec(
-            op="einsum2d", tag=eq.replace(" ", ""), m=m, n=c, k=k, batch=bsz,
-            policy=policy, tile=tile or tiling.choose_tiles(m, c, k),
-            w_shared=not batch_l, **st,
-            accum_block=_faithful_block(policy, m, c, k, x_dtype=st["x_dtype"],
-                                        w_dtype=st["w_dtype"]))
         if batch_l:
             x2, w2 = xt.reshape(bsz, m, c), wt.reshape(bsz, c, k)
         else:
             x2, w2 = xt.reshape(m, c), wt.reshape(c, k)
+        st = _storage(policy, b)
+        spec = GemmSpec(
+            op="einsum2d", tag=eq.replace(" ", ""), m=m, n=c, k=k, batch=bsz,
+            policy=policy, w_shared=not batch_l, **st,
+            tile=_resolve_tile(tile, x2.shape, w2.shape, "nn", policy=policy,
+                               backend=b, x_dtype=st["x_dtype"],
+                               w_dtype=st["w_dtype"]),
+            accum_block=_faithful_block(policy, m, c, k, x_dtype=st["x_dtype"],
+                                        w_dtype=st["w_dtype"]))
         z = _gemm_call(spec, b, x2, w2)
         cur = batch_l + m_l + k_l
         z = z.reshape([dims[l] for l in cur])
@@ -1700,8 +1743,10 @@ class Engine:
         state carried in, the sweep kernel runs, billed as four
         ``linear_attention_{score,pv,inter,state}`` events; otherwise — and
         in the kernel path's backward — the reference composition of fp32
-        GEMM dispatches runs, each self-billing.  ``chunk`` defaults to 64
-        (the port has no autotune cache)."""
+        GEMM dispatches runs, each self-billing.  The chunk resolves
+        explicit ``chunk`` > the autotune cache (sweep key ``lattn``,
+        keyed on S, dk, dv and B·H) > 64; it changes the sweep's summation,
+        so it is numerics as well as speed."""
         b = self.resolve_backend(backend)
         if q.ndim != 4 or k.ndim != 4 or v.ndim != 4 or log_g.ndim != 3:
             raise ValueError(
@@ -1715,7 +1760,11 @@ class Engine:
             raise ValueError(
                 f"operand shape mismatch: {tuple(q.shape)} / {tuple(k.shape)} "
                 f"/ {tuple(v.shape)} / {tuple(log_g.shape)}")
-        chunk = int(chunk or 64)
+        if chunk is None:
+            t = autotune.cached_tile(S, dk, dv, policy=prec.FP32, backend=b,
+                                     sweep="lattn", batch=B * H)
+            chunk = t.bm if t is not None else tiling.SWEEP_CHUNK
+        chunk = int(chunk)
         if not (get_backend(b).supports("attention") and state is None):
             return _linear_attention_reference(q, k, v, log_g, chunk=chunk,
                                                state=state, backend=b)

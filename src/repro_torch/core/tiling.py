@@ -28,6 +28,14 @@ a launch with the fused backward (deriv / db) is never split.  The plan
 reads no storage dtype, so an FP8 launch and its pre-widened fp16 twin
 split alike.
 
+A launch's geometry is a :class:`TileConfig` — a menu tile, and
+``splits``: 0 lets :func:`split_plan` decide, S > 0 asks for S slices
+(:func:`plan_for_splits` re-derives their depth for the launch's own N).
+:func:`launch_plan` is what the GEMM wrappers run.  The engine resolves
+the geometry per dispatch: an explicit tile, else the autotune cache
+(:mod:`repro_torch.core.autotune`, read when ``REPRO_AUTOTUNE_CACHE`` is
+set), else :func:`choose_tiles` with the heuristic split.
+
 Under an fp16 accumulator (``paper_fp16``, ``mixed_fp8_e4m3``) the
 reference's reduction block is numerics, not a speed knob: its accumulator
 is re-rounded after every ``bn`` rows of the reduction, and ``bn`` depends
@@ -35,8 +43,11 @@ on the operands' storage widths.  :func:`accum_block`
 is the reference's own tile heuristic (``repro/core/tiling.py:102-175``,
 its 8 MiB VMEM budget and 128-lane alignment included), copied so that
 the CUDA kernel rounds at the same points whatever its own 32-deep smem
-step.  The reference's autotune cache (read only when
-``REPRO_AUTOTUNE_CACHE`` is set) is not consulted.
+step.  The split is numerics there too: the slices of one rounding block
+are summed in fp32 in split order, so under a faithful accumulator the
+plan is the heuristic tile's whatever tile runs (a tile only changes which
+block computes an output, not its sum), and a launch that asks for its
+own ``splits`` raises.
 """
 
 from __future__ import annotations
@@ -49,28 +60,37 @@ import torch
 
 __all__ = ["TileConfig", "choose_tiles", "smem_bytes", "GEMM_TILES",
            "SMEM_BUDGET", "FLASH_BQ", "FLASH_BKV", "accum_block",
-           "SplitPlan", "split_plan", "SPLIT_STEP"]
+           "SplitPlan", "split_plan", "plan_for_splits", "launch_plan",
+           "tile_index", "attn_pairs", "SPLIT_STEP", "SWEEP_CHUNK"]
 
 # shared memory one block may use on Hopper (232,448 bytes)
 SMEM_BUDGET = 227 * 1024
 FLASH_BQ = 16
 FLASH_BKV = 16
+# kernel 4's chunk where neither the caller nor the autotune cache names one
+# (the reference's default)
+SWEEP_CHUNK = 64
 
 
 @dataclasses.dataclass(frozen=True)
 class TileConfig:
     """Block shape for Z = X @ W with X (M, N), W (N, K) [paper naming]:
-    ``bm`` tiles M, ``bk`` tiles K (output columns), ``bn`` the reduction."""
+    ``bm`` tiles M, ``bk`` tiles K (output columns), ``bn`` the reduction;
+    ``splits`` the slices a GEMM launch cuts its reduction into (0: the
+    heuristic's, :func:`split_plan`)."""
 
     bm: int = 64
     bn: int = 32
     bk: int = 64
+    splits: int = 0
 
     def __post_init__(self):
         for name in ("bm", "bn", "bk"):
             v = getattr(self, name)
             if v <= 0:
                 raise ValueError(f"{name} must be positive, got {v}")
+        if self.splits < 0:
+            raise ValueError(f"splits must be >= 0, got {self.splits}")
 
 
 # the kernel's compiled tiles, in the order of its `tile` argument
@@ -105,6 +125,28 @@ def smem_bytes(t: TileConfig, compute_dtype=torch.bfloat16) -> int:
 
 for _t in GEMM_TILES:
     assert smem_bytes(_t) <= SMEM_BUDGET, _t
+
+
+def tile_index(t: TileConfig) -> int:
+    """The kernel's ``tile`` argument for ``t``'s block shape; ValueError
+    for a shape the kernel is not compiled for."""
+    for i, g in enumerate(GEMM_TILES):
+        if (g.bm, g.bn, g.bk) == (t.bm, t.bn, t.bk):
+            return i
+    raise ValueError(f"tile (bm {t.bm}, bn {t.bn}, bk {t.bk}) is not one the "
+                     f"kernel is compiled for: {GEMM_TILES}")
+
+
+def attn_pairs(s: int, t: int, bq: int, bkv: int, *, causal: bool,
+               q_offset: int = 0) -> int:
+    """Executed (q-block, kv-block) pairs of one flash sweep (causally dead
+    KV blocks are skipped)."""
+    s_pad = -(-max(int(s), 1) // bq) * bq
+    t_pad = -(-max(int(t), 1) // bkv) * bkv
+    if not causal:
+        return (s_pad // bq) * (t_pad // bkv)
+    return sum(1 for qi in range(s_pad // bq) for ki in range(t_pad // bkv)
+               if ki * bkv < q_offset + qi * bq + bq)
 
 
 def choose_tiles(M: int, N: int, K: int) -> TileConfig:
@@ -168,6 +210,41 @@ def split_plan(M: int, N: int, K: int, *, tile: TileConfig, batch: int = 1,
     if splits <= 1 or splits > MAX_SPLITS:
         return whole
     return SplitPlan(splits, depth)
+
+
+def plan_for_splits(N: int, splits: int, *, route: str = "tensor") -> SplitPlan:
+    """The plan of a launch asked for ``splits`` slices of its ``N``-row
+    reduction: each slice about N / S rows rounded up to the route's step,
+    at least ``MIN_SPLIT_STEPS`` steps deep, and as many slices as that
+    depth needs (so the last one is never empty; fewer than asked where
+    the reduction is too shallow)."""
+    step = SPLIT_STEP[route]
+    if splits <= 1:
+        return SplitPlan(1, N)
+    depth = max(MIN_SPLIT_STEPS * step, _round_up(-(-N // splits), step))
+    s = -(-N // depth)
+    return SplitPlan(s, depth) if s > 1 else SplitPlan(1, N)
+
+
+def launch_plan(M: int, N: int, K: int, *, tile: TileConfig, batch: int = 1,
+                accum_block: int = 0, route: str = "tensor",
+                fused_bwd: bool = False) -> SplitPlan:
+    """The split a GEMM launch runs: ``tile.splits`` slices where the tile
+    asks for them (:func:`plan_for_splits`), else :func:`split_plan`'s.
+    Under a faithful accumulator (``accum_block`` > 0) the plan is
+    :func:`split_plan`'s for the heuristic tile, whatever tile runs: it
+    decides the fp32 summation order inside a rounding block, so a tuned
+    tile must leave it unchanged; asking for splits there raises."""
+    if accum_block:
+        if tile.splits:
+            raise ValueError(
+                f"a faithful (fp16-accumulator) launch splits as the shapes "
+                f"say; tile {tile} asks for {tile.splits} slices")
+        tile = choose_tiles(M, N, K)
+    elif tile.splits:
+        return plan_for_splits(N, tile.splits, route=route)
+    return split_plan(M, N, K, tile=tile, batch=batch, accum_block=accum_block,
+                      route=route, fused_bwd=fused_bwd)
 
 
 # --------------------------------------------------------------------- #

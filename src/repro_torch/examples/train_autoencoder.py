@@ -9,8 +9,9 @@ A step whose unscaled gradients are not all finite leaves the parameters
 and the AdamW moments (and its step count) untouched and halves the loss
 scale, as ``repro.launch.train``'s loss-scaled step does.  (The
 reference example keeps the moments it updated on such a step; see
-ROADMAP.md, Queue C.)  Its closing machine-model report (``perf_model``)
-is not ported yet.
+ROADMAP.md, Queue C.)  It closes with the paper's Fig 4c/4d numbers for
+this workload from the analytic RedMulE model (``core/perf_model.py``: the
+paper's 22 nm cluster, not the card).
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core import precision as prec
+from repro_torch.core.perf_model import DEFAULT_MODEL, autoencoder_report
 from repro_torch.data import SyntheticAE
 from repro_torch.launch.train import ae_grads
 from repro_torch.models import autoencoder
@@ -80,6 +82,15 @@ def main(argv=None) -> Dict[str, Any]:
     if losses:
         print(f"\nfinal mse: {np.mean(losses[-10:]):.4f} "
               f"(from {np.mean(losses[:10]):.4f}); overflows seen: {overflows}")
+
+    # the paper's Fig 4c/4d numbers for this exact workload
+    print("\npaper reproduction (calibrated machine model):")
+    for B in (1, 16):
+        r = autoencoder_report(DEFAULT_MODEL, B)
+        print(f"  B={B:2d}: RedMulE speedup {r['speedup']:.1f}x over 8-core SW "
+              f"(paper: {'2.6x' if B == 1 else '24.4x'}), "
+              f"fwd {r['speedup_fwd']:.1f}x / bwd {r['speedup_bwd']:.1f}x, "
+              f"{r['hw_macs_per_cycle']:.1f} MAC/cycle")
     return {"losses": losses, "overflows": overflows,
             "loss_scale": float(scale.scale)}
 

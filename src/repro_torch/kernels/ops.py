@@ -31,13 +31,15 @@ dispatch refuses any other and the launch raises — nothing is widened
 behind the caller's back.
 
 A launch whose reduction the kernel splits inside the launch
-(:func:`repro_torch.core.tiling.split_plan`: few output tiles for the
-card) is also counted in ``.launches_split``; it is still one launch.
+(:func:`repro_torch.core.tiling.launch_plan`: the ``tile``'s ``splits``
+where it names them, else few output tiles for the card) is also counted
+in ``.launches_split``; it is still one launch.
 Model code goes through :mod:`repro_torch.core.engine`.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -52,6 +54,11 @@ __all__ = ["redmule_matmul", "redmule_matmul_batched"]
 _ROADMAP = "not yet ported (see ROADMAP.md, Queue A)"
 # the kernel's reduction step: a faithful block must end on one
 _KERNEL_BN = tiling.GEMM_TILES[0].bn
+
+
+def _route(x: torch.Tensor) -> str:
+    """The kernel's route: SIMT for fp32 operands, else the tensor cores."""
+    return "simt" if x.dtype == torch.float32 else "tensor"
 
 
 def _is_fp8(x: torch.Tensor, w: torch.Tensor) -> bool:
@@ -163,9 +170,11 @@ def redmule_matmul(x: torch.Tensor, w: torch.Tensor, *, policy: prec.Policy,
     """2D ``Z = act(X @ W + bias)`` (kernel 1).
 
     ``x`` / ``w`` are stored as ``layout`` names ("nn" | "nt" | "tn"); the
-    result is the logical ``(M, K)``.  ``bias`` is a ``(K,)`` row, fused
-    with ``epilogue`` into the kernel's single store in the accumulator
-    dtype.  ``accum_block`` sets the faithful accumulator's rounding block
+    result is the logical ``(M, K)``.  ``tile`` is a compiled tile with
+    its ``splits`` (default: :func:`tiling.choose_tiles` and the heuristic
+    split; :func:`tiling.launch_plan` resolves the plan).  ``bias`` is a
+    ``(K,)`` row, fused with ``epilogue`` into the kernel's single store in
+    the accumulator dtype.  ``accum_block`` sets the faithful accumulator's rounding block
     (a multiple of 32; default: the reference's).
 
     The fused backward (the reference's ``"fused_bwd_epilogue"`` contract):
@@ -198,8 +207,10 @@ def redmule_matmul(x: torch.Tensor, w: torch.Tensor, *, policy: prec.Policy,
         return z, torch.zeros((0,), dtype=policy.accum_dtype, device=x.device)
     # db over an empty M (or N) still launches: the kernel runs one M-tile
     # row of blocks, which sums (N == 0: zeroes) db and stores no z
-    out, splits = rm.launch(x, w, policy=policy,
-                            tile=tile or tiling.choose_tiles(M, N, K),
+    tile = tile or tiling.choose_tiles(M, N, K)
+    plan = tiling.launch_plan(M, N, K, tile=tile, accum_block=block or 0,
+                              route=_route(x), fused_bwd=fused_bwd)
+    out, splits = rm.launch(x, w, policy=policy, tile=tile, plan=plan,
                             bias=bias, epilogue=epilogue, layout=layout,
                             accum_block=block or 0, **bwd)
     redmule_matmul.launches += 1
@@ -259,8 +270,10 @@ def redmule_matmul_batched(x: torch.Tensor, w: torch.Tensor, *,
     if min(M, N, K, *lead) == 0:
         return _empty_problem(lead, M, N, K, policy=policy, bias=bias,
                               epilogue=epilogue, device=x.device)
-    z, splits = rm.launch(x, w, policy=policy,
-                          tile=tile or tiling.choose_tiles(M, N, K), bias=bias,
+    tile = tile or tiling.choose_tiles(M, N, K)
+    plan = tiling.launch_plan(M, N, K, tile=tile, batch=math.prod(lead),
+                              accum_block=block or 0, route=_route(x))
+    z, splits = rm.launch(x, w, policy=policy, tile=tile, plan=plan, bias=bias,
                           epilogue=epilogue, layout=layout,
                           accum_block=block or 0)
     redmule_matmul_batched.launches += 1

@@ -40,8 +40,8 @@ Three modes of the reference kernel ride on the same contraction:
   (declared in :data:`FP8_KERNELS`); a launch on any other pair raises.
 
 A launch with few output tiles splits its reduction inside the kernel
-(:func:`repro_torch.core.tiling.split_plan`, from the shapes alone): S
-slices, each block's fp32 partial written to a workspace
+(the plan its caller resolved, :func:`repro_torch.core.tiling.launch_plan`:
+the heuristic's from the shapes alone, or a tuned S): S slices, each block's fp32 partial written to a workspace
 (``S x batch x M x K``, allocated per call), the last block of each output
 tile summing them in split order and storing once.  The tile counters that
 find that last block live in one int32 buffer per device, zeroed when it is
@@ -282,16 +282,21 @@ def _tile_counters(device: torch.device, n: int) -> torch.Tensor:
 
 
 def launch(x: torch.Tensor, w: torch.Tensor, *, policy: prec.Policy,
-           tile: tiling.TileConfig, bias: Optional[torch.Tensor],
-           epilogue: Optional[str], layout: str, accum_block: int = 0,
-           deriv: Optional[torch.Tensor] = None,
+           tile: tiling.TileConfig, plan: tiling.SplitPlan,
+           bias: Optional[torch.Tensor], epilogue: Optional[str], layout: str,
+           accum_block: int = 0, deriv: Optional[torch.Tensor] = None,
            grad_epilogue: Optional[str] = None, grad_from_output: bool = False,
            bias_grad: bool = False):
     """Run the CUDA kernel on CUDA operands with broadcast-compatible
     leading dims; returns ``(out, S)``: ``out`` is ``(*lead, M, K)`` in
     ``policy.out_dtype``, and with ``bias_grad`` ``(z, db)``, ``db`` a
     ``(K,)`` row in the accumulator dtype; ``S`` the number of slices the
-    reduction was split into (:func:`tiling.split_plan`).
+    reduction was split into.
+
+    ``tile`` is a menu tile (its block shape; ValueError otherwise) and
+    ``plan`` the resolved split (:func:`tiling.launch_plan`), which
+    :func:`check_split` guards: the kernel's own refusals raise here
+    first.  The split's tile counters grow to the launch's output tiles.
 
     ``accum_block`` > 0 runs the faithful fp16 accumulator (re-rounded
     every ``accum_block`` reduction rows).  ``deriv`` is read through its
@@ -315,16 +320,9 @@ def launch(x: torch.Tensor, w: torch.Tensor, *, policy: prec.Policy,
         slot = 1 if layout == "nt" else 2
     db = (torch.empty((K,), dtype=torch.float32, device=x.device)
           if bias_grad else None)
-    try:
-        tile_id = tiling.GEMM_TILES.index(tile)
-    except ValueError:
-        raise ValueError(f"tile {tile} is not one the kernel is compiled "
-                         f"for: {tiling.GEMM_TILES}") from None
+    tile_id = tiling.tile_index(tile)
     batch = math.prod(lead)
     route = "simt" if x.dtype == torch.float32 else "tensor"
-    plan = tiling.split_plan(M, N, K, tile=tile, batch=batch,
-                             accum_block=int(accum_block), route=route,
-                             fused_bwd=slot != 0)
     check_split(plan, N, route=route, accum_block=int(accum_block),
                 fused_bwd=slot != 0)
     part = counters = None

@@ -59,6 +59,7 @@ from repro_torch.models import autoencoder, moe, transformer
 from repro_torch.optim import (AdamW, OptState, adjust, clip_by_global_norm,
                                init_scale, scale_loss, tree_leaves, tree_map,
                                unscale_and_check)
+from repro_torch.roofline import analysis
 
 __all__ = ["TrainState", "init_state", "build_train_step", "ae_grads",
            "build_ae_step", "main"]
@@ -245,16 +246,13 @@ def _ae_main(args, device: torch.device) -> Dict[str, Any]:
 
 
 def _print_instrument_summary(events) -> None:
-    """Per-op engine summary and the fwd / bwd flop and byte split."""
+    """Per-op engine summary and the fwd / bwd flop and byte split, a remat
+    recompute counted as backward (``roofline.analysis``)."""
     for op, d in engine.summarize(events).items():
         print(f"[engine] {op}: calls={d['calls']} "
               f"gflops={d['flops'] / 1e9:.3f} gbytes={d['bytes'] / 1e9:.3f}")
-    split = {"fwd": 0, "bwd": 0}
-    bsplit = {"fwd": 0, "bwd": 0}
-    for ev in events:
-        side = "bwd" if engine.is_backward_op(ev.spec.op) else "fwd"
-        split[side] += ev.total_flops
-        bsplit[side] += ev.total_bytes
+    split = analysis.flops_by_direction(events)
+    bsplit = analysis.bytes_by_direction(events)
     fwd, bwd = split["fwd"], split["bwd"]
     ratio = (fwd + bwd) / fwd if fwd else 0.0
     print(f"[engine] fwd_gflops={fwd / 1e9:.3f} bwd_gflops={bwd / 1e9:.3f} "

@@ -240,7 +240,8 @@ def test_no_jax_in_the_port():
     files = sorted((root / "src" / "repro_torch").rglob("*.py")) + [root / "chip_smoke.py"]
     names = {f.relative_to(root / "src").as_posix() for f in files[:-1]}
     assert {"repro_torch/runtime/fault_tolerance.py", "repro_torch/serving/loadgen.py",
-            "repro_torch/serving/resilience.py"} <= names
+            "repro_torch/serving/resilience.py", "repro_torch/roofline/analysis.py",
+            "repro_torch/core/autotune.py", "repro_torch/core/perf_model.py"} <= names
     assert len(files) > 15
     for f in files:
         for node in ast.walk(ast.parse(f.read_text(), str(f))):
@@ -253,7 +254,9 @@ def test_no_jax_in_the_port():
                 top = n.split(".")[0]
                 assert top not in ("jax", "jaxlib", "repro", "flax"), (f, n)
     code = ("import sys, repro_torch.launch.serve, repro_torch.launch.train, "
-            "repro_torch.convert, repro_torch.runtime, repro_torch.serving; "
+            "repro_torch.convert, repro_torch.runtime, repro_torch.serving, "
+            "repro_torch.roofline, repro_torch.core.autotune, "
+            "repro_torch.core.perf_model, repro_torch.examples.quickstart; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(1 if bad else 0)")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
