@@ -56,10 +56,11 @@ Phases, any failure exits non-zero:
    CUDA events (logits must be finite) and profiled, and a two-layer cut
    of the same model is held against the plain path on the CPU;
 4. **train** — the counts are set to 0 again, then
-   ``repro_torch.launch.train`` trains xlstm-1.3b at full width (48
-   blocks, d 2048, random weights from a seed) for 3 steps at batch 4 x
-   seq 256; loss and gradient norm must be finite on every step and the
-   sweep kernel's launch count must equal the structural one (42 mLSTM
+   ``repro_torch.launch.train`` trains xlstm-1.3b at full width (d 2048,
+   random weights from a seed) with its depth cut to 16 blocks (two
+   super-blocks; 48 blocks and 3 steps before the ft phase came) for 2
+   steps at batch 4 x seq 256; loss and gradient norm must be finite on every step and the
+   sweep kernel's launch count must equal the structural one (14 mLSTM
    blocks per forward, once more in the remat recompute).  The warm-up
    step's fp32-route launches are tallied by shape, each shape then timed
    alone; then one step is profiled (device busy / idle share) with its
@@ -75,7 +76,8 @@ Phases, any failure exits non-zero:
    width, batch 1 x seq 128): its loss and the gradients of w_up, w_qkv and
    r_gates of the first and the last super-block, card vs CPU, under fp32
    and tpu_bf16, each held to 8x the CPU's own spread (half vs all
-   threads);
+   threads), except a row where that bound reaches max |x| (tpu_bf16's
+   deep rows), which is printed as unbounded and held only to be finite;
 5. **lmtrain** — the counts are set to 0 again, then
    ``repro_torch.launch.train`` trains qwen3-1.7b at full width (28
    layers, d 2048, vocab 151936, random weights from a seed) for 3 steps
@@ -91,7 +93,33 @@ Phases, any failure exits non-zero:
    two-layer full-width serve cut of each dense config of the slice
    (mistral-nemo-12b, pixtral-12b, command-r-35b, musicgen-medium) is held
    against the CPU plain path;
-6. **ae** — the counts are set to 0 again, then ``repro_torch.launch.train
+6. **ft** — checkpoints, the fault-tolerant loop, the compressed gradient
+   wire and elastic data parallelism: qwen3-1.7b at full width with its
+   depth cut to 2 (411,838,976 parameters; every checkpoint, 8.24 GB, goes
+   to a temporary directory removed after).  One data-parallel step (rank
+   0's 2 x 256 rows, the FP8 E4M3 wire) run twice from one state must give
+   bitwise equal parameters, moments and error feedback, with the
+   structural launches (35 / 12 / 4) and no aten GEMM or SDPA in its
+   profile.  Then ``repro_torch.launch.train --compress fp8_e4m3
+   --dp-procs 2`` (two rank processes on the card over gloo, started by
+   ``runtime.procs.spawn`` in this process, as the CLI's launcher starts
+   them) for 4 steps of 4 x 256 three times: with ``--ckpt-dir`` and a
+   death injected at step 3, which must exit 13 after the step-2
+   checkpoint; a run without checkpoints (beside the death where the card
+   has the memory); then alone with the first
+   run's directory again, which must resume from step 2 and end with the
+   second run's params / error-feedback / optimizer digests and loss, the
+   goodput line counting 1 restart and 1 recomputed step; rank 0's
+   launches are the structural count on every step (they are the path's
+   row in the report), and the wire bytes, checkpoint bytes, the resume's
+   save and restore seconds, step and all-reduce times and the free disk
+   are printed.  Beside the death, the elastic worker
+   (``repro_torch.runtime.elastic``, the toy MLP, every rank on the card):
+   a torn checkpoint write at dp 2 resumes from the previous checkpoint to
+   the uninterrupted digest, and a dp-4 FP8 checkpoint continues at dp 2
+   with its residuals regrouped to the sums and its scale windows to the
+   maxima;
+7. **ae** — the counts are set to 0 again, then ``repro_torch.launch.train
    --arch ae`` trains the paper's TinyMLPerf AutoEncoder (640 -> [128 x4]
    -> 8 -> [128 x4] -> 640, random weights from a seed) for 200 steps at
    batch 16 under ``paper_fp16``, then 3 steps under ``fp32``: the mse must
@@ -104,14 +132,14 @@ Phases, any failure exits non-zero:
    paper's RedMulE cycle model (``core/perf_model.py``) prices one step's
    events captured on the card, which must equal the CPU's, beside its
    Fig 4c/4d ``autoencoder_report`` at batch 1 and 16;
-7. **ae8** — the same entry point under FP8 storage: 200
+8. **ae8** — the same entry point under FP8 storage: 200
    ``mixed_fp8_e4m3`` steps at batch 16 (the mse must fall to the
    reference's level), 3 at batch 4096 and 3 ``mixed_fp8_e5m2`` steps,
    each with its own counts (30 kernel-1 launches a step, all FP8, none
    fused-backward); one profiled step; one step at batch 16 and 4096 held
    against the CPU plain path, with BatchNorm in float64 on both sides and
    as the path runs it, each bound beside two controls that must fail it;
-8. **serve8** — qwen3-1.7b at full width under ``mixed_fp8_e4m3``:
+9. **serve8** — qwen3-1.7b at full width under ``mixed_fp8_e4m3``:
    ``launch.serve.generate`` of 4 x (128 + 16) with the counts set to 0
    (the structural 2260 / 896 / 112 launches, every GEMM launch FP8);
    one prefill and one decode step timed and profiled; a two-layer cut
@@ -121,7 +149,7 @@ Phases, any failure exits non-zero:
    ulp as often as the card's flash launches differ from their plain
    version), beside two controls that must fail it (row 0 of the first
    layer's wqkv zeroed, the attention scale off by a factor 1 + 2^-6);
-9. **moeserve** — the counts are set to 0 again, then
+10. **moeserve** — the counts are set to 0 again, then
    ``repro_torch.launch.serve`` serves deepseek-v2-lite-16b at full width
    and depth (27 layers, 64 routed experts top-6 + 2 shared, MLA, random
    weights from a seed): 4 requests, prompt 128, 16 new tokens; the kernel-1
@@ -129,20 +157,20 @@ Phases, any failure exits non-zero:
    run (3456 / 3936, no flash).  One prefill and one decode step timed and
    profiled (kernel 1 / kernel 2 / other, no aten GEMM or SDPA op), peak
    memory;
-10. **moecut** — a two-layer full-width cut (dense layer 0 + one MoE
+11. **moecut** — a two-layer full-width cut (dense layer 0 + one MoE
    layer) of deepseek-v2-lite-16b and of deepseek-moe-16b: every logit of
    a 2 x 16 prompt and one decode step from its cache, card vs the CPU
    plain path; every routing flip must lie on a router tie (within twice
    the run's measured router-logit error), the tokens that route alike are
    held to the larger of 8x the CPU's 1-vs-all-thread spread and 2^-4 of
    max, and a control (two experts' w_out swapped) must fail that bound;
-11. **moetrain** — ``repro_torch.launch.train`` trains deepseek-v2-lite-16b
+12. **moetrain** — ``repro_torch.launch.train`` trains deepseek-v2-lite-16b
    at full width with its depth cut to 3 (``--layers 3``: dense layer 0 +
    two MoE layers), 4 x 256, 3 steps: losses and router metrics finite,
    launches structural (88 / 46 a step: forward, the MoE layers' remat
    recompute, dX and dW), one profiled step (no aten GEMM or SDPA op),
    peak memory;
-12. **ssmserve** — the counts are set to 0 again, then xlstm-1.3b at full
+13. **ssmserve** — the counts are set to 0 again, then xlstm-1.3b at full
    width and depth (48 blocks, random weights from a seed) runs
    ``transformer.prefill`` on 4 x 128 and a greedy loop of 16
    ``serve_step``s from its decode state (the scheduler refuses recurrent
@@ -150,14 +178,14 @@ Phases, any failure exits non-zero:
    prefill, 0 a decode step), one prefill and one decode step timed and
    profiled (kernel 1 / 2 / 4 / other, no aten GEMM or SDPA op), peak
    memory;
-13. **hymbaserve** — the same for hymba-1.5b at full width and depth (32
+14. **hymbaserve** — the same for hymba-1.5b at full width and depth (32
    layers) on 4 x (1152 + 16): the 1024 window masks on the 29 sliding
    layers and the prefill crosses q_chunk 1024; kernel 4 32 a prefill, 0
    a decode step, no flash;
-14. **hymbatrain** — ``repro_torch.launch.train`` trains hymba-1.5b at full
+15. **hymbatrain** — ``repro_torch.launch.train`` trains hymba-1.5b at full
    width and depth, 4 x 256, 3 steps: losses finite, 64 sweeps a step
    (forward and remat recompute), no flash, one profiled step, peak memory;
-15. **ssmcut** — a two-layer full-width cut of hymba-1.5b (full layer 0,
+16. **ssmcut** — a two-layer full-width cut of hymba-1.5b (full layer 0,
    sliding layer 1) on 2 x 1088 and one xlstm-1.3b super-block on 2 x 128
    (under tpu_bf16 and under fp32), each with 2 decode steps from its
    cache: logits and every cache leaf, card vs the CPU plain path, within
@@ -165,7 +193,7 @@ Phases, any failure exits non-zero:
    (fp32: 1e-5), beside two controls that must fail (hymba layer 1's ``a_log`` raised by
    ``HC_CONTROL``; the fp32 xLSTM cut's first mLSTM state zeroed after the
    prefill);
-16. **sched** — serving under load: the counts are set to 0 again, then
+17. **sched** — serving under load: the counts are set to 0 again, then
    ``repro_torch.launch.serve --sched`` runs yi-9b at full width and depth
    (48 layers, d 4096, random weights from a seed) with the reference's
    defaults: 4 slots, 8 requests at each of the rates 0.25 and 1.0,
@@ -179,18 +207,24 @@ Phases, any failure exits non-zero:
    kv_corrupt@2), each against its floors, with a recovery where a fault
    fired, the goodput and event log of its reduced CPU twin, the victim's
    tokens equal to the uninjected run's and structural launches;
-   the recovery contract under tpu_bf16 (the co-resident slot bitwise
-   unmoved on the 16-bit cache; on the FP8 cache bitwise where the pool's
-   scale did not move, else within one E4M3 step; the victim's rebuilt
-   rows within one E4M3 step plus the 16-bit prefill-versus-decode gap of
-   a full prefill, beside a control that must fail); two-layer FP8 cuts
+   the recovery contract under tpu_bf16 (on the 16-bit cache the
+   co-resident slot bitwise unmoved, the victim's rebuilt rows bitwise
+   equal to the decode-built ones and, both runs drained, its tokens and
+   final logits bitwise equal to an uninjected run's; on the FP8 cache the
+   co-resident codes bitwise where the pool's scale did not move, else
+   within one E4M3 step, and the victim's rebuilt rows within one E4M3
+   step plus the 16-bit prefill-versus-decode gap of a full prefill,
+   beside a control that must fail); a 16-bit recovery's time early and
+   late in a 128 + 16 request at 4 slots (rebuilt rows and co-resident
+   slots bitwise), whose difference gives the cost of a replayed decode
+   step; two-layer FP8 cuts
    of yi-9b and deepseek-v2-lite-16b (MLA) against the CPU plain path
    (cache rows within one E4M3 step plus the 16-bit cut's gap, decode
    logits against the 16-bit cache within the reference's band, each
    beside a control that must fail); the KV bytes of a decode step and
    the resident cache, one profiled FP8 and bf16 decode step (no aten
    GEMM or SDPA op) and the checksum audit's time;
-17. **tune** — the autotuner (``repro_torch.core.autotune``) on the card:
+18. **tune** — the autotuner (``repro_torch.core.autotune``) on the card:
    kernel 1 at qwen3-1.7b's serving shapes (the tied head, decode w_out
    and wqkv, prefill w_in: PERF.md rows 1, 1i, 1j, 1k) over every compiled
    tile and split S, and kernel 4's chunk at the xLSTM training shape (row
@@ -204,7 +238,7 @@ Phases, any failure exits non-zero:
    non-heuristic candidate, beside a control (an entry naming an uncompiled
    tile) that must raise; and a paper_fp16 AE step with every launch on a cached
    tile other than the heuristic's, bitwise equal to the uncached step;
-18. **report** — the GEMM wrappers' split launches (``.launches_split``)
+19. **report** — the GEMM wrappers' split launches (``.launches_split``)
    per path, the card (``nvidia-smi``), a ``{"kernels": [...]}`` line, and
    last ``{"ok": true, "device": {...}}``.
 
@@ -232,7 +266,11 @@ FP32_FLOPS = 67e12          # H100 SXM fp32 outside the tensor cores
 TF32_FLOPS = 495e12         # H100 SXM dense TF32 tensor-core peak
 ARCH, BATCH, PROMPT, GEN, SEED = "qwen3-1.7b", 4, 128, 16, 0
 # the training path: xlstm-1.3b at full width
-T_ARCH, T_BATCH, T_SEQ, T_STEPS = "xlstm-1.3b", 4, 256, 3
+T_ARCH, T_BATCH, T_SEQ, T_STEPS = "xlstm-1.3b", 4, 256, 2
+# its main path and profiled step run the first T_LAYERS blocks (two
+# super-blocks; all 48 and 3 steps until the ft phase needed the time);
+# the step-0 parity below keeps the whole depth
+T_LAYERS = 16
 # the full-depth step-0 parity: batch 1 x seq 128 (two 64-row chunks, so
 # the sweep carries its state once), all 48 blocks at full width
 FD_SEQ = 128
@@ -1832,6 +1870,8 @@ def serve_phase(log, counters):
 def train_phase(log, counters):
     """The training path through its entry point, with launch counts; one
     profiled step; one full-width super-block against the CPU plain path."""
+    import dataclasses
+
     import torch
 
     from repro_torch import configs
@@ -1839,12 +1879,14 @@ def train_phase(log, counters):
     from repro_torch.launch import train
     from repro_torch.optim import AdamW
 
-    cfg = configs.get(T_ARCH)
+    full = configs.get(T_ARCH)
+    cfg = dataclasses.replace(full, n_layers=T_LAYERS)
     n_mlstm = cfg.n_layers // cfg.ssm.slstm_period * (cfg.ssm.slstm_period - 1)
     _zero(counters)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    out = train.main(["--arch", T_ARCH, "--full", "--batch", str(T_BATCH),
+    out = train.main(["--arch", T_ARCH, "--full", "--layers", str(T_LAYERS),
+                      "--batch", str(T_BATCH),
                       "--seq", str(T_SEQ), "--steps", str(T_STEPS),
                       "--seed", str(SEED), "--device", "cuda"])
     torch.cuda.synchronize()
@@ -1901,8 +1943,8 @@ def train_phase(log, counters):
           f"{prof['device_ms']:.1f} ms (idle {prof['idle_share']:.3f}), peak "
           f"{peak_step / 2**30:.2f} GiB: {parts}", flush=True)
 
-    super_block = super_block_parity(log, cfg)
-    full_depth = full_depth_parity(log, cfg)
+    super_block = super_block_parity(log, full)
+    full_depth = full_depth_parity(log, full)
     step_ms = [h["step_ms"] for h in hist]
     return {"train_wall_s": train_s, "history": hist, "step_ms": step_ms,
             "super_block_parity": super_block, "full_depth_parity": full_depth,
@@ -2116,7 +2158,7 @@ def lmtrain_phase(log, counters):
             "flash_attention": L_STEPS * 2 * L}
     got = {k: launches[k] for k in want}
     print(f"[lmtrain] launches {got}, structural {want} ({L_STEPS} steps x "
-          f"({9 * L + 3}, {6 * L}, {2 * L}))", flush=True)
+          f"({16 * L + 3}, {6 * L}, {2 * L}))", flush=True)
     if got != want:
         raise AssertionError("lmtrain: launches differ from the structural count")
     for h in hist:
@@ -2180,6 +2222,305 @@ def lmtrain_phase(log, counters):
             "fp16_scale": {"history": out16["history"], "wall_s": fp16_s},
             "two_layer_parity": cut, "dense_serve_cuts": serve_cuts,
             "params": out["params"]}
+
+
+# the ft phase: launch/train.py's compressed data-parallel path, qwen3-1.7b
+# at full width with its depth cut to 2 (every step's state goes to disk:
+# 8.24 GB a checkpoint), FT_DP ranks on the card over gloo, the FP8 E4M3
+# wire, FT_STEPS steps of FT_BATCH x FT_SEQ, a checkpoint every FT_SAVE
+# steps, a death injected at step FT_FAIL
+FT_LAYERS, FT_BATCH, FT_SEQ, FT_STEPS, FT_SAVE, FT_FAIL, FT_DP = 2, 4, 256, 4, 2, 3, 2
+# its wire bytes a step (10 leaves, one fp32 scale each) and the fp32 wire's
+FT_WIRE_FP8, FT_WIRE_FP32 = 411_839_016, 1_647_355_904
+# a launch of the phase (its ranks) gets this long
+FT_TIMEOUT_S = 600
+# the uninterrupted run goes beside the death when the card has this much
+# free: four ranks of ~13 GiB each, the elastic worker's contexts, margin
+FT_SIDE_BY_SIDE_FREE = 70 * 2**30
+
+
+def _ft_launch(module: str, n: int, args, run_dir: str, what: str):
+    """The ``--dp-procs`` / ``--dp`` launcher of ``module``, in this process
+    (``runtime.procs.spawn``, as ``module``'s own ``main`` runs it): ``n``
+    ranks of ``python -m module args``, rank 0's output into a file of
+    ``run_dir``; returns ``(returncode, rank 0's output, seconds)``."""
+    from repro_torch.runtime import procs
+
+    log_path = Path(run_dir) / f"{what.replace(' ', '_')}.log"
+    t0 = time.perf_counter()
+    with open(log_path, "w") as f:
+        rc = procs.spawn(n, ["-m", module, *args], run_dir=run_dir, stdout=f,
+                         timeout=FT_TIMEOUT_S)
+    dt = time.perf_counter() - t0
+    out = log_path.read_text()
+    print(f"[ft] {what}: exit {rc} after {dt:.1f} s", flush=True)
+    return rc, out, dt
+
+
+def _bitwise_trees(a, b) -> list:
+    """The leaves (by index) where two trees differ in any bit."""
+    import torch
+
+    from repro_torch.checkpoint import tree_flatten
+
+    bits = lambda t: t.contiguous().reshape(-1).view(torch.uint8)
+    return [i for i, (x, y) in enumerate(zip(tree_flatten(a), tree_flatten(b), strict=True))
+            if not (x.dtype == y.dtype and x.shape == y.shape
+                    and torch.equal(bits(x), bits(y))
+                    if isinstance(x, torch.Tensor) else x == y)]
+
+
+def ft_phase(log, counters):
+    """Checkpoints, the fault-tolerant loop, the compressed wire and
+    elastic data parallelism on the card (see the module docstring).  The
+    injected death and the elastic worker's two scenarios run side by
+    side, the uninterrupted run beside them where the card has the memory
+    (else after them, alone); the resume runs alone, and its times (a save,
+    a restore, a steady step and its all-reduce) are the ones reported."""
+    import concurrent.futures
+    import dataclasses
+    import gc
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.checkpoint import CheckpointManager, tree_flatten, tree_map_leaves
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import train
+    from repro_torch.optim import AdamW, Compressor
+
+    card = _card()
+    L = FT_LAYERS
+    cfg = dataclasses.replace(configs.get(ARCH), n_layers=L)
+    main3 = ("redmule_matmul", "redmule_matmul_batched", "flash_attention")
+    # a step with remat: the projections and the tied head forward, the
+    # layers' projections again in the recompute, dX and dW of each forward
+    # GEMM (kernel 1); the composition's six launches a layer (kernel 2);
+    # flash forward and in the recompute (kernel 3)
+    per_step = dict(zip(main3, (16 * L + 3, 6 * L, 2 * L)))
+    parts, res = {}, {"card": card}
+
+    # 1. determinism: rank 0's step (its FT_BATCH / FT_DP rows) at world 1,
+    # twice from one state, compared on the card
+    t1 = time.perf_counter()
+    opt = AdamW(lr=3e-3, warmup_steps=10)
+    step, init_fn = train.build_compressed_dp_train_step(cfg, opt, Compressor("fp8_e4m3"))
+    batch = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=FT_SEQ, global_batch=FT_BATCH,
+                        seed=SEED).batch(0)
+    local = {k: v[:FT_BATCH // FT_DP] for k, v in batch.items()}
+    state = init_fn(seed=SEED, device="cuda")
+    copy = lambda tree: tree_map_leaves(
+        lambda x: x.detach().clone().requires_grad_(x.requires_grad)
+        if isinstance(x, torch.Tensor) else x, tree)
+    twin = copy(state)
+    outs = []
+    for s_i in (state, twin):
+        _zero(counters)
+        s_i, _ = step(s_i, local)
+        torch.cuda.synchronize()
+        got = _read(counters)
+        if {k: got[k] for k in main3} != per_step or got["chunked_linear_attention"]:
+            raise AssertionError(f"ft step launches {got}, structural {per_step}")
+        outs.append(s_i)
+    diff = _bitwise_trees(*outs)
+    print(f"[ft] one full-width DP step (1 rank, {FT_BATCH // FT_DP} x {FT_SEQ}) twice "
+          f"from one state: launches {per_step} each; leaves that differ: {diff} of "
+          f"{len(tree_flatten(outs[0]))}", flush=True)
+    log.append({"check": "ft full-width step run twice: params, moments and error "
+                         "feedback bitwise equal", "ok": not diff, "differing_leaves": diff})
+    if diff:
+        raise AssertionError(f"ft: a full-width step run twice differs in leaves {diff}")
+    prof = _device_profile(lambda: step(outs[1], local), iters=1)
+    _print_profile("ft DP step (1 rank, the wire's reduce a no-op)", prof)
+    _no_library_gemm(prof, "ft DP step")
+    res["determinism"] = {"launches_per_step": per_step, "differing_leaves": diff,
+                          "profile": prof}
+    del state, twin, outs, s_i, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    parts["determinism"] = time.perf_counter() - t1
+
+    tmp = tempfile.mkdtemp(prefix="ft_")
+    try:
+        free = shutil.disk_usage(tmp).free
+        print(f"[ft] free disk under {tmp}: {free / 1e9:.1f} GB", flush=True)
+        res["free_disk_bytes"] = free
+        lm = "repro_torch.launch.train"
+        base = ["--arch", ARCH, "--full", "--layers", str(L), "--batch", str(FT_BATCH),
+                "--seq", str(FT_SEQ), "--compress", "fp8_e4m3", "--dp-procs", str(FT_DP),
+                "--steps", str(FT_STEPS), "--seed", str(SEED), "--device", "cuda",
+                "--instrument"]
+        ckpt = os.path.join(tmp, "ckpt")
+        ftargs = ["--ckpt-dir", ckpt, "--save-every", str(FT_SAVE)]
+        js = {k: os.path.join(tmp, f"{k}.json") for k in ("ref", "res")}
+
+        # 2a. the injected death and the elastic worker's two scenarios side
+        # by side, and the uninterrupted run too where the card has room
+        free = torch.cuda.mem_get_info()[0]
+        side = free >= FT_SIDE_BY_SIDE_FREE
+        print(f"[ft] card memory free {free / 2**30:.1f} GiB (this process holds "
+              f"{torch.cuda.memory_reserved() / 2**30:.1f}): the uninterrupted run "
+              f"{'beside the death' if side else 'after it, alone'}", flush=True)
+        uninterrupted = lambda: _ft_launch(lm, FT_DP, base + ["--result", js["ref"]], tmp,
+                                           "uninterrupted run")
+        t1 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(4) as pool:
+            die = pool.submit(_ft_launch, lm, FT_DP, base + ftargs + [
+                "--fail-step", str(FT_FAIL), "--fail-mode", "die"], tmp, "injected death")
+            ref_run = pool.submit(uninterrupted) if side else None
+            torn = pool.submit(_ft_elastic_torn, tmp)
+            attach = pool.submit(_ft_elastic_attach, tmp)
+            rc, out_die, t_die = die.result()
+            rc_ref, out_ref, t_ref = ref_run.result() if side else uninterrupted()
+            res["elastic"] = {"torn_write": torn.result(), "attach": attach.result()}
+        parts["side_by_side"] = time.perf_counter() - t1
+        mgr = CheckpointManager(ckpt)
+        if rc != 13 or mgr.latest() != FT_SAVE:
+            raise AssertionError(f"ft: the injected death exited {rc} with checkpoints "
+                                 f"{mgr.all_steps()}, not 13 after step {FT_SAVE}")
+        ckpt_bytes = sum(f.stat().st_size for f in Path(mgr._dir(FT_SAVE)).iterdir())
+        for name, row in res["elastic"].items():
+            log.append({"check": f"ft elastic {name} on the card", "ok": row["ok"],
+                        **{k: v for k, v in row.items() if k != "ok"}})
+            if not row["ok"]:
+                raise AssertionError(f"ft elastic {name}: {row}")
+
+        # 2b. the resume, alone: its times are the ones reported
+        t1 = time.perf_counter()
+        if rc_ref != 0:
+            raise AssertionError(f"ft: the uninterrupted run exited {rc_ref}")
+        wire = [ln for ln in out_ref.splitlines() if "gradient wire" in ln]
+        if not wire or f"bytes/step={FT_WIRE_FP8} fp32_bytes/step={FT_WIRE_FP32}" not in wire[0]:
+            raise AssertionError(f"ft: wire bytes {wire}, not {FT_WIRE_FP8} / {FT_WIRE_FP32}")
+        rc, out_res, t_res = _ft_launch(lm, FT_DP, base + ftargs + ["--result", js["res"]],
+                                        tmp, "resume")
+        if rc != 0 or f"resumed from checkpoint step {FT_SAVE}" not in out_res:
+            raise AssertionError(f"ft: the resume exited {rc}: {out_res[-800:]}")
+        parts["resume"] = time.perf_counter() - t1
+        ref, got = (json.loads(Path(js[k]).read_text()) for k in ("ref", "res"))
+        same = {k: got[k] == ref[k] for k in ("digest", "ef_digest", "opt_digest", "loss")}
+        goodput = [ln for ln in out_res.splitlines() if ln.startswith("[ft] goodput=")]
+        g = got["goodput"]
+        print(f"[ft] kill and resume ({card}): uninterrupted {t_ref:.1f} s, died (exit 13) "
+              f"after {t_die:.1f} s, resumed {t_res:.1f} s; equal to the uninterrupted "
+              f"run: {same}; loss {got['loss']!r}; {goodput[0] if goodput else g}", flush=True)
+        log.append({"check": "ft kill at step 3 and resume: digests and loss equal to the "
+                             "uninterrupted run's", "ok": all(same.values()), **same})
+        if not all(same.values()) or g["restarts"] != 1 or g["recomputed_steps"] != 1:
+            raise AssertionError(f"ft: resumed run differs: {same}, goodput {g}")
+        # rank 0's launches: the structural count a step, on every step
+        lau = {}
+        for name, run in (("uninterrupted", ref), ("resumed", got)):
+            n_steps = len(run["step_s"])
+            lau[name] = {k: run["launches"][f"{k}.launches"] for k in main3}
+            want = {k: n_steps * v for k, v in per_step.items()}
+            if lau[name] != want or run["launches"]["chunked_linear_attention.launches"]:
+                raise AssertionError(f"ft {name}: rank 0 launches {run['launches']}, "
+                                     f"structural {want}")
+        # the resume ran alone: its second step is the steady one
+        step_ms = [t * 1e3 for t in got["step_s"]]
+        ar_ms = [t * 1e3 for t in got["allreduce_s"]]
+        share = ar_ms[-1] / step_ms[-1]
+        res["kill_resume"] = {
+            "same": same, "loss": got["loss"], "goodput": g, "ckpt_bytes": ckpt_bytes,
+            "save_s": got["save_s"], "restore_s": got["restore_s"],
+            "step_ms": step_ms, "allreduce_ms": ar_ms, "allreduce_share": share,
+            "side_by_side_step_ms": [t * 1e3 for t in ref["step_s"]],
+            "setup_s": {"uninterrupted": ref["setup_s"], "resumed": got["setup_s"]},
+            "digest_s": {"uninterrupted": ref["digest_s"], "resumed": got["digest_s"]},
+            "launches_rank0": lau, "seconds": {"uninterrupted": t_ref, "died": t_die,
+                                               "resumed": t_res}}
+        print(f"[ft] ({card}) checkpoint {ckpt_bytes} bytes; save (gather + write) "
+              f"{got['save_s']} s, restore {got['restore_s']} s; the resume's steps "
+              f"{[round(x, 1) for x in step_ms]} ms (all-reduce "
+              f"{[round(x, 1) for x in ar_ms]}, the steady step's share {share:.3f}); the "
+              f"uninterrupted run's, beside the death: "
+              f"{[round(x, 1) for x in res['kill_resume']['side_by_side_step_ms']]} ms; "
+              f"rank-0 setup {res['kill_resume']['setup_s']} s, digests "
+              f"{res['kill_resume']['digest_s']} s; launches {lau}", flush=True)
+        launches = {name: ref["launches"].get(f"{fn.__name__}.{attr}", 0)
+                    for name, (fn, attr) in counters.items()}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[ft] seconds by part: " + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()),
+          flush=True)
+    res.update(launches=launches, seconds=parts)
+    return res
+
+
+def _ft_elastic(ckpt: str, dp: int, *extra, what: str, steps: int = 8):
+    return _ft_launch("repro_torch.runtime.elastic", dp, [
+        "--device", "cuda", "--ckpt", ckpt, "--dp", str(dp), "--steps", str(steps),
+        "--save-every", "2", "--compress", "fp8_e4m3", "--log-every", "100", *extra],
+        str(Path(ckpt).parent), what)
+
+
+def _ft_elastic_torn(tmp: str) -> dict:
+    """The elastic worker on the card at dp 2: a torn checkpoint write at
+    step 4, then the resume, which must land on step 2 and reach the
+    uninterrupted run's digest."""
+    import os
+
+    d = os.path.join(tmp, "el_torn")
+    os.makedirs(d)
+    js = lambda k: os.path.join(d, f"{k}.json")
+    rc, _, t_ref = _ft_elastic(os.path.join(d, "ref"), 2, "--result", js("ref"),
+                               what="elastic uninterrupted")
+    rc2, _, t_crash = _ft_elastic(os.path.join(d, "ckpt"), 2, "--fail-step", "4",
+                                  "--fail-mode", "ckpt_crash", what="elastic torn write")
+    names = sorted(os.listdir(os.path.join(d, "ckpt")))
+    rc3, out3, t_res = _ft_elastic(os.path.join(d, "ckpt"), 2, "--result", js("res"),
+                                   what="elastic resume")
+    ok = (rc == 0 and rc2 == 13 and "step_000000004.tmp" in names
+          and "step_000000004" not in names and rc3 == 0
+          and "resumed from checkpoint step 2" in out3
+          and json.loads(Path(js("res")).read_text())["digest"]
+          == json.loads(Path(js("ref")).read_text())["digest"])
+    print(f"[ft] elastic torn write at dp 2: exits {rc} / {rc2} / {rc3}, files {names}, "
+          f"resumed from step 2 to the uninterrupted digest: {ok} ({t_ref:.1f} / "
+          f"{t_crash:.1f} / {t_res:.1f} s)", flush=True)
+    return {"ok": ok, "seconds": [t_ref, t_crash, t_res]}
+
+
+def _ft_elastic_attach(tmp: str) -> dict:
+    """The elastic worker on the card: a dp-4 FP8 checkpoint continued at
+    dp 2, its residuals the regroup's sums and its windows the maxima, to
+    the last step with a finite loss."""
+    import os
+
+    import numpy as np
+
+    from repro_torch.checkpoint import CheckpointManager
+
+    d = os.path.join(tmp, "el_attach")
+    os.makedirs(d)
+    e = os.path.join(d, "ckpt")
+    rc, _, t4 = _ft_elastic(e, 4, steps=4, what="elastic dp 4")
+    a4 = {k: v.copy() for k, v in CheckpointManager(e)._load_verified(4)[0].items()}
+    rc2, out2, t2 = _ft_elastic(e, 2, "--result", os.path.join(d, "2.json"),
+                                what="elastic dp 2")
+    a2, m2 = CheckpointManager(e)._load_verified(4)
+    r2 = json.loads(Path(d, "2.json").read_text()) if rc2 == 0 else {}
+    # "ef" flattens first: per parameter the residual, then the window's
+    # scale, history and overflow count
+    grouped = lambda a, how: getattr(a.reshape(2, 2, *a.shape[1:]), how)(1)
+    sums = max(float(np.max(np.abs(a2[f"leaf_{i}"] - grouped(a4[f"leaf_{i}"], "sum")))
+                     / max(np.max(np.abs(a4[f"leaf_{i}"])), 1e-30)) for i in range(0, 16, 4))
+    maxima = all(np.array_equal(a2[f"leaf_{i}"], grouped(a4[f"leaf_{i}"], "max"))
+                 for i in range(16) if i % 4)
+    ok = bool(rc == 0 and rc2 == 0 and "elastic attach: regrouping step-4 checkpoint "
+              "from dp=4 to dp=2" in out2 and "resumed from checkpoint step 4" in out2
+              and m2["metadata"].get("elastic_migrated_from_dp") == 4 and sums <= 1e-6
+              and maxima and r2.get("last_step") == 7
+              and np.isfinite(r2.get("loss", np.nan)))
+    print(f"[ft] elastic 4 -> 2: exits {rc} / {rc2}; residuals vs the regroup's sums "
+          f"{sums:.3e} of max, windows the maxima {maxima}; last step "
+          f"{r2.get('last_step')}, loss {r2.get('loss')} ({t4:.1f} / {t2:.1f} s)", flush=True)
+    return {"ok": ok, "sums_err": sums, "maxima": maxima, "seconds": [t4, t2],
+            "loss": r2.get("loss")}
 
 
 def two_layer_train_parity(log, cfg):
@@ -2314,7 +2655,10 @@ def full_depth_parity(log, cfg):
     the spread measured in this run between the CPU plain path on half its
     threads and on all of them (another BLAS blocking, another summation
     order) times 8, above a floor of one rounding (fp32 1e-5, bf16 2^-8).
-    Half, not one: the one-thread runs took 49-54 s a policy, and the run
+    A row whose bound reaches max |x| (the bf16 policy's deep rows: the
+    rounding's perturbation grows through 48 recurrent blocks) has no
+    reference: it is printed and logged as unbounded (no pass / fail) and
+    held only to be finite.  Half, not one: the one-thread runs took 49-54 s a policy, and the run
     must stay within its time.  Returns the errors, spreads and seconds per
     policy."""
     import dataclasses
@@ -2377,14 +2721,28 @@ def full_depth_parity(log, cfg):
             tol = max(8 * spread, floor)
             print(f"[train] full depth {policy} {name}: CPU spread ({half} vs "
                   f"{n_threads} threads) {spread:.3e} of max", flush=True)
-            try:
-                err = _check(f"full depth (48 blocks, 1x{FD_SEQ}, {policy}) step 0 "
-                             f"{name}, card vs CPU plain", a_, b_, tol, log)
-            except AssertionError as e:
-                err = float("nan")
-                failed.append(str(e))
+            label = (f"full depth (48 blocks, 1x{FD_SEQ}, {policy}) step 0 "
+                     f"{name}, card vs CPU plain")
+            if tol >= 1.0:
+                # two correct summation orders already differ by max |x| / 8:
+                # there is no reference to hold the card to, so the row is
+                # reported, not logged as a passing check (ROADMAP Queue C)
+                err = (a_.float() - b_.float()).abs().max().item()
+                log.append({"unbounded": label, "max_abs_err": err,
+                            "bound_rel": tol, "finite": math.isfinite(err)})
+                print(f"[unbounded] {label}: max_abs_err={err:.3e} "
+                      f"({err / scale:.3e} of max); 8x the CPU spread is "
+                      f"{tol:.3e} of max, no reference", flush=True)
+                if not math.isfinite(err):
+                    failed.append(f"{label}: not finite")
+            else:
+                try:
+                    err = _check(label, a_, b_, tol, log)
+                except AssertionError as e:
+                    err = float("nan")
+                    failed.append(str(e))
             rows[name] = {"err_rel": err / scale, "spread": spread, "tol_rel": tol,
-                          "max_abs": scale}
+                          "max_abs": scale, "bounded": tol < 1.0}
         result[policy] = {"rows": rows, "card_s": t_card, "cpu_s": t_cpu,
                           "cpu_half_threads_s": t_half}
         if failed:
@@ -4057,13 +4415,13 @@ def _sched_structural(sched) -> dict:
     """yi-9b's kernel launches for one drained scheduler, from its trace:
     a batch-1 prefill (an admission, or a recovery's re-prefill) runs the
     4 projections of each layer and the head on kernel 1 and flash once a
-    layer; a batched decode step (and a ``nan_logits`` recovery's batch-1
-    replay) the same kernel-1 launches and the ragged scores and PV a
-    layer on kernel 2."""
+    layer; a decode step (batched, or one a recovery replays:
+    ``recovery_decode_steps``) the same kernel-1 launches and the ragged
+    scores and PV a layer on kernel 2."""
     L = sched.cfg.n_layers
     ev = [e[0] for e in sched.trace]
     pre = ev.count("prefill") + ev.count("recover")
-    dec = len(sched.health) + ev.count("nan_detect")
+    dec = len(sched.health) + sched.recovery_decode_steps
     return {"redmule_matmul": (pre + dec) * (4 * L + 1),
             "redmule_matmul_batched": dec * 2 * L, "flash_attention": pre * L}
 
@@ -4170,14 +4528,19 @@ def _recovery_contract(log, params, cfg, storage, gap=None):
     333-380``) at full width: two slots, two requests, four scheduler
     steps, then slot 0's rows 0 and pos - 1 bit-flipped and the audit run.
     Holds: the audit quarantines exactly that request; on the 16-bit
-    cache the co-resident slot's stored bytes unmoved, bitwise; on the FP8
-    cache its codes bitwise where the pool's applied scale did not move,
-    else its values within one E4M3 step of theirs before; the victim's
-    rebuilt rows within one E4M3 step plus ``gap`` of a 16-bit full
-    prefill of its absorbed tokens, beside a control (the prefill of the
-    absorbed tokens with the last one changed) that must fail.  Returns
-    the 16-bit cache's prefill-versus-decode gap (the decode-built rows
-    against the same prefill) for the FP8 run's bound, beside the row."""
+    cache the co-resident slot's stored bytes unmoved, bitwise, the
+    victim's rebuilt rows bitwise equal to the decode-built ones (the
+    scheduler replays the absorbed tokens through decode steps at the
+    pool's batch), and, both runs drained, the victim's tokens and final
+    logits bitwise equal to an uninjected run's; on the FP8 cache (rebuilt
+    by a batch-1 re-prefill) the co-resident codes bitwise where the pool's
+    applied scale did not move, else its values within one E4M3 step of
+    theirs before, and the victim's rebuilt rows within one E4M3 step plus
+    ``gap`` of a 16-bit full prefill of its absorbed tokens, beside a
+    control (the prefill of the absorbed tokens with the last one changed)
+    that must fail.  Returns the 16-bit cache's prefill-versus-decode gap
+    (the decode-built rows against the same prefill) for the FP8 run's
+    bound, beside the row."""
     import numpy as np
     import torch
 
@@ -4187,10 +4550,12 @@ def _recovery_contract(log, params, cfg, storage, gap=None):
 
     tag = storage or "16-bit"
     rng = np.random.default_rng(11)
-    sched = sl.Scheduler(params, cfg, sl.SchedulerConfig(
-        n_slots=2, max_len=16, storage_dtype=storage, audit_every=1))
-    sched.submit([sl.Request(rid=i, arrival=0.0, max_new_tokens=6, prompt=rng.integers(
-        0, cfg.vocab_size, size=4 + i).astype(np.int32)) for i in range(2)])
+    reqs = [sl.Request(rid=i, arrival=0.0, max_new_tokens=6, prompt=rng.integers(
+        0, cfg.vocab_size, size=4 + i).astype(np.int32)) for i in range(2)]
+    scfg = sl.SchedulerConfig(n_slots=2, max_len=16, storage_dtype=storage,
+                              audit_every=1)
+    sched = sl.Scheduler(params, cfg, scfg)
+    sched.submit(reqs)
     for _ in range(4):
         sched.step()
     s0 = sched.slots[0]
@@ -4248,17 +4613,39 @@ def _recovery_contract(log, params, cfg, storage, gap=None):
                 cgrid = _scale_grid(sub, n, _dequant_leaf(sub, n)).select(b, 1)
                 leaf["co_resident_excess"] = _e4m3_excess(
                     wide(sched.cache, k, n, b, 1), co_wide[(k, n)], cgrid)
+        if not storage:
+            leaf["rebuilt_bitwise"] = torch.equal(rebuilt, db)
         row["leaves"][f"{k}/{n}"] = leaf
+    if not storage:
+        # both runs drained: the victim's tokens and final logits against
+        # an uninjected run's
+        base = sl.Scheduler(params, cfg, scfg)
+        base.submit(reqs)
+        want = {r.rid: r for r in base.run()}
+        got = {r.rid: r for r in sched.run()}
+        row["victim_tokens_equal"] = got[s0.rid].tokens == want[s0.rid].tokens
+        row["victim_logits_bitwise"] = bool(np.array_equal(
+            got[s0.rid].final_logits.view(np.uint32),
+            want[s0.rid].final_logits.view(np.uint32)))
+        row["victim_logits_max_abs_diff"] = float(np.max(np.abs(
+            got[s0.rid].final_logits - want[s0.rid].final_logits)))
     print(f"[sched] recovery {tag} ({cfg.policy_name}): applied scale moved "
-          f"{row['scale_moved']}; audit + rebuild {audit_ms:.1f} ms; {row['leaves']}",
-          flush=True)
+          f"{row['scale_moved']}; audit + rebuild {audit_ms:.1f} ms; "
+          + ("" if storage else f"victim tokens equal {row['victim_tokens_equal']}, "
+             f"final logits bitwise {row['victim_logits_bitwise']} (max abs diff "
+             f"{row['victim_logits_max_abs_diff']:.3e}); ")
+          + f"{row['leaves']}", flush=True)
     fails = []
+    if not storage and not (row["victim_tokens_equal"] and row["victim_logits_bitwise"]):
+        fails.append("the victim's tokens or final logits differ from the uninjected run's")
     for name, leaf in row["leaves"].items():
         # codes bitwise, or (under FP8, where the leaf's applied scale
         # moved) values within one E4M3 step of theirs before
         if not leaf["co_resident_bitwise"] and not (
                 leaf["scale_moved"] and leaf["co_resident_excess"] <= 1):
             fails.append(f"{name}: co-resident slot moved")
+        if not storage and not leaf["rebuilt_bitwise"]:
+            fails.append(f"{name}: rebuilt rows differ from the decode-built ones")
         if storage:
             if not leaf["victim_excess"] <= 1:
                 fails.append(f"{name}: rebuilt rows beyond the bound")
@@ -4269,6 +4656,79 @@ def _recovery_contract(log, params, cfg, storage, gap=None):
         raise AssertionError(f"sched recovery {tag}: {fails}")
     row["gaps"] = {f"{k}/{n}": g for (k, n), g in gaps.items()}
     return row, gaps
+
+
+def _recovery_cost(log, params, cfg) -> dict:
+    """What a 16-bit rebuild costs at the sweep's lengths: ``S_SLOTS``
+    slots of ``S_PROMPT`` + ``S_GEN`` requests under tpu_bf16, one slot's
+    rows 0 and pos - 1 bit-flipped and the audit run early (after 2
+    absorbed tokens) and late (after ``S_GEN - 2``, another slot).  The
+    rebuild replays one decode step per absorbed token in the pool itself,
+    so its time grows by about one decode step per token; the slope is
+    (late - early) / (the replayed steps' difference).  Holds, each time:
+    the audit quarantines exactly that slot, its rebuilt rows are bitwise
+    the decode-built ones, and every other slot's stored bytes (the rows
+    the replay parks on included) are unmoved."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serving import kv_cache
+    from repro_torch.serving import scheduler as sl
+
+    rng = np.random.default_rng(12)
+    reqs = [sl.Request(rid=i, arrival=0.0, max_new_tokens=S_GEN, prompt=rng.integers(
+        0, cfg.vocab_size, size=S_PROMPT).astype(np.int32)) for i in range(S_SLOTS)]
+    scfg = sl.SchedulerConfig(n_slots=S_SLOTS, max_len=S_PROMPT + S_GEN + 4,
+                              audit_every=1)
+    sched = sl.Scheduler(params, cfg, scfg)
+    sched.submit(reqs)
+    out, fails = {}, []
+    for tag, victim, fed in (("early", 0, 2), ("late", 1, S_GEN - 2)):
+        while sched.slots[victim] is None or sched.slots[victim].fed < fed:
+            if not sched.step():
+                raise AssertionError(f"sched recovery cost: drained before {tag}")
+        s = sched.slots[victim]
+        leaves = [(k, n, b) for k, n, _, b in kv_cache.iter_kv_leaves(sched.cache)]
+        before = {(k, n): sched.cache[k][n].clone() for k, n, b in leaves}
+        sched.cache = kv_cache.corrupt_slot_rows(sched.cache, victim, [0, s.pos - 1])
+        steps0 = sched.recovery_decode_steps
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sched._audit_slots()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        quarantined = [e[2] for e in sched.trace if e[0] == "kv_quarantine"]
+        rebuilt = all(torch.equal(
+            sched.cache[k][n].select(b, victim)[..., :s.pos, :].view(torch.uint8),
+            before[(k, n)].select(b, victim)[..., :s.pos, :].view(torch.uint8))
+            for k, n, b in leaves)
+        others = all(torch.equal(
+            sched.cache[k][n].select(b, i).view(torch.uint8),
+            before[(k, n)].select(b, i).view(torch.uint8))
+            for k, n, b in leaves for i in range(S_SLOTS) if i != victim)
+        out[tag] = {"fed": s.fed, "pos": s.pos, "audit_ms_incl_rebuild": ms,
+                    "replayed_decode_steps": sched.recovery_decode_steps - steps0,
+                    "rebuilt_bitwise": rebuilt, "co_resident_bitwise": others}
+        print(f"[sched] recovery cost ({tag}, {S_SLOTS} slots, {S_PROMPT} + {S_GEN}, "
+              f"tpu_bf16, 16-bit cache): slot {victim} at fed {s.fed}: audit + "
+              f"rebuild {ms:.1f} ms, {out[tag]['replayed_decode_steps']} decode steps "
+              f"replayed; rebuilt rows bitwise {rebuilt}, co-resident slots bitwise "
+              f"{others}", flush=True)
+        if quarantined[-1:] != [s.rid] or len(quarantined) != len(out):
+            fails.append(f"{tag}: the audit did not quarantine exactly request {s.rid}")
+        if not (rebuilt and others):
+            fails.append(f"{tag}: rebuilt rows {rebuilt}, co-resident {others}")
+        del before
+    d = out["late"]["replayed_decode_steps"] - out["early"]["replayed_decode_steps"]
+    out["ms_per_replayed_step"] = (out["late"]["audit_ms_incl_rebuild"]
+                                   - out["early"]["audit_ms_incl_rebuild"]) / d
+    print(f"[sched] recovery cost: {out['ms_per_replayed_step']:.1f} ms a replayed "
+          f"decode step", flush=True)
+    log.append({"check": "sched recovery at the sweep's lengths: rebuilt rows "
+                "and co-resident slots bitwise", "ok": not fails, **out})
+    if fails:
+        raise AssertionError(f"sched recovery cost: {fails}")
+    return out
 
 
 def _fp8_cut(log, arch) -> dict:
@@ -4371,7 +4831,8 @@ def sched_phase(log, counters):
     as the file states it (FP8 cache: no fault, ``nan_logits@2``,
     ``kv_corrupt@2``, ``prefill_crash@1``; the 16-bit cache: no fault,
     ``kv_corrupt@2``), the recovery contract under
-    tpu_bf16 on both caches, the FP8 cuts of yi-9b and deepseek-v2-lite-16b
+    tpu_bf16 on both caches, a 16-bit recovery's cost early and late in a
+    request at the sweep's lengths, the FP8 cuts of yi-9b and deepseek-v2-lite-16b
     against the CPU, and the accounting: KV bytes, one profiled FP8 and
     bf16 decode step, the audit's time."""
     import numpy as np
@@ -4456,6 +4917,7 @@ def sched_phase(log, counters):
     t1 = time.perf_counter()
     rec16, gaps = _recovery_contract(log, p_bf, bf_cfg, None)
     rec8, _ = _recovery_contract(log, p_bf, bf_cfg, FP8_STORAGE, gap=gaps)
+    rec_cost = _recovery_cost(log, p_bf, bf_cfg)
     parts["recovery"] = time.perf_counter() - t1
     t1 = time.perf_counter()
 
@@ -4501,7 +4963,7 @@ def sched_phase(log, counters):
           flush=True)
     return {"sweep_s": sweep_s, "launches": launches, "structural": want,
             "points": points,
-            "slo": slo, "recovery": {"16-bit": rec16, "fp8": rec8},
+            "slo": slo, "recovery": {"16-bit": rec16, "fp8": rec8, "cost": rec_cost},
             "accounting": acct, "profiles": profiles, "fp8_cuts": cuts,
             "peak_mem_gib": peak / 2**30, "seconds": parts}
 
@@ -4788,6 +5250,7 @@ def main() -> int:
     serve = timed("serve", serve_phase, log, counters)
     train = timed("train", train_phase, log, counters)
     lmtrain = timed("lmtrain", lmtrain_phase, log, counters)
+    ft = timed("ft", ft_phase, log, counters)
     ae = timed("ae", ae_phase, log, counters)
     ae8 = timed("ae8", ae8_phase, log, counters)
     serve8 = timed("serve8", serve8_phase, log, counters)
@@ -4801,7 +5264,7 @@ def main() -> int:
     sched = timed("sched", sched_phase, log, counters)
     tune = timed("tune", tune_phase, log)
     runs = {"serve": serve["launches"], "train": train["launches"],
-            "lmtrain": lmtrain["launches"],
+            "lmtrain": lmtrain["launches"], "ft": ft["launches"],
             "ae": ae["launches"], "ae_fp32": ae["launches_fp32"],
             "ae_b4096": ae["launches_b4096"], "ae8": ae8["launches"],
             "ae8_b4096": ae8["launches_b4096"], "ae8_e5m2": ae8["launches_e5m2"],
@@ -4821,7 +5284,7 @@ def main() -> int:
     print(f"[report] split launches per path: {json.dumps(split_by_path)}", flush=True)
     out = {"card": card, "build_s": build_s, "phase_s": phase_s, "checks": log,
            "serve": serve,
-           "train": train, "lmtrain": lmtrain, "ae": ae, "ae8": ae8,
+           "train": train, "lmtrain": lmtrain, "ft": ft, "ae": ae, "ae8": ae8,
            "serve8": serve8, "moeserve": moeserve, "moecut": moecut,
            "moetrain": moetrain, "ssmserve": ssmserve, "hymbaserve": hymbaserve,
            "hymbatrain": hymbatrain, "ssmcut": ssmcut, "sched": sched,

@@ -35,16 +35,37 @@ summed over the MoE layers) every step and its history carries them.
 ``--arch ae`` trains the TinyMLPerf AutoEncoder under
 ``--policy`` (default ``paper_fp16``: the RedMulE fp16 accumulator in every
 GEMM; ``mixed_fp8_e4m3`` / ``mixed_fp8_e5m2`` store every GEMM operand in
-FP8 with a per-tensor scale).  Checkpointing, gradient compression / data
-parallelism, failure injection and resume digests are not ported yet
-(ROADMAP.md): their flags are kept so a command line carries over, and
-each raises ``NotImplementedError``.
+FP8 with a per-tensor scale).
+
+``--ckpt-dir`` runs the fault-tolerant loop (``runtime/fault_tolerance.py``:
+checkpoints every ``--save-every`` steps, auto-resume from the newest
+valid one, the goodput heartbeat; ``--fail-step`` / ``--fail-mode`` inject
+a fault).  ``--compress {none,fp16,int8,fp8,fp8_e4m3,fp8_e5m2}`` and / or
+``--dp-procs N`` switch to the data-parallel step with a compressed
+gradient wire (``build_compressed_dp_train_step``): N rank processes (gloo;
+on one card every rank runs on ``cuda:0``), each on its contiguous
+``batch / N`` rows, its fp32 error feedback kept on the rank; ``--result``
+writes the params / error-feedback / optimizer digests and the loss, which
+a killed and resumed run reproduces bit for bit::
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \
+        --full --layers 2 --batch 4 --seq 256 --compress fp8_e4m3 \
+        --dp-procs 2 --ckpt-dir D --save-every 2 --steps 4 \
+        --fail-step 3 --fail-mode die          # exits 13; run again to resume
+
+``--instrument`` then prints the wire bytes a step against the fp32 wire's
+and, after a ``--ckpt-dir`` run, the goodput line.  Sharding rules over a
+mesh (``build_train_step(rules=...)``) are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import dataclasses
+import json
+import os
+import sys
 import time
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
@@ -52,17 +73,23 @@ import numpy as np
 import torch
 
 from repro_torch import configs, resolve_device
+from repro_torch.checkpoint import CheckpointManager, tree_map_leaves
 from repro_torch.core import engine
 from repro_torch.core import precision as prec
 from repro_torch.data import Prefetcher, SyntheticAE, SyntheticLM
 from repro_torch.models import autoencoder, moe, transformer
-from repro_torch.optim import (AdamW, OptState, adjust, clip_by_global_norm,
-                               init_scale, scale_loss, tree_leaves, tree_map,
-                               unscale_and_check)
+from repro_torch.optim import (AdamW, Compressor, OptState, adjust,
+                               clip_by_global_norm, init_scale, scale_loss,
+                               tree_leaves, tree_map, unscale_and_check)
+from repro_torch.optim.compression import all_reduce_sum
 from repro_torch.roofline import analysis
+from repro_torch.runtime import procs
+from repro_torch.checkpoint.host_axis import HostAxisCheckpoint, digest
+from repro_torch.runtime.fault_tolerance import (FailureInjector, GoodputMeter,
+                                                 TrainLoop)
 
-__all__ = ["TrainState", "init_state", "build_train_step", "ae_grads",
-           "build_ae_step", "main"]
+__all__ = ["TrainState", "init_state", "build_train_step",
+           "build_compressed_dp_train_step", "ae_grads", "build_ae_step", "main"]
 
 _ROADMAP = "not yet ported (see ROADMAP.md, Queue A)"
 
@@ -97,6 +124,31 @@ def _to_device(batch: Dict[str, Any], device: torch.device) -> Dict[str, torch.T
     return out
 
 
+def _value_and_grad(cfg, params, batch, scale=None, *, cast_params: bool = False):
+    """``(metrics, grads)`` of ``transformer.loss_fn`` (times ``scale``
+    when given) with respect to every parameter.  The token table of an
+    embedding-input arch with an untied head is reached by no batch: it
+    gets a zero gradient, as ``jax.grad`` gives it; any other leaf the
+    loss does not reach is an error."""
+    unused = cfg.input_mode == "embeddings" and not cfg.tie_embeddings
+    leaves = [t for t in tree_leaves(params)
+              if not (unused and t is params["embed"])]
+    p = params
+    if cast_params:
+        p = tree_map(lambda x: x.to(cfg.policy.compute_dtype)
+                     if x.is_floating_point() else x, params)
+    loss, metrics = transformer.loss_fn(p, cfg, batch)
+    if scale is not None:
+        loss = scale_loss(loss, scale)
+    it = iter(torch.autograd.grad(loss, leaves))
+
+    def grad_of(t):
+        return (torch.zeros_like(t) if unused and t is params["embed"]
+                else next(it))
+
+    return metrics, tree_map(grad_of, params)
+
+
 def build_train_step(cfg, opt, rules=None, *, use_scale: bool = False,
                      clip_norm: float = 1.0, cast_params: bool = False,
                      grad_accum: int = 1):
@@ -115,28 +167,9 @@ def build_train_step(cfg, opt, rules=None, *, use_scale: bool = False,
     if rules is not None:
         raise NotImplementedError(f"sharding rules are {_ROADMAP}")
 
-    # the token table of an embedding-input arch with an untied head is
-    # reached by no batch: it gets a zero gradient, as jax.grad gives it;
-    # any other leaf the loss does not reach is an error
-    unused = cfg.input_mode == "embeddings" and not cfg.tie_embeddings
-
     def value_and_grad(params, batch, scale):
-        leaves = [t for t in tree_leaves(params)
-                  if not (unused and t is params["embed"])]
-        p = params
-        if cast_params:
-            p = tree_map(lambda x: x.to(cfg.policy.compute_dtype)
-                         if x.is_floating_point() else x, params)
-        loss, metrics = transformer.loss_fn(p, cfg, batch)
-        if use_scale:
-            loss = scale_loss(loss, scale)
-        it = iter(torch.autograd.grad(loss, leaves))
-
-        def grad_of(t):
-            return (torch.zeros_like(t) if unused and t is params["embed"]
-                    else next(it))
-
-        return metrics, tree_map(grad_of, params)
+        return _value_and_grad(cfg, params, batch, scale if use_scale else None,
+                               cast_params=cast_params)
 
     def step(state: TrainState, batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         device = tree_leaves(state.params)[0].device
@@ -180,6 +213,55 @@ def build_train_step(cfg, opt, rules=None, *, use_scale: bool = False,
         return TrainState(new_params, new_opt, new_scale), metrics
 
     return step
+
+
+def build_compressed_dp_train_step(cfg, opt, compressor: Compressor, *,
+                                   clip_norm: float = 1.0):
+    """The data-parallel train step on a compressed gradient wire
+    (``train.py:170-240`` of the reference): each rank takes its
+    contiguous ``batch / N`` rows of the global batch, computes
+    ``transformer.loss_fn``'s gradients, compresses them with its own
+    error feedback, and the wire is all-reduced over the process group
+    (``Compressor.psum_wire``); then global-norm clipping and ``opt`` on
+    the replicated state, identical on every rank.  ``loss`` is the mean
+    over the ranks.  Without a group the world is one rank.
+
+    Returns ``(step, init_fn)``; the state is ``(TrainState, ef)`` with
+    ``ef`` this rank's compressor state (None on the fp32 wire; the
+    checkpoint stacks every rank's on a leading host axis,
+    ``checkpoint.host_axis.HostAxisCheckpoint``).  ``step.allreduce_s`` records
+    each step's all-reduce seconds (the device synchronised first)."""
+
+    def init_fn(seed: int = 0, device="cuda"):
+        state = init_state(cfg, opt, seed=seed, device=device)
+        return state, compressor.init(state.params)
+
+    def step(state_and_ef, batch):
+        state, ef = state_and_ef
+        r, n = procs.rank(), procs.world()
+        device = tree_leaves(state.params)[0].device
+        batch = _to_device(batch, device)
+        rows = next(iter(batch.values())).shape[0]
+        if rows % n:
+            raise ValueError(f"batch {rows} does not split over {n} ranks")
+        b = rows // n
+        metrics, grads = _value_and_grad(
+            cfg, state.params, {k: v[r * b:(r + 1) * b] for k, v in batch.items()})
+        wire, ef = compressor.compress(grads, ef)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        mean_g = compressor.psum_wire(wire)
+        loss = all_reduce_sum([metrics["loss"].detach().float()])[0] / n
+        step.allreduce_s.append(time.perf_counter() - t0)
+        mean_g, gnorm = clip_by_global_norm(mean_g, clip_norm)
+        updates, new_opt = opt.update(mean_g, state.opt, state.params)
+        params = opt.apply(state.params, updates)
+        return (TrainState(params, new_opt, state.scale), ef), {
+            "loss": loss, "grad_norm": gnorm}
+
+    step.allreduce_s = []
+    return step, init_fn
 
 
 def ae_grads(params, x: torch.Tensor, policy: prec.Policy, *,
@@ -296,11 +378,144 @@ class _StepTimer:
         return False
 
 
+def _print_goodput(out) -> None:
+    g = out.get("goodput")
+    if not g:
+        return
+    print(f"[ft] goodput={g['goodput']:.3f} "
+          f"useful={g['useful_time']:.2f}s wall={g['wall_time']:.2f}s "
+          f"lost_to_restart={g['time_lost_to_restart']:.2f}s "
+          f"recomputed_steps={g['recomputed_steps']} "
+          f"restarts={g['restarts']}")
+
+
+def _kernel_launches() -> Dict[str, int]:
+    """Every launch counter of the kernel wrappers in this process, keyed
+    ``"<wrapper>.<counter>"`` (``redmule_matmul.launches``,
+    ``redmule_matmul.launches_fp32``, ...)."""
+    from repro_torch.kernels import chunked_linear_attention as cla
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    return {f"{fn.__name__}.{attr}": n
+            for fn in (ops.redmule_matmul, ops.redmule_matmul_batched,
+                       fa.flash_attention, cla.chunked_linear_attention)
+            for attr, n in vars(fn).items() if attr.startswith("launches")}
+
+
+def _ft_loop(args, step, ckpt, rank: int = 0, world: int = 1) -> TrainLoop:
+    """The fault-tolerant loop of a ``--ckpt-dir`` run; rank 0 keeps the
+    heartbeat in the checkpoint directory, another rank in its own."""
+    injector = None
+    if args.fail_step is not None:
+        injector = FailureInjector(fail_at_step=args.fail_step, mode=args.fail_mode)
+    root = args.ckpt_dir if rank == 0 else os.path.join(args.ckpt_dir, f".rank{rank}")
+    # saves are synchronous: a full-width checkpoint written on a thread
+    # would still be in flight when an injected death comes a step later
+    return TrainLoop(step, ckpt, save_every=args.save_every, injector=injector,
+                     async_save=False, handle_sigterm=True,
+                     goodput=GoodputMeter(root),
+                     sync_preempt=procs.agree_any if world > 1 else None)
+
+
+def _write_result(path: str, res: Dict[str, Any]) -> None:
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(res, f, indent=1)
+    os.replace(tmp, path)
+    print(f"[ft] result digests -> {path}")
+
+
+def _compressed_dp_main(args, argv, cfg, device) -> Dict[str, Any]:
+    """Data-parallel training on a compressed gradient wire, with the
+    fault-tolerant loop when ``--ckpt-dir`` is set (``train.py:294-388``
+    of the reference).  ``--dp-procs N > 1`` outside a rank starts the N
+    ranks and returns ``{"returncode": ...}``."""
+    n = max(args.dp_procs, 1)
+    if args.batch % n:
+        raise SystemExit(f"--batch {args.batch} must divide by --dp-procs {n}")
+    if n > 1 and procs.rank_env() is None:
+        rc = procs.spawn(n, ["-m", "repro_torch.launch.train", *argv],
+                         run_dir=args.ckpt_dir or None)
+        return {"returncode": rc}
+    t0 = time.perf_counter()
+    rank, world = procs.init_group()
+    if world != n:
+        raise SystemExit(f"--dp-procs {n} but this group has {world} ranks")
+    setup_s = {"group": time.perf_counter() - t0}
+    comp = Compressor(args.compress)
+    opt = AdamW(lr=args.lr, warmup_steps=10)
+    step, init_fn = build_compressed_dp_train_step(cfg, opt, comp)
+    state = init_fn(seed=args.seed, device=device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    setup_s["state"] = time.perf_counter() - t0 - setup_s["group"]
+    ds = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=args.seq,
+                     global_batch=args.batch, seed=args.seed,
+                     embed_dim=cfg.d_model if cfg.input_mode == "embeddings" else 0)
+    if args.instrument:
+        wire = comp.wire_bytes(state[0].params)
+        full = Compressor("none").wire_bytes(state[0].params)
+        print(f"[ft] gradient wire: kind={comp.kind} bytes/step={wire} "
+              f"fp32_bytes/step={full} ratio={full / max(wire, 1):.2f}x")
+    print(f"arch={cfg.name} params={transformer.count_params(cfg)} device={device} "
+          f"policy={cfg.policy_name} batch={args.batch} seq={args.seq} "
+          f"dp={world} compress={comp.kind}", flush=True)
+    launches0 = _kernel_launches()
+    res: Dict[str, Any] = {}
+    if args.ckpt_dir:
+        ckpt = HostAxisCheckpoint(CheckpointManager(args.ckpt_dir, keep=2), 1)
+        loop = _ft_loop(args, step, ckpt, rank, world)
+        out = loop.run(state, ds.batch, args.steps)
+        final_state = out["final_state"]
+        final_loss = float(out["history"][-1]["loss"])
+        print(f"final loss: {final_loss:.4f} "
+              f"(stragglers: {out['straggler_steps']})")
+        if args.instrument:
+            _print_goodput(out)
+        res.update(step_s=loop.step_times, save_s=ckpt.save_s,
+                   restore_s=ckpt.restore_s, goodput=out["goodput"],
+                   last_step=out["last_step"], preempted=out["preempted"])
+    else:
+        step_s, final_loss = [], float("nan")
+        for i in range(args.steps):
+            t0 = time.perf_counter()
+            state, metrics = step(state, ds.batch(i))
+            final_loss = float(metrics["loss"])
+            step_s.append(time.perf_counter() - t0)
+            if i % 10 == 0:
+                print(f"[{i}] loss={final_loss:.4f}", flush=True)
+        final_state = state
+        print(f"final loss: {final_loss:.4f}")
+        res.update(step_s=step_s)
+    launches = {k: v - launches0.get(k, 0) for k, v in _kernel_launches().items()}
+    res.update(setup_s=setup_s)
+    if args.result:
+        t1 = time.perf_counter()
+        ef = final_state[1]
+        ef_hosts = None if ef is None else tree_map_leaves(procs.gather_to_rank0, ef)
+        if rank == 0:
+            # sha256 releases the GIL on large buffers: one thread a digest
+            with concurrent.futures.ThreadPoolExecutor(3) as pool:
+                digests = dict(zip(("digest", "ef_digest", "opt_digest"), pool.map(
+                    digest, (final_state[0].params, ef_hosts, final_state[0].opt))))
+            _write_result(args.result, {
+                **digests, "loss": final_loss, "dp": world, "compress": comp.kind,
+                "launches": launches, "allreduce_s": step.allreduce_s,
+                "digest_s": time.perf_counter() - t1, **res})
+    procs.finish()
+    return {"arch": cfg.name, "device": str(device), "dp": world,
+            "compress": comp.kind, "loss": final_loss, "launches": launches, **res}
+
+
 def main(argv=None) -> Dict[str, Any]:
     """Train on synthetic data; returns ``{"arch", "device", "policy",
     "params", "history": [{"step", "loss", "grad_norm", "step_ms"}, ...]}``
     (with ``--fp16-scale`` each step also carries ``loss_scale`` and
-    ``finite``, a MoE arch's the three router metrics)."""
+    ``finite``, a MoE arch's the three router metrics; a ``--ckpt-dir`` run
+    also ``goodput``).  The data-parallel path returns its own summary
+    (:func:`_compressed_dp_main`); its launcher ``{"returncode": rc}``."""
+    argv = list(sys.argv[1:] if argv is None else argv)
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--arch", default="qwen3-1.7b",
                    help="an LM arch id, or 'ae' (the paper's AutoEncoder)")
@@ -318,33 +533,36 @@ def main(argv=None) -> Dict[str, Any]:
     p.add_argument("--instrument", action="store_true",
                    help="run one step's loss and gradients under "
                         "engine.instrument() and print the per-op GEMM "
-                        "summary with the fwd/bwd split before training")
+                        "summary with the fwd/bwd split before training "
+                        "(the DP path: the wire bytes, and the goodput line "
+                        "after a --ckpt-dir run)")
     p.add_argument("--fp16-scale", action="store_true",
                    help="LM archs: tpu_fp16 compute with dynamic loss scaling")
     p.add_argument("--policy", default=None,
                    help="precision policy for --arch ae (default paper_fp16; "
                         "tpu_fp16, tpu_bf16, fp32, mixed_fp8_e4m3 and "
                         "mixed_fp8_e5m2 are also accepted)")
-    unported = p.add_argument_group("not yet ported (ROADMAP.md); each raises")
-    unported.add_argument("--ckpt-dir", default="")
-    unported.add_argument("--save-every", type=int, default=50)
-    unported.add_argument("--compress", default="none",
-                          choices=("none", "fp16", "int8", "fp8", "fp8_e4m3",
-                                   "fp8_e5m2"))
-    unported.add_argument("--dp-procs", type=int, default=0)
-    unported.add_argument("--fail-step", type=int, default=None)
-    unported.add_argument("--fail-mode", default="die",
-                          choices=("raise", "die", "sigterm", "ckpt_crash"))
-    unported.add_argument("--result", default="")
+    p.add_argument("--ckpt-dir", default="",
+                   help="run the fault-tolerant loop, checkpointing here and "
+                        "resuming from the newest valid checkpoint")
+    p.add_argument("--save-every", type=int, default=50)
+    p.add_argument("--compress", default="none",
+                   choices=("none", "fp16", "int8", "fp8", "fp8_e4m3", "fp8_e5m2"),
+                   help="gradient all-reduce wire of the data-parallel step "
+                        "(fp8* = E4M3 / E5M2 with delayed scaling and error "
+                        "feedback)")
+    p.add_argument("--dp-procs", type=int, default=0,
+                   help="data-parallel ranks (processes; on one card every "
+                        "rank runs on cuda:0); 0 = one")
+    p.add_argument("--fail-step", type=int, default=None,
+                   help="inject a failure at this step (needs --ckpt-dir)")
+    p.add_argument("--fail-mode", default="die",
+                   choices=("raise", "die", "sigterm", "ckpt_crash"),
+                   help="failure kind for --fail-step")
+    p.add_argument("--result", default="",
+                   help="write the final params / error-feedback / optimizer "
+                        "sha256 digests and the loss as JSON")
     args = p.parse_args(argv)
-
-    for flag, what in ((bool(args.ckpt_dir), "--ckpt-dir (checkpointing, goodput)"),
-                       (args.compress != "none" or args.dp_procs > 0,
-                        "--compress / --dp-procs (compressed data parallelism)"),
-                       (args.fail_step is not None, "--fail-step (failure injection)"),
-                       (bool(args.result), "--result (resume digests)")):
-        if flag:
-            raise NotImplementedError(f"{what} is {_ROADMAP}")
 
     device = resolve_device(args.device)
     if args.arch == "ae":
@@ -354,6 +572,8 @@ def main(argv=None) -> Dict[str, Any]:
     cfg = configs.get_reduced(args.arch) if args.reduced else configs.get(args.arch)
     if args.layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    if args.compress != "none" or args.dp_procs:
+        return _compressed_dp_main(args, argv, cfg, device)
     if args.fp16_scale:
         cfg = dataclasses.replace(cfg, policy_name="tpu_fp16")
     opt = AdamW(lr=args.lr, warmup_steps=10)
@@ -370,6 +590,25 @@ def main(argv=None) -> Dict[str, Any]:
     n_params = transformer.count_params(cfg)
     print(f"arch={cfg.name} params={n_params} device={device} "
           f"policy={cfg.policy_name} batch={args.batch} seq={args.seq}", flush=True)
+    summary = {"arch": cfg.name, "device": str(device), "policy": cfg.policy_name,
+               "params": n_params}
+    if args.ckpt_dir:
+        loop = _ft_loop(args, step, CheckpointManager(args.ckpt_dir, keep=2))
+        # step-indexed batches: the stream replays exactly after a restart
+        out = loop.run(state, ds.batch, args.steps)
+        first = out["last_step"] + 1 - len(out["history"])
+        history = [{"step": first + i, **m, "step_ms": dt * 1e3}
+                   for i, (m, dt) in enumerate(zip(out["history"], loop.step_times))]
+        print(f"final loss: {history[-1]['loss']:.4f} "
+              f"(stragglers: {out['straggler_steps']})")
+        if args.instrument:
+            _print_goodput(out)
+        if args.result:
+            final = out["final_state"]
+            _write_result(args.result, {
+                "digest": digest(final.params), "ef_digest": digest(None),
+                "opt_digest": digest(final.opt), "loss": history[-1]["loss"]})
+        return {**summary, "history": history, "goodput": out["goodput"]}
     history: List[Dict[str, float]] = []
     batches = Prefetcher(iter(ds), depth=2)
     try:
@@ -397,9 +636,13 @@ def main(argv=None) -> Dict[str, Any]:
         batches.close()
     if history:
         print(f"final loss: {history[-1]['loss']:.4f}")
-    return {"arch": cfg.name, "device": str(device), "policy": cfg.policy_name,
-            "params": n_params, "history": history}
+    if args.result:
+        _write_result(args.result, {
+            "digest": digest(state.params), "ef_digest": digest(None),
+            "opt_digest": digest(state.opt),
+            "loss": history[-1]["loss"] if history else float("nan")})
+    return {**summary, "history": history}
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(main().get("returncode", 0))

@@ -17,9 +17,9 @@ state of ``:89-150``):
   any leading dims (the reference vmaps them over layers and heads), so
   the FP8 KV cache keeps one state per head and layer in three tensors.
 
-The tree helpers of the reference (``init_fp8_scale_tree``,
-``observe_amax_tree``) serve the FP8 gradient wire, which is not ported
-yet (ROADMAP.md, Queue A 6).
+The tree helpers (``init_fp8_scale_tree``, ``observe_amax_tree``,
+``scale.py:153-165`` of the reference) keep one state per leaf of a
+parameter tree, as the FP8 gradient wire (``optim/compression.py``) does.
 """
 
 from __future__ import annotations
@@ -32,7 +32,8 @@ from repro_torch.optim.optimizer import tree_leaves, tree_map
 
 __all__ = ["LossScaleState", "init_scale", "scale_loss", "unscale_and_check",
            "adjust", "Fp8ScaleState", "init_fp8_scale", "observe_amax",
-           "fp8_scale_of", "update_fp8_scale"]
+           "fp8_scale_of", "update_fp8_scale", "init_fp8_scale_tree",
+           "observe_amax_tree"]
 
 
 class LossScaleState(NamedTuple):
@@ -127,3 +128,16 @@ def update_fp8_scale(state: Fp8ScaleState, amax, *,
         scale=torch.where(top > 0, top * margin, state.scale),
         amax_history=hist,
         overflow_count=state.overflow_count + bad.to(torch.int32))
+
+
+def init_fp8_scale_tree(tree: Any, history_len: int = 16) -> Any:
+    """A dict tree shaped like ``tree`` with one fresh
+    :class:`Fp8ScaleState` per leaf, on that leaf's device."""
+    return tree_map(lambda t: init_fp8_scale(history_len, device=t.device), tree)
+
+
+def observe_amax_tree(states: Any, tree: Any) -> Any:
+    """Fold each leaf's amax into its matching scale state."""
+    if isinstance(states, Fp8ScaleState):
+        return observe_amax(states, tree)
+    return {k: observe_amax_tree(states[k], tree[k]) for k in tree}

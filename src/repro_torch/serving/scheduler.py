@@ -26,20 +26,33 @@ drops infeasible or lowest-priority queued work; a
 serving mode exercises the detectors: a NaN / inf guard on every decode
 step's logits and per-slot CRC32 guards of the stored KV rows, audited
 every ``audit_every`` decode steps and re-armed after every cache
-mutation.  Recovery quarantines the slot and rebuilds its cache by a
-batch-1 re-prefill of ``prompt + absorbed tokens`` — the same kernels as
-any prefill — (and for ``nan_logits`` a batch-1 replay of the poisoned
-decode step); it overlaps the virtual clock and is billed as waste
-slot-ticks by the :class:`~repro_torch.serving.resilience.ServeGoodputMeter`.
-An injected prefill crash is retried once; any other error propagates.
+mutation.  Recovery quarantines the slot and rebuilds its cache from the
+arithmetic that built it (and for ``nan_logits`` replays the poisoned
+decode step, whose logits row replaces the poisoned one); it overlaps
+the virtual clock and is billed as waste slot-ticks by the
+:class:`~repro_torch.serving.resilience.ServeGoodputMeter`.  An injected
+prefill crash is retried once; any other error propagates.
 
-The reference's rebuild is bitwise on its fp16 cache because its prefill
-equals its decode bitwise there.  On the card a prefill (flash, M = S
-rows) and a decode step (kernel 1's split, kernel 2's ragged scores)
-round differently, so a rebuilt slot equals the decode-built rows within
-rounding, and under FP8 a rebuild may move the pool's ratcheted scale and
-requantize the co-resident slots (``chip_smoke.py``'s sched phase holds
-what does hold on the card).
+On the 16-bit cache the rebuild re-prefills the prompt alone at the
+admission's shape (batch 1, the prompt's length) into the victim's slot,
+then replays the absorbed tokens one decode step at a time at the decode
+steps' own shape (``n_slots`` rows, the other slots parked as padding,
+the same cache length) in the pool itself; the parked slots' last rows,
+which the replay writes, are put back after it, so a recovery needs no
+KV memory beyond the pool.  Kernel 1's split, the row reductions and
+kernel 2's tiling depend on those shapes only, and every row of a step is
+computed from its own inputs, so the rebuilt rows and the victim's later
+logits equal the decode-built ones bitwise, on the card as on the CPU.
+The price is one prefill plus ``fed`` decode steps at the pool's batch,
+linear in the tokens the victim has absorbed; the virtual clock and the
+goodput meter bill a rebuild as one prefill, as the reference does.
+(A MoE layer routes over the whole batch with a capacity, so there a
+replay is exact only where the padding does not move the routing.)  On
+an FP8 cache a decode step reads rows quantized under the pool's
+ratcheted scale, which a replay cannot reproduce, so the rebuild re-
+prefills ``prompt + absorbed tokens`` batch 1 (and replays the poisoned
+step batch 1), as the reference does: the rows lie within one E4M3 step
+of the decode-built ones (``chip_smoke.py``'s sched phase holds both).
 """
 
 from __future__ import annotations
@@ -149,6 +162,7 @@ class Scheduler:
         self.clock = 0.0
         self.decode_steps = 0
         self.prefill_count = 0
+        self.recovery_decode_steps = 0  # decode steps run by slot rebuilds
         self.compute_dtype = cfg.policy.compute_dtype
         self.cache = transformer.init_cache(
             cfg, scfg.n_slots, scfg.max_len, dtype=self.compute_dtype,
@@ -347,16 +361,46 @@ class Scheduler:
 
     def _rebuild_slot(self, slot: int, s: _Slot,
                       rerun_decode: bool) -> Optional[np.ndarray]:
-        """Rebuild one slot's cache by re-prefilling ``prompt +
-        emitted[:fed]`` — exactly the tokens whose KV the slot holds — and
-        re-insert it.  With ``rerun_decode`` the poisoned decode step is
-        replayed batch-1 (``last_token`` at ``pos``) and its logits row is
-        returned to replace the poisoned one.  The clock does not move."""
+        """Rebuild one slot's cache from exactly the tokens whose KV it
+        holds, ``prompt + emitted[:fed]``, and re-insert it (see the
+        module docstring for how).  With ``rerun_decode`` the poisoned
+        decode step (``last_token`` at ``pos``) is replayed too and its
+        logits row is returned to replace the poisoned one.  The clock
+        does not move."""
         res = self.results[s.rid]
-        absorbed = np.concatenate([np.asarray(s.prompt, np.int32),
-                                   np.asarray(res.tokens[:s.fed], np.int32)])
-        assert absorbed.shape[0] == s.pos, "slot rows out of sync"
-        _, single = self._prefill(absorbed, "serve_recover")
+        absorbed = [int(t) for t in res.tokens[:s.fed]]
+        assert len(s.prompt) + len(absorbed) == s.pos, "slot rows out of sync"
+        if self.scfg.storage_dtype is not None:
+            return self._rebuild_by_prefill(slot, s, absorbed, rerun_decode)
+        feed = absorbed + ([s.last_token] if rerun_decode else [])
+        _, single = self._prefill(s.prompt, "serve_recover")
+        self._insert(single, slot, "serve_recover")
+        # the replay parks every other slot at the last row (see
+        # _step_inputs), which may hold a co-resident's newest row
+        last = self.scfg.max_len - 1
+        held = [leaf.select(-2, last).clone()
+                for _, _, leaf, _ in kv_cache.iter_kv_leaves(self.cache)]
+        logits = None
+        for j, tok in enumerate(feed):
+            toks, pos, sizes = self._step_inputs({slot: (tok, len(s.prompt) + j)})
+            with engine.op_scope("serve_recover"):
+                logits, self.cache = transformer.serve_step(
+                    self.params, self.cfg, toks, self.cache, pos, kv_group_sizes=sizes)
+            self.recovery_decode_steps += 1
+        for (_, _, leaf, bax), keep in zip(kv_cache.iter_kv_leaves(self.cache), held):
+            row = leaf.select(-2, last)
+            keep.narrow(bax, slot, 1).copy_(row.narrow(bax, slot, 1))
+            row.copy_(keep)
+        return _host_logits(logits[slot]) if rerun_decode else None
+
+    def _rebuild_by_prefill(self, slot: int, s: _Slot, absorbed: List[int],
+                            rerun_decode: bool) -> Optional[np.ndarray]:
+        """The FP8 cache's rebuild: a batch-1 prefill of ``prompt +
+        absorbed``, and with ``rerun_decode`` a batch-1 replay of the
+        poisoned step."""
+        seq = np.concatenate([np.asarray(s.prompt, np.int32),
+                              np.asarray(absorbed, np.int32)])
+        _, single = self._prefill(seq, "serve_recover")
         row = None
         if rerun_decode:
             with engine.op_scope("serve_recover"):
@@ -364,6 +408,7 @@ class Scheduler:
                     self.params, self.cfg, self._tokens([[s.last_token]]), single,
                     self._tokens([s.pos]),
                     kv_group_sizes=np.asarray([s.pos + 1], np.int32))
+            self.recovery_decode_steps += 1
             row = _host_logits(logits1[0])
         self._insert(single, slot, "serve_recover")
         return row
@@ -383,26 +428,32 @@ class Scheduler:
     def _active(self) -> List[int]:
         return [i for i, s in enumerate(self.slots) if s is not None]
 
+    def _step_inputs(self, rows: Dict[int, Tuple[int, int]]):
+        """A decode step's ``(tokens (n, 1), positions (n,), kv sizes
+        (n,))`` for ``rows = {slot: (token, pos)}``; every other slot is
+        parked at ``max_len - 1`` with no valid rows (an empty slot's row
+        its next occupant overwrites anyway; a rebuild's replay puts the
+        occupied slots' row back)."""
+        n = self.scfg.n_slots
+        toks = np.zeros((n, 1), np.int64)
+        pos = np.full((n,), self.scfg.max_len - 1, np.int64)
+        sizes = np.zeros((n,), np.int32)
+        for i, (tok, p) in rows.items():
+            toks[i, 0] = tok
+            pos[i] = p
+            sizes[i] = p + 1  # valid kv rows after this step's append
+        return self._tokens(toks), self._tokens(pos), sizes
+
     def _decode_once(self) -> None:
         if (self.scfg.audit_every >= 1
                 and self.decode_steps % self.scfg.audit_every == 0):
             self._audit_slots()
         n = self.scfg.n_slots
-        toks = np.zeros((n, 1), np.int64)
-        pos = np.zeros((n,), np.int64)
-        sizes = np.zeros((n,), np.int32)
-        for i, s in enumerate(self.slots):
-            if s is None:
-                # parked: rewrites a row its next occupant overwrites anyway
-                pos[i] = self.scfg.max_len - 1
-                continue
-            toks[i, 0] = s.last_token
-            pos[i] = s.pos
-            sizes[i] = s.pos + 1  # valid kv rows after this step's append
+        toks, pos, sizes = self._step_inputs(
+            {i: (s.last_token, s.pos) for i, s in enumerate(self.slots) if s is not None})
         with engine.op_scope("serve_decode"):
             logits, self.cache = transformer.serve_step(
-                self.params, self.cfg, self._tokens(toks), self.cache,
-                self._tokens(pos), kv_group_sizes=sizes)
+                self.params, self.cfg, toks, self.cache, pos, kv_group_sizes=sizes)
         logits = _host_logits(logits)
         self.clock += 1.0
         self.decode_steps += 1

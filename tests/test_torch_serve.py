@@ -188,15 +188,14 @@ def test_unported_paths_raise(fp32):
     _, tcfg, _, tparams = fp32
     # every reference arch is registered now (hymba-1.5b since the recurrent
     # slice), and the FP8 KV cache, the resilience layer and --sched are
-    # ported; manual expert parallelism and the injector's checkpoint modes
-    # are still to port
+    # ported, and so are the injector's checkpoint modes; manual expert
+    # parallelism and the serving specs (the sharding half) are still to port
     from repro_torch import serving
     from repro_torch.runtime import FailureInjector
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tt.init_params(dataclasses.replace(tconfigs.get_reduced("deepseek-moe-16b"),
                                            moe_impl="shard_map"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FailureInjector(fail_at_step=1, mode="ckpt_crash")
+    assert FailureInjector(fail_at_step=1, mode="ckpt_crash").mode == "ckpt_crash"
     assert not hasattr(serving, "decode_cache_specs")       # needs sharding
     cache = tt.init_cache(tcfg, 1, 8, storage_dtype="float8_e4m3fn", device="cpu")
     assert cache["layers"]["k"].dtype == torch.float8_e4m3fn
