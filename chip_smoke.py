@@ -119,7 +119,22 @@ Phases, any failure exits non-zero:
    the uninterrupted digest, and a dp-4 FP8 checkpoint continues at dp 2
    with its residuals regrouped to the sums and its scale windows to the
    maxima;
-7. **ae** — the counts are set to 0 again, then ``repro_torch.launch.train
+7. **shard** — the sharding runtime (``runtime/sharding.py``,
+   ``runtime/collectives.py``, ``launch/mesh.py``): two rank processes
+   (gloo, both on the card, every collective a host round trip) run
+   ``launch/mesh.py``'s cells on a ``{data: 1, model: 2}`` mesh:
+   qwen3-1.7b at full width and depth under the serving rules (KV cache
+   cut over its sequence; prefill 4 x 128, 16 greedy steps, tpu_bf16),
+   two layers of it trained 2 steps at 4 x 256 under ``Rules()`` (fp32 and
+   tpu_bf16), and deepseek-moe-16b at full width, 3 layers, served (4 x
+   128 + 8, fp32) under both MoE routes.  Each against the unsharded run
+   in this process from the same seed, beside a control that must fail
+   (one rank's wo block negated; two experts' w_out swapped): logits
+   (greedy tokens equal off near ties), fp32 gradients (bf16 printed);
+   per rank the peak memory, KV bytes (half the cache), launches, the
+   collectives (count, bytes, host seconds) and times; no aten GEMM /
+   SDPA in a decode step or a train step; kernel 2 with an empty group;
+8. **ae** — the counts are set to 0 again, then ``repro_torch.launch.train
    --arch ae`` trains the paper's TinyMLPerf AutoEncoder (640 -> [128 x4]
    -> 8 -> [128 x4] -> 640, random weights from a seed) for 200 steps at
    batch 16 under ``paper_fp16``, then 3 steps under ``fp32``: the mse must
@@ -132,14 +147,14 @@ Phases, any failure exits non-zero:
    paper's RedMulE cycle model (``core/perf_model.py``) prices one step's
    events captured on the card, which must equal the CPU's, beside its
    Fig 4c/4d ``autoencoder_report`` at batch 1 and 16;
-8. **ae8** — the same entry point under FP8 storage: 200
+9. **ae8** — the same entry point under FP8 storage: 200
    ``mixed_fp8_e4m3`` steps at batch 16 (the mse must fall to the
    reference's level), 3 at batch 4096 and 3 ``mixed_fp8_e5m2`` steps,
    each with its own counts (30 kernel-1 launches a step, all FP8, none
    fused-backward); one profiled step; one step at batch 16 and 4096 held
    against the CPU plain path, with BatchNorm in float64 on both sides and
    as the path runs it, each bound beside two controls that must fail it;
-9. **serve8** — qwen3-1.7b at full width under ``mixed_fp8_e4m3``:
+10. **serve8** — qwen3-1.7b at full width under ``mixed_fp8_e4m3``:
    ``launch.serve.generate`` of 4 x (128 + 16) with the counts set to 0
    (the structural 2260 / 896 / 112 launches, every GEMM launch FP8);
    one prefill and one decode step timed and profiled; a two-layer cut
@@ -149,7 +164,7 @@ Phases, any failure exits non-zero:
    ulp as often as the card's flash launches differ from their plain
    version), beside two controls that must fail it (row 0 of the first
    layer's wqkv zeroed, the attention scale off by a factor 1 + 2^-6);
-10. **moeserve** — the counts are set to 0 again, then
+11. **moeserve** — the counts are set to 0 again, then
    ``repro_torch.launch.serve`` serves deepseek-v2-lite-16b at full width
    and depth (27 layers, 64 routed experts top-6 + 2 shared, MLA, random
    weights from a seed): 4 requests, prompt 128, 16 new tokens; the kernel-1
@@ -157,20 +172,20 @@ Phases, any failure exits non-zero:
    run (3456 / 3936, no flash).  One prefill and one decode step timed and
    profiled (kernel 1 / kernel 2 / other, no aten GEMM or SDPA op), peak
    memory;
-11. **moecut** — a two-layer full-width cut (dense layer 0 + one MoE
+12. **moecut** — a two-layer full-width cut (dense layer 0 + one MoE
    layer) of deepseek-v2-lite-16b and of deepseek-moe-16b: every logit of
    a 2 x 16 prompt and one decode step from its cache, card vs the CPU
    plain path; every routing flip must lie on a router tie (within twice
    the run's measured router-logit error), the tokens that route alike are
    held to the larger of 8x the CPU's 1-vs-all-thread spread and 2^-4 of
    max, and a control (two experts' w_out swapped) must fail that bound;
-12. **moetrain** — ``repro_torch.launch.train`` trains deepseek-v2-lite-16b
+13. **moetrain** — ``repro_torch.launch.train`` trains deepseek-v2-lite-16b
    at full width with its depth cut to 3 (``--layers 3``: dense layer 0 +
    two MoE layers), 4 x 256, 3 steps: losses and router metrics finite,
    launches structural (88 / 46 a step: forward, the MoE layers' remat
    recompute, dX and dW), one profiled step (no aten GEMM or SDPA op),
    peak memory;
-13. **ssmserve** — the counts are set to 0 again, then xlstm-1.3b at full
+14. **ssmserve** — the counts are set to 0 again, then xlstm-1.3b at full
    width and depth (48 blocks, random weights from a seed) runs
    ``transformer.prefill`` on 4 x 128 and a greedy loop of 16
    ``serve_step``s from its decode state (the scheduler refuses recurrent
@@ -178,14 +193,14 @@ Phases, any failure exits non-zero:
    prefill, 0 a decode step), one prefill and one decode step timed and
    profiled (kernel 1 / 2 / 4 / other, no aten GEMM or SDPA op), peak
    memory;
-14. **hymbaserve** — the same for hymba-1.5b at full width and depth (32
+15. **hymbaserve** — the same for hymba-1.5b at full width and depth (32
    layers) on 4 x (1152 + 16): the 1024 window masks on the 29 sliding
    layers and the prefill crosses q_chunk 1024; kernel 4 32 a prefill, 0
    a decode step, no flash;
-15. **hymbatrain** — ``repro_torch.launch.train`` trains hymba-1.5b at full
+16. **hymbatrain** — ``repro_torch.launch.train`` trains hymba-1.5b at full
    width and depth, 4 x 256, 3 steps: losses finite, 64 sweeps a step
    (forward and remat recompute), no flash, one profiled step, peak memory;
-16. **ssmcut** — a two-layer full-width cut of hymba-1.5b (full layer 0,
+17. **ssmcut** — a two-layer full-width cut of hymba-1.5b (full layer 0,
    sliding layer 1) on 2 x 1088 and one xlstm-1.3b super-block on 2 x 128
    (under tpu_bf16 and under fp32), each with 2 decode steps from its
    cache: logits and every cache leaf, card vs the CPU plain path, within
@@ -193,7 +208,7 @@ Phases, any failure exits non-zero:
    (fp32: 1e-5), beside two controls that must fail (hymba layer 1's ``a_log`` raised by
    ``HC_CONTROL``; the fp32 xLSTM cut's first mLSTM state zeroed after the
    prefill);
-17. **sched** — serving under load: the counts are set to 0 again, then
+18. **sched** — serving under load: the counts are set to 0 again, then
    ``repro_torch.launch.serve --sched`` runs yi-9b at full width and depth
    (48 layers, d 4096, random weights from a seed) with the reference's
    defaults: 4 slots, 8 requests at each of the rates 0.25 and 1.0,
@@ -224,7 +239,7 @@ Phases, any failure exits non-zero:
    beside a control that must fail); the KV bytes of a decode step and
    the resident cache, one profiled FP8 and bf16 decode step (no aten
    GEMM or SDPA op) and the checksum audit's time;
-18. **tune** — the autotuner (``repro_torch.core.autotune``) on the card:
+19. **tune** — the autotuner (``repro_torch.core.autotune``) on the card:
    kernel 1 at qwen3-1.7b's serving shapes (the tied head, decode w_out
    and wqkv, prefill w_in: PERF.md rows 1, 1i, 1j, 1k) over every compiled
    tile and split S, and kernel 4's chunk at the xLSTM training shape (row
@@ -238,7 +253,7 @@ Phases, any failure exits non-zero:
    non-heuristic candidate, beside a control (an entry naming an uncompiled
    tile) that must raise; and a paper_fp16 AE step with every launch on a cached
    tile other than the heuristic's, bitwise equal to the uncached step;
-19. **report** — the GEMM wrappers' split launches (``.launches_split``)
+20. **report** — the GEMM wrappers' split launches (``.launches_split``)
    per path, the card (``nvidia-smi``), a ``{"kernels": [...]}`` line, and
    last ``{"ok": true, "device": {...}}``.
 
@@ -272,8 +287,10 @@ T_ARCH, T_BATCH, T_SEQ, T_STEPS = "xlstm-1.3b", 4, 256, 2
 # the step-0 parity below keeps the whole depth
 T_LAYERS = 16
 # the full-depth step-0 parity: batch 1 x seq 128 (two 64-row chunks, so
-# the sweep carries its state once), all 48 blocks at full width
-FD_SEQ = 128
+# the sweep carries its state once), all 48 blocks at full width under the
+# training policy; under fp32 the first FD_FP32_LAYERS (three super-blocks:
+# 48 until the shard phase needed the time)
+FD_SEQ, FD_FP32_LAYERS = 128, 24
 # the AutoEncoder path: the paper's use case at its published width
 AE_BATCH, AE_STEPS, AE_BIG = 16, 200, 4096
 # the paper_fp16 AE step parity's control at batch AE_BIG: one row of fc1's
@@ -2693,21 +2710,24 @@ def full_depth_parity(log, cfg):
     result = {}
     # fp32 parameters, drawn once for both policies (each casts on use)
     p_cpu = transformer.init_params(cfg, seed=SEED, device="cpu", dtype=torch.float32)
-    for policy, floor in (("fp32", 1e-5), (cfg.policy_name, 2.0 ** -8)):
-        c = dataclasses.replace(cfg, policy_name=policy)
+    for policy, floor, depth in (("fp32", 1e-5, FD_FP32_LAYERS),
+                                 (cfg.policy_name, 2.0 ** -8, cfg.n_layers)):
+        c = dataclasses.replace(cfg, policy_name=policy, n_layers=depth)
+        n_super = depth // cfg.ssm.slstm_period
+        p_run = {**p_cpu, "layers": tree_map(lambda t: t[:n_super], p_cpu["layers"])}
         t0 = time.perf_counter()
-        got = run(tree_map(lambda t: t.cuda(), p_cpu), c, torch.device("cuda"))
+        got = run(tree_map(lambda t: t.cuda(), p_run), c, torch.device("cuda"))
         torch.cuda.synchronize()
         t_card = time.perf_counter() - t0
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        want = run(p_cpu, c, torch.device("cpu"))
+        want = run(p_run, c, torch.device("cpu"))
         t_cpu = time.perf_counter() - t0
         half = max(1, n_threads // 2)
         torch.set_num_threads(half)
         t0 = time.perf_counter()
         try:
-            want_half = run(p_cpu, c, torch.device("cpu"))
+            want_half = run(p_run, c, torch.device("cpu"))
         finally:
             torch.set_num_threads(n_threads)
         t_half = time.perf_counter() - t0
@@ -2721,7 +2741,7 @@ def full_depth_parity(log, cfg):
             tol = max(8 * spread, floor)
             print(f"[train] full depth {policy} {name}: CPU spread ({half} vs "
                   f"{n_threads} threads) {spread:.3e} of max", flush=True)
-            label = (f"full depth (48 blocks, 1x{FD_SEQ}, {policy}) step 0 "
+            label = (f"full depth ({depth} blocks, 1x{FD_SEQ}, {policy}) step 0 "
                      f"{name}, card vs CPU plain")
             if tol >= 1.0:
                 # two correct summation orders already differ by max |x| / 8:
@@ -5212,6 +5232,319 @@ def tune_phase(log):
     return out
 
 
+# the shard phase: two gloo ranks on cuda:0 (launch/mesh.py's worker),
+# model axis 2.  qwen3-1.7b at full width and depth served under the
+# serving rules (prefill 4 x 128, 16 greedy steps, tpu_bf16); its depth cut
+# to 2 for 2 train steps at 4 x 256 under Rules() (fp32: the checks;
+# tpu_bf16: printed); deepseek-moe-16b at full width with depth cut to 3
+# served (4 x 128 + 8 steps) under both MoE routes in fp32
+SH_MESH = [1, 2]
+SH_SERVE = dict(batch=4, prompt=128, gen=16)
+SH_TRAIN = dict(batch=4, seq=256, steps=2, n_layers=2)
+SH_MOE = dict(batch=4, prompt=128, gen=8, n_layers=3)
+# bounds, relative to the largest magnitude of the unsharded run: the bf16
+# serve logits (the layout rounds each rank's partial sums to bf16 before
+# adding them, and its attention is the q-chunked path, not flash); the
+# fp32 rows (summation order only)
+SH_BF16_TOL, SH_FP32_TOL = 2.0 ** -3, 1e-4
+SH_DEVICE, SH_FULL = "cuda", True
+
+
+def _shard_rows(prompts, fed, params, cfg, gen, dev):
+    """The unsharded run's logits, teacher-forced on the tokens the
+    sharded run fed: prefill, then ``gen`` decode steps (fp32, host)."""
+    import torch
+
+    from repro_torch.models import transformer as tt
+
+    S = prompts.shape[1]
+    lg, cache = tt.prefill(params, cfg, {"inputs": prompts.to(dev)}, S + gen)
+    rows = [lg.float().cpu()]
+    for i in range(gen):
+        lg, cache = tt.serve_step(params, cfg, fed[:, i:i + 1].to(dev), cache, S + i)
+        rows.append(lg.float().cpu())
+    del cache
+    return torch.stack(rows)
+
+
+def _shard_compare(what, got, want, control, tol, log) -> float:
+    """``got`` against ``want`` within ``tol`` of max |want|; ``control``
+    (the unsharded run with one rank's shard corrupted) must fail it."""
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    cerr = (control - want).abs().max().item()
+    ok = math.isfinite(err) and err <= tol * scale and cerr > tol * scale
+    log.append({"check": f"shard {what}", "max_abs_err": err, "tol": tol * scale,
+                "control_err": cerr, "ok": ok})
+    print(f"[check] shard {what}, sharded vs unsharded: max_abs_err={err:.3e} "
+          f"({err / scale:.3e} of max) tol={tol * scale:.3e}; control "
+          f"{cerr / scale:.3e} of max: {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"shard {what}: sharded {err:.3e}, control {cerr:.3e}, "
+                             f"bound {tol * scale:.3e}")
+    return err / scale
+
+
+def _greedy_agree(fed, want, tol) -> tuple:
+    """``(greedy tokens of the sharded run equal to the unsharded argmax,
+    tokens compared)`` over every (step, row) whose unsharded top-2 margin
+    is at least ``tol`` of max |logit| (twice the measured gap; a nearer
+    tie either layout may break).  Both runs were fed the same tokens."""
+    top2 = want[:-1].topk(2, dim=-1).values
+    off_tie = (top2[..., 0] - top2[..., 1]) / want.abs().max() >= tol   # (steps, B)
+    same = want[:-1].argmax(-1) == fed.T
+    return int((same & off_tie).sum()), int(off_tie.sum())
+
+
+def _shard_collectives(stats: dict, steps: int = 1) -> str:
+    return ", ".join(f"{k} {v['count'] / steps:.0f} x / {v['bytes'] / steps / 1e6:.3f} MB / "
+                     f"{v['seconds'] / steps * 1e3:.2f} ms" for k, v in sorted(stats.items()))
+
+
+def shard_phase(log, counters):
+    """The sharding runtime on two ranks of one card (see the module
+    docstring): each cell held against the unsharded run in this process,
+    from the same seed, beside a control that must fail."""
+    import dataclasses
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.core import engine
+    from repro_torch.models import transformer as tt
+    from repro_torch.runtime import procs
+
+    card = _card()
+    dev = torch.device(SH_DEVICE)
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="shard_", dir=str(ROOT / "chiprun_out"))
+    qwen = dict(arch=ARCH, full=SH_FULL, mesh=SH_MESH, seed=SEED)
+    moe = dict(arch="deepseek-moe-16b", full=SH_FULL, mesh=SH_MESH, seed=SEED,
+               policy_name="fp32", **SH_MOE)
+    plan = [dict(name="qwen_serve", kind="serve", profile=True, **qwen, **SH_SERVE),
+            dict(name="qwen_train_fp32", kind="train", policy_name="fp32", **qwen,
+                 **SH_TRAIN),
+            dict(name="qwen_train_bf16", kind="train", profile=True, **qwen, **SH_TRAIN),
+            dict(name="moe_gspmd", kind="serve", moe_impl="gspmd", **moe),
+            dict(name="moe_shard_map", kind="serve", moe_impl="shard_map", **moe)]
+    res: dict = {"card": card}
+    try:
+        Path(tmp, "plan.json").write_text(json.dumps(plan))
+        t0 = time.perf_counter()
+        rc, out, dt = _ft_launch("repro_torch.launch.mesh", 2,
+                                 ["--device", SH_DEVICE, "--plan", str(Path(tmp, "plan.json")),
+                                  "--out", tmp], tmp, "shard ranks")
+        if rc != 0:
+            raise AssertionError(f"shard: a rank exited {rc}: {out[-1500:]}")
+        parts = {"ranks": dt}
+        t1 = time.perf_counter()
+
+        def load(name):
+            infos = [json.loads(Path(tmp, f"{name}.rank{r}.json").read_text())
+                     for r in (0, 1)]
+            return torch.load(Path(tmp, f"{name}.pt"), weights_only=False), infos
+
+        launches = {}
+        # ---- qwen3-1.7b served at full width and depth ----
+        cfg = configs.get(ARCH)
+        out, infos = load("qwen_serve")
+        params = tt.init_params(cfg, seed=SEED, device=dev)
+        want = _shard_rows(out["prompts"], out["fed"], params, cfg, SH_SERVE["gen"], dev)
+        # the control: rank 1's block of layer 0's wo rows, sign flipped
+        wo = params["layers"]["attn"]["wo"]
+        half = wo.shape[1] // 2
+        wo[0, half:].neg_()
+        control = _shard_rows(out["prompts"], out["fed"], params, cfg, SH_SERVE["gen"], dev)
+        wo[0, half:].neg_()
+        res["qwen_serve_err"] = _shard_compare(
+            "qwen3-1.7b serve (28 layers, 4 x (128 + 16), tpu_bf16) logits",
+            out["logits"], want, control, SH_BF16_TOL, log)
+        agree, n = _greedy_agree(out["fed"], want, 2 * res["qwen_serve_err"])
+        print(f"[shard] qwen3-1.7b greedy tokens equal to the unsharded argmax: {agree} "
+              f"of the {n} of {out['fed'].numel()} off a near tie", flush=True)
+        if agree != n:
+            raise AssertionError(f"shard: {n - agree} greedy tokens differ off a tie")
+        del params, want, control
+        for r, info in enumerate(infos):
+            steps = info["decode_steps"]
+            print(f"[shard] ({card}) qwen3-1.7b serve rank {r}: peak "
+                  f"{info.get('peak_bytes', 0) / 2**30:.2f} GiB, KV cache {info['kv_bytes']} B; "
+                  f"prefill {info['prefill_s'] * 1e3:.1f} ms, decode "
+                  f"{info['decode_s'] / steps * 1e3:.1f} ms a step; collectives a "
+                  f"prefill: {_shard_collectives(info['collectives_prefill'])}; a decode "
+                  f"step: {_shard_collectives(info['collectives_decode'], steps)}; "
+                  f"launches prefill {_main_launches(info['launches_prefill'])}, "
+                  f"decode {_main_launches(info['launches_decode'])}", flush=True)
+        T = -(-(SH_SERVE["prompt"] + SH_SERVE["gen"]) // SH_MESH[1]) * SH_MESH[1]
+        whole = sum(t.numel() * t.element_size() for sub in tt.init_cache(
+            cfg, SH_SERVE["batch"], T, device="meta").values() for t in sub.values())
+        if any(i["kv_bytes"] * 2 != whole for i in infos):
+            raise AssertionError(f"shard: KV bytes per rank {[i['kv_bytes'] for i in infos]}"
+                                 f", the whole cache {whole}")
+        lib = infos[0].get("aten_library_decode", {})
+        print(f"[shard] decode step profile (rank 0): aten GEMM / SDPA ops "
+              f"{lib or 'none'}", flush=True)
+        if lib:
+            raise AssertionError(f"shard decode: library ops {lib}")
+        i0 = infos[0]
+        launches["serve"] = {k: i0["launches_prefill"][k] + i0["launches_decode"][k]
+                             for k in i0["launches_prefill"]}
+        res["qwen_serve"] = infos
+        gc.collect()
+        torch.cuda.empty_cache()
+        parts["serve_unsharded"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+
+        # ---- qwen3-1.7b, two layers at full width, trained ----
+        from repro_torch.data import SyntheticLM
+        from repro_torch.launch import train as train_lib
+        from repro_torch.optim import AdamW
+        for tag, pol in (("fp32", "fp32"), ("bf16", "tpu_bf16")):
+            out, infos = load(f"qwen_train_{tag}")
+            c = dataclasses.replace(cfg, n_layers=SH_TRAIN["n_layers"], policy_name=pol)
+            ds = SyntheticLM(c.vocab_size, SH_TRAIN["seq"], SH_TRAIN["batch"], seed=0)
+            batch = {k: torch.from_numpy(v) for k, v in ds.batch(0).items()}
+
+            def unsharded(flip):
+                st = train_lib.init_state(c, AdamW(), seed=SEED, device=dev)
+                if flip:
+                    with torch.no_grad():
+                        st.params["layers"]["attn"]["wo"][0, half:].neg_()
+                _, m = train_lib.build_train_step(c, AdamW(), return_grads=True)(st, batch)
+                return float(m["loss"]), {k: v.float().cpu() for k, v in
+                                          _flat_named(m["grads"]).items()}
+
+            loss, grads = unsharded(False)
+            closs, cgrads = unsharded(True)
+            got = _flat_named(out["grads0"])
+            print(f"[shard] train {tag}: step-0 loss sharded {infos[0]['losses'][0]!r}, "
+                  f"unsharded {loss!r}, control {closs!r}", flush=True)
+            for name in ("embed", "layers/attn/wqkv", "layers/attn/wo", "layers/mlp/w_in",
+                         "layers/mlp/w_out", "layers/ln1"):
+                if tag == "fp32":
+                    _shard_compare(f"qwen3-1.7b train (2 layers, 4 x 256, fp32) step-0 "
+                                   f"grad {name}", got[name], grads[name], cgrads[name],
+                                   SH_FP32_TOL, log)
+                else:
+                    e = (got[name] - grads[name]).abs().max() / grads[name].abs().max()
+                    print(f"[shard] train bf16 step-0 grad {name}: {e.item():.3e} of max "
+                          f"(printed, not a check)", flush=True)
+            if tag == "fp32":
+                lt = torch.tensor([infos[0]["losses"][0]])
+                _shard_compare("qwen3-1.7b train (2 layers, fp32) step-0 loss", lt,
+                               torch.tensor([loss]), torch.tensor([closs]), SH_FP32_TOL, log)
+            for r, info in enumerate(infos):
+                print(f"[shard] ({card}) train {tag} rank {r}: peak "
+                      f"{info.get('peak_bytes', 0) / 2**30:.2f} GiB; steps "
+                      f"{[round(t * 1e3, 1) for t in info['step_s']]} ms; losses "
+                      f"{info['losses']}; collectives a step: "
+                      f"{_shard_collectives(info['collectives'][-1])}; launches a step "
+                      f"{_main_launches(info['launches'][-1])}", flush=True)
+            if tag == "bf16":
+                lib = infos[0].get("aten_library_step", {})
+                print(f"[shard] train step profile (rank 0): aten GEMM / SDPA ops "
+                      f"{lib or 'none'}", flush=True)
+                if lib:
+                    raise AssertionError(f"shard train: library ops {lib}")
+            launches[f"train_{tag}"] = {k: sum(s[k] for s in infos[0]["launches"])
+                                        for k in infos[0]["launches"][0]}
+            res[f"qwen_train_{tag}"] = infos
+            del grads, cgrads
+        gc.collect()
+        torch.cuda.empty_cache()
+        parts["train_unsharded"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+
+        # ---- deepseek-moe-16b, three layers at full width, both routes ----
+        mcfg = dataclasses.replace(configs.get("deepseek-moe-16b"),
+                                   n_layers=SH_MOE["n_layers"], policy_name="fp32")
+        # unsharded, both routes are the one dispatch: one run (and one
+        # control, the w_out of experts 0 and E / 2 of the first MoE layer
+        # swapped: one on each rank) on the tokens both routes fed
+        mparams = tt.init_params(mcfg, seed=SEED, device=dev)
+        first, _ = load("moe_gspmd")
+        want = _shard_rows(first["prompts"], first["fed"], mparams, mcfg, SH_MOE["gen"], dev)
+        w = mparams["layers"]["moe"]["w_out"]
+        pair = [0, w.shape[1] // 2]
+        w[0, pair] = w[0, pair[::-1]]
+        control = _shard_rows(first["prompts"], first["fed"], mparams, mcfg,
+                              SH_MOE["gen"], dev)
+        del mparams
+        parts["moe_unsharded"] = time.perf_counter() - t1
+        for impl in ("gspmd", "shard_map"):
+            out, infos = load(f"moe_{impl}")
+            if not torch.equal(out["fed"], first["fed"]):
+                raise AssertionError("shard moe: the two routes fed other tokens")
+            e = _shard_compare(f"deepseek-moe-16b serve (3 layers, 4 x (128 + 8), "
+                               f"fp32, {impl}) logits", out["logits"], want, control,
+                               SH_FP32_TOL, log)
+            agree, n = _greedy_agree(out["fed"], want, 2 * e)
+            print(f"[shard] deepseek-moe-16b {impl}: greedy tokens equal to the unsharded "
+                  f"argmax: {agree} of the {n} off a near tie; routes taken on rank 0 "
+                  f"{infos[0]['route']}", flush=True)
+            if agree != n or not infos[0]["route"].get(impl):
+                raise AssertionError(f"shard moe {impl}: tokens {agree}/{n}, routes "
+                                     f"{infos[0]['route']}")
+            for r, info in enumerate(infos):
+                steps = info["decode_steps"]
+                print(f"[shard] ({card}) deepseek-moe-16b {impl} rank {r}: peak "
+                      f"{info.get('peak_bytes', 0) / 2**30:.2f} GiB, KV cache {info['kv_bytes']} B;"
+                      f" prefill {info['prefill_s'] * 1e3:.1f} ms, decode "
+                      f"{info['decode_s'] / steps * 1e3:.1f} ms a step; collectives a "
+                      f"decode step: {_shard_collectives(info['collectives_decode'], steps)}",
+                      flush=True)
+            launches[f"moe_{impl}"] = {k: infos[0]["launches_prefill"][k]
+                                       + infos[0]["launches_decode"][k]
+                                       for k in infos[0]["launches_prefill"]}
+            res[f"moe_{impl}"] = infos
+        del want, control
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # kernel 2 takes an empty group (a slot whose KV lies on the other
+        # rank): its rows come back zero, as the plain version's do
+        x = torch.randn(3, 8, 64, device=dev, dtype=torch.bfloat16)
+        wg = torch.randn(3, 64, 16, device=dev, dtype=torch.bfloat16)
+        sizes = [5, 0, 8]
+        z = engine.grouped_matmul(x, wg, group_sizes=sizes, policy="tpu_bf16")
+        zc = engine.grouped_matmul(x.cpu(), wg.cpu(), group_sizes=sizes, policy="tpu_bf16")
+        _check("kernel 2 grouped GEMM with an empty group", z.cpu(), zc, 2.0 ** -7, log)
+        if z[1].abs().max().item() != 0:
+            raise AssertionError("shard: the empty group's rows are not zero")
+
+        total = {}
+        for run in launches.values():
+            for k, v in run.items():
+                total[k] = total.get(k, 0) + v
+        path = {name: total.get(f"{fn.__name__}.{attr}", 0)
+                for name, (fn, attr) in counters.items()}
+        _require(path, ["redmule_matmul", "redmule_matmul_batched", "flash_attention"],
+                 "shard")
+        print(f"[shard] seconds by part: " + ", ".join(
+            f"{k} {v:.1f}" for k, v in parts.items()), flush=True)
+        res.update(launches=path, launches_by_cell=launches, seconds=parts)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return res
+
+
+def _main_launches(counts: dict) -> dict:
+    """A rank's launches of each kernel (its wrappers' ``.launches``)."""
+    return {k.split(".")[0]: v for k, v in counts.items() if k.endswith(".launches")}
+
+
+def _flat_named(tree, pre=""):
+    if hasattr(tree, "shape"):
+        return {pre: tree}
+    out = {}
+    for k, v in tree.items():
+        out.update(_flat_named(v, f"{pre}/{k}" if pre else k))
+    return out
+
+
 def _to_cpu(tree):
     if hasattr(tree, "cpu"):
         return tree.cpu()
@@ -5251,6 +5584,7 @@ def main() -> int:
     train = timed("train", train_phase, log, counters)
     lmtrain = timed("lmtrain", lmtrain_phase, log, counters)
     ft = timed("ft", ft_phase, log, counters)
+    shard = timed("shard", shard_phase, log, counters)
     ae = timed("ae", ae_phase, log, counters)
     ae8 = timed("ae8", ae8_phase, log, counters)
     serve8 = timed("serve8", serve8_phase, log, counters)
@@ -5265,6 +5599,7 @@ def main() -> int:
     tune = timed("tune", tune_phase, log)
     runs = {"serve": serve["launches"], "train": train["launches"],
             "lmtrain": lmtrain["launches"], "ft": ft["launches"],
+            "shard": shard["launches"],
             "ae": ae["launches"], "ae_fp32": ae["launches_fp32"],
             "ae_b4096": ae["launches_b4096"], "ae8": ae8["launches"],
             "ae8_b4096": ae8["launches_b4096"], "ae8_e5m2": ae8["launches_e5m2"],
@@ -5284,7 +5619,8 @@ def main() -> int:
     print(f"[report] split launches per path: {json.dumps(split_by_path)}", flush=True)
     out = {"card": card, "build_s": build_s, "phase_s": phase_s, "checks": log,
            "serve": serve,
-           "train": train, "lmtrain": lmtrain, "ft": ft, "ae": ae, "ae8": ae8,
+           "train": train, "lmtrain": lmtrain, "ft": ft, "shard": shard, "ae": ae,
+           "ae8": ae8,
            "serve8": serve8, "moeserve": moeserve, "moecut": moecut,
            "moetrain": moetrain, "ssmserve": ssmserve, "hymbaserve": hymbaserve,
            "hymbatrain": hymbatrain, "ssmcut": ssmcut, "sched": sched,

@@ -4,9 +4,9 @@ The ``ModelConfig`` dataclass with the reference's fields and defaults,
 and its sub-configs: ``MLAConfig`` (DeepSeek-V2's compressed-KV
 attention), ``MoEConfig`` (fine-grained routed + shared experts) and the
 ``SSMConfig`` of the xLSTM / SSM families, and the reference's shape suite
-(``ShapeSpec`` / ``SHAPES``, what ``roofline.analysis.model_flops`` reads).
-Its ``input_specs`` (JAX shape stand-ins for a dry run) waits for the
-port's dry run (ROADMAP.md Queue A 6).
+(``ShapeSpec`` / ``SHAPES``, what ``roofline.analysis.model_flops`` reads),
+with ``input_specs`` / ``cache_specs``: a step's data arguments and decode
+cache as meta tensors (shape and dtype, no storage).
 """
 
 from __future__ import annotations
@@ -14,10 +14,12 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, Optional, Tuple
 
+import torch
+
 from repro_torch.core import precision as prec
 
 __all__ = ["MLAConfig", "MoEConfig", "ModelConfig", "SSMConfig", "ShapeSpec",
-           "SHAPES"]
+           "SHAPES", "input_specs", "cache_specs"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,8 +84,9 @@ class ModelConfig:
     param_dtype: str = "float32"
     q_chunk: int = 1024
     ce_chunk: int = 0
-    # MoE expert parallelism: gspmd (one device: the plain dispatch) |
-    # shard_map (manual all_to_all: not ported, raises)
+    # MoE expert parallelism on a mesh: gspmd (every rank routes all its
+    # tokens) | shard_map (rows sliced across model peers, all-to-alls);
+    # one device: the plain dispatch either way
     moe_impl: str = "gspmd"
     remat: str = "full"
     notes: str = ""
@@ -140,3 +143,25 @@ SHAPES: Dict[str, ShapeSpec] = {
     "decode_32k": ShapeSpec("decode_32k", "decode", 32_768, 128),
     "long_500k": ShapeSpec("long_500k", "decode", 524_288, 1),
 }
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> Dict[str, torch.Tensor]:
+    """Meta-tensor stand-ins for the step function's data arguments."""
+    B, S = shape.global_batch, shape.seq_len
+    meta = lambda shp, dt: torch.empty(shp, dtype=dt, device="meta")
+    if shape.kind in ("train", "prefill"):
+        if cfg.input_mode == "embeddings":
+            return {"embeddings": meta((B, S, cfg.d_model), cfg.compute_dtype),
+                    "labels": meta((B, S), torch.int32)}
+        return {"inputs": meta((B, S), torch.int32),
+                "labels": meta((B, S), torch.int32)}
+    # decode: one new token against a cache of length S
+    return {"inputs": meta((B, 1), torch.int32), "pos": meta((), torch.int32)}
+
+
+def cache_specs(cfg: ModelConfig, shape: ShapeSpec) -> Dict:
+    """The decode cache of a shape, as meta tensors."""
+    from repro_torch.models import transformer
+
+    return transformer.init_cache(cfg, shape.global_batch, shape.seq_len,
+                                  device="meta")

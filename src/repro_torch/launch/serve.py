@@ -18,11 +18,19 @@ or ``--max-queue`` add the SLO scenario's ``[slo]`` line and rows.  The
 rows are merged into ``--json`` (``BENCH_engine.json``; ``''`` skips it).
 Weights are random, drawn from ``--seed``.  ``--device cpu`` runs the
 plain PyTorch versions of the kernels.
+
+On a mesh of ranks (``launch/mesh.py``) serving runs under
+:func:`serve_rules`: the KV cache is cut over its sequence, every rank
+holding its ``max_len / model`` positions of every KV head
+(:func:`cache_spec_tree`); :func:`make_sharded_serve_step`,
+:func:`build_prefill` and ``generate(..., rules=, mesh=)`` run this
+rank's part.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import time
 from typing import Optional
@@ -33,16 +41,82 @@ import torch
 from repro_torch import configs, resolve_device
 from repro_torch.core import engine
 from repro_torch.models import transformer
+from repro_torch.runtime import sharding
 from repro_torch.runtime.fault_tolerance import FailureInjector
 from repro_torch.serving import kv_cache as kv_lib
 from repro_torch.serving import loadgen as loadgen_lib
 from repro_torch.serving import scheduler as sched_lib
+from repro_torch.serving import specs as specs_lib
 
-__all__ = ["generate", "main"]
+__all__ = ["serve_rules", "cache_spec_tree", "build_serve_step", "build_prefill",
+           "make_sharded_serve_step", "generate", "main"]
+
+
+def serve_rules(base: Optional[sharding.Rules] = None) -> sharding.Rules:
+    """Decode-time rules: the KV sequence over the model axis, KV heads
+    replicated (declared up front, or they would claim the model axis and
+    leave the sequence whole after sanitization)."""
+    base = base or sharding.Rules()
+    return dataclasses.replace(
+        base, serve_attention=True,
+        overrides=base.overrides + (("kv_heads", None), ("kv_seq", ("model",))))
+
+
+def cache_spec_tree(cfg, rules, mesh, batch: int, max_len: int,
+                    storage_dtype: Optional[str] = None):
+    """Sanitized decode-cache specs (``serving.specs`` is the source)."""
+    return specs_lib.decode_cache_specs(
+        cfg, rules, mesh, batch, max_len, storage_dtype=storage_dtype)[1]
+
+
+def build_serve_step(cfg, rules: Optional[sharding.Rules], *, mesh=None):
+    """``step(params, cache, tokens, pos) -> (logits, cache)`` under the
+    rules (and ``mesh``, else the active one)."""
+    def step(params, cache, tokens, pos):
+        with sharding.use_rules(rules), _mesh(mesh):
+            return transformer.serve_step(params, cfg, tokens, cache, pos)
+    return step
+
+
+def build_prefill(cfg, rules: Optional[sharding.Rules], max_len: int, *, mesh=None):
+    """``pre(params, batch) -> (logits, cache)`` under the rules."""
+    def pre(params, batch):
+        with sharding.use_rules(rules), _mesh(mesh):
+            return transformer.prefill(params, cfg, batch, max_len)
+    return pre
+
+
+def _mesh(mesh):
+    return sharding.use_mesh(mesh) if mesh is not None else contextlib.nullcontext()
+
+
+def make_sharded_serve_step(cfg, mesh, rules, *, batch: int, max_len: int):
+    """``(step, param specs, cache specs)`` for this rank of ``mesh`` under
+    :func:`serve_rules` of ``rules``.  ``step(params, cache, tokens, pos)``
+    takes this rank's blocks of the parameters and cache and the global
+    tokens (it keeps the rows of its data coordinates when they divide),
+    and returns its rows' whole logits and the cache."""
+    rules = serve_rules(rules)
+    pspec = transformer.param_specs(cfg, rules)
+    pshape = transformer.abstract_params(cfg)
+    pspec = sharding.sanitize_tree(pspec, pshape, mesh)
+    cspec = cache_spec_tree(cfg, rules, mesh, batch, max_len)
+    dp = tuple(a for a in sharding.DATA_AXES if a in mesh.shape)
+    n_dp = 1
+    for a in dp:
+        n_dp *= mesh.shape[a]
+    rows = sharding.P(dp) if batch % n_dp == 0 else sharding.P()
+    inner = build_serve_step(cfg, rules, mesh=mesh)
+
+    def step(params, cache, tokens, pos):
+        return inner(params, cache, sharding.shard_block(tokens, rows, mesh), pos)
+
+    return step, pspec, cspec
 
 
 @torch.inference_mode()
-def generate(params, cfg, prompts, gen_len: int, *,
+def generate(params, cfg, prompts, gen_len: int,
+             rules: Optional[sharding.Rules] = None, *, mesh=None,
              storage_dtype: Optional[str] = None, return_state: bool = False):
     """prompts ``(B, S)`` ints -> ``(B, S + gen_len)`` greedy continuations
     (a numpy int32 array).
@@ -52,14 +126,16 @@ def generate(params, cfg, prompts, gen_len: int, *,
     invariant — with ``return_state=True`` it returns ``(seqs, cache,
     final_logits)`` and ``argmax(final_logits)`` is the token a
     ``gen_len + 1`` run would emit next.  ``storage_dtype`` serves from
-    the FP8 KV cache."""
+    the FP8 KV cache.  With ``rules`` and ``mesh`` (one data row) the
+    scheduler runs this rank's part on its blocks of ``params``."""
     pnp = np.asarray(prompts.cpu() if isinstance(prompts, torch.Tensor)
                      else prompts, dtype=np.int32)
     B, S = pnp.shape
     if gen_len < 1:
         raise ValueError("gen_len must be >= 1")
     sched = sched_lib.Scheduler(params, cfg, sched_lib.SchedulerConfig(
-        n_slots=B, max_len=S + gen_len, storage_dtype=storage_dtype))
+        n_slots=B, max_len=S + gen_len, storage_dtype=storage_dtype),
+        rules=rules, mesh=mesh)
     sched.submit([sched_lib.Request(rid=i, arrival=0.0, prompt=pnp[i],
                                     max_new_tokens=gen_len) for i in range(B)])
     results = sched.run()

@@ -54,8 +54,13 @@ a killed and resumed run reproduces bit for bit::
         --fail-step 3 --fail-mode die          # exits 13; run again to resume
 
 ``--instrument`` then prints the wire bytes a step against the fp32 wire's
-and, after a ``--ckpt-dir`` run, the goodput line.  Sharding rules over a
-mesh (``build_train_step(rules=...)``) are not ported yet (ROADMAP.md).
+and, after a ``--ckpt-dir`` run, the goodput line.
+
+``build_train_step(rules=...)`` runs on a mesh of ranks when one is active
+(``make_sharded_train_step``; ``state_specs`` / ``batch_specs`` give the
+layouts): each rank holds its blocks of the state and its data rows of the
+batch, and the gradients are reduced as the layout asks (see
+``build_train_step``).  ``launch/mesh.py`` runs such a step as a rank.
 """
 
 from __future__ import annotations
@@ -73,7 +78,7 @@ import numpy as np
 import torch
 
 from repro_torch import configs, resolve_device
-from repro_torch.checkpoint import CheckpointManager, tree_map_leaves
+from repro_torch.checkpoint import CheckpointManager, tree_flatten, tree_map_leaves
 from repro_torch.core import engine
 from repro_torch.core import precision as prec
 from repro_torch.data import Prefetcher, SyntheticAE, SyntheticLM
@@ -83,15 +88,15 @@ from repro_torch.optim import (AdamW, Compressor, OptState, adjust,
                                tree_leaves, tree_map, unscale_and_check)
 from repro_torch.optim.compression import all_reduce_sum
 from repro_torch.roofline import analysis
-from repro_torch.runtime import procs
+from repro_torch.runtime import collectives as coll
+from repro_torch.runtime import procs, sharding
 from repro_torch.checkpoint.host_axis import HostAxisCheckpoint, digest
 from repro_torch.runtime.fault_tolerance import (FailureInjector, GoodputMeter,
                                                  TrainLoop)
 
 __all__ = ["TrainState", "init_state", "build_train_step",
-           "build_compressed_dp_train_step", "ae_grads", "build_ae_step", "main"]
-
-_ROADMAP = "not yet ported (see ROADMAP.md, Queue A)"
+           "build_compressed_dp_train_step", "state_specs", "batch_specs",
+           "make_sharded_train_step", "ae_grads", "build_ae_step", "main"]
 
 
 class TrainState(NamedTuple):
@@ -101,12 +106,15 @@ class TrainState(NamedTuple):
 
 
 def init_state(cfg, opt, *, seed: int = 0, device="cuda",
-               use_scale: bool = False) -> TrainState:
+               use_scale: bool = False, mesh=None, specs=None) -> TrainState:
     """fp32 master parameters (``cfg.param_dtype``) drawn from ``seed`` on
     ``device``, marked as leaves that take gradients, ``opt``'s state, and
-    with ``use_scale`` the dynamic loss scale (``optim.init_scale``)."""
+    with ``use_scale`` the dynamic loss scale (``optim.init_scale``).
+    With ``mesh`` and ``specs`` (``state_specs(...).params``) the state is
+    this rank's blocks, each leaf drawn whole and cut at once."""
     params = transformer.init_params(cfg, seed=seed, device=device,
-                                     dtype=getattr(torch, cfg.param_dtype))
+                                     dtype=getattr(torch, cfg.param_dtype),
+                                     mesh=mesh, specs=specs)
     for p in tree_leaves(params):
         p.requires_grad_(True)
     dev = tree_leaves(params)[0].device
@@ -124,12 +132,14 @@ def _to_device(batch: Dict[str, Any], device: torch.device) -> Dict[str, torch.T
     return out
 
 
-def _value_and_grad(cfg, params, batch, scale=None, *, cast_params: bool = False):
+def _value_and_grad(cfg, params, batch, scale=None, *, cast_params: bool = False,
+                    seed: float = 1.0):
     """``(metrics, grads)`` of ``transformer.loss_fn`` (times ``scale``
-    when given) with respect to every parameter.  The token table of an
-    embedding-input arch with an untied head is reached by no batch: it
-    gets a zero gradient, as ``jax.grad`` gives it; any other leaf the
-    loss does not reach is an error."""
+    when given, and the backward seeded with ``seed``) with respect to
+    every parameter.  The token table of an embedding-input arch with an
+    untied head is reached by no batch: it gets a zero gradient, as
+    ``jax.grad`` gives it; any other leaf the loss does not reach is an
+    error."""
     unused = cfg.input_mode == "embeddings" and not cfg.tie_embeddings
     leaves = [t for t in tree_leaves(params)
               if not (unused and t is params["embed"])]
@@ -140,6 +150,8 @@ def _value_and_grad(cfg, params, batch, scale=None, *, cast_params: bool = False
     loss, metrics = transformer.loss_fn(p, cfg, batch)
     if scale is not None:
         loss = scale_loss(loss, scale)
+    if seed != 1.0:
+        loss = loss * seed
     it = iter(torch.autograd.grad(loss, leaves))
 
     def grad_of(t):
@@ -151,7 +163,7 @@ def _value_and_grad(cfg, params, batch, scale=None, *, cast_params: bool = False
 
 def build_train_step(cfg, opt, rules=None, *, use_scale: bool = False,
                      clip_norm: float = 1.0, cast_params: bool = False,
-                     grad_accum: int = 1):
+                     grad_accum: int = 1, return_grads: bool = False):
     """``step(state, batch) -> (state, metrics)`` (``train.py:79-167`` of
     the reference): loss and gradients of ``transformer.loss_fn``, global-
     norm clipping, then ``opt``.  ``cast_params`` casts the fp32 master
@@ -163,15 +175,68 @@ def build_train_step(cfg, opt, rules=None, *, use_scale: bool = False,
     optimizer state untouched (the reference's ``lax.cond`` over both);
     the scale adjusts either way and the metrics carry ``loss_scale`` and
     ``finite``.  The state's tensors are updated in place and returned
-    (the reference donates them)."""
-    if rules is not None:
-        raise NotImplementedError(f"sharding rules are {_ROADMAP}")
+    (the reference donates them).
 
-    def value_and_grad(params, batch, scale):
+    Under ``rules`` with an active mesh of ranks (``sharding.use_mesh``,
+    as ``make_sharded_train_step`` sets it) the state is this rank's
+    blocks and the step takes the global batch and keeps the rows of its
+    data coordinates.  The backward is seeded with ``1 / model``: a value
+    replicated over the model axis carries a share of its gradient on each
+    rank (``runtime/collectives.py``), so a leaf replicated over the model
+    axis sums its gradient over it; every gradient is then averaged over
+    the data axes (each rank's loss is the mean over its rows).  Clipping
+    takes the global norm: the squares of model-cut leaves summed over the
+    axis, those of replicated leaves counted once.  Without a mesh the
+    rules change nothing (the reference's no-op).  ``return_grads`` puts a
+    copy of the (reduced, unclipped) gradients in ``metrics["grads"]``."""
+
+    def value_and_grad(params, batch, scale, seed=1.0):
         return _value_and_grad(cfg, params, batch, scale if use_scale else None,
-                               cast_params=cast_params)
+                               cast_params=cast_params, seed=seed)
 
     def step(state: TrainState, batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        with sharding.use_rules(rules):
+            sh = sharding.context()
+            if sh is None:
+                return _step(state, batch)
+            return _sharded_step(state, batch, sh)
+
+    def _sharded_step(state: TrainState, batch, sh):
+        if grad_accum > 1:
+            sharding.refuse("grad_accum > 1")
+        device = tree_leaves(state.params)[0].device
+        rows = sharding.P(sh.data_axes)
+        batch = {k: sharding.shard_block(v, rows, sh.mesh)
+                 for k, v in _to_device(batch, device).items()}
+        pspec = sharding.sanitize_tree(transformer.param_specs(cfg, sh.rules),
+                                       transformer.abstract_params(cfg), sh.mesh)
+        metrics, grads = value_and_grad(state.params, batch, state.scale,
+                                        1.0 / sh.model)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        for a in sh.data_axes:
+            metrics = {k: coll.pmean(v, sh.mesh, a) for k, v in metrics.items()}
+        grads = _reduce_grads(grads, pspec, sh)
+        if return_grads:
+            metrics["grads"] = tree_map(lambda g: g.detach().clone(), grads)
+        finite, new_scale = None, state.scale
+        if use_scale:
+            grads, finite = unscale_and_check(grads, state.scale)
+            finite = torch.tensor(not procs.agree_any(not bool(finite)),
+                                  device=device)
+            new_scale = adjust(state.scale, finite)
+            metrics["loss_scale"] = new_scale.scale
+            metrics["finite"] = finite.to(torch.float32)
+        gnorm = _global_norm(grads, pspec, sh)
+        scale = torch.clamp(clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
+        for g in tree_leaves(grads):
+            g.copy_((g.float() * scale).to(g.dtype))
+        metrics["grad_norm"] = gnorm
+        if finite is not None and not bool(finite):
+            return TrainState(state.params, state.opt, new_scale), metrics
+        updates, new_opt = opt.update(grads, state.opt, state.params)
+        return TrainState(opt.apply(state.params, updates), new_opt, new_scale), metrics
+
+    def _step(state: TrainState, batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         device = tree_leaves(state.params)[0].device
         batch = _to_device(batch, device)
         if grad_accum > 1:
@@ -197,6 +262,8 @@ def build_train_step(cfg, opt, rules=None, *, use_scale: bool = False,
         else:
             metrics, grads = value_and_grad(state.params, batch, state.scale)
             metrics = {k: v.detach() for k, v in metrics.items()}
+        if return_grads:
+            metrics["grads"] = tree_map(lambda g: g.detach().clone(), grads)
         finite, new_scale = None, state.scale
         if use_scale:
             grads, finite = unscale_and_check(grads, state.scale)
@@ -213,6 +280,83 @@ def build_train_step(cfg, opt, rules=None, *, use_scale: bool = False,
         return TrainState(new_params, new_opt, new_scale), metrics
 
     return step
+
+
+def _on_model(spec) -> bool:
+    return any(sharding.MODEL_AXIS in sharding.axes_of(p) for p in spec)
+
+
+def _reduce_grads(grads, pspec, sh):
+    """Sum the gradients of model-replicated leaves over the model axis,
+    then average every gradient over the data axes, in fp32 buckets (one
+    collective per axis)."""
+    leaves, specs = tree_flatten(grads), sharding.spec_leaves(pspec)
+
+    def bucket(sel, reduce):
+        if not sel:
+            return
+        flat = torch.cat([leaves[i].float().reshape(-1) for i in sel])
+        flat = reduce(flat)
+        off = 0
+        for i in sel:
+            n = leaves[i].numel()
+            leaves[i].copy_(flat[off:off + n].view_as(leaves[i]))
+            off += n
+
+    with torch.no_grad():
+        bucket([i for i, sp in enumerate(specs) if not _on_model(sp)],
+               lambda f: coll.psum(f, sh.mesh, sharding.MODEL_AXIS))
+        for a in sh.data_axes:
+            bucket(list(range(len(leaves))), lambda f: coll.pmean(f, sh.mesh, a))
+    return grads
+
+
+def _global_norm(grads, pspec, sh) -> torch.Tensor:
+    """The norm of the whole (unsharded) gradient tree."""
+    cut = rep = None
+    for g, sp in zip(tree_flatten(grads), sharding.spec_leaves(pspec)):
+        sq = g.float().square().sum()
+        if _on_model(sp):
+            cut = sq if cut is None else cut + sq
+        else:
+            rep = sq if rep is None else rep + sq
+    total = coll.psum(cut, sh.mesh, sharding.MODEL_AXIS) if cut is not None else 0.0
+    return torch.sqrt(total + (rep if rep is not None else 0.0))
+
+
+def state_specs(cfg, rules, mesh, opt, *, use_scale: bool = False) -> TrainState:
+    """The sanitized spec of every leaf of the train state: the moments
+    follow their parameters, the step and the loss scale are replicated."""
+    pspec = sharding.sanitize_tree(transformer.param_specs(cfg, rules),
+                                   transformer.abstract_params(cfg), mesh)
+    scalar = sharding.P()
+    opt_spec = OptState(step=scalar, mu=pspec, nu=pspec)
+    scale_spec = (type(init_scale(device="meta"))(*(scalar,) * 4)
+                  if use_scale else ())
+    return TrainState(params=pspec, opt=opt_spec, scale=scale_spec)
+
+
+def batch_specs(cfg, mesh) -> dict:
+    """A batch's rows over the data axes."""
+    dp = tuple(a for a in sharding.DATA_AXES if a in mesh.shape)
+    dp = dp[0] if len(dp) == 1 else dp
+    if cfg.input_mode == "embeddings":
+        return {"embeddings": sharding.P(dp, None, None),
+                "labels": sharding.P(dp, None)}
+    return {"inputs": sharding.P(dp, None), "labels": sharding.P(dp, None)}
+
+
+def make_sharded_train_step(cfg, mesh, rules, opt, *, use_scale: bool = False,
+                            **kwargs):
+    """``(step, state_specs)``: :func:`build_train_step` bound to ``mesh``
+    (this rank's part of it: the state is its blocks, the batch global)."""
+    inner = build_train_step(cfg, opt, rules, use_scale=use_scale, **kwargs)
+
+    def step(state, batch):
+        with sharding.use_mesh(mesh):
+            return inner(state, batch)
+
+    return step, state_specs(cfg, rules, mesh, opt, use_scale=use_scale)
 
 
 def build_compressed_dp_train_step(cfg, opt, compressor: Compressor, *,

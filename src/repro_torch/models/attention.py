@@ -56,6 +56,8 @@ from repro_torch.core import precision as prec
 from repro_torch.models import layers
 from repro_torch.models.layers import Param
 from repro_torch.optim import scale as oscale
+from repro_torch.runtime import collectives as coll
+from repro_torch.runtime import sharding
 
 __all__ = ["gqa_schema", "mla_schema", "init_gqa_cache", "init_mla_cache",
            "chunked_attention", "gqa_attention", "mla_attention",
@@ -69,14 +71,14 @@ def gqa_schema(cfg) -> Dict[str, Any]:
     d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     s: Dict[str, Any] = {
         # fused qkv: one fat RedMulE GEMM; split after
-        "wqkv": Param((d, (hq + 2 * hkv) * hd)),
-        "wo": Param((hq * hd, d)),
+        "wqkv": Param((d, (hq + 2 * hkv) * hd), ("embed", "heads")),
+        "wo": Param((hq * hd, d), ("heads", "embed")),
     }
     if cfg.use_bias:
-        s["bqkv"] = Param(((hq + 2 * hkv) * hd,), init="zeros")
+        s["bqkv"] = Param(((hq + 2 * hkv) * hd,), ("heads",), init="zeros")
     if cfg.qk_norm:
-        s["q_norm"] = Param((hd,), init="ones")
-        s["k_norm"] = Param((hd,), init="ones")
+        s["q_norm"] = Param((hd,), (None,), init="ones")
+        s["k_norm"] = Param((hd,), (None,), init="ones")
     return s
 
 
@@ -84,13 +86,13 @@ def mla_schema(cfg) -> Dict[str, Any]:
     m = cfg.mla
     d, hq = cfg.d_model, cfg.n_heads
     return {
-        "wq": Param((d, hq * (m.qk_nope_dim + m.qk_rope_dim))),
+        "wq": Param((d, hq * (m.qk_nope_dim + m.qk_rope_dim)), ("embed", "heads")),
         # fused down-projection: compressed kv rank + shared rope key
-        "wdkv": Param((d, m.kv_lora_rank + m.qk_rope_dim)),
-        "kv_norm": Param((m.kv_lora_rank,), init="ones"),
-        "wuk": Param((m.kv_lora_rank, hq * m.qk_nope_dim)),
-        "wuv": Param((m.kv_lora_rank, hq * m.v_head_dim)),
-        "wo": Param((hq * m.v_head_dim, d)),
+        "wdkv": Param((d, m.kv_lora_rank + m.qk_rope_dim), ("embed", "kv_rank")),
+        "kv_norm": Param((m.kv_lora_rank,), (None,), init="ones"),
+        "wuk": Param((m.kv_lora_rank, hq * m.qk_nope_dim), ("kv_rank", "heads")),
+        "wuv": Param((m.kv_lora_rank, hq * m.v_head_dim), ("kv_rank", "heads")),
+        "wo": Param((hq * m.v_head_dim, d), ("heads", "embed")),
     }
 
 
@@ -101,6 +103,13 @@ def _init_scale_leaves(lead, device) -> Dict[str, torch.Tensor]:
     st = oscale.init_fp8_scale(SCALE_HISTORY, lead, device)
     return {"scale": st.scale, "amax_history": st.amax_history,
             "overflow_count": st.overflow_count}
+
+
+def scale_leaf_axes(head_axes: Tuple) -> Dict[str, Tuple]:
+    """The logical axes of one quantized tensor's scale leaves (the
+    reference's ``_scale_leaf_axes``)."""
+    return {"scale": head_axes, "amax_history": (*head_axes, None),
+            "overflow_count": head_axes}
 
 
 def _refresh_scale(sc: Dict[str, torch.Tensor], new_rows: torch.Tensor,
@@ -155,11 +164,17 @@ def init_mla_cache(cfg, batch: int, max_len: int, dtype, storage_dtype=None,
 
 
 def _masked_softmax_block(s: torch.Tensor, rows: torch.Tensor, kv_valid,
-                          causal: bool, window=None) -> torch.Tensor:
+                          causal: bool, window=None, *, start: int = 0,
+                          shard=None) -> torch.Tensor:
     """fp32 softmax of scores ``s (B, Hkv, G, qc, T)`` over the columns
     each query row sees; ``rows`` (qc,) or (B, qc), ``kv_valid`` an int or
-    a scalar or (B,) tensor; ``window`` keeps ``col > row - window``."""
-    cols = torch.arange(s.shape[-1], device=s.device)
+    a scalar or (B,) tensor; ``window`` keeps ``col > row - window``.
+
+    With ``shard`` the columns are this rank's slice ``[start, start +
+    T)`` of a sequence-sharded cache and the softmax runs over every
+    rank's: the row maximum and the rescaled sum are combined over the
+    model axis in fp32."""
+    cols = start + torch.arange(s.shape[-1], device=s.device)
     rows2 = rows if rows.ndim == 2 else rows[None]              # (Bm, qc)
     kv = torch.as_tensor(kv_valid, device=s.device).reshape(-1, 1, 1)
     mask = cols[None, None, :] < kv                              # (Bm, 1, T)
@@ -168,13 +183,29 @@ def _masked_softmax_block(s: torch.Tensor, rows: torch.Tensor, kv_valid,
     if window is not None:
         mask = mask & (cols[None, None, :] > rows2[:, :, None] - window)
     s = torch.where(mask[:, None, None], s, torch.full((), NEG_INF, device=s.device))
-    return torch.softmax(s, dim=-1)
+    if shard is None:
+        return torch.softmax(s, dim=-1)
+    mx = coll.pmax(s.amax(dim=-1, keepdim=True), shard.mesh, sharding.MODEL_AXIS)
+    e = torch.exp(s - mx)
+    return e / coll.psum(e.sum(dim=-1, keepdim=True), shard.mesh, sharding.MODEL_AXIS)
+
+
+def _pv(p: torch.Tensor, v: torch.Tensor, policy: prec.Policy, shard) -> torch.Tensor:
+    """``p @ v`` in the policy's output dtype; on a sequence-sharded cache
+    each rank's partial product comes out in fp32 and is summed over the
+    model axis before the cast."""
+    if shard is None:
+        return engine.matmul(p.to(policy.compute_dtype), v, policy=policy)
+    o = engine.matmul(p.to(policy.compute_dtype), v,
+                      policy=engine.scores_policy(policy))
+    return coll.psum(o, shard.mesh, sharding.MODEL_AXIS).to(policy.out_dtype)
 
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       q_offset, kv_valid, causal: bool = True, window=None,
                       q_chunk: int = 1024, scale: Optional[float] = None,
-                      kv_group_sizes=None, policy: prec.Policy) -> torch.Tensor:
+                      kv_group_sizes=None, policy: prec.Policy, kv_start: int = 0,
+                      shard=None) -> torch.Tensor:
     """q ``(B, Hkv, G, S, hd)``, k ``(B, Hkv, T, hd)``, v ``(B, Hkv, T,
     hdv)`` -> ``(B, Hkv, G, S, hdv)``; ``q_offset`` / ``kv_valid`` are ints
     or ``(B,)`` tensors (per-slot decode).
@@ -182,7 +213,13 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``kv_group_sizes`` (decode, S == 1): per-slot valid KV lengths; the
     score GEMM then bills only those rows (ragged ``grouped_matmul``).
     Static offsets with no window and ``hdv == hd`` run the engine's flash
-    op; anything else the q-chunked path (see the module docstring)."""
+    op; anything else the q-chunked path (see the module docstring).
+
+    ``shard``: k / v are this rank's positions ``[kv_start, kv_start + T)``
+    of a cache sharded over the model axis (the reference's serving
+    layout, ``serve_attention``).  As in the reference, that pins the
+    q-chunked (or ragged) path, never flash; the softmax and PV are
+    combined across ranks."""
     B, Hkv, G, S, hd = q.shape
     if scale is None:
         scale = hd ** -0.5
@@ -192,8 +229,9 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return _ragged_decode_attention(
             q, k, v, q_offset=q_offset, kv_valid=kv_valid, window=window,
             kv_group_sizes=kv_group_sizes, scale=scale,
-            scores_policy=engine.scores_policy(policy), policy=policy)
-    if (window is None and v.shape[-1] == hd
+            scores_policy=engine.scores_policy(policy), policy=policy,
+            start=kv_start, shard=shard)
+    if (shard is None and window is None and v.shape[-1] == hd
             and isinstance(q_offset, int) and isinstance(kv_valid, int)
             and engine.backend_supports(engine.default_backend(), "attention")):
         out = engine.attention(q.reshape(B, Hkv * G, S, hd), k, v,
@@ -202,12 +240,13 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return out.reshape(B, Hkv, G, S, -1)
     return _q_chunked_attention(q, k, v, q_offset=q_offset, kv_valid=kv_valid,
                                 causal=causal, window=window, q_chunk=q_chunk,
-                                scale=scale, policy=policy)
+                                scale=scale, policy=policy, kv_start=kv_start,
+                                shard=shard)
 
 
 def _q_chunked_attention(q, k, v, *, q_offset, kv_valid, causal: bool, window,
-                         q_chunk: int, scale: float,
-                         policy: prec.Policy) -> torch.Tensor:
+                         q_chunk: int, scale: float, policy: prec.Policy,
+                         kv_start: int = 0, shard=None) -> torch.Tensor:
     """The reference's q-chunked path (``attention.py:257-296``): scores
     never materialised beyond one chunk of query rows; ``S > q_chunk``
     pads q to whole chunks and drops the pad rows after."""
@@ -222,8 +261,9 @@ def _q_chunked_attention(q, k, v, *, q_offset, kv_valid, causal: bool, window,
         r = torch.arange(n_rows, device=q.device) + start
         rows = q_offset[:, None] + r[None] if per_slot else q_offset + r
         s = engine.matmul(q_blk, kt, policy=spol) * scale
-        p = _masked_softmax_block(s, rows, kv_valid, causal, window)
-        return engine.matmul(p.to(policy.compute_dtype), vb, policy=policy)
+        p = _masked_softmax_block(s, rows, kv_valid, causal, window,
+                                  start=kv_start, shard=shard)
+        return _pv(p, vb, policy, shard)
 
     if S <= q_chunk:
         return block(q, 0)
@@ -236,37 +276,53 @@ def _q_chunked_attention(q, k, v, *, q_offset, kv_valid, causal: bool, window,
 
 def _ragged_decode_attention(q, k, v, *, q_offset, kv_valid, window,
                              kv_group_sizes, scale: float,
-                             scores_policy: prec.Policy,
-                             policy: prec.Policy) -> torch.Tensor:
+                             scores_policy: prec.Policy, policy: prec.Policy,
+                             start: int = 0, shard=None) -> torch.Tensor:
     """Mixed-length decode batch (the reference's ``attention.py:299``).
 
     Scores run transposed, ``scores^T[g] = K[g] @ q[g]^T``, one group per
     (slot, KV head) with the slot's KV length as group size, so only valid
     rows are billed; rows past a group's size come back zero and are
     masked again by the softmax.  PV is a batched GEMM with M = 1, N = T,
-    K = hd, V broadcast over the G query heads of its KV head."""
+    K = hd, V broadcast over the G query heads of its KV head.  On a
+    sequence-sharded cache (``shard``) a slot's group is its KV length
+    clipped to this rank's slice ``[start, start + T)``, which may be
+    empty."""
     B, Hkv, G, S, hd = q.shape
     T = k.shape[2]
     x = k.reshape(B * Hkv, T, hd)
     w = q[:, :, :, 0, :].transpose(-1, -2).reshape(B * Hkv, hd, G)
-    sizes = np.repeat(np.asarray(kv_group_sizes, np.int32), Hkv)
+    sizes = np.clip(np.asarray(kv_group_sizes, np.int64) - start, 0, T)
+    sizes = np.repeat(sizes.astype(np.int32), Hkv)
     st = engine.grouped_matmul(x, w, group_sizes=sizes, policy=scores_policy)
     s = st.reshape(B, Hkv, T, G).transpose(-1, -2)[:, :, :, None, :] * scale
     rows = q_offset[:, None] if q_offset.ndim == 1 else q_offset + torch.arange(
         1, device=q.device)
-    p = _masked_softmax_block(s, rows, kv_valid, True, window)
-    return engine.matmul(p.to(policy.compute_dtype), v[:, :, None], policy=policy)
+    p = _masked_softmax_block(s, rows, kv_valid, True, window, start=start,
+                              shard=shard)
+    return _pv(p, v[:, :, None], policy, shard)
 
 
-def _write_rows(cache: torch.Tensor, rows: torch.Tensor, pos) -> None:
+def _write_rows(cache: torch.Tensor, rows: torch.Tensor, pos,
+                start: Optional[int] = None) -> None:
     """Write ``rows (B, ..., S, c)`` into ``cache (B, ..., T, c)`` (a GQA
     leaf with its head dim, or an MLA leaf without) in place at position
-    ``pos`` (int) or per-slot positions ``(B,)`` (S == 1)."""
+    ``pos`` (int) or per-slot positions ``(B,)`` (S == 1).  With ``start``
+    the cache holds positions ``[start, start + T)`` of a sequence-sharded
+    one and takes only the rows that fall there."""
+    T, off = cache.shape[-2], start or 0
     if isinstance(pos, int):
-        cache[..., pos:pos + rows.shape[-2], :] = rows.to(cache.dtype)
-    else:
+        lo, hi = max(pos, off), min(pos + rows.shape[-2], off + T)
+        if lo < hi:
+            cache[..., lo - off:hi - off, :] = rows[..., lo - pos:hi - pos, :].to(
+                cache.dtype)
+        return
+    if start is None:
         slots = torch.arange(cache.shape[0], device=cache.device)
-        cache.movedim(-2, 1)[slots, pos] = rows.movedim(-2, 1)[:, 0].to(cache.dtype)
+    else:   # the slots whose position this rank holds (a host sync)
+        slots = torch.nonzero((pos >= off) & (pos < off + T)).flatten()
+    cache.movedim(-2, 1)[slots, pos[slots] - off] = \
+        rows.movedim(-2, 1)[slots, 0].to(cache.dtype)
 
 
 def _update_cache(cache: Dict[str, Any], names, rows, pos, scale_shape,
@@ -296,15 +352,116 @@ def _update_cache(cache: Dict[str, Any], names, rows, pos, scale_shape,
     return out
 
 
+def _qkv_heads(params, qkv: torch.Tensor, cfg, hq: int, hkv: int, pos_offset):
+    """Split ``[q | k | v]`` columns of ``hq`` / ``hkv`` heads into ``(B,
+    H, S, hd)`` tensors, qk-normed and rotated at their positions."""
+    B, S, _ = qkv.shape
+    hd = cfg.head_dim
+    q, kk, vv = torch.split(qkv, [hq * hd, hkv * hd, hkv * hd], dim=-1)
+    q = q.reshape(B, S, hq, hd).transpose(1, 2)          # (B, Hq, S, hd)
+    kk = kk.reshape(B, S, hkv, hd).transpose(1, 2)       # (B, Hkv, S, hd)
+    vv = vv.reshape(B, S, hkv, hd).transpose(1, 2)
+    if cfg.qk_norm:
+        q = layers.rmsnorm(q, params["q_norm"])
+        kk = layers.rmsnorm(kk, params["k_norm"])
+    steps = torch.arange(S, device=qkv.device)
+    per_slot = isinstance(pos_offset, torch.Tensor)
+    positions = pos_offset[:, None] + steps[None] if per_slot else pos_offset + steps
+    cos, sin = layers.rope(positions, hd, cfg.rope_theta)
+    return layers.apply_rope(q, cos, sin), layers.apply_rope(kk, cos, sin), vv
+
+
+def _row_parallel_out(o: torch.Tensor, wo: torch.Tensor, policy, shard,
+                      n_rows: int) -> torch.Tensor:
+    """``o @ wo`` where ``wo``'s ``("heads", "embed")`` rows (``n_rows``
+    of them) may be cut over the model axis: then this rank's rows take
+    its block of ``o``'s columns (all of them when ``o`` holds only this
+    rank's heads) and the partial products are summed."""
+    n = wo.shape[0]
+    if n == n_rows:
+        return engine.matmul(o, wo, policy=policy)
+    if o.shape[-1] != n:
+        o = o[..., shard.model_index * n:(shard.model_index + 1) * n]
+    return coll.psum(engine.matmul(o, wo, policy=policy), shard.mesh,
+                     sharding.MODEL_AXIS)
+
+
+def _gqa_head_parallel(params, x, cfg, *, pos_offset, window, policy, q_chunk,
+                       shard) -> torch.Tensor:
+    """Training / cache-free forward with "heads" over the model axis.
+
+    ``wqkv``'s fused ``[q | k | v]`` columns are cut contiguously by its
+    ``("embed", "heads")`` spec (qwen3-1.7b on two ranks: rank 0 holds all
+    of q, rank 1 all of k and v).  Kernel 1 runs on the rank's block, one
+    all-to-all gives each rank its own heads of q, k and v, and qk-norm,
+    RoPE and flash (kernel 3) run on those; ``wo`` is row-parallel."""
+    hq, hkv, hd, m = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, shard.model
+    if hq % m or hkv % m:
+        sharding.refuse(f"head-parallel attention with {hq} query / {hkv} KV "
+                        f"heads on a {m}-way model axis")
+    B, S, _ = x.shape
+    n = (hq + 2 * hkv) * hd
+    qkv = engine.matmul(x, params["wqkv"], policy=policy)
+    if "bqkv" in params:
+        qkv = qkv + params["bqkv"].to(qkv.dtype)
+    own = coll.segment_blocks((hq * hd, hkv * hd, hkv * hd), m)
+    if qkv.shape[-1] == n:       # a replicated wqkv: take the own heads
+        qkv = torch.cat([qkv[..., a:b] for a, b in own[shard.model_index]], dim=-1)
+    else:
+        qkv = coll.redistribute_last(qkv, shard.mesh, sharding.MODEL_AXIS,
+                                     coll.blocks(n, m), own)
+    hq_l, hkv_l = hq // m, hkv // m
+    q, kk, vv = _qkv_heads(params, qkv, cfg, hq_l, hkv_l, pos_offset)
+    o = chunked_attention(q.reshape(B, hkv_l, hq // hkv, S, hd), kk, vv,
+                          q_offset=pos_offset, kv_valid=S, causal=True,
+                          window=window, q_chunk=q_chunk, policy=policy)
+    o = o.reshape(B, hq_l, S, hd).transpose(1, 2).reshape(B, S, hq_l * hd)
+    return _row_parallel_out(o, params["wo"], policy, shard, hq * hd)
+
+
+def _gqa_seq_sharded(params, x, cfg, *, pos_offset, cache, window, policy,
+                     q_chunk, kv_group_sizes, shard) -> torch.Tensor:
+    """Prefill / decode on the serving layout (``serve_rules``): the KV
+    cache ``(B, Hkv, T / model, hd)`` holds this rank's positions of every
+    KV head.  The column-cut qkv is gathered whole, the new rows are
+    written by the rank that owns their positions, scores and PV run on
+    the local slice and the softmax is combined across ranks
+    (:func:`chunked_attention`); ``wo`` is row-parallel."""
+    if "k_scale" in cache:
+        sharding.refuse("the FP8 KV cache")
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    B, S, _ = x.shape
+    qkv = engine.matmul(x, params["wqkv"], policy=policy)
+    if "bqkv" in params:
+        qkv = qkv + params["bqkv"].to(qkv.dtype)
+    if qkv.shape[-1] != (hq + 2 * hkv) * hd:
+        qkv = coll.all_gather(qkv, shard.mesh, sharding.MODEL_AXIS, -1)
+    q, kk, vv = _qkv_heads(params, qkv, cfg, hq, hkv, pos_offset)
+    start = shard.model_index * cache["k"].shape[2]
+    _write_rows(cache["k"], kk, pos_offset, start)
+    _write_rows(cache["v"], vv, pos_offset, start)
+    o = chunked_attention(q.reshape(B, hkv, hq // hkv, S, hd), cache["k"],
+                          cache["v"], q_offset=pos_offset, kv_valid=pos_offset + S,
+                          causal=True, window=window, q_chunk=q_chunk,
+                          policy=policy, kv_group_sizes=kv_group_sizes,
+                          kv_start=start, shard=shard)
+    o = o.reshape(B, hq, S, hd).transpose(1, 2).reshape(B, S, hq * hd)
+    return _row_parallel_out(o, params["wo"], policy, shard, hq * hd)
+
+
 def gqa_attention(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg, *,
                   pos_offset, cache: Optional[Dict[str, torch.Tensor]] = None,
                   window=None, policy: prec.Policy, q_chunk: int = 1024,
-                  kv_group_sizes=None
+                  kv_group_sizes=None, shard=None
                   ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """x ``(B, S, d)`` -> ``(B, S, d)``; ``pos_offset`` is an int or, for
     a decode step, a ``(B,)`` tensor of per-slot positions.  With a cache
     the new k / v rows are written into it in place (and it is returned);
-    an FP8 cache is requantized in place (:func:`_update_cache`)."""
+    an FP8 cache is requantized in place (:func:`_update_cache`).
+    ``shard`` (``runtime.sharding.ShardCtx``) runs the rank's part of a
+    sharded forward: heads over the model axis without a cache
+    (:func:`_gqa_head_parallel`), the sequence-sharded serving cache with
+    one (:func:`_gqa_seq_sharded`)."""
     B, S, _ = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     g = hq // hkv
@@ -312,23 +469,23 @@ def gqa_attention(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg, *,
     if per_slot and S != 1:
         raise ValueError("per-slot pos_offset is a decode-only (S == 1) path")
 
+    if shard is not None and shard.model > 1:
+        if cache is None:
+            return _gqa_head_parallel(params, x, cfg, pos_offset=pos_offset,
+                                      window=window, policy=policy,
+                                      q_chunk=q_chunk, shard=shard), None
+        if not shard.rules.serve_attention:
+            sharding.refuse("a decode cache under training rules (serving "
+                            "shards it over kv_seq: launch.serve.serve_rules)")
+        return _gqa_seq_sharded(params, x, cfg, pos_offset=pos_offset,
+                                cache=cache, window=window, policy=policy,
+                                q_chunk=q_chunk, kv_group_sizes=kv_group_sizes,
+                                shard=shard), cache
+
     qkv = engine.matmul(x, params["wqkv"], policy=policy)
     if "bqkv" in params:
         qkv = qkv + params["bqkv"].to(qkv.dtype)
-    q, kk, vv = torch.split(qkv, [hq * hd, hkv * hd, hkv * hd], dim=-1)
-    q = q.reshape(B, S, hq, hd).transpose(1, 2)          # (B, Hq, S, hd)
-    kk = kk.reshape(B, S, hkv, hd).transpose(1, 2)       # (B, Hkv, S, hd)
-    vv = vv.reshape(B, S, hkv, hd).transpose(1, 2)
-
-    if cfg.qk_norm:
-        q = layers.rmsnorm(q, params["q_norm"])
-        kk = layers.rmsnorm(kk, params["k_norm"])
-
-    steps = torch.arange(S, device=x.device)
-    positions = pos_offset[:, None] + steps[None] if per_slot else pos_offset + steps
-    cos, sin = layers.rope(positions, hd, cfg.rope_theta)
-    q = layers.apply_rope(q, cos, sin)
-    kk = layers.apply_rope(kk, cos, sin)
+    q, kk, vv = _qkv_heads(params, qkv, cfg, hq, hkv, pos_offset)
 
     if cache is not None:
         k_all, v_all = _update_cache(cache, ("k", "v"), (kk, vv), pos_offset,

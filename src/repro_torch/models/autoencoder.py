@@ -31,11 +31,12 @@ def ae_schema() -> Dict[str, Any]:
     s: Dict[str, Any] = {}
     n = len(AE_DIMS) - 1
     for i in range(n):
-        s[f"fc{i}"] = {"w": Param((AE_DIMS[i], AE_DIMS[i + 1]), init="he"),
-                       "b": Param((AE_DIMS[i + 1],), init="zeros")}
+        s[f"fc{i}"] = {"w": Param((AE_DIMS[i], AE_DIMS[i + 1]),
+                                   ("ae_hidden", "ae_hidden"), init="he"),
+                       "b": Param((AE_DIMS[i + 1],), ("ae_hidden",), init="zeros")}
         if i != n - 1:
-            s[f"fc{i}"]["gamma"] = Param((AE_DIMS[i + 1],), init="ones")
-            s[f"fc{i}"]["beta"] = Param((AE_DIMS[i + 1],), init="zeros")
+            s[f"fc{i}"]["gamma"] = Param((AE_DIMS[i + 1],), ("ae_hidden",), init="ones")
+            s[f"fc{i}"]["beta"] = Param((AE_DIMS[i + 1],), ("ae_hidden",), init="zeros")
     return s
 
 

@@ -23,23 +23,37 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import engine
+from repro_torch.runtime import collectives as coll
+from repro_torch.runtime import sharding
 
-__all__ = ["Param", "init_tree", "stack_schema", "rmsnorm", "layernorm",
+__all__ = ["Param", "init_tree", "spec_tree", "abstract_tree", "stack_schema", "rmsnorm", "layernorm",
            "rope", "apply_rope", "activation", "mlp_glu", "mlp_plain",
            "cross_entropy"]
 
 
 @dataclasses.dataclass(frozen=True)
 class Param:
-    """One parameter: shape, initializer (proj | he | embed | zeros |
-    ones) and whether it is a routed expert's weight (the reference's
-    ``"experts"`` logical axis: ``count_params(active_only=True)`` counts
-    only ``top_k`` of ``n_routed`` of it)."""
+    """One parameter: shape, logical sharding axes (one name or None per
+    dim; ``runtime/sharding.py`` maps them onto a mesh), initializer
+    (proj | he | embed | zeros | ones) and the dim its fan-in is read
+    from.  Axes left out are all None.  A leaf with the ``"experts"`` axis
+    is a routed expert's weight: ``count_params(active_only=True)`` counts
+    only ``top_k`` of ``n_routed`` of it."""
 
     shape: Tuple[int, ...]
+    axes: Optional[Tuple[Optional[str], ...]] = None
     init: str = "proj"
     fan_in_dim: int = -2
-    experts: bool = False
+
+    def __post_init__(self):
+        if self.axes is None:
+            object.__setattr__(self, "axes", (None,) * len(self.shape))
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} vs axes {self.axes}")
+
+    @property
+    def experts(self) -> bool:
+        return "experts" in self.axes
 
 
 # a stacked leaf (>= 3 dims) above this many elements is drawn one slice of
@@ -60,13 +74,17 @@ def _path_seed(seed: int, path: Tuple[str, ...]) -> int:
 
 
 def init_tree(schema: Dict[str, Any], *, seed: int, device: torch.device,
-              dtype: torch.dtype) -> Dict[str, Any]:
+              dtype: torch.dtype, place=None) -> Dict[str, Any]:
     """Materialise a schema on ``device``: normal * fan_in^-0.5 for
     projections, normal * (2 / fan_in)^0.5 for He init, normal * 0.02 for
     embeddings, drawn in fp32 and cast to ``dtype``.  A stacked leaf above
     :data:`SLICE_DRAW_ELEMS` is drawn slice by slice along its leading dim,
-    slice ``i`` from the seed of its path extended by ``i``."""
+    slice ``i`` from the seed of its path extended by ``i``.  ``place(path,
+    leaf)`` (a sharded init) maps each whole leaf, as soon as it is drawn,
+    to what is kept of it, so no more than one whole leaf lives beside the
+    kept ones."""
     gen = torch.Generator(device=device)
+    keep = place or (lambda path, x: x)
 
     def draw(shape, path, scale):
         gen.manual_seed(_path_seed(seed, path))
@@ -74,34 +92,61 @@ def init_tree(schema: Dict[str, Any], *, seed: int, device: torch.device,
 
     def go(node, path):
         if isinstance(node, Param):
-            if node.init == "zeros":
-                return torch.zeros(node.shape, dtype=dtype, device=device)
-            if node.init == "ones":
-                return torch.ones(node.shape, dtype=dtype, device=device)
-            if node.init == "embed":
-                scale = 0.02
-            else:
-                fan_in = node.shape[node.fan_in_dim] if node.shape else 1
-                scale = (2.0 / fan_in) ** 0.5 if node.init == "he" else fan_in ** -0.5
-            if len(node.shape) < 3 or math.prod(node.shape) <= SLICE_DRAW_ELEMS:
-                return draw(node.shape, path, scale)
-            out = torch.empty(node.shape, dtype=dtype, device=device)
-            for i in range(node.shape[0]):
-                out[i] = draw(node.shape[1:], path + (str(i),), scale)
-            return out
+            return keep(path, leaf(node, path))
         return {k: go(v, path + (k,)) for k, v in node.items()}
+
+    def leaf(node, path):
+        if node.init == "zeros":
+            return torch.zeros(node.shape, dtype=dtype, device=device)
+        if node.init == "ones":
+            return torch.ones(node.shape, dtype=dtype, device=device)
+        if node.init == "embed":
+            scale = 0.02
+        else:
+            fan_in = node.shape[node.fan_in_dim] if node.shape else 1
+            scale = (2.0 / fan_in) ** 0.5 if node.init == "he" else fan_in ** -0.5
+        if len(node.shape) < 3 or math.prod(node.shape) <= SLICE_DRAW_ELEMS:
+            return draw(node.shape, path, scale)
+        out = torch.empty(node.shape, dtype=dtype, device=device)
+        for i in range(node.shape[0]):
+            out[i] = draw(node.shape[1:], path + (str(i),), scale)
+        return out
 
     return go(schema, ())
 
 
-def stack_schema(schema: Dict[str, Any], n: int) -> Dict[str, Any]:
+def spec_tree(schema: Dict[str, Any], rules):
+    """The schema's tree of logical specs under ``rules`` (``P()`` for
+    every leaf without rules)."""
+
+    def go(node):
+        if isinstance(node, Param):
+            return sharding.logical_spec(node.axes, rules) if rules else sharding.P()
+        return {k: go(v) for k, v in node.items()}
+
+    return go(schema)
+
+
+def abstract_tree(schema: Dict[str, Any], dtype=torch.float32):
+    """The schema as meta tensors (shape and dtype, no storage)."""
+
+    def go(node):
+        if isinstance(node, Param):
+            return torch.empty(node.shape, dtype=dtype, device="meta")
+        return {k: go(v) for k, v in node.items()}
+
+    return go(schema)
+
+
+def stack_schema(schema: Dict[str, Any], n: int, axis_name: str = "layers"
+                 ) -> Dict[str, Any]:
     """Prepend a stacked-layers dimension to every Param."""
 
     def go(node):
         if isinstance(node, Param):
             fd = node.fan_in_dim if node.fan_in_dim < 0 else node.fan_in_dim + 1
-            return Param(shape=(n, *node.shape), init=node.init, fan_in_dim=fd,
-                         experts=node.experts)
+            return Param(shape=(n, *node.shape), axes=(axis_name, *node.axes),
+                         init=node.init, fan_in_dim=fd)
         return {k: go(v) for k, v in node.items()}
 
     return go(schema)
@@ -159,24 +204,45 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     return out.to(x.dtype)
 
 
+def _tp(shard, n: int) -> bool:
+    """Whether a dim of ``n`` is cut over the model axis of ``shard``."""
+    return shard is not None and shard.model > 1 and n % shard.model == 0
+
+
 def mlp_glu(params: Dict[str, torch.Tensor], x: torch.Tensor, *, act: str,
-            policy) -> torch.Tensor:
+            policy, shard=None, ff: Optional[int] = None) -> torch.Tensor:
     """Gated MLP ``(act(x @ w_gate) * (x @ w_up)) @ w_down``; ``w_in``
-    holds gate and up side by side as one ``(d, 2 * ff)`` GEMM."""
+    holds gate and up side by side as one ``(d, 2 * ff)`` GEMM.
+
+    On a mesh (``shard``, with the global width ``ff``) ``w_in``'s fused
+    columns are cut contiguously, as the reference's ``("embed", "ff")``
+    spec cuts them: with two ranks rank 0 holds every gate column and rank
+    1 every up column.  One all-to-all gives each rank the gate and up
+    columns of its own ff block, the block of ``w_out``'s ``("ff",
+    "embed")`` rows it holds; the partial products are summed after."""
     h = engine.matmul(x, params["w_in"], policy=policy)
+    if shard is not None and shard.model > 1:
+        if _tp(shard, ff):
+            h = coll.redistribute_last(
+                h, shard.mesh, sharding.MODEL_AXIS, coll.blocks(2 * ff, shard.model),
+                coll.segment_blocks((ff, ff), shard.model))
+        elif _tp(shard, 2 * ff):
+            h = coll.all_gather(h, shard.mesh, sharding.MODEL_AXIS, -1)
     gate, up = h.chunk(2, dim=-1)
-    return engine.matmul(activation(gate, act) * up, params["w_out"],
-                         policy=policy)
+    y = engine.matmul(activation(gate, act) * up, params["w_out"], policy=policy)
+    return coll.psum(y, shard.mesh, sharding.MODEL_AXIS) if _tp(shard, ff) else y
 
 
 def mlp_plain(params: Dict[str, torch.Tensor], x: torch.Tensor, *, act: str,
-              policy) -> torch.Tensor:
+              policy, shard=None, ff: Optional[int] = None) -> torch.Tensor:
     """Plain MLP ``act(x @ w_in) @ w_out`` as the reference's attention
     block writes it (``transformer.py:202-207``): the activation rides in
     the ``linear`` dispatch (kernel 1's fused epilogue; under autograd its
-    derivative is fused into the backward launches)."""
+    derivative is fused into the backward launches).  On a mesh the ff
+    columns and rows are cut alike and the partial products summed."""
     h = engine.linear(x, params["w_in"], activation=act, policy=policy)
-    return engine.matmul(h, params["w_out"], policy=policy)
+    y = engine.matmul(h, params["w_out"], policy=policy)
+    return coll.psum(y, shard.mesh, sharding.MODEL_AXIS) if _tp(shard, ff) else y
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, z_loss: float = 0.0

@@ -19,13 +19,27 @@ scatter) is plain PyTorch, as it is plain ``jnp`` in the reference.
 
 ``jax.lax.top_k`` puts the lower expert index first among equal
 probabilities and ``torch.topk`` promises no order on ties, so top-k is a
-stable descending sort cut at k.  The reference's ``moe_forward_shard_map``
-(manual expert parallelism) needs the sharding runtime and is not ported
-(ROADMAP.md).
+stable descending sort cut at k.
+
+Expert parallelism ("experts" over the model axis of a mesh, ``shard``)
+takes one of the reference's two routes, by ``cfg.moe_impl``:
+
+* ``"gspmd"`` (:func:`moe_forward`): every rank routes all of its tokens,
+  runs the grouped GEMMs on its ``E / model`` experts' slots, and the
+  combine's partial sums are summed over the model axis;
+* ``"shard_map"`` (:func:`moe_forward_shard_map`): the token rows are
+  sliced across model peers first, two all-to-alls carry the dispatched
+  slots to their experts' rank and back, and an all-gather restores the
+  rows.  Where ``n_routed`` or the local batch does not divide by the
+  model axis, it falls back to :func:`moe_forward`, as the reference does.
+
+:data:`ROUTES` counts the routes taken (``"gspmd"``, ``"shard_map"``,
+``"shard_map_fallback"``), so a run can report which one ran.
 """
 
 from __future__ import annotations
 
+import collections
 import math
 from typing import Any, Dict, Tuple
 
@@ -36,10 +50,14 @@ from repro_torch.core import engine
 from repro_torch.core import precision as prec
 from repro_torch.models import layers
 from repro_torch.models.layers import Param
+from repro_torch.runtime import collectives as coll
+from repro_torch.runtime import sharding
 
-__all__ = ["moe_schema", "moe_forward", "top_k", "capacity", "METRICS"]
+__all__ = ["moe_schema", "moe_forward", "moe_forward_shard_map", "top_k",
+           "capacity", "METRICS", "ROUTES"]
 
 METRICS = ("moe_aux_loss", "moe_z_loss", "moe_drop_frac")
+ROUTES: collections.Counter = collections.Counter()
 
 
 def _router_policy(policy: prec.Policy) -> prec.Policy:
@@ -61,13 +79,14 @@ def moe_schema(cfg) -> Dict[str, Any]:
     mo = cfg.moe
     d, E, f = cfg.d_model, mo.n_routed, mo.d_expert
     s: Dict[str, Any] = {
-        "router": Param((d, E)),
-        "w_in": Param((E, d, 2 * f), experts=True),
-        "w_out": Param((E, f, d), experts=True),
+        "router": Param((d, E), ("embed", None)),
+        "w_in": Param((E, d, 2 * f), ("experts", "embed_unsharded", "expert_ff")),
+        "w_out": Param((E, f, d), ("experts", "expert_ff", "embed_unsharded")),
     }
     if mo.n_shared:
         fs = mo.n_shared * f
-        s["shared"] = {"w_in": Param((d, 2 * fs)), "w_out": Param((fs, d))}
+        s["shared"] = {"w_in": Param((d, 2 * fs), ("embed", "ff")),
+                       "w_out": Param((fs, d), ("ff", "embed"))}
     return s
 
 
@@ -112,47 +131,164 @@ def _dispatch(x: torch.Tensor, ids: torch.Tensor, *, E: int, k: int, C: int,
     return buf[:, :E * C].reshape(B, E, C, d), dest
 
 
+def _route(params, x: torch.Tensor, mo, policy: prec.Policy):
+    """Router logits (fp32), probabilities, and the top-k gates and ids."""
+    logits = engine.matmul(x, params["router"], policy=_router_policy(policy))
+    probs = torch.softmax(logits, dim=-1)
+    gate, ids = top_k(probs, mo.top_k)                            # (B, S, k)
+    if mo.norm_topk_prob:
+        gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+    return logits, probs, gate, ids
+
+
+def _experts(params, bufs: torch.Tensor, cfg, policy: prec.Policy) -> torch.Tensor:
+    """The two grouped GEMMs (kernel 2) over ``(..., E, C, d)`` slots."""
+    h = engine.grouped_matmul(bufs, params["w_in"], policy=policy)
+    g_, u_ = h.chunk(2, dim=-1)
+    h = layers.activation(g_, cfg.act) * u_
+    return engine.grouped_matmul(h, params["w_out"], policy=policy)
+
+
+def _combine(out: torch.Tensor, dest: torch.Tensor, gate: torch.Tensor,
+             first_row: int, policy: prec.Policy) -> torch.Tensor:
+    """The gate-weighted sum over each token's k slots, in fp32: one
+    permutation gather from ``out (B, rows, d)`` (buffer rows ``first_row
+    ..``; a slot whose row lies elsewhere, or was dropped, reads zero) and
+    the k-slot contraction (an ``einsum2d``, kernel 2)."""
+    B, rows, d = out.shape
+    S, k = gate.shape[1], gate.shape[2]
+    local = dest - first_row
+    local = torch.where((local >= 0) & (local < rows), local, rows)
+    flat = torch.cat([out, out.new_zeros((B, 1, d))], dim=1)
+    slot = torch.gather(flat, 1, local[..., None].expand(-1, -1, d))  # (B, S k, d)
+    w_slot = (gate.reshape(B, S * k) * (local < rows)).to(torch.float32)
+    return engine.einsum2d("bskd,bsk->bsd", slot.reshape(B, S, k, d),
+                           w_slot.reshape(B, S, k), policy=_combine_policy(policy))
+
+
+def _expert_block(params, cfg, shard) -> Tuple[int, int]:
+    """``(first expert, experts held)`` of this rank."""
+    E = cfg.moe.n_routed
+    n = params["w_in"].shape[0]
+    start = shard.block(E, n) if shard is not None else None
+    return (0, E) if start is None else (start, n)
+
+
 def moe_forward(params: Dict[str, Any], x: torch.Tensor, cfg, *,
-                policy: prec.Policy
+                policy: prec.Policy, shard=None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x ``(B, S, d)`` -> ``(y (B, S, d), metrics)``: the routed experts'
     gate-weighted sum plus the shared experts, and the Switch load-balance
     loss, the router z-loss and the fraction of slots dropped past
-    capacity."""
+    capacity.  On a mesh (``shard``) every rank routes all of ``x``, runs
+    its own experts and the combine's partial sums are summed over the
+    model axis (the reference's GSPMD route)."""
     mo = cfg.moe
     B, S, d = x.shape
     E, k = mo.n_routed, mo.top_k
+    if shard is not None:
+        ROUTES["gspmd"] += 1
 
     # ---- router (fp32 logits), softmax, top-k ----
-    logits = engine.matmul(x, params["router"], policy=_router_policy(policy))
-    probs = torch.softmax(logits, dim=-1)
-    gate, ids = top_k(probs, k)                                   # (B, S, k)
-    if mo.norm_topk_prob:
-        gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+    logits, probs, gate, ids = _route(params, x, mo, policy)
 
     # ---- load-balance aux (Switch-style) + router z-loss ----
     counts = torch.bincount(ids.reshape(-1), minlength=E).to(torch.float32)
-    aux_loss = E * torch.sum(counts / (B * S * k) * probs.mean(dim=(0, 1)))
+    mean_prob = probs.mean(dim=(0, 1))
     z_loss = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
+    n_slots = B * S * k
+    for a in (shard.data_axes if shard is not None else ()):
+        # a batch cut over data: the statistics of the global batch
+        counts = coll.psum(counts, shard.mesh, a)
+        mean_prob = coll.pmean(mean_prob, shard.mesh, a)
+        z_loss = coll.pmean(z_loss, shard.mesh, a)
+        n_slots *= shard.mesh.shape[a]
+    aux_loss = E * torch.sum(counts / n_slots * mean_prob)
 
     # ---- sort-based dispatch with capacity, all experts as one GEMM ----
     C = capacity(S, k, E, mo.capacity_factor)
     bufs, dest = _dispatch(x, ids, E=E, k=k, C=C, dtype=policy.compute_dtype)
-    h = engine.grouped_matmul(bufs, params["w_in"], policy=policy)  # (B, E, C, 2f)
-    g_, u_ = h.chunk(2, dim=-1)
-    h = layers.activation(g_, cfg.act) * u_
-    out = engine.grouped_matmul(h, params["w_out"], policy=policy)  # (B, E, C, d)
+    e0, n_e = _expert_block(params, cfg, shard)
+    if n_e != E:
+        bufs = bufs[:, e0:e0 + n_e]
+    out = _experts(params, bufs, cfg, policy)                 # (B, E_l, C, d)
 
     # ---- combine: one permutation gather + the k-slot contraction ----
-    flat = torch.cat([out.reshape(B, E * C, d), out.new_zeros((B, 1, d))], dim=1)
-    slot = torch.gather(flat, 1, dest[..., None].expand(-1, -1, d))  # (B, S k, d)
-    w_slot = (gate.reshape(B, S * k) * (dest < E * C)).to(torch.float32)
-    y = engine.einsum2d("bskd,bsk->bsd", slot.reshape(B, S, k, d),
-                        w_slot.reshape(B, S, k),
-                        policy=_combine_policy(policy)).to(x.dtype)
+    y = _combine(out.reshape(B, n_e * C, d), dest, gate, e0 * C, policy)
+    if n_e != E:
+        y = coll.psum(y, shard.mesh, sharding.MODEL_AXIS)
+    y = y.to(x.dtype)
 
     if "shared" in params:
-        y = y + layers.mlp_glu(params["shared"], x, act=cfg.act, policy=policy)
-    metrics = {"moe_aux_loss": aux_loss, "moe_z_loss": z_loss,
-               "moe_drop_frac": (dest >= E * C).to(torch.float32).mean()}
-    return y, metrics
+        y = y + _shared(params, x, cfg, policy, shard)
+    drop = (dest >= E * C).to(torch.float32).mean()
+    for a in (shard.data_axes if shard is not None else ()):
+        drop = coll.pmean(drop, shard.mesh, a)
+    return y, {"moe_aux_loss": aux_loss, "moe_z_loss": z_loss,
+               "moe_drop_frac": drop}
+
+
+def _shared(params, x, cfg, policy, shard):
+    mo = cfg.moe
+    return layers.mlp_glu(params["shared"], x, act=cfg.act, policy=policy,
+                          shard=shard, ff=mo.n_shared * mo.d_expert)
+
+
+def moe_forward_shard_map(params: Dict[str, Any], x: torch.Tensor, cfg, *,
+                          policy: prec.Policy, shard=None
+                          ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Expert parallelism with explicit all-to-alls (the reference's
+    ``moe_forward_shard_map``, ``moe.py:184-314``).
+
+    ``x (B, S, d)`` is this rank's batch (cut over the data axes,
+    replicated over model).  Each model peer takes its ``B / model`` rows,
+    routes and dispatches them; the ``(rows, E, C, d)`` slots go to the
+    rank of their experts in one all-to-all, the grouped GEMMs run there
+    on every peer's slots, a second all-to-all brings the results back,
+    the combine runs on the rank's rows and an all-gather restores every
+    row.  Each all-to-all's backward is one of the same shape.  The aux
+    loss reduces its counts and mean probabilities over every axis, z and
+    drop are means over the model axis.  Outside a mesh, or where
+    ``n_routed`` or ``B`` does not divide by the model axis, this is
+    :func:`moe_forward`."""
+    mo = cfg.moe
+    B, S, d = x.shape
+    E, k = mo.n_routed, mo.top_k
+    if shard is None or shard.model == 1 or E % shard.model or B % shard.model:
+        if shard is not None:
+            ROUTES["shard_map_fallback"] += 1
+        return moe_forward(params, x, cfg, policy=policy, shard=shard)
+    ROUTES["shard_map"] += 1
+    ep, mi, mesh, ax = shard.model, shard.model_index, shard.mesh, sharding.MODEL_AXIS
+    El, Bl = E // ep, B // ep
+    # slice the rows across model peers first: no two peers dispatch or
+    # compute the same token
+    x_l = x[mi * Bl:(mi + 1) * Bl]
+    logits, probs, gate, ids = _route(params, x_l, mo, policy)
+    C = capacity(S, k, E, mo.capacity_factor)
+    bufs, dest = _dispatch(x_l, ids, E=E, k=k, C=C, dtype=policy.compute_dtype)
+    # (Bl, E, C, d) -> peer-major -> the expert owners; slice s of the
+    # result came from peer s
+    t = coll.all_to_all(bufs.reshape(Bl, ep, El, C, d).movedim(1, 0), mesh, ax)
+    t = t.movedim(2, 0).reshape(El, ep * Bl * C, d)            # (El, ep Bl C, d)
+    out = _experts(params, t, cfg, policy)
+    out = out.reshape(El, ep, Bl, C, d).movedim(0, 2)          # (ep, Bl, El, C, d)
+    out = coll.all_to_all(out.contiguous(), mesh, ax)          # expert-major again
+    out = out.movedim(0, 1).reshape(Bl, E * C, d)
+    y = _combine(out, dest, gate, 0, policy).to(x.dtype)
+    y = coll.all_gather(y, mesh, ax, 0)                        # (B, S, d)
+
+    # every rank routed its own tokens: the stats reduce over every axis
+    counts = torch.bincount(ids.reshape(-1), minlength=E).to(torch.float32)
+    n_slots = torch.tensor(float(S * k * Bl), device=x.device)
+    mean_prob = probs.mean(dim=(0, 1))
+    for a in (*shard.data_axes, ax):
+        counts = coll.psum(counts, mesh, a)
+        n_slots = coll.psum(n_slots, mesh, a)
+        mean_prob = coll.pmean(mean_prob, mesh, a)
+    aux = E * torch.sum(counts / n_slots * mean_prob)
+    z = coll.pmean(torch.mean(torch.logsumexp(logits, dim=-1) ** 2), mesh, ax)
+    drop = coll.pmean((dest >= E * C).to(torch.float32).mean(), mesh, ax)
+    if "shared" in params:
+        y = y + _shared(params, x, cfg, policy, shard)
+    return y, {"moe_aux_loss": aux, "moe_z_loss": z, "moe_drop_frac": drop}

@@ -76,13 +76,13 @@ def mlstm_schema(cfg) -> Dict[str, Any]:
     H = cfg.n_heads
     hd = di // H
     return {
-        "w_up": Param((d, 2 * di)),
+        "w_up": Param((d, 2 * di), ("embed", "ff")),
         # block-diagonal per-head q/k/v: H independent hd -> 3hd projections
-        "w_qkv": Param((H, hd, 3 * hd)),
-        "w_if": Param((di, 2 * H)),
-        "b_if": Param((2 * H,), init="zeros"),
-        "norm": Param((di,), init="ones"),
-        "w_down": Param((di, d)),
+        "w_qkv": Param((H, hd, 3 * hd), (None, None, None)),
+        "w_if": Param((di, 2 * H), (None, None)),
+        "b_if": Param((2 * H,), (None,), init="zeros"),
+        "norm": Param((di,), (None,), init="ones"),
+        "w_down": Param((di, d), ("ff", "embed")),
     }
 
 
@@ -135,13 +135,13 @@ def slstm_schema(cfg) -> Dict[str, Any]:
     hd = d // H
     ff = cfg.ssm.slstm_ffn_dim(d)
     return {
-        "w_gates": Param((d, 4 * d)),
-        "r_gates": Param((H, hd, 4 * hd)),
-        "b_gates": Param((4 * d,), init="zeros"),
-        "norm": Param((d,), init="ones"),
+        "w_gates": Param((d, 4 * d), ("embed", "ff")),
+        "r_gates": Param((H, hd, 4 * hd), (None, None, None)),
+        "b_gates": Param((4 * d,), (None,), init="zeros"),
+        "norm": Param((d,), (None,), init="ones"),
         "ffn": {
-            "w_in": Param((d, 2 * ff)),
-            "w_out": Param((ff, d)),
+            "w_in": Param((d, 2 * ff), ("embed", "ff")),
+            "w_out": Param((ff, d), ("ff", "embed")),
         },
     }
 
@@ -193,13 +193,13 @@ def mamba_schema(cfg) -> Dict[str, Any]:
     di = cfg.ssm.mamba_expand * d
     H, N = cfg.n_heads, cfg.ssm.state_dim
     return {
-        "w_xz": Param((d, 2 * di)),
-        "w_bcdt": Param((d, 2 * N + H)),
-        "a_log": Param((H,), init="zeros"),
-        "skip_d": Param((H,), init="ones"),
-        "dt_bias": Param((H,), init="zeros"),
-        "norm": Param((di,), init="ones"),
-        "w_out": Param((di, d)),
+        "w_xz": Param((d, 2 * di), ("embed", "ff")),
+        "w_bcdt": Param((d, 2 * N + H), ("embed", None)),
+        "a_log": Param((H,), (None,), init="zeros"),
+        "skip_d": Param((H,), (None,), init="ones"),
+        "dt_bias": Param((H,), (None,), init="zeros"),
+        "norm": Param((di,), (None,), init="ones"),
+        "w_out": Param((di, d), ("ff", "embed")),
     }
 
 

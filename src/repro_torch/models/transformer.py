@@ -28,8 +28,19 @@ states (xLSTM's mLSTM / sLSTM, hymba's SSD) by ``copy_`` into the stacked
 tensors.  A fresh prefill (``pos`` 0) hands the sweeps no state, so they
 run the sweep kernel from zero (the reference hands them the zero state
 of its cache and runs the composition: the same values up to fp32
-rounding).  ``moe_impl="shard_map"`` and ``remat="dots"`` are not ported
-yet (ROADMAP.md).
+rounding).  ``remat="dots"`` is not ported yet (ROADMAP.md).
+
+Every parameter carries the reference's logical axes, so
+:func:`param_specs`, :func:`abstract_params` and :func:`cache_axes` give
+its spec trees leaf for leaf.  Under rules and a mesh of ranks
+(``runtime/sharding.py``: ``use_rules`` / ``use_mesh``) each rank runs
+its part on its local blocks: the embedding looks up its vocab block and
+the rows are summed over the model axis; attention runs head-parallel
+(training) or on the sequence-sharded serving cache; the MLPs and MoE
+experts run tensor- / expert-parallel; the head's logits come out cut
+over the vocab, and the cross-entropy is vocab-parallel.  ``serve_step``
+and ``prefill`` gather the logits whole.  The block kinds and options
+not yet executed on a mesh raise, naming ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -44,9 +55,12 @@ from repro_torch import resolve_device
 from repro_torch.core import engine
 from repro_torch.models import attention, layers, moe, ssm
 from repro_torch.models.layers import Param
+from repro_torch.runtime import collectives as coll
+from repro_torch.runtime import sharding
 
-__all__ = ["schema", "init_params", "count_params", "forward", "loss_fn",
-           "serve_step", "prefill", "init_cache", "window_array", "BIG_WINDOW"]
+__all__ = ["schema", "init_params", "param_specs", "abstract_params",
+           "count_params", "forward", "loss_fn", "serve_step", "prefill",
+           "init_cache", "cache_axes", "window_array", "BIG_WINDOW"]
 
 _ROADMAP = "not yet ported (see ROADMAP.md, Queue A)"
 
@@ -54,24 +68,21 @@ BIG_WINDOW = 1 << 30     # the window of hymba's full-attention layers
 
 
 def _check_kind(cfg) -> None:
-    what = None
     if cfg.mlp not in ("glu", "plain"):
-        what = f"mlp {cfg.mlp!r}"
-    elif cfg.block_kind == "moe" and cfg.moe_impl != "gspmd":
-        what = (f"moe_impl {cfg.moe_impl!r} (manual expert parallelism needs "
-                "the sharding runtime)")
-    if what:
-        raise NotImplementedError(f"{what} (arch {cfg.name!r}) is {_ROADMAP}")
+        raise NotImplementedError(f"mlp {cfg.mlp!r} (arch {cfg.name!r}) is "
+                                  f"{_ROADMAP}")
+    if cfg.block_kind == "moe" and cfg.moe_impl not in ("gspmd", "shard_map"):
+        raise ValueError(f"moe_impl {cfg.moe_impl!r}: gspmd | shard_map")
 
 
 def _norm_param(cfg) -> Param:
-    return Param((cfg.d_model,), init="ones")
+    return Param((cfg.d_model,), (None,), init="ones")
 
 
 def _mlp_schema(cfg, d_ff: Optional[int] = None) -> Dict[str, Any]:
     d, ff = cfg.d_model, d_ff or cfg.d_ff
-    return {"w_in": Param((d, 2 * ff if cfg.mlp == "glu" else ff)),
-            "w_out": Param((ff, d))}
+    return {"w_in": Param((d, 2 * ff if cfg.mlp == "glu" else ff), ("embed", "ff")),
+            "w_out": Param((ff, d), ("ff", "embed"))}
 
 
 def _attn_schema(cfg) -> Dict[str, Any]:
@@ -100,11 +111,12 @@ def _xlstm_super_schema(cfg) -> Dict[str, Any]:
 def schema(cfg) -> Dict[str, Any]:
     _check_kind(cfg)
     s: Dict[str, Any] = {
-        "embed": Param((cfg.vocab_size, cfg.d_model), init="embed"),
+        "embed": Param((cfg.vocab_size, cfg.d_model), ("vocab", "embed"),
+                       init="embed"),
         "final_norm": _norm_param(cfg),
     }
     if not cfg.tie_embeddings:
-        s["lm_head"] = Param((cfg.d_model, cfg.vocab_size))
+        s["lm_head"] = Param((cfg.d_model, cfg.vocab_size), ("embed", "vocab"))
     if cfg.block_kind == "xlstm":
         n_super, rem = divmod(cfg.n_layers, cfg.ssm.slstm_period)
         if rem:
@@ -151,16 +163,39 @@ def count_params(cfg, active_only: bool = False) -> int:
 
 
 def init_params(cfg, *, seed: int = 0, device="cuda",
-                dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
+                dtype: Optional[torch.dtype] = None, mesh=None,
+                specs=None) -> Dict[str, Any]:
     """Random parameters from ``seed`` on ``device``.
 
     ``dtype`` defaults to the policy's compute dtype: every engine dispatch
     casts its operands to that dtype anyway (the reference's
     ``engine._prep_operand``) and rmsnorm / the embedding cast to the
     activation dtype, so holding the weights in it on the card computes
-    exactly what fp32 weights would."""
+    exactly what fp32 weights would.
+
+    With ``mesh`` and ``specs`` (a sanitized spec tree, e.g.
+    :func:`param_specs` through ``sanitize_spec``) each leaf is drawn
+    whole, exactly as without them, and cut at once to this rank's block:
+    a rank holds its shards and at most one whole leaf."""
+    place = None
+    if mesh is not None:
+        def place(path, x):
+            spec = specs
+            for k in path:
+                spec = spec[k]
+            return sharding.shard_block(x, spec, mesh).clone()
     return layers.init_tree(schema(cfg), seed=seed, device=resolve_device(device),
-                            dtype=dtype or cfg.policy.compute_dtype)
+                            dtype=dtype or cfg.policy.compute_dtype, place=place)
+
+
+def param_specs(cfg, rules):
+    """The logical spec of every parameter under ``rules``."""
+    return layers.spec_tree(schema(cfg), rules)
+
+
+def abstract_params(cfg):
+    """Every parameter as a meta tensor of ``cfg.param_dtype``."""
+    return layers.abstract_tree(schema(cfg), dtype=getattr(torch, cfg.param_dtype))
 
 
 def _norm(cfg, x, scale):
@@ -243,34 +278,74 @@ def _hymba_block(p, h, cfg, *, pos, cache, window, policy, fresh=True):
                               policy=policy)
 
 
-def _run_attn(cfg, p, h, *, pos, cache, policy, kv_group_sizes):
+def _run_attn(cfg, p, h, *, pos, cache, policy, kv_group_sizes, shard=None):
     """GQA or MLA attention (the cache, if any, is written in place)."""
-    fn = attention.mla_attention if cfg.mla else attention.gqa_attention
-    a, _ = fn(p, h, cfg, pos_offset=pos, cache=cache, policy=policy,
-              q_chunk=cfg.q_chunk, kv_group_sizes=kv_group_sizes)
+    if cfg.mla:
+        a, _ = attention.mla_attention(p, h, cfg, pos_offset=pos, cache=cache,
+                                       policy=policy, q_chunk=cfg.q_chunk,
+                                       kv_group_sizes=kv_group_sizes)
+        return a
+    a, _ = attention.gqa_attention(p, h, cfg, pos_offset=pos, cache=cache,
+                                   policy=policy, q_chunk=cfg.q_chunk,
+                                   kv_group_sizes=kv_group_sizes, shard=shard)
     return a
 
 
-def _attn_block(p, h, cfg, *, pos, cache, policy, kv_group_sizes=None):
+def _attn_block(p, h, cfg, *, pos, cache, policy, kv_group_sizes=None,
+                shard=None, d_ff=None):
     h = h + _run_attn(cfg, p["attn"], _norm(cfg, h, p["ln1"]), pos=pos,
-                      cache=cache, policy=policy, kv_group_sizes=kv_group_sizes)
+                      cache=cache, policy=policy, kv_group_sizes=kv_group_sizes,
+                      shard=shard)
     mlp = layers.mlp_glu if cfg.mlp == "glu" else layers.mlp_plain
-    return h + mlp(p["mlp"], _norm(cfg, h, p["ln2"]), act=cfg.act, policy=policy)
+    return h + mlp(p["mlp"], _norm(cfg, h, p["ln2"]), act=cfg.act, policy=policy,
+                   shard=shard, ff=d_ff or cfg.d_ff)
 
 
-def _moe_block(p, h, cfg, *, pos, cache, policy, kv_group_sizes=None):
-    """Attention, then the MoE FFN; returns ``(h, metrics)`` with the
-    metrics as a tuple in :data:`moe.METRICS` order."""
+def _moe_block(p, h, cfg, *, pos, cache, policy, kv_group_sizes=None, shard=None):
+    """Attention, then the MoE FFN (the route of ``cfg.moe_impl``); returns
+    ``(h, metrics)`` with the metrics as a tuple in :data:`moe.METRICS`
+    order."""
     h = h + _run_attn(cfg, p["attn"], _norm(cfg, h, p["ln1"]), pos=pos,
-                      cache=cache, policy=policy, kv_group_sizes=kv_group_sizes)
-    m, metrics = moe.moe_forward(p["moe"], _norm(cfg, h, p["ln2"]), cfg,
-                                 policy=policy)
+                      cache=cache, policy=policy, kv_group_sizes=kv_group_sizes,
+                      shard=shard)
+    fn = moe.moe_forward_shard_map if cfg.moe_impl == "shard_map" else moe.moe_forward
+    m, metrics = fn(p["moe"], _norm(cfg, h, p["ln2"]), cfg, policy=policy,
+                    shard=shard)
     return h + m, tuple(metrics[k] for k in moe.METRICS)
+
+
+def _embed(params, cfg, ids: torch.Tensor, shard) -> torch.Tensor:
+    """Token rows of the ``(V, d)`` table.  Cut over the vocab, each rank
+    looks up the ids in its block (others give zero rows) and the rows are
+    summed over the model axis."""
+    table = params["embed"]
+    start = shard.block(cfg.vocab_size, table.shape[0]) if shard else None
+    if start is None:
+        return table[ids]
+    local = ids - start
+    ok = (local >= 0) & (local < table.shape[0])
+    rows = table[torch.where(ok, local, 0)] * ok[..., None].to(table.dtype)
+    return coll.psum(rows, shard.mesh, sharding.MODEL_AXIS)
+
+
+def _vocab_start(params, cfg, shard) -> Optional[int]:
+    """This rank's first vocab entry when the head is cut over the vocab."""
+    if shard is None:
+        return None
+    w = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    return shard.block(cfg.vocab_size, w.shape[0 if cfg.tie_embeddings else 1])
+
+
+def _gather_vocab(logits: torch.Tensor, params, cfg, shard) -> torch.Tensor:
+    """Vocab-cut logits made whole (serving's greedy argmax reads all)."""
+    if _vocab_start(params, cfg, shard) is None:
+        return logits
+    return coll.all_gather(logits, shard.mesh, sharding.MODEL_AXIS, -1)
 
 
 def _head(params, cfg, h: torch.Tensor) -> torch.Tensor:
     """The LM head: the tied ``(V, d)`` embedding read in place ("nt"), or
-    the ``(d, V)`` ``lm_head``."""
+    the ``(d, V)`` ``lm_head`` (on a mesh: this rank's vocab block)."""
     if cfg.tie_embeddings:
         return engine.matmul(h, params["embed"], policy=cfg.policy, layout="nt")
     return engine.matmul(h, params["lm_head"], policy=cfg.policy)
@@ -285,18 +360,21 @@ def forward(params: Dict[str, Any], cfg, batch: Dict[str, torch.Tensor], *,
     and the MoE metrics summed over the MoE layers (empty for other
     kinds).  The input is ``batch["embeddings"]`` ``(B, S, d)`` where the
     batch carries it, else the embedded ``batch["inputs"]``.  ``pos`` is an
-    int or a ``(B,)`` tensor of per-slot decode positions."""
+    int or a ``(B,)`` tensor of per-slot decode positions.  On a mesh the
+    batch is this rank's rows and the logits its vocab block."""
     _check_kind(cfg)
+    sh = sharding.context()
+    sharding.check_executable(cfg, sh)
     policy = cfg.policy
     kind = cfg.block_kind
     if "embeddings" in batch:
         h = batch["embeddings"].to(policy.compute_dtype)
     else:
-        h = params["embed"][batch["inputs"]].to(policy.compute_dtype)
+        h = _embed(params, cfg, batch["inputs"], sh).to(policy.compute_dtype)
     aux: Dict[str, torch.Tensor] = {}
     # a fresh prefill: the recurrent sweeps start from no state (kernel 4)
     fresh = not isinstance(pos, torch.Tensor) and pos == 0
-    kw = dict(pos=pos, policy=policy, kv_group_sizes=kv_group_sizes)
+    kw = dict(pos=pos, policy=policy, kv_group_sizes=kv_group_sizes, shard=sh)
     caches = itertools.repeat(None) if cache is None else _unbind(cache["layers"])
     per_layer = [_unbind(params["layers"]), caches]
     if kind == "xlstm":
@@ -310,7 +388,8 @@ def forward(params: Dict[str, Any], cfg, batch: Dict[str, torch.Tensor], *,
     elif kind == "moe":
         # the dense layer 0, outside the remat (as the reference's scan)
         h = _attn_block(params["layer0"], h, cfg,
-                        cache=None if cache is None else cache["layer0"], **kw)
+                        cache=None if cache is None else cache["layer0"],
+                        d_ff=cfg.moe.dense_ff, **kw)
         layer = lambda lp, hh, lc: _moe_block(lp, hh, cfg, cache=lc, **kw)
     else:
         layer = lambda lp, hh, lc: (_attn_block(lp, hh, cfg, cache=lc, **kw), ())
@@ -327,7 +406,42 @@ def forward(params: Dict[str, Any], cfg, batch: Dict[str, torch.Tensor], *,
     return (_head(params, cfg, h) if head else h), cache, aux
 
 
-def _chunked_ce(params, cfg, h: torch.Tensor, labels: torch.Tensor
+def _lse_gold(lf: torch.Tensor, labels: torch.Tensor, start: Optional[int],
+              shard) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Log-sum-exp over the vocab and the target's logit, from fp32 logits
+    ``lf (..., V)``.  Cut over the vocab (``start`` the rank's first entry)
+    they are vocab-parallel: the row maximum and the sum of exponentials
+    are combined over the model axis, and the target logit comes from the
+    rank that holds it."""
+    if start is None:
+        gold = torch.gather(lf, -1, labels.clamp(min=0)[..., None])[..., 0]
+        return torch.logsumexp(lf, dim=-1), gold
+    mesh, ax = shard.mesh, sharding.MODEL_AXIS
+    mx = coll.pmax(lf.amax(dim=-1), mesh, ax)
+    lse = mx + torch.log(coll.psum(torch.exp(lf - mx[..., None]).sum(dim=-1), mesh, ax))
+    local = labels.clamp(min=0) - start
+    ok = (local >= 0) & (local < lf.shape[-1])
+    gold = torch.gather(lf, -1, torch.where(ok, local, 0)[..., None])[..., 0]
+    return lse, coll.psum(gold * ok, mesh, ax)
+
+
+def _cross_entropy(params, cfg, logits: torch.Tensor, labels: torch.Tensor,
+                   shard, z_loss: float = 0.0):
+    """``layers.cross_entropy``, vocab-parallel on a mesh."""
+    start = _vocab_start(params, cfg, shard)
+    if start is None:
+        return layers.cross_entropy(logits, labels, z_loss)
+    lse, gold = _lse_gold(logits.to(torch.float32), labels, start, shard)
+    nll = lse - gold
+    if z_loss:
+        nll = nll + z_loss * lse ** 2
+    mask = (labels >= 0).to(torch.float32)
+    denom = torch.clamp(mask.sum(), min=1.0)
+    loss = (nll * mask).sum() / denom
+    return loss, {"loss": loss, "ntokens": denom}
+
+
+def _chunked_ce(params, cfg, h: torch.Tensor, labels: torch.Tensor, shard=None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The chunked cross-entropy (reference ``transformer.py:394-433``):
     ``ce_chunk`` batch rows at a time (the batch padded with rows labelled
@@ -343,10 +457,11 @@ def _chunked_ce(params, cfg, h: torch.Tensor, labels: torch.Tensor
         h = torch.cat([h, h.new_zeros((pad, *h.shape[1:]))])
         labels = torch.cat([labels, labels.new_full((pad, labels.shape[1]), -1)])
 
+    start = _vocab_start(params, cfg, shard)
+
     def chunk(h_c, y_c):
-        lf = _head(params, cfg, h_c).to(torch.float32)
-        lse = torch.logsumexp(lf, dim=-1)
-        gold = torch.gather(lf, -1, y_c.clamp(min=0)[..., None])[..., 0]
+        lse, gold = _lse_gold(_head(params, cfg, h_c).to(torch.float32), y_c,
+                              start, shard)
         mask = (y_c >= 0).to(torch.float32)
         return ((lse - gold) * mask).sum(), mask.sum()
 
@@ -363,12 +478,13 @@ def loss_fn(params: Dict[str, Any], cfg, batch: Dict[str, torch.Tensor]
     """Mean token cross-entropy of the batch's inputs (token ids or
     embeddings) against ``batch["labels"]`` (labels < 0 masked), with its
     metrics; chunked over batch rows when ``cfg.ce_chunk`` is set."""
+    sh = sharding.context()
     if cfg.ce_chunk:
         h, _, aux = forward(params, cfg, batch, head=False)
-        loss, metrics = _chunked_ce(params, cfg, h, batch["labels"])
+        loss, metrics = _chunked_ce(params, cfg, h, batch["labels"], sh)
     else:
         logits, _, aux = forward(params, cfg, batch)
-        loss, metrics = layers.cross_entropy(logits, batch["labels"])
+        loss, metrics = _cross_entropy(params, cfg, logits, batch["labels"], sh)
     if cfg.moe:
         # the reference's per-MoE-layer weighting (transformer.py:444-448)
         n = max(cfg.n_layers - 1, 1)
@@ -388,20 +504,71 @@ def serve_step(params, cfg, tokens: torch.Tensor, cache, pos, *,
     per-slot valid KV lengths after this step's append)."""
     logits, cache, _ = forward(params, cfg, {"inputs": tokens}, cache=cache,
                                pos=pos, kv_group_sizes=kv_group_sizes)
-    return logits[:, -1], cache
+    return _gather_vocab(logits[:, -1], params, cfg, sharding.context()), cache
 
 
 @torch.inference_mode()
 def prefill(params, cfg, batch, max_len: int, storage_dtype=None):
     """Run the prompt ``batch["inputs"] (B, S)``, build a ``max_len``
-    cache, return (last-token logits ``(B, V)``, cache)."""
-    B = batch["inputs"].shape[0]
+    cache, return (last-token logits ``(B, V)``, cache).  On a mesh the
+    prompt is this rank's rows of the batch and the cache its block."""
+    sh = sharding.context()
+    B = batch["inputs"].shape[0] * (sh.data if sh is not None else 1)
     cache = init_cache(cfg, B, max_len, dtype=cfg.policy.compute_dtype,
                        storage_dtype=storage_dtype,
                        device=params["embed"].device)
     logits, cache, _ = forward(params, cfg, batch, cache=cache, pos=0,
                                last_only=True)
-    return logits[:, -1], cache
+    return _gather_vocab(logits[:, -1], params, cfg, sh), cache
+
+
+def _local_cache_dims(cfg, sh, batch: int, max_len: int, storage_dtype):
+    """This rank's ``(batch, max_len)`` of a decode cache on a mesh."""
+    sharding.check_executable(cfg, sh)
+    if storage_dtype is not None:
+        sharding.refuse("the FP8 KV cache")
+    shape = (batch, cfg.n_kv_heads, max_len, cfg.head_dim)
+    spec = sharding.sanitize_spec(sharding.logical_spec(
+        ("batch", "kv_heads", "kv_seq", None), sh.rules), shape, sh.mesh)
+    b, h, t, _ = sharding.local_shape(shape, spec, sh.mesh)
+    if h != cfg.n_kv_heads or (sh.model > 1 and t == max_len):
+        sharding.refuse(f"a decode cache cut as {tuple(spec)} (serving needs "
+                        "KV heads whole and kv_seq over the model axis: "
+                        "launch.serve.serve_rules, max_len a multiple of it)")
+    return b, t
+
+
+def cache_axes(cfg, storage_dtype=None):
+    """The logical axes of every leaf of :func:`init_cache`'s output, leaf
+    for leaf the reference's (``transformer.py:483-512``); with
+    ``storage_dtype`` the FP8 cache's per-head scale leaves too."""
+    kind = cfg.block_kind
+    gqa = {"k": ("batch", "kv_heads", "kv_seq", None),
+           "v": ("batch", "kv_heads", "kv_seq", None)}
+    mla = {"ckv": ("batch", "kv_seq", None), "kr": ("batch", "kv_seq", None)}
+    if storage_dtype is not None:
+        gqa = dict(gqa, k_scale=attention.scale_leaf_axes(("kv_heads",)),
+                   v_scale=attention.scale_leaf_axes(("kv_heads",)))
+        mla = dict(mla, ckv_scale=attention.scale_leaf_axes(()),
+                   kr_scale=attention.scale_leaf_axes(()))
+    attn = mla if cfg.mla else gqa
+
+    def stackax(tree):
+        if isinstance(tree, tuple):
+            return ("layers", *tree)
+        return {k: stackax(v) for k, v in tree.items()}
+
+    if kind == "attn":
+        return {"layers": stackax(attn)}
+    if kind == "moe":
+        return {"layer0": attn, "layers": stackax(attn)}
+    if kind == "hymba":
+        return {"layers": stackax({"attn": gqa, "ssm": ("batch", None, None, None)})}
+    if kind == "xlstm":
+        return {"layers": stackax({
+            "mlstm": (None, "batch", None, None, None),
+            "slstm": {k: ("batch", None, None) for k in ("c", "n", "h", "m")}})}
+    raise ValueError(kind)
 
 
 def _stack(tree, n: int):
@@ -419,7 +586,12 @@ def init_cache(cfg, batch: int, max_len: int, dtype=None, storage_dtype=None,
     kind also has the unstacked ``"layer0"``); hymba ``{"layers": {"attn":
     {"k", "v"}, "ssm": (L, B, H, N, P) fp32}}``; xLSTM ``{"layers":
     {"mlstm": (n_super, 7, B, H, hd, hd), "slstm": {"c", "n", "h", "m":
-    (n_super, B, H, hd)}}}`` fp32, ``m`` at -1e30."""
+    (n_super, B, H, hd)}}}`` fp32, ``m`` at -1e30.
+
+    On a mesh (``use_rules`` / ``use_mesh``, serving rules) ``batch`` and
+    ``max_len`` are the global sizes and the cache is this rank's block of
+    :func:`cache_axes`' spec: its data rows and, with ``kv_seq`` over the
+    model axis, its ``max_len / model`` positions of every KV head."""
     _check_kind(cfg)
     kind = cfg.block_kind
     if storage_dtype is not None and kind not in ("attn", "moe"):
@@ -427,6 +599,9 @@ def init_cache(cfg, batch: int, max_len: int, dtype=None, storage_dtype=None,
             f"FP8 cache storage supports attn/moe block kinds, not {kind!r}")
     dev = resolve_device(device)
     dtype = dtype or cfg.policy.compute_dtype
+    sh = sharding.context()
+    if sh is not None:
+        batch, max_len = _local_cache_dims(cfg, sh, batch, max_len, storage_dtype)
     f32 = dict(dtype=torch.float32, device=dev)
     if kind == "xlstm":
         n_super = cfg.n_layers // cfg.ssm.slstm_period

@@ -1,11 +1,11 @@
 """Runtime (counterpart of ``repro.runtime``): fault injection, the
-fault-tolerant loop and goodput, data-parallel process groups and the
-elastic worker.  Sharding over a mesh is not ported yet (ROADMAP.md,
-Queue A)."""
+fault-tolerant loop and goodput, data-parallel process groups, the
+elastic worker, the logical-axis sharding rules (``sharding``) and the
+collectives of a mesh of ranks (``collectives``)."""
 
 from repro_torch.runtime.fault_tolerance import (FailureInjector, GoodputMeter,
                                                  InjectedFault, StragglerWatchdog,
-                                                 TrainLoop, reshard)
+                                                 TrainLoop, gather, reshard)
 
 __all__ = ["FailureInjector", "InjectedFault", "StragglerWatchdog",
-           "GoodputMeter", "TrainLoop", "reshard"]
+           "GoodputMeter", "TrainLoop", "reshard", "gather"]

@@ -18,8 +18,9 @@ Counterpart of ``repro.runtime.fault_tolerance`` (``fault_tolerance.py:
   the checkpoints every step, so a resumed run books what the dead one
   lost: ``goodput = useful_time / wall`` across every incarnation.
 * **placement** — a checkpoint restores to host tensors; :func:`reshard`
-  places a host tree on a device (or like another tree).  Sharding over a
-  mesh is not ported yet (ROADMAP.md, Queue A).
+  places a host tree on a device, like another tree, or as this rank's
+  blocks under a spec tree on a mesh of ranks; :func:`gather` puts a
+  sharded tree back together.
 
 The port's train steps update their tensors in place, so a checkpoint's
 snapshot is a device-to-host copy taken before the next step runs
@@ -43,7 +44,7 @@ from repro_torch.checkpoint import (CheckpointManager, tree_flatten,
                                     tree_unflatten)
 
 __all__ = ["FailureInjector", "InjectedFault", "StragglerWatchdog",
-           "GoodputMeter", "TrainLoop", "reshard"]
+           "GoodputMeter", "TrainLoop", "reshard", "gather"]
 
 
 class InjectedFault(RuntimeError):
@@ -239,11 +240,22 @@ def reshard(tree: Any, place, specs=None) -> Any:
     """Place a host tree: ``place`` is a device (every tensor moves there)
     or a tree of the same structure (each tensor takes its counterpart's
     device and dtype, and ``requires_grad`` where that leaf has it; a
-    Python scalar leaf stays one).  ``specs`` (a sharding over a mesh) is
-    not ported yet."""
+    Python scalar leaf stays one).
+
+    With ``specs`` (a tree of sanitized specs, leaf for leaf) ``place`` is
+    a mesh of ranks (``launch.mesh.Mesh``): each tensor becomes this
+    rank's block, every dim a spec cuts over mesh axes split into their
+    size's contiguous blocks, the rank taking the one at its coordinates
+    (what ``jax.device_put(x, NamedSharding(mesh, spec))`` leaves on a
+    device), on the mesh's device."""
     if specs is not None:
-        raise NotImplementedError(
-            "sharded placement is not ported yet (see ROADMAP.md, Queue A)")
+        from repro_torch.runtime import sharding
+        dev = place.device or torch.device("cpu")
+        out = [sharding.shard_block(torch.as_tensor(x), sp, place).to(dev, copy=True)
+               if isinstance(x, torch.Tensor) else x
+               for x, sp in zip(tree_flatten(tree), sharding.spec_leaves(specs),
+                                strict=True)]
+        return tree_unflatten(tree, out)
     leaves = tree_flatten(tree)
     if isinstance(place, (str, torch.device)):
         dev = torch.device(place)
@@ -257,6 +269,27 @@ def reshard(tree: Any, place, specs=None) -> Any:
                 x.requires_grad_(True)
         out.append(x)
     return tree_unflatten(place, out)
+
+
+def gather(tree: Any, mesh, specs) -> Any:
+    """The whole tree from every rank's blocks (:func:`reshard`'s
+    inverse): each dim a spec cuts is gathered over its mesh axes, on
+    every rank, on the blocks' device."""
+    from repro_torch.runtime import collectives as coll, sharding
+
+    def whole(x, spec):
+        if not isinstance(x, torch.Tensor):
+            return x
+        with torch.no_grad():
+            for dim, part in enumerate(spec):
+                # the innermost named axis varies fastest along the dim
+                for ax in reversed(sharding.axes_of(part)):
+                    x = coll.all_gather(x, mesh, ax, dim)
+        return x
+
+    out = [whole(x, sp) for x, sp in zip(tree_flatten(tree),
+                                         sharding.spec_leaves(specs), strict=True)]
+    return tree_unflatten(tree, out)
 
 
 class TrainLoop:

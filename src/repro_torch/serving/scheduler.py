@@ -57,6 +57,7 @@ of the decode-built ones (``chip_smoke.py``'s sched phase holds both).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from collections import deque
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -66,6 +67,7 @@ import torch
 
 from repro_torch.core import engine
 from repro_torch.models import transformer
+from repro_torch.runtime import sharding
 from repro_torch.runtime.fault_tolerance import InjectedFault
 from repro_torch.serving import kv_cache, resilience
 
@@ -144,7 +146,8 @@ class Scheduler:
     """FIFO admission -> per-request prefill -> pooled continuous decode,
     on the device the parameters live on."""
 
-    def __init__(self, params, cfg, scfg: SchedulerConfig, injector=None):
+    def __init__(self, params, cfg, scfg: SchedulerConfig, injector=None, *,
+                 rules=None, mesh=None):
         if cfg.block_kind not in ("attn", "moe"):
             raise ValueError(
                 f"the serving scheduler drives attn/moe decode caches, "
@@ -158,15 +161,23 @@ class Scheduler:
                 "corruption with the checksum audit off is undetectable")
         self.params, self.cfg, self.scfg = params, cfg, scfg
         self.injector = injector
+        # sharded serving: every model call runs under the rules and mesh
+        self.rules, self.mesh = rules, mesh
+        if mesh is not None and rules is not None and mesh.size > 1:
+            if injector is not None or scfg.audit_every:
+                sharding.refuse("fault injection and the KV audit")
+            if any(mesh.shape.get(a, 1) > 1 for a in sharding.DATA_AXES):
+                sharding.refuse("the scheduler over a data axis")
         self.device = params["embed"].device
         self.clock = 0.0
         self.decode_steps = 0
         self.prefill_count = 0
         self.recovery_decode_steps = 0  # decode steps run by slot rebuilds
         self.compute_dtype = cfg.policy.compute_dtype
-        self.cache = transformer.init_cache(
-            cfg, scfg.n_slots, scfg.max_len, dtype=self.compute_dtype,
-            storage_dtype=scfg.storage_dtype, device=self.device)
+        with self._sharded():
+            self.cache = transformer.init_cache(
+                cfg, scfg.n_slots, scfg.max_len, dtype=self.compute_dtype,
+                storage_dtype=scfg.storage_dtype, device=self.device)
         self.slots: List[Optional[_Slot]] = [None] * scfg.n_slots
         self.pending: List[Request] = []       # submitted, arrival in future
         self.queue: deque = deque()            # admitted, waiting for a slot
@@ -176,6 +187,15 @@ class Scheduler:
         self.rejections: List[resilience.Rejection] = []
         self.guards: Dict[int, resilience.SlotGuard] = {}
         self.goodput = resilience.ServeGoodputMeter(n_slots=scfg.n_slots)
+
+    def _sharded(self):
+        """The rules and mesh of a sharded scheduler (else no context)."""
+        stack = contextlib.ExitStack()
+        if self.rules is not None:
+            stack.enter_context(sharding.use_rules(self.rules))
+            if self.mesh is not None:
+                stack.enter_context(sharding.use_mesh(self.mesh))
+        return stack
 
     def _tokens(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a, np.int64), device=self.device)
@@ -275,7 +295,7 @@ class Scheduler:
 
     # -- prefill (batch 1, the request's real prompt length) ------------- #
     def _prefill(self, seq: np.ndarray, scope: str):
-        with engine.op_scope(scope):
+        with engine.op_scope(scope), self._sharded():
             return transformer.prefill(
                 self.params, self.cfg, {"inputs": self._tokens(seq)[None]},
                 self.scfg.max_len, storage_dtype=self.scfg.storage_dtype)
@@ -367,6 +387,8 @@ class Scheduler:
         decode step (``last_token`` at ``pos``) is replayed too and its
         logits row is returned to replace the poisoned one.  The clock
         does not move."""
+        if self.rules is not None and self.mesh is not None and self.mesh.size > 1:
+            sharding.refuse("slot recovery")
         res = self.results[s.rid]
         absorbed = [int(t) for t in res.tokens[:s.fed]]
         assert len(s.prompt) + len(absorbed) == s.pos, "slot rows out of sync"
@@ -451,7 +473,7 @@ class Scheduler:
         n = self.scfg.n_slots
         toks, pos, sizes = self._step_inputs(
             {i: (s.last_token, s.pos) for i, s in enumerate(self.slots) if s is not None})
-        with engine.op_scope("serve_decode"):
+        with engine.op_scope("serve_decode"), self._sharded():
             logits, self.cache = transformer.serve_step(
                 self.params, self.cfg, toks, self.cache, pos, kv_group_sizes=sizes)
         logits = _host_logits(logits)

@@ -263,6 +263,17 @@ def test_serve_cli_on_cpu(arch, capsys):
 
 
 def test_shard_map_moe_is_refused():
-    cfg = dataclasses.replace(tconfigs.get_reduced(ARCHS[0]), moe_impl="shard_map")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tt.init_params(cfg, seed=0, device="cpu")
+    # moe_impl="shard_map" runs now (the sharding runtime): outside a mesh it
+    # is the gspmd dispatch, as the reference's falls back to moe_forward;
+    # on two ranks tests/test_torch_shard_exec.py holds it to the unsharded
+    # run.  An unknown route is still refused.
+    gcfg = tconfigs.get_reduced(ARCHS[0])
+    scfg = dataclasses.replace(gcfg, moe_impl="shard_map")
+    params = tt.init_params(scfg, seed=0, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, 512, (2, 8)))
+    gl, _, gaux = tt.forward(params, gcfg, {"inputs": toks})
+    sl, _, saux = tt.forward(params, scfg, {"inputs": toks})
+    assert torch.equal(gl, sl)
+    assert all(torch.equal(gaux[k], saux[k]) for k in gaux)
+    with pytest.raises(ValueError, match="moe_impl"):
+        tt.init_params(dataclasses.replace(gcfg, moe_impl="manual"), device="cpu")

@@ -188,15 +188,23 @@ def test_unported_paths_raise(fp32):
     _, tcfg, _, tparams = fp32
     # every reference arch is registered now (hymba-1.5b since the recurrent
     # slice), and the FP8 KV cache, the resilience layer and --sched are
-    # ported, and so are the injector's checkpoint modes; manual expert
-    # parallelism and the serving specs (the sharding half) are still to port
+    # ported, and so are the injector's checkpoint modes; since the sharding
+    # slice manual expert parallelism and the serving specs are too
+    # (tests/test_torch_sharding.py, test_torch_shard_exec.py); serving the
+    # FP8 cache on a mesh is still to port
     from repro_torch import serving
-    from repro_torch.runtime import FailureInjector
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tt.init_params(dataclasses.replace(tconfigs.get_reduced("deepseek-moe-16b"),
-                                           moe_impl="shard_map"), device="cpu")
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.runtime import FailureInjector, sharding as ts
+    tt.init_params(dataclasses.replace(tconfigs.get_reduced("deepseek-moe-16b"),
+                                       moe_impl="shard_map"), device="cpu")
     assert FailureInjector(fail_at_step=1, mode="ckpt_crash").mode == "ckpt_crash"
-    assert not hasattr(serving, "decode_cache_specs")       # needs sharding
+    _, spec = serving.decode_cache_specs(tcfg, tserve.serve_rules(),
+                                         tmesh.make_production_mesh(), 32, 64)
+    assert tuple(spec["layers"]["k"]) == (None, "data", None, "model")
+    with ts.use_rules(tserve.serve_rules()), \
+            ts.use_mesh(tmesh.Mesh((1, 2), ("data", "model"), device="cpu")):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tt.init_cache(tcfg, 2, 8, storage_dtype="float8_e4m3fn", device="cpu")
     cache = tt.init_cache(tcfg, 1, 8, storage_dtype="float8_e4m3fn", device="cpu")
     assert cache["layers"]["k"].dtype == torch.float8_e4m3fn
     tsched.Scheduler(tparams, tcfg, tsched.SchedulerConfig(max_queue=2, audit_every=1))

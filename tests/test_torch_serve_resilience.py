@@ -448,7 +448,16 @@ def test_guardrails(yi):
         inj.maybe_fail_save(2, None)
         assert not inj.fired and inj.fires(3, "nan_logits") is False
     FailureInjector(fail_at_step=1, mode="die").maybe_fail_save(1, None)
-    # placing a restored tree over a mesh (sharding) is still to port
+    # placing a restored tree over a mesh is ported (the sharding slice):
+    # each rank keeps the block of its coordinates, on the mesh's device
+    # (two ranks, reshard then gather: tests/test_torch_shard_exec.py)
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.runtime import sharding as ts
     from repro_torch.runtime.fault_tolerance import reshard
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        reshard({"w": torch.zeros(2)}, "cpu", specs={"w": None})
+    tree = {"w": torch.arange(8.0).reshape(4, 2), "b": torch.arange(3.0)}
+    specs = {"w": ts.P("model"), "b": ts.P()}
+    one = reshard(tree, tmesh.make_host_mesh(), specs)
+    assert torch.equal(one["w"], tree["w"]) and one["w"] is not tree["w"]
+    rank1 = tmesh.Mesh((1, 2), ("data", "model"), device="cpu", rank=1)
+    got = reshard(tree, rank1, specs)
+    assert torch.equal(got["w"], tree["w"][2:]) and torch.equal(got["b"], tree["b"])
