@@ -133,7 +133,15 @@ Phases, any failure exits non-zero:
    (greedy tokens equal off near ties), fp32 gradients (bf16 printed);
    per rank the peak memory, KV bytes (half the cache), launches, the
    collectives (count, bytes, host seconds) and times; no aten GEMM /
-   SDPA in a decode step or a train step; kernel 2 with an empty group;
+   SDPA in a decode step or a train step; kernel 2 with an empty group.
+   A second two-rank spawn beside it runs the reference dry run's
+   layouts at full width (``SH_LAYOUTS``: FSDP with grad_accum, sequence
+   parallelism, a KV cache under ``Rules()``, MLA, hymba and xLSTM served
+   and trained), and four ranks on the host CPU FSDP x TP on a ``(2,
+   2)`` mesh (``SH_CPU4``); each cell against the unsharded run on the
+   card beside a control that must fail (one rank's block of a cut
+   weight negated), every rank's resident bytes equal to the spec's
+   blocks, the recurrent states bitwise equal across ranks;
 8. **ae** — the counts are set to 0 again, then ``repro_torch.launch.train
    --arch ae`` trains the paper's TinyMLPerf AutoEncoder (640 -> [128 x4]
    -> 8 -> [128 x4] -> 640, random weights from a seed) for 200 steps at
@@ -5248,13 +5256,74 @@ SH_MOE = dict(batch=4, prompt=128, gen=8, n_layers=3)
 # fp32 rows (summation order only)
 SH_BF16_TOL, SH_FP32_TOL = 2.0 ** -3, 1e-4
 SH_DEVICE, SH_FULL = "cuda", True
+# the reference dry run's layouts, each cell at full width in a second
+# spawn beside the first (fp32 unless named): qwen3-1.7b's two layers trained under
+# Rules(fsdp=True) on {data: 2, model: 1} with grad_accum 2 and under
+# Rules(sequence_parallel=True), and served 4 x (128 + 8) under Rules()
+# (the KV cache cut over its heads); deepseek-v2-lite-16b (MLA) at depth 3
+# served 4 x (128 + 8) under the serving rules and trained under Rules();
+# hymba-1.5b at depth 4 (layer 0 full, 1-3 windowed) served 4 x (1152 +
+# 8) under tpu_bf16 (the window crosses the cache's cut at 580) and two
+# layers trained; xlstm-1.3b's first super-block (8 blocks) served 4 x
+# (128 + 8) and trained.  Each cell names the leaf whose last-rank block
+# its control negates (layer 0) and the step-0 gradients it holds; the
+# training cells run one step (FSDP's of two microbatches), the served
+# ones 8 decode steps: trimmed to keep the script's time.  The
+# recurrent training cells hold their gradients to 3x the unsharded step's
+# own spread where that exceeds SH_FP32_TOL (``spread``: the same network
+# with its GLU hidden units and mLSTM heads renumbered; xlstm-1.3b's fp32
+# step-0 gradients moved by up to 3.2e-4 of max through its recurrences).
+# The MLA cells, the largest on the card, run first: this process starts
+# its unsharded references once they are done.
+SH_MLA, SH_HYMBA, SH_XLSTM = "deepseek-v2-lite-16b", "hymba-1.5b", "xlstm-1.3b"
+SH_LAYOUTS = [
+    (dict(name="mla_train", kind="train", arch=SH_MLA, mesh=[1, 2], batch=4, seq=256,
+          steps=1, n_layers=3), "layers/attn/wo",
+     ("layer0/attn/wq", "layers/attn/wuk", "layers/attn/wo",
+      "layers/moe/router", "layers/moe/shared/w_in", "layers/ln1")),
+    (dict(name="mla_serve", kind="serve", arch=SH_MLA, mesh=[1, 2], n_layers=3,
+          batch=4, prompt=128, gen=8), "layers/attn/wo", ()),
+    (dict(name="qwen_fsdp", kind="train", arch=ARCH, mesh=[2, 1], fsdp=True,
+          grad_accum=2, **dict(SH_TRAIN, steps=1)), "layers/attn/wo",
+     ("embed", "layers/attn/wqkv", "layers/attn/wo", "layers/mlp/w_in",
+      "layers/mlp/w_out", "layers/ln1")),
+    (dict(name="qwen_sp", kind="train", arch=ARCH, mesh=[1, 2],
+          sequence_parallel=True, **dict(SH_TRAIN, steps=1)), "layers/attn/wo",
+     ("embed", "layers/attn/wqkv", "layers/attn/wo", "layers/mlp/w_in", "layers/ln1")),
+    (dict(name="qwen_rules_serve", kind="serve", arch=ARCH, mesh=[1, 2],
+          serve_rules=False, n_layers=2, batch=4, prompt=128, gen=8),
+     "layers/attn/wo", ()),
+    (dict(name="hymba_serve", kind="serve", arch=SH_HYMBA, mesh=[1, 2], n_layers=4,
+          batch=4, prompt=1152, gen=8, policy_name="tpu_bf16"), "layers/mamba/w_out", ()),
+    (dict(name="hymba_train", kind="train", arch=SH_HYMBA, mesh=[1, 2],
+          **dict(SH_TRAIN, steps=1)),
+     "layers/mamba/w_out",
+     ("layers/attn/wqkv", "layers/attn/wo", "layers/mamba/w_xz",
+      "layers/mamba/w_out", "layers/mlp/w_in")),
+    (dict(name="xlstm_serve", kind="serve", arch=SH_XLSTM, mesh=[1, 2], n_layers=8,
+          batch=4, prompt=128, gen=8), "layers/mlstm/cell/w_down", ()),
+    (dict(name="xlstm_train", kind="train", arch=SH_XLSTM, mesh=[1, 2], n_layers=8,
+          batch=4, seq=256, steps=1, spread=True), "layers/mlstm/cell/w_down",
+     ("layers/mlstm/cell/w_up", "layers/mlstm/cell/w_down",
+      "layers/mlstm/cell/w_qkv", "layers/slstm/cell/w_gates",
+      "layers/slstm/cell/ffn/w_in")),
+]
+# FSDP x TP on {data: 2, model: 2}: four rank processes on the host's CPU
+# (one card cannot hold four gloo ranks' work in this phase's time), two
+# layers of qwen3-1.7b at full width, one step at 4 x 32, against the
+# unsharded step on the card
+SH_CPU4 = (dict(name="qwen_fsdp_2x2", kind="train", arch=ARCH, mesh=[2, 2], fsdp=True,
+                batch=4, seq=32, steps=1, n_layers=2), "layers/attn/wo",
+           ("layers/attn/wqkv", "layers/attn/wo", "layers/mlp/w_in", "layers/ln1"))
 
 
-def _shard_rows(prompts, fed, params, cfg, gen, dev):
+def _shard_rows(prompts, fed, params, cfg, gen, dev, states=False):
     """The unsharded run's logits, teacher-forced on the tokens the
-    sharded run fed: prefill, then ``gen`` decode steps (fp32, host)."""
+    sharded run fed: prefill, then ``gen`` decode steps (fp32, host); with
+    ``states`` also the final recurrent states (fp32, host)."""
     import torch
 
+    from repro_torch.launch import mesh as mesh_lib
     from repro_torch.models import transformer as tt
 
     S = prompts.shape[1]
@@ -5263,8 +5332,316 @@ def _shard_rows(prompts, fed, params, cfg, gen, dev):
     for i in range(gen):
         lg, cache = tt.serve_step(params, cfg, fed[:, i:i + 1].to(dev), cache, S + i)
         rows.append(lg.float().cpu())
+    final = {k: v.float().cpu() for k, v in mesh_lib.recurrent_states(cache).items()}
     del cache
-    return torch.stack(rows)
+    return (torch.stack(rows), final) if states else torch.stack(rows)
+
+
+def _layout_cell(cell, leaves) -> dict:
+    """A layout cell of the mesh worker's plan: full width, the phase's
+    seed, fp32 unless the cell names a policy, the held gradient leaves."""
+    return dict(cell, full=SH_FULL, seed=SEED, grads=list(leaves),
+                policy_name=cell.get("policy_name", "fp32"))
+
+
+def _layout_cfg(cell):
+    import dataclasses
+
+    from repro_torch import configs
+
+    get = configs.get if cell["full"] else configs.get_reduced
+    return dataclasses.replace(get(cell["arch"]), policy_name=cell["policy_name"],
+                               **({"n_layers": cell["n_layers"]} if "n_layers" in cell
+                                  else {}))
+
+
+def _layout_rules(cell):
+    from repro_torch.launch import serve as serve_lib
+    from repro_torch.runtime import sharding
+
+    base = sharding.Rules(fsdp=cell.get("fsdp", False),
+                          sequence_parallel=cell.get("sequence_parallel", False))
+    serve = cell.get("serve_rules", cell["kind"] == "serve")
+    return serve_lib.serve_rules(base) if serve else base
+
+
+def _local_bytes(specs, shapes, mesh) -> int:
+    """The bytes of the local blocks of a sanitized spec tree."""
+    from repro_torch.runtime import sharding
+
+    if isinstance(specs, tuple):
+        return (math.prod(sharding.local_shape(tuple(shapes.shape), specs, mesh))
+                * shapes.element_size())
+    return sum(_local_bytes(specs[k], shapes[k], mesh) for k in specs)
+
+
+def _flip_block(params, cfg, cell, path: str) -> None:
+    """Negate, in place, the last rank's block of layer 0 of the leaf at
+    ``path`` (a cut leaf): the control of a layout cell."""
+    import torch
+
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import transformer as tt
+    from repro_torch.runtime import sharding
+
+    shape = tuple(cell["mesh"])
+    mesh = mesh_lib.Mesh(shape, ("data", "model"), rank=math.prod(shape) - 1)
+    spec = sharding.sanitize_tree(tt.param_specs(cfg, _layout_rules(cell)),
+                                  tt.abstract_params(cfg), mesh)
+    leaf = params
+    for k in path.split("/"):
+        spec, leaf = spec[k], leaf[k]
+    block = sharding.shard_block(leaf, spec, mesh)
+    if block.shape == leaf.shape:
+        raise AssertionError(f"shard control: {path} is not cut on {shape}")
+    with torch.no_grad():
+        block[0].neg_()
+
+
+def _renumber_glus(params, inverse=False) -> None:
+    """Permute, in place, every gated MLP's hidden units alike in
+    ``w_in``'s gate and up columns and ``w_out``'s rows (the same
+    function, its sums in another order); ``inverse`` undoes it."""
+    import torch
+
+    for k, v in list(params.items()):
+        if isinstance(v, dict):
+            _renumber_glus(v, inverse)
+    w_in, w_out = params.get("w_in"), params.get("w_out")
+    if isinstance(w_in, torch.Tensor) and w_in.shape[-1] == 2 * w_out.shape[-2]:
+        ff = w_out.shape[-2]
+        p = torch.randperm(ff, generator=torch.Generator().manual_seed(0))
+        p = (torch.argsort(p) if inverse else p).to(w_in.device)
+        with torch.no_grad():
+            params["w_in"].copy_(torch.cat([w_in[..., :ff][..., p],
+                                            w_in[..., ff:][..., p]], -1))
+            params["w_out"].copy_(w_out[..., p, :])
+
+
+def _renumber_mlstm_heads(params, H: int, inverse=False) -> None:
+    """Permute, in place, the heads of every mLSTM cell (``w_up``'s x and
+    z head blocks, ``w_qkv``, ``w_if``'s head rows and i / f columns,
+    ``b_if``, ``norm``, ``w_down``'s head rows): the same function, its
+    sums over the channels in another order; ``inverse`` undoes it."""
+    import torch
+
+    cell = params["layers"]["mlstm"]["cell"]
+    p = torch.randperm(H, generator=torch.Generator().manual_seed(1))
+    p = (torch.argsort(p) if inverse else p).to(cell["w_qkv"].device)
+    di = cell["norm"].shape[-1]
+    ch = (p[:, None] * (di // H) + torch.arange(di // H, device=p.device)).reshape(-1)
+    gates = torch.cat([p, p + H])
+    with torch.no_grad():
+        cell["w_up"].copy_(torch.cat([cell["w_up"][..., :di][..., ch],
+                                      cell["w_up"][..., di:][..., ch]], -1))
+        cell["w_qkv"].copy_(cell["w_qkv"][..., p, :, :])
+        cell["w_if"].copy_(cell["w_if"][..., ch, :][..., gates])
+        cell["b_if"].copy_(cell["b_if"][..., gates])
+        cell["norm"].copy_(cell["norm"][..., ch])
+        cell["w_down"].copy_(cell["w_down"][..., ch, :])
+
+
+def _layout_train_refs(cell, control_leaf, leaves, dev, draw=None) -> dict:
+    """The unsharded step 0 of a training layout cell on the card, from
+    the phase's seed and the worker's batch: loss, global norm and the
+    held gradients; the same with the control's block negated; and, for
+    the recurrent kinds (``spread``), with the GLU hidden units (and the
+    mLSTM heads) renumbered
+    (the rounding spread of the unsharded step, measured: the same
+    function, its sums in another order).  ``draw``: the device the ranks
+    drew the weights on, when not the card (the CPU's generator draws
+    other numbers from a seed)."""
+    import gc
+
+    import torch
+
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import train as train_lib
+    from repro_torch.models import transformer as tt
+    from repro_torch.optim import tree_map
+
+    cfg = _layout_cfg(cell)
+    ds = SyntheticLM(cfg.vocab_size, cell["seq"], cell["batch"], seed=0)
+    batch = {k: torch.from_numpy(v) for k, v in ds.batch(0).items()}
+    ga = cell.get("grad_accum", 1)
+    # the unsharded step's gradients (its microbatches averaged in fp32,
+    # as build_train_step does) without its optimizer state
+    mbs = [{k: v.reshape(ga, -1, *v.shape[1:])[i].to(dev) for k, v in batch.items()}
+           for i in range(ga)]
+
+    def unsharded(change=None):
+        params = tree_map(lambda t: t.to(dev).requires_grad_(True), tt.init_params(
+            cfg, seed=SEED, device=draw or dev, dtype=getattr(torch, cfg.param_dtype)))
+        if change == "flip":
+            _flip_block(params, cfg, cell, control_leaf)
+        elif change == "renumber":
+            _renumber_glus(params)
+            if cfg.block_kind == "xlstm":
+                _renumber_mlstm_heads(params, cfg.n_heads)
+        loss, grads = 0.0, None
+        for mb in mbs:
+            m, g = train_lib._value_and_grad(cfg, params, mb)
+            g = {k: v.float() / ga for k, v in _flat_named(g).items()}
+            grads = g if grads is None else {k: grads[k] + g[k] for k in g}
+            loss += float(m["loss"]) / ga
+        norm = math.sqrt(sum(float(v.square().sum()) for v in grads.values()))
+        if change == "renumber":
+            back = _unflat(grads)
+            _renumber_glus(back, inverse=True)
+            if cfg.block_kind == "xlstm":
+                _renumber_mlstm_heads(back, cfg.n_heads, inverse=True)
+            grads = _flat_named(back)
+        got = (loss, norm, {k: grads[k].cpu() for k in leaves})
+        del params, grads
+        gc.collect()
+        torch.cuda.empty_cache()
+        return got
+
+    return {"batch": batch, "want": unsharded(), "control": unsharded("flip"),
+            "spread": [unsharded("renumber")[2]] if cell.get("spread") else None}
+
+
+def _layout_train(cell, refs, leaves, out, infos, card, log, res) -> None:
+    """A training layout cell against the unsharded step on the card
+    (:func:`_layout_train_refs`): the step-0 loss, global norm and
+    gradients, each beside the control (the bound: ``SH_FP32_TOL``, or 3x
+    the measured spread where it is larger); the resident parameter and
+    moment bytes against the spec's blocks."""
+    import torch
+
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import transformer as tt
+    from repro_torch.runtime import sharding
+
+    cfg = _layout_cfg(cell)
+    name = cell["name"]
+    what = (f"{cfg.name} {cell['kind']} ({cfg.n_layers} layers, {cell['batch']} x "
+            f"{cell['seq']}, {cfg.policy_name}, mesh {tuple(cell['mesh'])}, "
+            f"fsdp={cell.get('fsdp', False)}, sp={cell.get('sequence_parallel', False)}"
+            f", grad_accum={cell.get('grad_accum', 1)})")
+    if not all(torch.equal(out["batch0"][k], refs["batch"][k]) for k in refs["batch"]):
+        raise AssertionError(f"shard {name}: the ranks trained on another batch")
+    (loss, norm, grads), (closs, cnorm, cgrads) = refs["want"], refs["control"]
+    got = _flat_named(out["grads0"])
+    i0 = infos[0]
+    print(f"[shard] {name}: step-0 loss sharded {i0['losses'][0]!r}, unsharded {loss!r}, "
+          f"control {closs!r}; global norm sharded {i0['grad_norms'][0]!r}, unsharded "
+          f"{norm!r}", flush=True)
+    _shard_compare(f"{what} step-0 loss", torch.tensor([i0["losses"][0]]),
+                   torch.tensor([loss]), torch.tensor([closs]), SH_FP32_TOL, log)
+    _shard_compare(f"{what} step-0 global norm", torch.tensor([i0["grad_norms"][0]]),
+                   torch.tensor([norm]), torch.tensor([cnorm]), SH_FP32_TOL, log)
+    for k in leaves:
+        tol = SH_FP32_TOL
+        if refs["spread"] is not None:
+            spread = max(((g[k] - grads[k]).abs().max() / grads[k].abs().max()).item()
+                         for g in refs["spread"])
+            tol = max(tol, 3 * spread)
+            print(f"[shard] {name} grad {k}: the unsharded step's spread (units "
+                  f"renumbered) {spread:.3e} of max", flush=True)
+        _shard_compare(f"{what} step-0 grad {k}", got[k], grads[k], cgrads[k], tol, log)
+    whole = sum(t.numel() * t.element_size() for t in
+                _flat_named(tt.abstract_params(cfg)).values())
+    for r, info in enumerate(infos):
+        mesh = mesh_lib.Mesh(tuple(cell["mesh"]), ("data", "model"), rank=r)
+        want = _local_bytes(sharding.sanitize_tree(
+            tt.param_specs(cfg, _layout_rules(cell)), tt.abstract_params(cfg), mesh),
+            tt.abstract_params(cfg), mesh)
+        held = info["param_bytes"] + info["moment_bytes"]
+        print(f"[shard] ({card}) {name} rank {r}: params + AdamW moments {held / 1e9:.3f}"
+              f" GB of {3 * whole / 1e9:.3f} GB whole (the spec's blocks: "
+              f"{3 * want / 1e9:.3f} GB); peak {info.get('peak_bytes', 0) / 2**30:.2f} GiB; "
+              f"steps {[round(t * 1e3, 1) for t in info['step_s']]} ms; collectives a "
+              f"step: {_shard_collectives(info['collectives'][-1])}; launches a step "
+              f"{_main_launches(info['launches'][-1])}; aten GEMM / SDPA ops "
+              f"{info.get('aten_library_step', 'not profiled') or 'none'}", flush=True)
+        if info["param_bytes"] != want or info["moment_bytes"] != 2 * want:
+            raise AssertionError(f"shard {name} rank {r}: resident {info['param_bytes']}"
+                                 f" / {info['moment_bytes']} B, the spec's blocks {want} B")
+        if info.get("aten_library_step"):
+            raise AssertionError(f"shard {name}: library ops {info['aten_library_step']}")
+    res[name] = infos
+
+
+def _layout_serve(cell, control_leaf, out, infos, dev, card, log, res) -> None:
+    """A serving layout cell against the unsharded run on the card: the
+    logits of the prefill and every decode step (teacher-forced on the fed
+    tokens) beside the control, the greedy tokens off near ties, the
+    resident parameter and cache bytes against the spec's blocks, and the
+    recurrent states: bitwise equal on every rank, and the unsharded
+    run's."""
+    import gc
+
+    import torch
+
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import serve as serve_lib
+    from repro_torch.models import transformer as tt
+    from repro_torch.runtime import sharding
+
+    cfg = _layout_cfg(cell)
+    name, gen = cell["name"], cell["gen"]
+    bf16 = cfg.policy_name != "fp32"
+    params = tt.init_params(cfg, seed=SEED, device=dev)
+    want, states = _shard_rows(out["prompts"], out["fed"], params, cfg, gen, dev, True)
+    _flip_block(params, cfg, cell, control_leaf)
+    control = _shard_rows(out["prompts"], out["fed"], params, cfg, gen, dev)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    what = (f"{cfg.name} serve ({cfg.n_layers} layers, {cell['batch']} x "
+            f"({cell['prompt']} + {gen}), {cfg.policy_name}, "
+            f"{'serve_rules' if cell.get('serve_rules', True) else 'Rules()'}"
+            f"{', sp' if cell.get('sequence_parallel') else ''}) logits")
+    err = _shard_compare(what, out["logits"], want, control,
+                         SH_BF16_TOL if bf16 else SH_FP32_TOL, log)
+    agree, n = _greedy_agree(out["fed"], want, 2 * err)
+    print(f"[shard] {name}: greedy tokens equal to the unsharded argmax: {agree} of the "
+          f"{n} of {out['fed'].numel()} off a near tie", flush=True)
+    if agree != n:
+        raise AssertionError(f"shard {name}: {n - agree} greedy tokens differ off a tie")
+    if states:
+        same = len({i["state_digest"] for i in infos}) == 1
+        worst = max((out["states"][k] - v).abs().max().item() / max(v.abs().max().item(),
+                                                                        1e-30)
+                    for k, v in states.items())
+        ok = same and (bf16 or worst <= SH_FP32_TOL)
+        log.append({"check": f"shard {name} recurrent states", "ranks_bitwise": same,
+                    "rel_err": worst, "ok": ok})
+        print(f"[check] shard {name} recurrent states ({len(states)} leaves): every rank "
+              f"{'bitwise equal' if same else 'DIFFERS'}; vs the unsharded run "
+              f"{worst:.3e} of max ({'printed' if bf16 else f'tol {SH_FP32_TOL:g}'}): "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"shard {name}: recurrent states")
+    rules = _layout_rules(cell)
+    T = -(-(cell["prompt"] + gen) // cell["mesh"][1]) * cell["mesh"][1]
+    with sharding.use_mesh(None):
+        whole_cache = tt.init_cache(cfg, cell["batch"], T, device="meta")
+    for r, info in enumerate(infos):
+        mesh = mesh_lib.Mesh(tuple(cell["mesh"]), ("data", "model"), rank=r)
+        kv = _local_bytes(serve_lib.cache_spec_tree(cfg, rules, mesh, cell["batch"], T),
+                          whole_cache, mesh)
+        pb = _local_bytes(sharding.sanitize_tree(tt.param_specs(cfg, rules),
+                                                 tt.abstract_params(cfg), mesh),
+                          tt.abstract_params(cfg), mesh) // 4 * (2 if bf16 else 4)
+        steps = info["decode_steps"]
+        print(f"[shard] ({card}) {name} rank {r}: params {info['param_bytes']} B, cache "
+              f"{info['kv_bytes']} B (the spec's blocks: {pb} / {kv} B); peak "
+              f"{info.get('peak_bytes', 0) / 2**30:.2f} GiB; prefill "
+              f"{info['prefill_s'] * 1e3:.1f} ms, decode {info['decode_s'] / steps * 1e3:.1f}"
+              f" ms a step; collectives a prefill: "
+              f"{_shard_collectives(info['collectives_prefill'])}; a decode step: "
+              f"{_shard_collectives(info['collectives_decode'], steps)}; launches prefill "
+              f"{_main_launches(info['launches_prefill'])}, decode "
+              f"{_main_launches(info['launches_decode'])}; aten GEMM / SDPA ops "
+              f"{info.get('aten_library_decode', 'not profiled') or 'none'}", flush=True)
+        if info["kv_bytes"] != kv or info["param_bytes"] != pb:
+            raise AssertionError(f"shard {name} rank {r}: resident {info['param_bytes']} /"
+                                 f" {info['kv_bytes']} B, the spec's blocks {pb} / {kv} B")
+        if info.get("aten_library_decode"):
+            raise AssertionError(f"shard {name}: library ops {info['aten_library_decode']}")
+    res[name] = infos
 
 
 def _shard_compare(what, got, want, control, tol, log) -> float:
@@ -5305,6 +5682,7 @@ def shard_phase(log, counters):
     """The sharding runtime on two ranks of one card (see the module
     docstring): each cell held against the unsharded run in this process,
     from the same seed, beside a control that must fail."""
+    import concurrent.futures
     import dataclasses
     import gc
     import shutil
@@ -5330,26 +5708,103 @@ def shard_phase(log, counters):
             dict(name="qwen_train_bf16", kind="train", profile=True, **qwen, **SH_TRAIN),
             dict(name="moe_gspmd", kind="serve", moe_impl="gspmd", **moe),
             dict(name="moe_shard_map", kind="serve", moe_impl="shard_map", **moe)]
+    layouts = [dict(_layout_cell(cell, leaves), profile=cell["kind"] == "serve")
+               for cell, _, leaves in SH_LAYOUTS]
     res: dict = {"card": card}
+    pool = concurrent.futures.ThreadPoolExecutor(3)
+    gc.collect()
+    torch.cuda.empty_cache()
     try:
-        Path(tmp, "plan.json").write_text(json.dumps(plan))
-        t0 = time.perf_counter()
-        rc, out, dt = _ft_launch("repro_torch.launch.mesh", 2,
-                                 ["--device", SH_DEVICE, "--plan", str(Path(tmp, "plan.json")),
-                                  "--out", tmp], tmp, "shard ranks")
-        if rc != 0:
-            raise AssertionError(f"shard: a rank exited {rc}: {out[-1500:]}")
-        parts = {"ranks": dt}
-        t1 = time.perf_counter()
+        # two spawns of two ranks side by side on the card (the slice-13
+        # cells; the dry run's layouts), and this process's unsharded
+        # training references once the layout ranks are past their MLA
+        # cells (the largest on the card: with them, the card has no room
+        # for the references)
+        runs = {}
+        for tag, cells in (("shard ranks", plan), ("layout ranks", layouts)):
+            d = Path(tmp, tag.split()[0])
+            d.mkdir()
+            Path(d, "plan.json").write_text(json.dumps(cells))
+            runs[tag] = pool.submit(_ft_launch, "repro_torch.launch.mesh", 2,
+                                    ["--device", SH_DEVICE, "--plan",
+                                     str(Path(d, "plan.json")), "--out", str(d)],
+                                    str(d), tag)
+        parts = {}
 
-        def load(name):
-            infos = [json.loads(Path(tmp, f"{name}.rank{r}.json").read_text())
+        def ranks(tag):
+            rc, out, dt = runs[tag].result()
+            if rc != 0:
+                raise AssertionError(f"shard: a rank exited {rc}: {out[-1500:]}")
+            parts[tag.replace(" ", "_")] = dt
+
+        def ready(name, d="layout"):
+            """Wait for a cell's results (each file appears whole) while its
+            spawn runs on; a failed spawn raises."""
+            files = [Path(tmp, d, f"{name}.pt")] + [
+                Path(tmp, d, f"{name}.rank{r}.json") for r in (0, 1)]
+            tag = f"{d} ranks"
+            while not all(f.exists() for f in files):
+                if runs[tag].done():
+                    ranks(tag)
+                    if not all(f.exists() for f in files):
+                        raise AssertionError(f"shard: no results for {name}")
+                time.sleep(0.2)
+
+        # the four-rank (2, 2) cell on the host's CPU, beside the spawns
+        cpu4 = _layout_cell(SH_CPU4[0], SH_CPU4[2])
+        cpu_dir = Path(tmp, "cpu4")
+        cpu_dir.mkdir()
+        Path(cpu_dir, "plan.json").write_text(json.dumps([cpu4]))
+        cpu_run = pool.submit(_ft_launch, "repro_torch.launch.mesh", 4,
+                              ["--device", "cpu", "--plan", str(Path(cpu_dir, "plan.json")),
+                               "--out", str(cpu_dir)], str(cpu_dir), "shard cpu ranks")
+        ready(layouts[1]["name"])
+        t1 = time.perf_counter()
+        refs = {c["name"]: _layout_train_refs(c, ctl, leaves, dev)
+                for c, (_, ctl, leaves) in zip(layouts, SH_LAYOUTS) if c["kind"] == "train"}
+        refs[cpu4["name"]] = _layout_train_refs(cpu4, SH_CPU4[1], SH_CPU4[2], dev, "cpu")
+        parts["train_refs"] = time.perf_counter() - t1
+
+        def load(name, d="shard"):
+            infos = [json.loads(Path(tmp, d, f"{name}.rank{r}.json").read_text())
                      for r in (0, 1)]
-            return torch.load(Path(tmp, f"{name}.pt"), weights_only=False), infos
+            return torch.load(Path(tmp, d, f"{name}.pt"), weights_only=False), infos
 
         launches = {}
+        checked = set()
+
+        def check_layouts(wait: bool) -> None:
+            """The dry run's layout cells, each against its unsharded run
+            as its results appear (``wait``: all of them; else those
+            already there while the slice-13 spawn runs)."""
+            t1 = time.perf_counter()
+            for cell, (_, control_leaf, leaves) in zip(layouts, SH_LAYOUTS):
+                name = cell["name"]
+                if name in checked:
+                    continue
+                if not wait and (runs["shard ranks"].done()
+                                 or not Path(tmp, "layout", f"{name}.pt").exists()):
+                    return
+                ready(name)
+                out, infos = load(name, "layout")
+                if cell["kind"] == "train":
+                    _layout_train(cell, refs[name], leaves, out, infos, card, log, res)
+                    launches[name] = {k: sum(s[k] for s in infos[0]["launches"])
+                                      for k in infos[0]["launches"][0]}
+                else:
+                    _layout_serve(cell, control_leaf, out, infos, dev, card, log, res)
+                    launches[name] = {k: infos[0]["launches_prefill"][k]
+                                      + infos[0]["launches_decode"][k]
+                                      for k in infos[0]["launches_prefill"]}
+                checked.add(name)
+                parts[name] = time.perf_counter() - t1
+                t1 = time.perf_counter()
+
+        check_layouts(wait=False)
+        ranks("shard ranks")
+        t1 = time.perf_counter()
         # ---- qwen3-1.7b served at full width and depth ----
-        cfg = configs.get(ARCH)
+        cfg = (configs.get if SH_FULL else configs.get_reduced)(ARCH)
         out, infos = load("qwen_serve")
         params = tt.init_params(cfg, seed=SEED, device=dev)
         want = _shard_rows(out["prompts"], out["fed"], params, cfg, SH_SERVE["gen"], dev)
@@ -5459,7 +5914,8 @@ def shard_phase(log, counters):
         t1 = time.perf_counter()
 
         # ---- deepseek-moe-16b, three layers at full width, both routes ----
-        mcfg = dataclasses.replace(configs.get("deepseek-moe-16b"),
+        get = configs.get if SH_FULL else configs.get_reduced
+        mcfg = dataclasses.replace(get("deepseek-moe-16b"),
                                    n_layers=SH_MOE["n_layers"], policy_name="fp32")
         # unsharded, both routes are the one dispatch: one run (and one
         # control, the w_out of experts 0 and E / 2 of the first MoE layer
@@ -5504,6 +5960,20 @@ def shard_phase(log, counters):
         gc.collect()
         torch.cuda.empty_cache()
 
+        # ---- the rest of the dry run's layouts ----
+        check_layouts(wait=True)
+        ranks("layout ranks")
+        rc, cout, dt = cpu_run.result()
+        if rc != 0:
+            raise AssertionError(f"shard: a CPU rank exited {rc}: {cout[-1500:]}")
+        parts["cpu4_ranks"] = dt
+        infos = [json.loads(Path(cpu_dir, f"{cpu4['name']}.rank{r}.json").read_text())
+                 for r in range(4)]
+        out = torch.load(Path(cpu_dir, f"{cpu4['name']}.pt"), weights_only=False)
+        _layout_train(cpu4, refs[cpu4["name"]], SH_CPU4[2], out, infos, "host CPU", log,
+                      res)
+        parts["cpu4_check"] = time.perf_counter() - t1
+
         # kernel 2 takes an empty group (a slot whose KV lies on the other
         # rank): its rows come back zero, as the plain version's do
         x = torch.randn(3, 8, 64, device=dev, dtype=torch.bfloat16)
@@ -5521,12 +5991,13 @@ def shard_phase(log, counters):
                 total[k] = total.get(k, 0) + v
         path = {name: total.get(f"{fn.__name__}.{attr}", 0)
                 for name, (fn, attr) in counters.items()}
-        _require(path, ["redmule_matmul", "redmule_matmul_batched", "flash_attention"],
-                 "shard")
-        print(f"[shard] seconds by part: " + ", ".join(
-            f"{k} {v:.1f}" for k, v in parts.items()), flush=True)
+        _require(path, ["redmule_matmul", "redmule_matmul_batched", "flash_attention",
+                        "chunked_linear_attention"], "shard")
         res.update(launches=path, launches_by_cell=launches, seconds=parts)
     finally:
+        print(f"[shard] seconds by part: " + ", ".join(
+            f"{k} {v:.1f}" for k, v in locals().get("parts", {}).items()), flush=True)
+        pool.shutdown()
         shutil.rmtree(tmp, ignore_errors=True)
     return res
 
@@ -5534,6 +6005,18 @@ def shard_phase(log, counters):
 def _main_launches(counts: dict) -> dict:
     """A rank's launches of each kernel (its wrappers' ``.launches``)."""
     return {k.split(".")[0]: v for k, v in counts.items() if k.endswith(".launches")}
+
+
+def _unflat(named: dict) -> dict:
+    """:func:`_flat_named`'s inverse: "a/b" paths back to nested dicts."""
+    out: dict = {}
+    for path, v in named.items():
+        *head, last = path.split("/")
+        node = out
+        for k in head:
+            node = node.setdefault(k, {})
+        node[last] = v
+    return out
 
 
 def _flat_named(tree, pre=""):

@@ -41,7 +41,7 @@ import numpy as np
 import torch
 
 __all__ = ["Mesh", "make_production_mesh", "data_axes", "make_host_mesh",
-           "make_mesh", "main"]
+           "make_mesh", "recurrent_states", "main"]
 
 
 class Mesh:
@@ -151,7 +151,8 @@ def _cfg(cell):
     cfg = (configs.get if cell.get("full") else configs.get_reduced)(cell["arch"])
     repl = {k: cell[k] for k in ("n_layers", "policy_name", "moe_impl", "remat")
             if k in cell}
-    return dataclasses.replace(cfg, **repl)
+    # model overrides, e.g. hymba's heads: {"n_heads": 5, "n_kv_heads": 1}
+    return dataclasses.replace(cfg, **repl, **cell.get("overrides", {}))
 
 
 def _params(cell, cfg, mesh, specs, dtype):
@@ -169,10 +170,47 @@ def _params(cell, cfg, mesh, specs, dtype):
                                    dtype=dtype, mesh=mesh, specs=specs)
 
 
+def _rules(cell, serve: bool):
+    """The cell's layout: ``Rules(fsdp=, sequence_parallel=)`` from its
+    keys, wrapped in the serving rules (``launch.serve.serve_rules``) when
+    ``serve_rules`` (by default: a serve cell)."""
+    from repro_torch.launch import serve as serve_lib
+    from repro_torch.runtime import sharding
+
+    base = sharding.Rules(fsdp=cell.get("fsdp", False),
+                          sequence_parallel=cell.get("sequence_parallel", False))
+    return serve_lib.serve_rules(base) if cell.get("serve_rules", serve) else base
+
+
 def _tree_bytes(tree) -> int:
     if isinstance(tree, torch.Tensor):
         return tree.numel() * tree.element_size()
-    return sum(_tree_bytes(v) for v in tree.values())
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    return sum(_tree_bytes(v) for v in tree)
+
+
+def recurrent_states(cache, path=()) -> Dict[str, torch.Tensor]:
+    """The recurrent-state leaves of a decode cache (xLSTM's ``mlstm`` /
+    ``slstm``, hymba's ``ssm``), by path."""
+    if isinstance(cache, torch.Tensor):
+        keep = any(k in ("mlstm", "slstm", "ssm") for k in path)
+        return {"/".join(path): cache} if keep else {}
+    out = {}
+    for k, v in cache.items():
+        out.update(recurrent_states(v, path + (k,)))
+    return out
+
+
+def _digest(tensors: Dict[str, torch.Tensor]) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in sorted(tensors):
+        h.update(k.encode())
+        h.update(tensors[k].detach().cpu().contiguous().view(torch.uint8).numpy()
+                 .tobytes())
+    return h.hexdigest()
 
 
 def _aten_library(fn, device) -> Dict[str, float]:
@@ -199,14 +237,14 @@ def _serve_cell(cell, mesh, out: Dict) -> Dict:
     B, S, G = cell["batch"], cell["prompt"], cell["gen"]
     m = mesh.shape["model"]
     T = -(-(S + G) // m) * m        # the cache's positions, a multiple of model
-    rules = serve_lib.serve_rules()
-    step, pspec, _ = serve_lib.make_sharded_serve_step(cfg, mesh, None,
+    rules = _rules(cell, True)
+    step, pspec, _ = serve_lib.make_sharded_serve_step(cfg, mesh, rules,
                                                        batch=B, max_len=T)
     params = _params(cell, cfg, mesh, pspec, cfg.policy.compute_dtype)
+    info: Dict = {"param_bytes": _tree_bytes(params)}
     prompts = torch.from_numpy(np.random.default_rng(cell.get("data_seed", 1))
                                .integers(0, cfg.vocab_size, (B, S))).long()
     pre = serve_lib.build_prefill(cfg, rules, T, mesh=mesh)
-    info: Dict = {}
     moe.ROUTES.clear()
     coll.reset_stats()
     _zero_launches()
@@ -233,6 +271,10 @@ def _serve_cell(cell, mesh, out: Dict) -> Dict:
     info["launches_decode"] = _kernel_launches()
     info["kv_bytes"] = _tree_bytes(cache)
     info["route"] = dict(moe.ROUTES)
+    states = recurrent_states(cache)
+    if states:      # replicated on every rank: held bitwise across them
+        info["state_digest"] = _digest(states)
+        out["states"] = {k: v.float().cpu() for k, v in states.items()}
     if dev.type == "cuda" and cell.get("profile"):
         tok = rows[-1].argmax(-1, keepdim=True).to(dev)
         info["aten_library_decode"] = _aten_library(
@@ -257,15 +299,17 @@ def _train_cell(cell, mesh, out: Dict) -> Dict:
     cfg = _cfg(cell)
     dev = mesh.device
     opt = AdamW(lr=cell.get("lr", 1e-3))
-    rules = sharding.Rules()
-    step, sspec = train_lib.make_sharded_train_step(cfg, mesh, rules, opt,
-                                                    return_grads=True)
+    rules = _rules(cell, False)
+    step, sspec = train_lib.make_sharded_train_step(
+        cfg, mesh, rules, opt, return_grads=True, grad_accum=cell.get("grad_accum", 1))
     params = _params(cell, cfg, mesh, sspec.params, getattr(torch, cfg.param_dtype))
     for p in tree_leaves(params):
         p.requires_grad_(True)
     state = train_lib.TrainState(params, opt.init(params), ())
     ds = SyntheticLM(cfg.vocab_size, cell["seq"], cell["batch"], seed=cell.get("data_seed", 0))
-    info: Dict = {"losses": [], "grad_norms": [], "step_s": [], "collectives": []}
+    info: Dict = {"losses": [], "grad_norms": [], "step_s": [], "collectives": [],
+                  "param_bytes": _tree_bytes(state.params),
+                  "moment_bytes": _tree_bytes(state.opt.mu) + _tree_bytes(state.opt.nu)}
     for i in range(cell["steps"]):
         batch = {k: torch.from_numpy(v) for k, v in ds.batch(i).items()}
         coll.reset_stats()
@@ -280,7 +324,10 @@ def _train_cell(cell, mesh, out: Dict) -> Dict:
         info["collectives"].append({k: dict(v) for k, v in coll.STATS.items()})
         info.setdefault("launches", []).append(_kernel_launches())
         if i == 0:
-            out["grads0"] = _host(gather(m["grads"], mesh, sspec.params))
+            grads, specs = m["grads"], sspec.params
+            if cell.get("grads"):       # only these leaves ("a/b/c" paths)
+                grads, specs = (_select(t, cell["grads"]) for t in (grads, specs))
+            out["grads0"] = _host(gather(grads, mesh, specs))
             out["batch0"] = batch
             info.update({k: float(v) for k, v in m.items()
                          if k.startswith("moe_")})
@@ -290,6 +337,18 @@ def _train_cell(cell, mesh, out: Dict) -> Dict:
     return info
 
 
+def _select(tree, paths):
+    """The subtree of ``tree`` holding the leaves at ``paths``."""
+    out: Dict = {}
+    for path in paths:
+        *head, last = path.split("/")
+        src, dst = tree, out
+        for k in head:
+            src, dst = src[k], dst.setdefault(k, {})
+        dst[last] = src[last]
+    return out
+
+
 def _host(tree):
     if isinstance(tree, torch.Tensor):
         return tree.detach().float().cpu()
@@ -297,14 +356,14 @@ def _host(tree):
 
 
 def _forward_cell(cell, mesh, out: Dict) -> Dict:
-    """A cache-free forward under ``Rules()``: gathered logits, the MoE
-    metrics and this rank's GEMM bill."""
+    """A cache-free forward under the cell's rules (default ``Rules()``):
+    gathered logits, the MoE metrics and this rank's GEMM bill."""
     from repro_torch.core import engine
     from repro_torch.models import moe, transformer
     from repro_torch.runtime import sharding
 
     cfg = _cfg(cell)
-    rules = sharding.Rules()
+    rules = _rules(cell, False)
     pspec = sharding.sanitize_tree(transformer.param_specs(cfg, rules),
                                 transformer.abstract_params(cfg), mesh)
     params = _params(cell, cfg, mesh, pspec, cfg.policy.compute_dtype)
@@ -401,11 +460,16 @@ CELLS = {"serve": _serve_cell, "train": _train_cell, "forward": _forward_cell,
 def main(argv=None) -> int:
     """Run every cell of ``--plan`` (a JSON list) as this rank.  A cell
     names its ``kind`` (serve | train | forward | collectives | reshard),
-    its ``mesh`` shape over ("data", "model") and its model (``arch``,
-    ``full``, ``n_layers``, ``policy_name``, ``moe_impl``; weights from
-    ``params``, a ``torch.save``'d host tree, else drawn from ``seed``).
-    Rank 0 writes ``OUT/<name>.pt`` (gathered tensors); every rank writes
-    ``OUT/<name>.rank<r>.json`` (its times, peak memory, KV bytes, kernel
+    its ``mesh`` shape over ("data", "model"), its model (``arch``,
+    ``full``, ``n_layers``, ``policy_name``, ``moe_impl``, ``overrides``;
+    weights from ``params``, a ``torch.save``'d host tree, else drawn from
+    ``seed``) and its layout: ``fsdp``, ``sequence_parallel`` and
+    ``serve_rules`` (default true for serve cells: ``launch.serve.
+    serve_rules`` of those rules; false gives the training rules), and a
+    train cell's ``grad_accum`` (and ``grads``, the "a/b" paths of the
+    step-0 gradient leaves to gather, default all).  Rank 0 writes ``OUT/<name>.pt``
+    (gathered tensors); every rank writes ``OUT/<name>.rank<r>.json`` (its
+    times, peak memory, resident parameter / moment / KV bytes, kernel
     launches and collectives).  ``--spawn N`` starts N such ranks."""
     ap = argparse.ArgumentParser(description=main.__doc__)
     ap.add_argument("--plan", required=True)
@@ -444,10 +508,15 @@ def main(argv=None) -> int:
             info["mesh"] = mesh.shape
             if device.type == "cuda":
                 info["peak_bytes"] = torch.cuda.max_memory_allocated(device)
-            with open(os.path.join(args.out, f"{cell['name']}.rank{r}.json"), "w") as f:
+            # each file appears whole (written aside, then renamed): a
+            # reader may take a cell's results while later cells run
+            path = os.path.join(args.out, cell["name"])
+            with open(f"{path}.rank{r}.json.tmp", "w") as f:
                 json.dump(info, f)
+            os.replace(f"{path}.rank{r}.json.tmp", f"{path}.rank{r}.json")
             if r == 0:
-                torch.save(out, os.path.join(args.out, f"{cell['name']}.pt"))
+                torch.save(out, f"{path}.pt.tmp")
+                os.replace(f"{path}.pt.tmp", f"{path}.pt")
             procs.barrier()
     finally:
         procs.finish()

@@ -20,11 +20,12 @@ Weights are random, drawn from ``--seed``.  ``--device cpu`` runs the
 plain PyTorch versions of the kernels.
 
 On a mesh of ranks (``launch/mesh.py``) serving runs under
-:func:`serve_rules`: the KV cache is cut over its sequence, every rank
-holding its ``max_len / model`` positions of every KV head
-(:func:`cache_spec_tree`); :func:`make_sharded_serve_step`,
-:func:`build_prefill` and ``generate(..., rules=, mesh=)`` run this
-rank's part.
+:func:`serve_rules` (the reference's prefill and decode layouts): the KV
+cache is cut over its sequence, every rank holding its ``max_len /
+model`` positions of every KV head (:func:`cache_spec_tree`), or under
+``sharding.Rules()``, which cuts it over the KV heads where they divide
+the model axis; :func:`make_sharded_serve_step`, :func:`build_prefill`
+and ``generate(..., rules=, mesh=)`` run this rank's part.
 """
 
 from __future__ import annotations
@@ -92,11 +93,13 @@ def _mesh(mesh):
 
 def make_sharded_serve_step(cfg, mesh, rules, *, batch: int, max_len: int):
     """``(step, param specs, cache specs)`` for this rank of ``mesh`` under
-    :func:`serve_rules` of ``rules``.  ``step(params, cache, tokens, pos)``
-    takes this rank's blocks of the parameters and cache and the global
-    tokens (it keeps the rows of its data coordinates when they divide),
-    and returns its rows' whole logits and the cache."""
-    rules = serve_rules(rules)
+    ``rules`` (None: :func:`serve_rules`, the cache cut over its positions;
+    ``sharding.Rules()`` cuts it over the KV heads where they divide the
+    model axis).  ``step(params, cache, tokens, pos)`` takes this rank's
+    blocks of the parameters and cache and the global tokens (it keeps the
+    rows of its data coordinates when they divide), and returns its rows'
+    whole logits and the cache."""
+    rules = rules if rules is not None else serve_rules()
     pspec = transformer.param_specs(cfg, rules)
     pshape = transformer.abstract_params(cfg)
     pspec = sharding.sanitize_tree(pspec, pshape, mesh)

@@ -184,15 +184,45 @@ def build_train_step(cfg, opt, rules=None, *, use_scale: bool = False,
     replicated over the model axis carries a share of its gradient on each
     rank (``runtime/collectives.py``), so a leaf replicated over the model
     axis sums its gradient over it; every gradient is then averaged over
-    the data axes (each rank's loss is the mean over its rows).  Clipping
-    takes the global norm: the squares of model-cut leaves summed over the
-    axis, those of replicated leaves counted once.  Without a mesh the
+    the data axes (each rank's loss is the mean over its rows; a leaf FSDP
+    cuts over a data axis arrives summed over it and is divided by its
+    size).  With ``grad_accum`` the rank takes its data rows of each
+    microbatch and accumulates their gradients locally: one reduction a
+    step.  Clipping takes the global norm: the squares of each leaf summed
+    over the axes it is cut over, replicated ones counted once.  Without a mesh the
     rules change nothing (the reference's no-op).  ``return_grads`` puts a
     copy of the (reduced, unclipped) gradients in ``metrics["grads"]``."""
 
-    def value_and_grad(params, batch, scale, seed=1.0):
-        return _value_and_grad(cfg, params, batch, scale if use_scale else None,
-                               cast_params=cast_params, seed=seed)
+    def microbatches(batch):
+        """The batch's ``grad_accum`` microbatches: rows [i B / n, (i + 1)
+        B / n), each as a leading index of the reshaped batch."""
+        B = next(iter(batch.values())).shape[0]
+        if B % grad_accum:
+            raise ValueError(f"batch {B} does not split into {grad_accum} "
+                             "microbatches")
+        return {k: v.reshape(grad_accum, B // grad_accum, *v.shape[1:])
+                for k, v in batch.items()}
+
+    def accumulate(params, parts, scale, seed=1.0):
+        """``(metrics, grads)`` of ``transformer.loss_fn`` averaged over the
+        microbatches ``parts``, their gradients accumulated in fp32."""
+        grads = metrics = None
+        for part in parts:
+            m, g = _value_and_grad(cfg, params, part, scale if use_scale else None,
+                                   cast_params=cast_params, seed=seed)
+            m = {k: v.detach() for k, v in m.items()}
+            if grad_accum > 1:
+                g = tree_map(lambda x: x.float(), g)
+            if grads is None:
+                grads, metrics = g, m
+            else:
+                grads = tree_map(torch.add, grads, g)
+                metrics = {k: metrics[k] + m[k] for k in metrics}
+        if grad_accum > 1:
+            inv = 1.0 / grad_accum
+            grads = tree_map(lambda g: g * inv, grads)
+            metrics = {k: v * inv for k, v in metrics.items()}
+        return metrics, grads
 
     def step(state: TrainState, batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         with sharding.use_rules(rules):
@@ -202,17 +232,16 @@ def build_train_step(cfg, opt, rules=None, *, use_scale: bool = False,
             return _sharded_step(state, batch, sh)
 
     def _sharded_step(state: TrainState, batch, sh):
-        if grad_accum > 1:
-            sharding.refuse("grad_accum > 1")
         device = tree_leaves(state.params)[0].device
-        rows = sharding.P(sh.data_axes)
-        batch = {k: sharding.shard_block(v, rows, sh.mesh)
-                 for k, v in _to_device(batch, device).items()}
+        # the unsharded path's microbatches; the rank keeps its data rows
+        # of each and accumulates their gradients locally
+        mbs = {k: sharding.shard_block(v, sharding.P(None, sh.data_axes), sh.mesh)
+               for k, v in microbatches(_to_device(batch, device)).items()}
         pspec = sharding.sanitize_tree(transformer.param_specs(cfg, sh.rules),
                                        transformer.abstract_params(cfg), sh.mesh)
-        metrics, grads = value_and_grad(state.params, batch, state.scale,
-                                        1.0 / sh.model)
-        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics, grads = accumulate(
+            state.params, [{k: v[i] for k, v in mbs.items()} for i in range(grad_accum)],
+            state.scale, 1.0 / sh.model)
         for a in sh.data_axes:
             metrics = {k: coll.pmean(v, sh.mesh, a) for k, v in metrics.items()}
         grads = _reduce_grads(grads, pspec, sh)
@@ -238,30 +267,10 @@ def build_train_step(cfg, opt, rules=None, *, use_scale: bool = False,
 
     def _step(state: TrainState, batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         device = tree_leaves(state.params)[0].device
-        batch = _to_device(batch, device)
-        if grad_accum > 1:
-            B = next(iter(batch.values())).shape[0]
-            if B % grad_accum:
-                raise ValueError(f"batch {B} does not split into {grad_accum} "
-                                 "microbatches")
-            grads = metrics = None
-            for mb in range(grad_accum):
-                part = {k: v.reshape(grad_accum, B // grad_accum, *v.shape[1:])[mb]
-                        for k, v in batch.items()}
-                m, g = value_and_grad(state.params, part, state.scale)
-                g = tree_map(lambda x: x.float(), g)
-                m = {k: v.detach() for k, v in m.items()}
-                if grads is None:
-                    grads, metrics = g, m
-                else:
-                    grads = tree_map(torch.add, grads, g)
-                    metrics = {k: metrics[k] + m[k] for k in metrics}
-            inv = 1.0 / grad_accum
-            grads = tree_map(lambda g: g * inv, grads)
-            metrics = {k: v * inv for k, v in metrics.items()}
-        else:
-            metrics, grads = value_and_grad(state.params, batch, state.scale)
-            metrics = {k: v.detach() for k, v in metrics.items()}
+        mbs = microbatches(_to_device(batch, device))
+        metrics, grads = accumulate(
+            state.params, [{k: v[i] for k, v in mbs.items()} for i in range(grad_accum)],
+            state.scale)
         if return_grads:
             metrics["grads"] = tree_map(lambda g: g.detach().clone(), grads)
         finite, new_scale = None, state.scale
@@ -282,14 +291,17 @@ def build_train_step(cfg, opt, rules=None, *, use_scale: bool = False,
     return step
 
 
-def _on_model(spec) -> bool:
-    return any(sharding.MODEL_AXIS in sharding.axes_of(p) for p in spec)
+def _cut_axes(spec) -> frozenset:
+    """The mesh axes a (sanitized) spec cuts its leaf over."""
+    return frozenset(a for p in spec for a in sharding.axes_of(p))
 
 
 def _reduce_grads(grads, pspec, sh):
     """Sum the gradients of model-replicated leaves over the model axis,
-    then average every gradient over the data axes, in fp32 buckets (one
-    collective per axis)."""
+    then average every gradient over the data axes: a leaf cut over a
+    data axis (FSDP) arrives summed over it (its gather's backward, a
+    reduce-scatter) and is divided by the axis size; a whole one is
+    averaged (``pmean``).  fp32 buckets, one collective per axis."""
     leaves, specs = tree_flatten(grads), sharding.spec_leaves(pspec)
 
     def bucket(sel, reduce):
@@ -303,25 +315,36 @@ def _reduce_grads(grads, pspec, sh):
             leaves[i].copy_(flat[off:off + n].view_as(leaves[i]))
             off += n
 
+    cut = [_cut_axes(sp) for sp in specs]
     with torch.no_grad():
-        bucket([i for i, sp in enumerate(specs) if not _on_model(sp)],
-               lambda f: coll.psum(f, sh.mesh, sharding.MODEL_AXIS))
-        for a in sh.data_axes:
-            bucket(list(range(len(leaves))), lambda f: coll.pmean(f, sh.mesh, a))
+        if sh.model > 1:
+            bucket([i for i, c in enumerate(cut) if sharding.MODEL_AXIS not in c],
+                   lambda f: coll.psum(f, sh.mesh, sharding.MODEL_AXIS))
+        for a in (a for a in sh.data_axes if sh.mesh.shape[a] > 1):
+            n = sh.mesh.shape[a]
+            for i in (i for i, c in enumerate(cut) if a in c):
+                leaves[i].div_(n)
+            bucket([i for i, c in enumerate(cut) if a not in c],
+                   lambda f: coll.pmean(f, sh.mesh, a))
     return grads
 
 
 def _global_norm(grads, pspec, sh) -> torch.Tensor:
-    """The norm of the whole (unsharded) gradient tree."""
-    cut = rep = None
+    """The norm of the whole (unsharded) gradient tree: each leaf's
+    squares summed over the axes its spec cuts it over, once each; a
+    replicated leaf counted once."""
+    sums: Dict[frozenset, torch.Tensor] = {}
     for g, sp in zip(tree_flatten(grads), sharding.spec_leaves(pspec)):
+        key = _cut_axes(sp)
         sq = g.float().square().sum()
-        if _on_model(sp):
-            cut = sq if cut is None else cut + sq
-        else:
-            rep = sq if rep is None else rep + sq
-    total = coll.psum(cut, sh.mesh, sharding.MODEL_AXIS) if cut is not None else 0.0
-    return torch.sqrt(total + (rep if rep is not None else 0.0))
+        sums[key] = sq if key not in sums else sums[key] + sq
+    total = 0.0
+    for axes in sorted(sums, key=sorted):
+        sq = sums[axes]
+        for a in sorted(axes):
+            sq = coll.psum(sq, sh.mesh, a)
+        total = total + sq
+    return torch.sqrt(total)
 
 
 def state_specs(cfg, rules, mesh, opt, *, use_scale: bool = False) -> TrainState:

@@ -371,71 +371,74 @@ def _qkv_heads(params, qkv: torch.Tensor, cfg, hq: int, hkv: int, pos_offset):
     return layers.apply_rope(q, cos, sin), layers.apply_rope(kk, cos, sin), vv
 
 
-def _row_parallel_out(o: torch.Tensor, wo: torch.Tensor, policy, shard,
-                      n_rows: int) -> torch.Tensor:
-    """``o @ wo`` where ``wo``'s ``("heads", "embed")`` rows (``n_rows``
-    of them) may be cut over the model axis: then this rank's rows take
-    its block of ``o``'s columns (all of them when ``o`` holds only this
-    rank's heads) and the partial products are summed."""
-    n = wo.shape[0]
-    if n == n_rows:
-        return engine.matmul(o, wo, policy=policy)
-    if o.shape[-1] != n:
-        o = o[..., shard.model_index * n:(shard.model_index + 1) * n]
-    return coll.psum(engine.matmul(o, wo, policy=policy), shard.mesh,
-                     sharding.MODEL_AXIS)
-
-
-def _gqa_head_parallel(params, x, cfg, *, pos_offset, window, policy, q_chunk,
-                       shard) -> torch.Tensor:
-    """Training / cache-free forward with "heads" over the model axis.
+def _gqa_sharded(params, x, cfg, *, pos_offset, cache, window, policy, q_chunk,
+                 kv_group_sizes, shard) -> torch.Tensor:
+    """The rank's part of GQA attention with "heads" over the model axis.
 
     ``wqkv``'s fused ``[q | k | v]`` columns are cut contiguously by its
     ``("embed", "heads")`` spec (qwen3-1.7b on two ranks: rank 0 holds all
-    of q, rank 1 all of k and v).  Kernel 1 runs on the rank's block, one
-    all-to-all gives each rank its own heads of q, k and v, and qk-norm,
-    RoPE and flash (kernel 3) run on those; ``wo`` is row-parallel."""
+    of q, rank 1 all of k and v; hymba-1.5b's 2240 columns are cut inside
+    q head 17).  Kernel 1 runs on the rank's block of the whole sequence
+    (:meth:`ShardCtx.enter`), then by layout:
+
+    * the serving cache (``serve_attention``: cut over its positions):
+      :func:`_gqa_seq_sharded`;
+    * the query and KV heads divide the model axis (a cache, if any, holds
+      the rank's KV heads): one all-to-all gives each rank its own heads
+      of q, k and v, and qk-norm, RoPE, the cache write and attention run
+      on those;
+    * otherwise (hymba's 25 / 5 heads): the columns are gathered whole and
+      every rank runs every head, on a whole cache if any.
+
+    ``wo`` is row-parallel (:func:`layers.row_parallel`)."""
     hq, hkv, hd, m = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, shard.model
-    if hq % m or hkv % m:
-        sharding.refuse(f"head-parallel attention with {hq} query / {hkv} KV "
-                        f"heads on a {m}-way model axis")
+    x = shard.enter(x)
     B, S, _ = x.shape
     n = (hq + 2 * hkv) * hd
     qkv = engine.matmul(x, params["wqkv"], policy=policy)
     if "bqkv" in params:
         qkv = qkv + params["bqkv"].to(qkv.dtype)
-    own = coll.segment_blocks((hq * hd, hkv * hd, hkv * hd), m)
-    if qkv.shape[-1] == n:       # a replicated wqkv: take the own heads
-        qkv = torch.cat([qkv[..., a:b] for a, b in own[shard.model_index]], dim=-1)
-    else:
+    if cache is not None and "k_scale" in cache:
+        sharding.refuse("the FP8 KV cache")
+    if cache is not None and shard.rules.serve_attention:
+        return _gqa_seq_sharded(params, layers.gather_cols(qkv, n, shard), cfg,
+                                pos_offset=pos_offset, cache=cache, window=window,
+                                policy=policy, q_chunk=q_chunk,
+                                kv_group_sizes=kv_group_sizes, shard=shard)
+    if hq % m == 0 and hkv % m == 0:
         qkv = coll.redistribute_last(qkv, shard.mesh, sharding.MODEL_AXIS,
-                                     coll.blocks(n, m), own)
-    hq_l, hkv_l = hq // m, hkv // m
+                                     coll.blocks(n, m),
+                                     coll.segment_blocks((hq * hd, hkv * hd, hkv * hd), m))
+        hq_l, hkv_l = hq // m, hkv // m
+    else:
+        qkv, hq_l, hkv_l = layers.gather_cols(qkv, n, shard), hq, hkv
     q, kk, vv = _qkv_heads(params, qkv, cfg, hq_l, hkv_l, pos_offset)
+    kv_valid = S
+    if cache is not None:
+        _write_rows(cache["k"], kk, pos_offset)
+        _write_rows(cache["v"], vv, pos_offset)
+        kk, vv, kv_valid = cache["k"], cache["v"], pos_offset + S
     o = chunked_attention(q.reshape(B, hkv_l, hq // hkv, S, hd), kk, vv,
-                          q_offset=pos_offset, kv_valid=S, causal=True,
-                          window=window, q_chunk=q_chunk, policy=policy)
+                          q_offset=pos_offset, kv_valid=kv_valid, causal=True,
+                          window=window, q_chunk=q_chunk, policy=policy,
+                          kv_group_sizes=kv_group_sizes)
     o = o.reshape(B, hq_l, S, hd).transpose(1, 2).reshape(B, S, hq_l * hd)
-    return _row_parallel_out(o, params["wo"], policy, shard, hq * hd)
+    return layers.row_parallel(o, params["wo"], hq * hd, policy=policy, shard=shard)
 
 
-def _gqa_seq_sharded(params, x, cfg, *, pos_offset, cache, window, policy,
+def _gqa_seq_sharded(params, qkv, cfg, *, pos_offset, cache, window, policy,
                      q_chunk, kv_group_sizes, shard) -> torch.Tensor:
     """Prefill / decode on the serving layout (``serve_rules``): the KV
     cache ``(B, Hkv, T / model, hd)`` holds this rank's positions of every
-    KV head.  The column-cut qkv is gathered whole, the new rows are
-    written by the rank that owns their positions, scores and PV run on
-    the local slice and the softmax is combined across ranks
-    (:func:`chunked_attention`); ``wo`` is row-parallel."""
-    if "k_scale" in cache:
-        sharding.refuse("the FP8 KV cache")
+    KV head.  From the whole ``qkv`` columns every rank computes every
+    head; the new rows are written by the rank that owns their positions
+    (under sequence parallelism too: the stream was gathered before
+    ``wqkv``), scores and PV run on the local slice and the softmax is
+    combined across ranks (:func:`chunked_attention`, with the global
+    positions of the slice, so a sliding window reaches across ranks);
+    ``wo`` is row-parallel."""
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    B, S, _ = x.shape
-    qkv = engine.matmul(x, params["wqkv"], policy=policy)
-    if "bqkv" in params:
-        qkv = qkv + params["bqkv"].to(qkv.dtype)
-    if qkv.shape[-1] != (hq + 2 * hkv) * hd:
-        qkv = coll.all_gather(qkv, shard.mesh, sharding.MODEL_AXIS, -1)
+    B, S, _ = qkv.shape
     q, kk, vv = _qkv_heads(params, qkv, cfg, hq, hkv, pos_offset)
     start = shard.model_index * cache["k"].shape[2]
     _write_rows(cache["k"], kk, pos_offset, start)
@@ -446,7 +449,7 @@ def _gqa_seq_sharded(params, x, cfg, *, pos_offset, cache, window, policy,
                           policy=policy, kv_group_sizes=kv_group_sizes,
                           kv_start=start, shard=shard)
     o = o.reshape(B, hq, S, hd).transpose(1, 2).reshape(B, S, hq * hd)
-    return _row_parallel_out(o, params["wo"], policy, shard, hq * hd)
+    return layers.row_parallel(o, params["wo"], hq * hd, policy=policy, shard=shard)
 
 
 def gqa_attention(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg, *,
@@ -459,9 +462,7 @@ def gqa_attention(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg, *,
     the new k / v rows are written into it in place (and it is returned);
     an FP8 cache is requantized in place (:func:`_update_cache`).
     ``shard`` (``runtime.sharding.ShardCtx``) runs the rank's part of a
-    sharded forward: heads over the model axis without a cache
-    (:func:`_gqa_head_parallel`), the sequence-sharded serving cache with
-    one (:func:`_gqa_seq_sharded`)."""
+    sharded forward (:func:`_gqa_sharded`)."""
     B, S, _ = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     g = hq // hkv
@@ -470,17 +471,9 @@ def gqa_attention(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg, *,
         raise ValueError("per-slot pos_offset is a decode-only (S == 1) path")
 
     if shard is not None and shard.model > 1:
-        if cache is None:
-            return _gqa_head_parallel(params, x, cfg, pos_offset=pos_offset,
-                                      window=window, policy=policy,
-                                      q_chunk=q_chunk, shard=shard), None
-        if not shard.rules.serve_attention:
-            sharding.refuse("a decode cache under training rules (serving "
-                            "shards it over kv_seq: launch.serve.serve_rules)")
-        return _gqa_seq_sharded(params, x, cfg, pos_offset=pos_offset,
-                                cache=cache, window=window, policy=policy,
-                                q_chunk=q_chunk, kv_group_sizes=kv_group_sizes,
-                                shard=shard), cache
+        return _gqa_sharded(params, x, cfg, pos_offset=pos_offset, cache=cache,
+                            window=window, policy=policy, q_chunk=q_chunk,
+                            kv_group_sizes=kv_group_sizes, shard=shard), cache
 
     qkv = engine.matmul(x, params["wqkv"], policy=policy)
     if "bqkv" in params:
@@ -502,9 +495,21 @@ def gqa_attention(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg, *,
     return engine.matmul(o, params["wo"], policy=policy), cache
 
 
+def _mla_whole_heads(params, cfg, shard) -> Dict[str, torch.Tensor]:
+    """MLA's weights for a model axis that does not divide the heads: the
+    head-cut ``wq`` / ``wuk`` / ``wuv`` columns gathered whole, so every
+    rank runs every head (``wo`` stays row-parallel)."""
+    m, hq = cfg.mla, cfg.n_heads
+    width = {"wq": hq * (m.qk_nope_dim + m.qk_rope_dim), "wuk": hq * m.qk_nope_dim,
+             "wuv": hq * m.v_head_dim}
+    return {k: layers.gather_cols(v, width[k], shard) if k in width else v
+            for k, v in params.items()}
+
+
 def mla_attention(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg, *,
                   pos_offset, cache: Optional[Dict[str, torch.Tensor]] = None,
-                  policy: prec.Policy, q_chunk: int = 1024, kv_group_sizes=None
+                  policy: prec.Policy, q_chunk: int = 1024, kv_group_sizes=None,
+                  shard=None
                   ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """MLA (reference ``attention.py:447-570``): x ``(B, S, d)`` -> ``(B,
     S, d)``.  The compressed ``ckv`` / ``kr`` rows are written into the
@@ -512,18 +517,42 @@ def mla_attention(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg, *,
     form; prefill and training re-expand k / v and take the q-chunked path
     (qk dim ``dn + dr`` != v dim).  ``kv_group_sizes`` is accepted for the
     GQA signature: the absorbed decode is einsum-shaped, so per-slot
-    lengths drive only the mask, as in the reference."""
+    lengths drive only the mask, as in the reference.
+
+    On a mesh (``shard``) the rank runs its heads: ``wq``'s head-major
+    columns and ``wuk`` / ``wuv``'s are cut at head boundaries when the
+    model axis divides the heads (else gathered whole:
+    :func:`_mla_whole_heads`), ``wdkv`` is whole, so every rank computes
+    the latent rows, and ``wo`` is row-parallel.  A whole cache (the
+    training rules) is written by every rank.  The serving cache
+    (``serve_attention``) holds the rank's positions: the rank that owns a
+    row writes it; prefill gathers the latent cache whole before the
+    re-expansion; the absorbed decode gathers the absorbed query over the
+    heads, scores the rank's positions for every head, combines the
+    softmax across ranks (max / sum exchange) and sums the context over
+    them, and ``wuv`` / ``wo`` follow on the rank's heads."""
     del kv_group_sizes
     m = cfg.mla
-    B, S, _ = x.shape
     hq = cfg.n_heads
     dn, dr, dv, r = m.qk_nope_dim, m.qk_rope_dim, m.v_head_dim, m.kv_lora_rank
+    pos_cut = False
+    if shard is not None and shard.model > 1:
+        if cache is not None and "ckv_scale" in cache:
+            sharding.refuse("the FP8 KV cache")
+        x = shard.enter(x)
+        if hq % shard.model:
+            params = _mla_whole_heads(params, cfg, shard)
+        pos_cut = cache is not None and shard.rules.serve_attention
+    else:
+        shard = None
+    B, S, _ = x.shape
     per_slot = isinstance(pos_offset, torch.Tensor)
     if per_slot and S != 1:
         raise ValueError("per-slot pos_offset is a decode-only (S == 1) path")
 
-    q = engine.matmul(x, params["wq"], policy=policy).reshape(B, S, hq, dn + dr)
-    q = q.transpose(1, 2)                                   # (B, Hq, S, dn+dr)
+    q = engine.matmul(x, params["wq"], policy=policy).reshape(B, S, -1, dn + dr)
+    hl = q.shape[2]                                         # the rank's heads
+    q = q.transpose(1, 2)                                   # (B, Hl, S, dn+dr)
     qn, qr = q[..., :dn], q[..., dn:]
     dkv = engine.matmul(x, params["wdkv"], policy=policy)  # (B, S, r + dr)
     ckv = layers.rmsnorm(dkv[..., :r], params["kv_norm"])
@@ -535,14 +564,25 @@ def mla_attention(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg, *,
     qr = layers.apply_rope(qr, cos, sin)
     kr = layers.apply_rope(kr[:, None], cos, sin)[:, 0]     # (B, S, dr)
 
-    if cache is not None:
+    start = 0
+    if pos_cut:
+        start = shard.model_index * cache["ckv"].shape[1]
+        _write_rows(cache["ckv"], ckv, pos_offset, start)
+        _write_rows(cache["kr"], kr, pos_offset, start)
+        ckv_all, kr_all, kv_valid = cache["ckv"], cache["kr"], pos_offset + S
+    elif cache is not None:
         ckv_all, kr_all = _update_cache(cache, ("ckv", "kr"), (ckv, kr),
                                         pos_offset, (), (0, 1, 2), ckv.dtype)
         kv_valid = pos_offset + S
     else:
         ckv_all, kr_all, kv_valid = ckv, kr, S
-    T = ckv_all.shape[1]
     scale = (dn + dr) ** -0.5
+
+    def out(o):
+        if shard is None:
+            return engine.matmul(o, params["wo"], policy=policy)
+        return layers.row_parallel(o, params["wo"], hq * dv, policy=policy,
+                                   shard=shard)
 
     if S == 1 and cache is not None:
         # absorbed decode: W_uk folds into the query and W_uv into the
@@ -551,31 +591,47 @@ def mla_attention(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg, *,
         # to the compute dtype in the engine)
         abs_policy = prec.Policy(policy.name + "_absorbed", policy.compute_dtype,
                                  torch.float32, torch.float32)
-        wuk = params["wuk"].reshape(r, hq, dn)
-        wuv = params["wuv"].reshape(r, hq, dv)
+        wuk = params["wuk"].reshape(r, hl, dn)
+        wuv = params["wuv"].reshape(r, hl, dv)
         q_abs = engine.einsum2d("bhsd,rhd->bhsr", qn, wuk, policy=abs_policy)
+        if pos_cut and hl != hq:    # every head scores the rank's positions
+            q_abs = coll.all_gather(q_abs, shard.mesh, sharding.MODEL_AXIS, 1)
+            qr = coll.all_gather(qr, shard.mesh, sharding.MODEL_AXIS, 1)
+        T = ckv_all.shape[1]
         s = engine.einsum2d("bhsr,btr->bhst", q_abs, ckv_all, policy=abs_policy)
         s = s + engine.einsum2d("bhsd,btd->bhst", qr, kr_all, policy=abs_policy)
         s = s * scale
-        kv = torch.as_tensor(kv_valid, device=x.device).reshape(-1, 1, 1, 1)
-        mask = torch.arange(T, device=x.device)[None, None, None, :] < kv
-        s = torch.where(mask, s, torch.full((), NEG_INF, device=x.device))
-        p = torch.softmax(s, dim=-1)
+        if pos_cut:
+            p = _masked_softmax_block(s[:, None], positions, kv_valid, False,
+                                      start=start, shard=shard)[:, 0]
+        else:
+            kv = torch.as_tensor(kv_valid, device=x.device).reshape(-1, 1, 1, 1)
+            mask = torch.arange(T, device=x.device)[None, None, None, :] < kv
+            s = torch.where(mask, s, torch.full((), NEG_INF, device=x.device))
+            p = torch.softmax(s, dim=-1)
         ctx = engine.einsum2d("bhst,btr->bhsr", p, ckv_all, policy=abs_policy)
+        if pos_cut:
+            ctx = coll.psum(ctx, shard.mesh, sharding.MODEL_AXIS)
+            if hl != hq:
+                ctx = ctx[:, shard.model_index * hl:(shard.model_index + 1) * hl]
         o = engine.einsum2d("bhsr,rhd->bhsd", ctx, wuv, policy=abs_policy)
-        o = o.to(policy.compute_dtype).transpose(1, 2).reshape(B, S, hq * dv)
-        return engine.matmul(o, params["wo"], policy=policy), cache
+        o = o.to(policy.compute_dtype).transpose(1, 2).reshape(B, S, hl * dv)
+        return out(o), cache
 
     # prefill / training: re-expand the compressed rows (the MLA trade:
     # a small cache, an extra GEMM)
+    if pos_cut:
+        ckv_all = coll.all_gather(ckv_all, shard.mesh, sharding.MODEL_AXIS, 1)
+        kr_all = coll.all_gather(kr_all, shard.mesh, sharding.MODEL_AXIS, 1)
+    T = ckv_all.shape[1]
     kn = engine.matmul(ckv_all, params["wuk"], policy=policy)
     vv = engine.matmul(ckv_all, params["wuv"], policy=policy)
-    kn = kn.reshape(B, T, hq, dn).transpose(1, 2)           # (B, Hq, T, dn)
-    vv = vv.reshape(B, T, hq, dv).transpose(1, 2)
-    k_full = torch.cat([kn, kr_all[:, None].expand(B, hq, T, dr)], dim=-1)
+    kn = kn.reshape(B, T, hl, dn).transpose(1, 2)           # (B, Hl, T, dn)
+    vv = vv.reshape(B, T, hl, dv).transpose(1, 2)
+    k_full = torch.cat([kn, kr_all[:, None].expand(B, hl, T, dr)], dim=-1)
     q_full = torch.cat([qn, qr], dim=-1)
     o = chunked_attention(q_full[:, :, None], k_full, vv, q_offset=pos_offset,
                           kv_valid=kv_valid, causal=True, q_chunk=q_chunk,
                           scale=scale, policy=policy)
-    o = o[:, :, 0].transpose(1, 2).reshape(B, S, hq * dv)
-    return engine.matmul(o, params["wo"], policy=policy), cache
+    o = o[:, :, 0].transpose(1, 2).reshape(B, S, hl * dv)
+    return out(o), cache

@@ -27,8 +27,8 @@ from repro_torch.runtime import collectives as coll
 from repro_torch.runtime import sharding
 
 __all__ = ["Param", "init_tree", "spec_tree", "abstract_tree", "stack_schema", "rmsnorm", "layernorm",
-           "rope", "apply_rope", "activation", "mlp_glu", "mlp_plain",
-           "cross_entropy"]
+           "rope", "apply_rope", "activation", "gather_cols", "row_parallel",
+           "mlp_glu", "mlp_plain", "cross_entropy"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -209,6 +209,30 @@ def _tp(shard, n: int) -> bool:
     return shard is not None and shard.model > 1 and n % shard.model == 0
 
 
+def gather_cols(y: torch.Tensor, n: int, shard) -> torch.Tensor:
+    """A column-parallel GEMM's output ``y (..., n / model)`` made whole
+    (all-gathered over the model axis); ``y`` when it already is."""
+    if shard is None or y.shape[-1] == n:
+        return y
+    return coll.all_gather(y, shard.mesh, sharding.MODEL_AXIS, -1)
+
+
+def row_parallel(o: torch.Tensor, w: torch.Tensor, n_rows: int, *, policy,
+                 shard) -> torch.Tensor:
+    """``o @ w`` for a ``w`` of ``n_rows`` rows cut over the model axis by
+    its ``("ff" | "heads", "embed")`` spec, handed back in the stream's
+    layout (``ShardCtx.leave``).  A cut ``w`` takes this rank's block of
+    ``o``'s columns (all of them when ``o`` holds only this rank's block)
+    and the partial products are summed; a whole ``w`` gives every rank
+    the whole product."""
+    if shard is None:
+        return engine.matmul(o, w, policy=policy)
+    n = w.shape[0]
+    if n != n_rows and o.shape[-1] != n:
+        o = o[..., shard.model_index * n:(shard.model_index + 1) * n]
+    return shard.leave(engine.matmul(o, w, policy=policy), partial=n != n_rows)
+
+
 def mlp_glu(params: Dict[str, torch.Tensor], x: torch.Tensor, *, act: str,
             policy, shard=None, ff: Optional[int] = None) -> torch.Tensor:
     """Gated MLP ``(act(x @ w_gate) * (x @ w_up)) @ w_down``; ``w_in``
@@ -219,18 +243,21 @@ def mlp_glu(params: Dict[str, torch.Tensor], x: torch.Tensor, *, act: str,
     spec cuts them: with two ranks rank 0 holds every gate column and rank
     1 every up column.  One all-to-all gives each rank the gate and up
     columns of its own ff block, the block of ``w_out``'s ``("ff",
-    "embed")`` rows it holds; the partial products are summed after."""
+    "embed")`` rows it holds; the partial products are summed after (under
+    sequence parallelism: reduce-scattered over the positions, the input
+    gathered over them first)."""
+    if shard is not None:
+        x = shard.enter(x)
     h = engine.matmul(x, params["w_in"], policy=policy)
-    if shard is not None and shard.model > 1:
-        if _tp(shard, ff):
-            h = coll.redistribute_last(
-                h, shard.mesh, sharding.MODEL_AXIS, coll.blocks(2 * ff, shard.model),
-                coll.segment_blocks((ff, ff), shard.model))
-        elif _tp(shard, 2 * ff):
-            h = coll.all_gather(h, shard.mesh, sharding.MODEL_AXIS, -1)
+    if _tp(shard, ff):
+        h = coll.redistribute_last(
+            h, shard.mesh, sharding.MODEL_AXIS, coll.blocks(2 * ff, shard.model),
+            coll.segment_blocks((ff, ff), shard.model))
+    elif shard is not None:
+        h = gather_cols(h, 2 * ff, shard)
     gate, up = h.chunk(2, dim=-1)
     y = engine.matmul(activation(gate, act) * up, params["w_out"], policy=policy)
-    return coll.psum(y, shard.mesh, sharding.MODEL_AXIS) if _tp(shard, ff) else y
+    return y if shard is None else shard.leave(y, partial=_tp(shard, ff))
 
 
 def mlp_plain(params: Dict[str, torch.Tensor], x: torch.Tensor, *, act: str,
@@ -240,9 +267,11 @@ def mlp_plain(params: Dict[str, torch.Tensor], x: torch.Tensor, *, act: str,
     the ``linear`` dispatch (kernel 1's fused epilogue; under autograd its
     derivative is fused into the backward launches).  On a mesh the ff
     columns and rows are cut alike and the partial products summed."""
+    if shard is not None:
+        x = shard.enter(x)
     h = engine.linear(x, params["w_in"], activation=act, policy=policy)
     y = engine.matmul(h, params["w_out"], policy=policy)
-    return coll.psum(y, shard.mesh, sharding.MODEL_AXIS) if _tp(shard, ff) else y
+    return y if shard is None else shard.leave(y, partial=_tp(shard, ff))
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, z_loss: float = 0.0

@@ -180,14 +180,16 @@ def moe_forward(params: Dict[str, Any], x: torch.Tensor, cfg, *,
     """x ``(B, S, d)`` -> ``(y (B, S, d), metrics)``: the routed experts'
     gate-weighted sum plus the shared experts, and the Switch load-balance
     loss, the router z-loss and the fraction of slots dropped past
-    capacity.  On a mesh (``shard``) every rank routes all of ``x``, runs
-    its own experts and the combine's partial sums are summed over the
-    model axis (the reference's GSPMD route)."""
+    capacity.  On a mesh (``shard``) every rank routes all of ``x`` (the
+    whole sequence under sequence parallelism), runs its own experts and
+    the combine's partial sums are summed over the model axis (the
+    reference's GSPMD route)."""
     mo = cfg.moe
-    B, S, d = x.shape
-    E, k = mo.n_routed, mo.top_k
     if shard is not None:
         ROUTES["gspmd"] += 1
+        x = shard.enter(x)
+    B, S, d = x.shape
+    E, k = mo.n_routed, mo.top_k
 
     # ---- router (fp32 logits), softmax, top-k ----
     logits, probs, gate, ids = _route(params, x, mo, policy)
@@ -215,8 +217,8 @@ def moe_forward(params: Dict[str, Any], x: torch.Tensor, cfg, *,
 
     # ---- combine: one permutation gather + the k-slot contraction ----
     y = _combine(out.reshape(B, n_e * C, d), dest, gate, e0 * C, policy)
-    if n_e != E:
-        y = coll.psum(y, shard.mesh, sharding.MODEL_AXIS)
+    if shard is not None:
+        y = shard.leave(y, partial=n_e != E)
     y = y.to(x.dtype)
 
     if "shared" in params:
@@ -252,6 +254,8 @@ def moe_forward_shard_map(params: Dict[str, Any], x: torch.Tensor, cfg, *,
     ``n_routed`` or ``B`` does not divide by the model axis, this is
     :func:`moe_forward`."""
     mo = cfg.moe
+    if shard is not None:
+        x = shard.enter(x)
     B, S, d = x.shape
     E, k = mo.n_routed, mo.top_k
     if shard is None or shard.model == 1 or E % shard.model or B % shard.model:
@@ -276,7 +280,7 @@ def moe_forward_shard_map(params: Dict[str, Any], x: torch.Tensor, cfg, *,
     out = coll.all_to_all(out.contiguous(), mesh, ax)          # expert-major again
     out = out.movedim(0, 1).reshape(Bl, E * C, d)
     y = _combine(out, dest, gate, 0, policy).to(x.dtype)
-    y = coll.all_gather(y, mesh, ax, 0)                        # (B, S, d)
+    y = shard.leave(coll.all_gather(y, mesh, ax, 0), partial=False)   # (B, S, d)
 
     # every rank routed its own tokens: the stats reduce over every axis
     counts = torch.bincount(ids.reshape(-1), minlength=E).to(torch.float32)

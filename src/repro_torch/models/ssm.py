@@ -86,16 +86,22 @@ def mlstm_schema(cfg) -> Dict[str, Any]:
     }
 
 
-def mlstm_block(params, x, cfg, *, policy, state=None):
+def mlstm_block(params, x, cfg, *, policy, state=None, shard=None):
     """x (B, S, d) -> (y (B, S, d), state (B, H, hd, hd)); ``state`` is
-    carried across decode steps."""
+    carried across decode steps.  On a mesh (``shard``) ``w_up``'s fused
+    ``[x | z]`` columns are cut (on two ranks: all of x on rank 0, all of
+    z on rank 1): kernel 1 runs on the rank's block, the block is gathered
+    whole, the per-head core and the state run replicated, and
+    ``w_down`` is row-parallel."""
+    if shard is not None:
+        x = shard.enter(x)
     B, S, d = x.shape
     H = cfg.n_heads
     di = cfg.ssm.mlstm_proj_factor * d
     hd = di // H
 
     u = engine.matmul(x, params["w_up"], policy=policy)
-    xin, z = u.chunk(2, dim=-1)
+    xin, z = layers.gather_cols(u, 2 * di, shard).chunk(2, dim=-1)
     xh = xin.reshape(B, S, H, hd).permute(2, 0, 1, 3).reshape(H, B * S, hd)
     qkv = engine.matmul(xh, params["w_qkv"], policy=policy)     # (H, B*S, 3hd)
     qkv = qkv.reshape(H, B, S, 3 * hd).permute(1, 0, 2, 3)
@@ -123,7 +129,8 @@ def mlstm_block(params, x, cfg, *, policy, state=None):
     o = o.permute(0, 2, 1, 3).reshape(B, S, di).to(x.dtype)
     o = _per_head_rmsnorm(o, params["norm"], H)
     o = o * F.silu(z)
-    return engine.matmul(o, params["w_down"], policy=policy), state
+    return layers.row_parallel(o, params["w_down"], di, policy=policy,
+                               shard=shard), state
 
 
 # --------------------------------------------------------------------- #
@@ -146,15 +153,21 @@ def slstm_schema(cfg) -> Dict[str, Any]:
     }
 
 
-def slstm_block(params, x, cfg, *, policy, state=None):
+def slstm_block(params, x, cfg, *, policy, state=None, shard=None):
     """x (B, S, d) -> (y, state); state is dict(c, n, h, m), each
-    (B, H, hd) fp32."""
+    (B, H, hd) fp32.  On a mesh (``shard``) ``w_gates``' gate-major
+    columns are cut (on two ranks: gates z, i on rank 0, f, o on rank 1):
+    the input GEMM runs on the rank's block, the block is gathered whole,
+    the time loop and the state run replicated, and the GLU is
+    tensor-parallel."""
+    if shard is not None:
+        x = shard.enter(x)
     B, S, d = x.shape
     H = cfg.n_heads
     hd = d // H
 
     wx = engine.matmul(x, params["w_gates"], policy=policy)     # one GEMM
-    wx = wx.reshape(B, S, 4, H, hd).float()
+    wx = layers.gather_cols(wx, 4 * d, shard).reshape(B, S, 4, H, hd).float()
     if state is None:
         zeros = torch.zeros((B, H, hd), dtype=torch.float32, device=x.device)
         state = {"c": zeros, "n": zeros, "h": zeros,
@@ -181,8 +194,9 @@ def slstm_block(params, x, cfg, *, policy, state=None):
         hs.append(h)
     h = torch.stack(hs, dim=1).reshape(B, S, d).to(x.dtype)
     h = layers.rmsnorm(h, params["norm"])
-    y = h + layers.mlp_glu(params["ffn"], h, act=cfg.act, policy=policy)
-    return y, st
+    ffn = layers.mlp_glu(params["ffn"], h, act=cfg.act, policy=policy, shard=shard,
+                         ff=cfg.ssm.slstm_ffn_dim(d))
+    return (h if shard is None else shard.leave(h, partial=False)) + ffn, st
 
 
 # --------------------------------------------------------------------- #
@@ -203,18 +217,22 @@ def mamba_schema(cfg) -> Dict[str, Any]:
     }
 
 
-def mamba_mixer(params, x, cfg, *, policy, state=None):
+def mamba_mixer(params, x, cfg, *, policy, state=None, shard=None):
     """SSD as linear attention: q = C, k = B (fp32, from the fp32 ``w_bcdt``
     GEMM, shared by the heads), v = dt·x (the compute dtype), decay
     ``exp(-exp(a_log)·dt)``.  x (B, S, d) -> (y (B, S, d), state (B, H, N,
-    P) fp32)."""
+    P) fp32).  On a mesh (``shard``) ``w_xz``'s fused ``[x | z]`` block
+    is gathered whole after kernel 1, ``w_bcdt`` is whole, the SSD core
+    and its state run replicated, and ``w_out`` is row-parallel."""
+    if shard is not None:
+        x = shard.enter(x)
     B_, S, d = x.shape
     H, N = cfg.n_heads, cfg.ssm.state_dim
     di = cfg.ssm.mamba_expand * d
     P = di // H
 
     xz = engine.matmul(x, params["w_xz"], policy=policy)
-    xin, z = xz.chunk(2, dim=-1)
+    xin, z = layers.gather_cols(xz, 2 * di, shard).chunk(2, dim=-1)
     bcdt = engine.matmul(x, params["w_bcdt"], policy=_F32)      # (B, S, 2N + H)
     bmat, cmat, dt = torch.split(bcdt, [N, N, H], dim=-1)
     dt = F.softplus(dt + params["dt_bias"].float())             # (B, S, H)
@@ -238,4 +256,5 @@ def mamba_mixer(params, x, cfg, *, policy, state=None):
     o = o.permute(0, 2, 1, 3).reshape(B_, S, di).to(x.dtype)
     o = _per_head_rmsnorm(o, params["norm"], H)
     o = o * F.silu(z)
-    return engine.matmul(o, params["w_out"], policy=policy), state
+    return layers.row_parallel(o, params["w_out"], di, policy=policy,
+                               shard=shard), state

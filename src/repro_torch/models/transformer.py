@@ -35,12 +35,18 @@ Every parameter carries the reference's logical axes, so
 its spec trees leaf for leaf.  Under rules and a mesh of ranks
 (``runtime/sharding.py``: ``use_rules`` / ``use_mesh``) each rank runs
 its part on its local blocks: the embedding looks up its vocab block and
-the rows are summed over the model axis; attention runs head-parallel
-(training) or on the sequence-sharded serving cache; the MLPs and MoE
-experts run tensor- / expert-parallel; the head's logits come out cut
-over the vocab, and the cross-entropy is vocab-parallel.  ``serve_step``
-and ``prefill`` gather the logits whole.  The block kinds and options
-not yet executed on a mesh raise, naming ROADMAP.md.
+the rows are summed over the model axis; attention (GQA and MLA) runs
+head-parallel, or replicated where the heads do not divide the model
+axis, or on the sequence-sharded serving cache; the MLPs and MoE experts
+run tensor- / expert-parallel; the recurrent blocks run their cut GEMMs
+on the rank's block and their core and states replicated; the head's
+logits come out cut over the vocab, and the cross-entropy is
+vocab-parallel.  Under FSDP each block gathers its layer's data-cut
+weights inside its remat region (:func:`_gather_top`); under sequence
+parallelism the residual stream holds the rank's positions between the
+blocks (``ShardCtx.enter`` / ``leave``).  ``serve_step`` and ``prefill``
+gather the logits whole.  The FP8 KV cache on a mesh raises, naming
+ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -237,45 +243,51 @@ def window_array(cfg, device=None) -> Optional[torch.Tensor]:
                         dtype=torch.int32, device=device)
 
 
-def _xlstm_super_block(p, h, cfg, *, policy, cache=None, fresh=True):
+def _xlstm_super_block(p, h, cfg, *, policy, cache=None, fresh=True, shard=None):
     """7 mLSTM blocks + 1 sLSTM block.  With a cache the blocks start from
     its states (from none on a ``fresh`` prefill: the sLSTM's initial state
     is the cache's initial value) and their final states are written back
-    into it in place."""
+    into it in place (on a mesh every rank holds them whole and computes
+    them alike)."""
     m_cache = None if cache is None else cache["mlstm"]      # (7, B, H, hd, hd)
     for i, lp in enumerate(_unbind(p["mlstm"])):
         st = None if m_cache is None or fresh else m_cache[i]
         out, st = ssm.mlstm_block(lp["cell"], _norm(cfg, h, lp["ln"]), cfg,
-                                  policy=policy, state=st)
+                                  policy=policy, state=st, shard=shard)
         if m_cache is not None:
             m_cache[i].copy_(st)
         h = h + out
     s_cache = None if cache is None else cache["slstm"]
     out, st = ssm.slstm_block(p["slstm"]["cell"], _norm(cfg, h, p["slstm"]["ln"]),
                               cfg, policy=policy,
-                              state=None if fresh else s_cache)
+                              state=None if fresh else s_cache, shard=shard)
     if s_cache is not None:
         for k, v in st.items():
             s_cache[k].copy_(v)
     return h + out
 
 
-def _hymba_block(p, h, cfg, *, pos, cache, window, policy, fresh=True):
+def _hymba_block(p, h, cfg, *, pos, cache, window, policy, fresh=True, shard=None):
     """Attention and the SSD mixer read the same normed input; their
-    normed outputs are averaged (reference ``transformer.py:222-235``)."""
+    normed outputs are averaged (reference ``transformer.py:222-235``).
+    Under sequence parallelism the normed input is gathered once for
+    both."""
     hn = _norm(cfg, h, p["ln1"])
+    if shard is not None:
+        hn = shard.enter(hn)
     a, _ = attention.gqa_attention(
         p["attn"], hn, cfg, pos_offset=pos,
         cache=None if cache is None else cache["attn"], window=window,
-        policy=policy, q_chunk=cfg.q_chunk)
+        policy=policy, q_chunk=cfg.q_chunk, shard=shard)
     state = None if cache is None or fresh else cache["ssm"]
-    m, state = ssm.mamba_mixer(p["mamba"], hn, cfg, policy=policy, state=state)
+    m, state = ssm.mamba_mixer(p["mamba"], hn, cfg, policy=policy, state=state,
+                               shard=shard)
     if cache is not None:
         cache["ssm"].copy_(state)
     h = h + 0.5 * (_norm(cfg, a, p["attn_out_norm"])
                    + _norm(cfg, m, p["mamba_out_norm"]))
     return h + layers.mlp_glu(p["mlp"], _norm(cfg, h, p["ln2"]), act=cfg.act,
-                              policy=policy)
+                              policy=policy, shard=shard, ff=cfg.d_ff)
 
 
 def _run_attn(cfg, p, h, *, pos, cache, policy, kv_group_sizes, shard=None):
@@ -283,7 +295,7 @@ def _run_attn(cfg, p, h, *, pos, cache, policy, kv_group_sizes, shard=None):
     if cfg.mla:
         a, _ = attention.mla_attention(p, h, cfg, pos_offset=pos, cache=cache,
                                        policy=policy, q_chunk=cfg.q_chunk,
-                                       kv_group_sizes=kv_group_sizes)
+                                       kv_group_sizes=kv_group_sizes, shard=shard)
         return a
     a, _ = attention.gqa_attention(p, h, cfg, pos_offset=pos, cache=cache,
                                    policy=policy, q_chunk=cfg.q_chunk,
@@ -317,15 +329,17 @@ def _moe_block(p, h, cfg, *, pos, cache, policy, kv_group_sizes=None, shard=None
 def _embed(params, cfg, ids: torch.Tensor, shard) -> torch.Tensor:
     """Token rows of the ``(V, d)`` table.  Cut over the vocab, each rank
     looks up the ids in its block (others give zero rows) and the rows are
-    summed over the model axis."""
+    summed over the model axis (reduce-scattered over the positions under
+    sequence parallelism)."""
     table = params["embed"]
     start = shard.block(cfg.vocab_size, table.shape[0]) if shard else None
     if start is None:
-        return table[ids]
+        rows = table[ids]
+        return rows if shard is None else shard.leave(rows, partial=False)
     local = ids - start
     ok = (local >= 0) & (local < table.shape[0])
     rows = table[torch.where(ok, local, 0)] * ok[..., None].to(table.dtype)
-    return coll.psum(rows, shard.mesh, sharding.MODEL_AXIS)
+    return shard.leave(rows, partial=True)
 
 
 def _vocab_start(params, cfg, shard) -> Optional[int]:
@@ -351,6 +365,24 @@ def _head(params, cfg, h: torch.Tensor) -> torch.Tensor:
     return engine.matmul(h, params["lm_head"], policy=cfg.policy)
 
 
+def _gather_top(params, cfg, sh):
+    """FSDP (parameters cut over the data axes, ``Rules(fsdp=True)``): the
+    parameters outside the layer stack gathered over the data axes, and
+    the layer stack's sanitized specs, which each block reads to gather
+    its own layer inside its remat region (ZeRO-3: a layer's gathered
+    weights live for its forward, and the recompute gathers them again;
+    the gather's backward sums the gradient over the data axes and keeps
+    the rank's block).  ``(params, None)`` when nothing is cut over
+    data."""
+    if sh is None or sh.data == 1:
+        return params, None
+    specs = sharding.sanitize_tree(param_specs(cfg, sh.rules), abstract_params(cfg),
+                                   sh.mesh)
+    top = {k: v if k == "layers" else sharding.gather_over(
+        v, specs[k], sh.mesh, sh.data_axes) for k, v in params.items()}
+    return top, specs["layers"]
+
+
 def forward(params: Dict[str, Any], cfg, batch: Dict[str, torch.Tensor], *,
             cache: Optional[Dict[str, Any]] = None, pos=0,
             last_only: bool = False, head: bool = True, kv_group_sizes=None
@@ -364,13 +396,25 @@ def forward(params: Dict[str, Any], cfg, batch: Dict[str, torch.Tensor], *,
     batch is this rank's rows and the logits its vocab block."""
     _check_kind(cfg)
     sh = sharding.context()
-    sharding.check_executable(cfg, sh)
+    params, lspec = _gather_top(params, cfg, sh)
+    return _forward(params, lspec, cfg, batch, sh, cache=cache, pos=pos,
+                    last_only=last_only, head=head, kv_group_sizes=kv_group_sizes)
+
+
+def _forward(params, lspec, cfg, batch, sh, *, cache=None, pos=0,
+             last_only=False, head=True, kv_group_sizes=None):
+    """:func:`forward` on parameters whose leaves outside the layer stack
+    are whole over the data axes (:func:`_gather_top`); ``lspec`` the
+    layer stack's specs when its leaves are cut over them."""
     policy = cfg.policy
     kind = cfg.block_kind
+    x = batch["embeddings"] if "embeddings" in batch else batch["inputs"]
+    sh = sharding.with_sequence(sh, x.shape[1])
     if "embeddings" in batch:
-        h = batch["embeddings"].to(policy.compute_dtype)
+        h = x.to(policy.compute_dtype)
+        h = h if sh is None else sh.leave(h, partial=False)
     else:
-        h = _embed(params, cfg, batch["inputs"], sh).to(policy.compute_dtype)
+        h = _embed(params, cfg, x, sh).to(policy.compute_dtype)
     aux: Dict[str, torch.Tensor] = {}
     # a fresh prefill: the recurrent sweeps start from no state (kernel 4)
     fresh = not isinstance(pos, torch.Tensor) and pos == 0
@@ -379,12 +423,12 @@ def forward(params: Dict[str, Any], cfg, batch: Dict[str, torch.Tensor], *,
     per_layer = [_unbind(params["layers"]), caches]
     if kind == "xlstm":
         layer = lambda lp, hh, lc: (_xlstm_super_block(
-            lp, hh, cfg, policy=policy, cache=lc, fresh=fresh), ())
+            lp, hh, cfg, policy=policy, cache=lc, fresh=fresh, shard=sh), ())
     elif kind == "hymba":
         per_layer.append(window_array(cfg, device=h.device).unbind(0))
         layer = lambda lp, hh, lc, win: (_hymba_block(
             lp, hh, cfg, pos=pos, cache=lc, window=win, policy=policy,
-            fresh=fresh), ())
+            fresh=fresh, shard=sh), ())
     elif kind == "moe":
         # the dense layer 0, outside the remat (as the reference's scan)
         h = _attn_block(params["layer0"], h, cfg,
@@ -393,6 +437,10 @@ def forward(params: Dict[str, Any], cfg, batch: Dict[str, torch.Tensor], *,
         layer = lambda lp, hh, lc: _moe_block(lp, hh, cfg, cache=lc, **kw)
     else:
         layer = lambda lp, hh, lc: (_attn_block(lp, hh, cfg, cache=lc, **kw), ())
+    if lspec is not None:       # FSDP: gather the layer inside its region
+        cut = layer
+        layer = lambda lp, *rest: cut(sharding.gather_over(
+            lp, lspec, sh.mesh, sh.data_axes, lead=1), *rest)
     block = layer if cache is not None else _remat(cfg, layer)
     sums = None
     for lp, lc, *win in zip(*per_layer):
@@ -400,6 +448,8 @@ def forward(params: Dict[str, Any], cfg, batch: Dict[str, torch.Tensor], *,
         sums = m if sums is None else tuple(a + b for a, b in zip(sums, m))
     if kind == "moe":
         aux = dict(zip(moe.METRICS, sums))
+    if sh is not None:
+        h = sh.enter(h)         # the head reads every position
     if last_only:
         h = h[:, -1:]   # serving: never materialise (B, S, V) prompt logits
     h = _norm(cfg, h, params["final_norm"])
@@ -478,12 +528,14 @@ def loss_fn(params: Dict[str, Any], cfg, batch: Dict[str, torch.Tensor]
     """Mean token cross-entropy of the batch's inputs (token ids or
     embeddings) against ``batch["labels"]`` (labels < 0 masked), with its
     metrics; chunked over batch rows when ``cfg.ce_chunk`` is set."""
+    _check_kind(cfg)
     sh = sharding.context()
+    params, lspec = _gather_top(params, cfg, sh)
     if cfg.ce_chunk:
-        h, _, aux = forward(params, cfg, batch, head=False)
+        h, _, aux = _forward(params, lspec, cfg, batch, sh, head=False)
         loss, metrics = _chunked_ce(params, cfg, h, batch["labels"], sh)
     else:
-        logits, _, aux = forward(params, cfg, batch)
+        logits, _, aux = _forward(params, lspec, cfg, batch, sh)
         loss, metrics = _cross_entropy(params, cfg, logits, batch["labels"], sh)
     if cfg.moe:
         # the reference's per-MoE-layer weighting (transformer.py:444-448)
@@ -520,22 +572,6 @@ def prefill(params, cfg, batch, max_len: int, storage_dtype=None):
     logits, cache, _ = forward(params, cfg, batch, cache=cache, pos=0,
                                last_only=True)
     return _gather_vocab(logits[:, -1], params, cfg, sh), cache
-
-
-def _local_cache_dims(cfg, sh, batch: int, max_len: int, storage_dtype):
-    """This rank's ``(batch, max_len)`` of a decode cache on a mesh."""
-    sharding.check_executable(cfg, sh)
-    if storage_dtype is not None:
-        sharding.refuse("the FP8 KV cache")
-    shape = (batch, cfg.n_kv_heads, max_len, cfg.head_dim)
-    spec = sharding.sanitize_spec(sharding.logical_spec(
-        ("batch", "kv_heads", "kv_seq", None), sh.rules), shape, sh.mesh)
-    b, h, t, _ = sharding.local_shape(shape, spec, sh.mesh)
-    if h != cfg.n_kv_heads or (sh.model > 1 and t == max_len):
-        sharding.refuse(f"a decode cache cut as {tuple(spec)} (serving needs "
-                        "KV heads whole and kv_seq over the model axis: "
-                        "launch.serve.serve_rules, max_len a multiple of it)")
-    return b, t
 
 
 def cache_axes(cfg, storage_dtype=None):
@@ -588,10 +624,12 @@ def init_cache(cfg, batch: int, max_len: int, dtype=None, storage_dtype=None,
     {"mlstm": (n_super, 7, B, H, hd, hd), "slstm": {"c", "n", "h", "m":
     (n_super, B, H, hd)}}}`` fp32, ``m`` at -1e30.
 
-    On a mesh (``use_rules`` / ``use_mesh``, serving rules) ``batch`` and
-    ``max_len`` are the global sizes and the cache is this rank's block of
-    :func:`cache_axes`' spec: its data rows and, with ``kv_seq`` over the
-    model axis, its ``max_len / model`` positions of every KV head."""
+    On a mesh (``use_rules`` / ``use_mesh``) ``batch`` and ``max_len`` are
+    the global sizes and the cache is this rank's block of
+    :func:`cache_axes`' sanitized spec (:func:`_local_cache`): its data
+    rows and, under the serving rules, its ``max_len / model`` positions
+    of every KV head; under ``Rules()`` its KV heads where they divide the
+    model axis; the recurrent states whole."""
     _check_kind(cfg)
     kind = cfg.block_kind
     if storage_dtype is not None and kind not in ("attn", "moe"):
@@ -601,7 +639,7 @@ def init_cache(cfg, batch: int, max_len: int, dtype=None, storage_dtype=None,
     dtype = dtype or cfg.policy.compute_dtype
     sh = sharding.context()
     if sh is not None:
-        batch, max_len = _local_cache_dims(cfg, sh, batch, max_len, storage_dtype)
+        return _local_cache(cfg, sh, batch, max_len, dtype, storage_dtype, dev)
     f32 = dict(dtype=torch.float32, device=dev)
     if kind == "xlstm":
         n_super = cfg.n_layers // cfg.ssm.slstm_period
@@ -629,3 +667,27 @@ def init_cache(cfg, batch: int, max_len: int, dtype=None, storage_dtype=None,
     if kind == "moe":
         out["layer0"] = one
     return out
+
+
+def _local_cache(cfg, sh, batch: int, max_len: int, dtype, storage_dtype, dev):
+    """This rank's blocks of the decode cache of ``batch`` x ``max_len``:
+    every leaf at the local shape of its sanitized :func:`cache_axes` spec,
+    at its initial value (the sLSTM stabiliser ``m`` at -1e30, the rest
+    zero)."""
+    if storage_dtype is not None:
+        sharding.refuse("the FP8 KV cache")
+    if sh.rules.serve_attention and cfg.block_kind != "xlstm" and max_len % sh.model:
+        sharding.refuse(f"a serving cache of {max_len} positions on a "
+                        f"{sh.model}-way model axis (max_len a multiple of it)")
+    with sharding.use_mesh(None):
+        whole = init_cache(cfg, batch, max_len, dtype, device="meta")
+
+    def local(axes, leaf, name):
+        if isinstance(leaf, dict):
+            return {k: local(axes[k], v, k) for k, v in leaf.items()}
+        spec = sharding.sanitize_spec(sharding.logical_spec(axes, sh.rules),
+                                      tuple(leaf.shape), sh.mesh)
+        return torch.full(sharding.local_shape(tuple(leaf.shape), spec, sh.mesh),
+                          -1e30 if name == "m" else 0.0, dtype=leaf.dtype, device=dev)
+
+    return local(cache_axes(cfg), whole, None)

@@ -32,7 +32,7 @@ from typing import Dict, List, Sequence, Tuple
 
 import torch
 
-__all__ = ["psum", "pmax", "pmean", "all_gather", "all_to_all",
+__all__ = ["psum", "pmax", "pmean", "all_gather", "psum_scatter", "all_to_all",
            "redistribute_last", "STATS", "reset_stats"]
 
 STATS: Dict[str, Dict[str, float]] = {}
@@ -149,6 +149,31 @@ def all_gather(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
     tiled ``all_gather``); backward: the summed cotangent's own block."""
     group, n, idx = _group(mesh, axis)
     return x if n == 1 else _AllGather.apply(x, dim % x.ndim, group, n, idx)
+
+
+class _PSumScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group, n, idx):
+        ctx.dim, ctx.group, ctx.n, ctx.idx = dim, group, n, idx
+        size = x.shape[dim] // n
+        return _reduce(x, group, "SUM", "psum_scatter").narrow(dim, idx * size, size)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_AllGather.apply(g, ctx.dim, ctx.group, ctx.n, ctx.idx),
+                None, None, None, None)
+
+
+def psum_scatter(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    """The sum over ``axis``, of which this rank keeps its contiguous block
+    of ``dim`` (JAX's tiled ``psum_scatter``; on gloo an all-reduce and a
+    narrow); backward: the all-gather of the cotangent."""
+    group, n, idx = _group(mesh, axis)
+    if n == 1:
+        return x
+    if x.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split {n} ways")
+    return _PSumScatter.apply(x, dim % x.ndim, group, n, idx)
 
 
 class _AllToAll(torch.autograd.Function):

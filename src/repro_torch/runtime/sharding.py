@@ -23,7 +23,13 @@ the model code calls the collectives of ``runtime/collectives.py`` where
 the layout changes.  So :func:`constrain` and its variants return their
 input unchanged: outside a rules context and on a one-rank mesh they are
 the reference's no-op, and on a mesh the layout they would pin is the one
-the surrounding code has already built.
+the surrounding code has already built.  Under FSDP a block all-gathers
+its layer's data-cut weights inside its remat region (:func:`gather_over`;
+the backward is the reduce-scatter), and under sequence parallelism the
+residual stream holds the rank's positions between blocks
+(:meth:`ShardCtx.enter` / :meth:`ShardCtx.leave`, Megatron's gather
+before the column-parallel GEMMs and reduce-scatter after the row-parallel
+ones).
 
 Rules and the mesh live in thread-local contexts (:func:`use_rules`,
 :func:`use_mesh`).  The model entry points read them once, into a
@@ -39,12 +45,16 @@ import math
 import threading
 from typing import Any, Dict, Optional, Tuple
 
+import torch
+
+from repro_torch.runtime import collectives as coll
+
 __all__ = [
     "PartitionSpec", "P", "Rules", "use_rules", "current_rules", "use_mesh",
     "current_mesh", "logical_spec", "sanitize_spec", "constrain",
     "constrain_fb", "constrain_both", "DATA_AXES", "MODEL_AXIS", "ShardCtx",
-    "context", "local_shape", "shard_block", "sanitize_tree", "spec_leaves",
-    "axes_of", "refuse",
+    "context", "with_sequence", "gather_over", "local_shape", "shard_block",
+    "sanitize_tree", "spec_leaves", "axes_of", "refuse",
 ]
 
 DATA_AXES: Tuple[str, ...] = ("pod", "data")
@@ -279,10 +289,18 @@ def shard_block(x, spec, mesh):
 # --------------------------------------------------------------------- #
 @dataclasses.dataclass(frozen=True)
 class ShardCtx:
-    """Rules and mesh of a sharded run, as the model code reads them."""
+    """Rules and mesh of a sharded run, as the model code reads them.
+
+    ``seq`` is the global sequence length while the residual stream is cut
+    over it (sequence parallelism: ``"seq_sharded"`` over the model axis,
+    the rank holding its contiguous block of positions), else 0.  A block
+    takes its input through :meth:`enter` (the whole sequence, for the
+    column-parallel GEMMs) and hands its output back through :meth:`leave`
+    (the rank's positions again)."""
 
     rules: Rules
     mesh: Any
+    seq: int = 0
 
     @property
     def model(self) -> int:
@@ -310,6 +328,29 @@ class ShardCtx:
                              f"of {n_global} on a {self.model}-way model axis")
         return self.model_index * n_local
 
+    def enter(self, x):
+        """``x (B, S', ...)`` over the whole sequence: all-gathered over the
+        model axis when it holds this rank's positions (Megatron's gather
+        before a column-parallel GEMM); as it is otherwise."""
+        if self.seq and x.shape[1] != self.seq:
+            return coll.all_gather(x, self.mesh, MODEL_AXIS, 1)
+        return x
+
+    def leave(self, y, partial: bool):
+        """A block's output ``y (B, S, ...)`` in the stream's layout.
+        ``partial``: each rank holds a partial sum (a row-parallel GEMM's,
+        a vocab block's lookup), summed over the model axis — and, under
+        sequence parallelism, scattered over the positions.  Otherwise
+        ``y`` is replicated and the rank keeps its positions."""
+        if partial:
+            if self.seq:
+                return coll.psum_scatter(y, self.mesh, MODEL_AXIS, 1)
+            return coll.psum(y, self.mesh, MODEL_AXIS)
+        if self.seq and y.shape[1] == self.seq:
+            n = self.seq // self.model
+            return y.narrow(1, self.model_index * n, n)
+        return y
+
 
 def context() -> Optional[ShardCtx]:
     """The active sharded run: rules and a mesh of more than one rank set,
@@ -320,21 +361,38 @@ def context() -> Optional[ShardCtx]:
     return ShardCtx(rules, mesh)
 
 
+def with_sequence(sh: Optional[ShardCtx], seq_len: int) -> Optional[ShardCtx]:
+    """``sh`` for a stream of ``seq_len`` positions: cut over them under
+    sequence parallelism when the model axis divides them (the reference's
+    ``sanitize_spec`` drops the cut otherwise: a decode step, an odd
+    prompt)."""
+    if sh is None:
+        return None
+    m = sh.model
+    cut = sh.rules.sequence_parallel and m > 1 and seq_len % m == 0
+    return dataclasses.replace(sh, seq=seq_len if cut else 0)
+
+
+def gather_over(tree, specs, mesh, axes: Tuple[str, ...], lead: int = 0):
+    """Every dim of every leaf that its spec cuts over one of ``axes``,
+    all-gathered (inside autograd: the backward sums the cotangent over
+    those axes and keeps the rank's block, a reduce-scatter).  ``lead``
+    spec entries are skipped: a stacked tree's spec read for one layer's
+    slice."""
+    if isinstance(tree, torch.Tensor):
+        x = tree
+        for dim, part in enumerate(tuple(specs)[lead:]):
+            names = axes_of(part)
+            if any(a in axes for a in names) and any(a not in axes for a in names):
+                raise NotImplementedError(f"a dim cut over {names} gathered over "
+                                          f"{axes} alone")
+            # the innermost named axis varies fastest along the dim
+            for ax in reversed(names):
+                if ax in axes:
+                    x = coll.all_gather(x, mesh, ax, dim)
+        return x
+    return {k: gather_over(v, specs[k], mesh, axes, lead) for k, v in tree.items()}
+
+
 def refuse(what: str) -> None:
     raise NotImplementedError(f"{what} under a mesh is {ROADMAP}")
-
-
-def check_executable(cfg, sh: Optional[ShardCtx]) -> None:
-    """Refuse, naming ROADMAP.md, what is not yet executed on a mesh: FSDP
-    or sequence parallelism where they would cut a dim, MLA, and the
-    recurrent block kinds."""
-    if sh is None:
-        return
-    if sh.rules.fsdp and sh.data > 1:
-        refuse("FSDP (Rules(fsdp=True) over a data axis of size > 1)")
-    if sh.rules.sequence_parallel and sh.model > 1:
-        refuse("sequence parallelism (Rules(sequence_parallel=True))")
-    if cfg.mla is not None:
-        refuse(f"MLA attention (arch {cfg.name!r})")
-    if cfg.block_kind in ("xlstm", "hymba"):
-        refuse(f"the {cfg.block_kind} block kind (arch {cfg.name!r})")

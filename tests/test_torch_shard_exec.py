@@ -78,7 +78,16 @@ PLAN = [
          mesh=[1, 2], **TRAIN),
     dict(name="moe_serve_shard_map", kind="serve", arch=MOE, moe_impl="shard_map",
          mesh=[1, 2], **SERVE),
+    # the layouts once refused on a mesh, weights drawn from the seed on each rank
+    dict(name="sp_fwd", kind="forward", arch=QWEN, mesh=[1, 2],
+         sequence_parallel=True, **FWD),
+    dict(name="mla_fwd", kind="forward", arch="deepseek-v2-lite-16b", mesh=[1, 2],
+         **FWD),
+    dict(name="hymba_fwd", kind="forward", arch="hymba-1.5b", mesh=[1, 2], **FWD),
+    dict(name="xlstm_fwd", kind="forward", arch="xlstm-1.3b", mesh=[1, 2], **FWD),
+    dict(name="fsdp_fwd", kind="forward", arch=QWEN, mesh=[2, 1], fsdp=True, **FWD),
 ]
+FORMERLY_REFUSED = ("sp_fwd", "mla_fwd", "hymba_fwd", "xlstm_fwd", "fsdp_fwd")
 
 
 @pytest.fixture(scope="module")
@@ -88,7 +97,8 @@ def run(tmp_path_factory):
     for arch, (_, _, _, tparams) in setups.items():
         torch.save(tparams, d / f"{arch}.pt")
     plan = [dict(c, policy_name="fp32", params=str(d / f"{c['arch']}.pt"))
-            if "arch" in c else c for c in PLAN]
+            if c.get("arch") in setups else dict(c, policy_name="fp32")
+            for c in PLAN]
     (d / "plan.json").write_text(json.dumps(plan))
     rc = procs.spawn(2, ["-m", "repro_torch.launch.mesh", "--device", "cpu",
                          "--plan", str(d / "plan.json"), "--out", str(d)],
@@ -290,25 +300,48 @@ def test_rank_summed_bill_equals_unsharded(run, cell):
         assert n * want[key][1] <= got[key][1] <= 2 * want[key][1], key
 
 
-def test_unported_layouts_refuse_on_a_mesh():
-    # a two-rank mesh description: the refusals come before any collective
+def test_unported_layouts_refuse_on_a_mesh(run):
+    """Sequence parallelism, MLA, hymba, xLSTM and FSDP run a forward on
+    the mesh (against the unsharded forward from the same seed); the FP8
+    KV cache and the scheduler over a data axis or with fault injection
+    still refuse, naming ROADMAP (on a mesh description: the refusals come
+    before any collective)."""
+    from repro_torch.models import attention as tattn
+    from repro_torch.runtime.fault_tolerance import FailureInjector
+    from repro_torch.serving import scheduler as tsched
+
+    setups, load = run
+    for name in FORMERLY_REFUSED:
+        cell = next(c for c in PLAN if c["name"] == name)
+        cfg = dataclasses.replace(tconfigs.get_reduced(cell["arch"]), policy_name="fp32")
+        if cell["arch"] in setups:
+            params = setups[cell["arch"]][3]
+        else:
+            params = tt.init_params(cfg, seed=0, device="cpu", dtype=torch.float32)
+        out, _ = load(name)
+        want, _, _ = tt.forward(params, cfg, {"inputs": out["tokens"]})
+        assert _rel(out["logits"], want.detach()) <= 1e-5, name
     mesh = tmesh.Mesh((1, 2), ("data", "model"), device="cpu")
-    toks = torch.zeros((2, 4), dtype=torch.long)
-    for arch, rules in ((QWEN, ts.Rules(sequence_parallel=True)),
-                        ("deepseek-v2-lite-16b", ts.Rules()),
-                        ("hymba-1.5b", ts.Rules()), ("xlstm-1.3b", ts.Rules())):
-        cfg = tconfigs.get_reduced(arch)
-        params = tt.init_params(cfg, seed=0, device="cpu")
-        with ts.use_rules(rules), ts.use_mesh(mesh):
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                tt.forward(params, cfg, {"inputs": toks})
-    fsdp_mesh = tmesh.Mesh((2, 1), ("data", "model"), device="cpu")
     cfg = tconfigs.get_reduced(QWEN)
-    with ts.use_rules(ts.Rules(fsdp=True)), ts.use_mesh(fsdp_mesh):
+    params = tt.init_params(cfg, seed=0, device="cpu")
+    with ts.use_rules(tserve.serve_rules()), ts.use_mesh(mesh):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tt.forward(tt.init_params(cfg, seed=0, device="cpu"), cfg, {"inputs": toks})
+            tt.init_cache(cfg, 2, 8, storage_dtype="float8_e4m3fn", device="cpu")
+    fp8 = tattn.init_gqa_cache(cfg, 2, 8, cfg.policy.compute_dtype, "float8_e4m3fn",
+                               device="cpu")
+    layer0 = {k: v[0] for k, v in params["layers"]["attn"].items()}
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tattn.gqa_attention(layer0, torch.zeros((2, 4, cfg.d_model)), cfg, pos_offset=0,
+                            cache=fp8, policy=cfg.policy,
+                            shard=ts.ShardCtx(tserve.serve_rules(), mesh))
+    scfg = tsched.SchedulerConfig(n_slots=2, max_len=8)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tsched.Scheduler(params, cfg, scfg, rules=tserve.serve_rules(),
+                         mesh=tmesh.Mesh((2, 1), ("data", "model"), device="cpu"))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tsched.Scheduler(params, cfg, scfg, FailureInjector(1, "nan_logits"),
+                         rules=tserve.serve_rules(), mesh=mesh)
     # FSDP where it cuts nothing (one data rank) runs as plain rules do
     with ts.use_rules(ts.Rules(fsdp=True)), ts.use_mesh(tmesh.make_host_mesh()):
-        logits, _, _ = tt.forward(tt.init_params(cfg, seed=0, device="cpu"), cfg,
-                                  {"inputs": toks})
+        logits, _, _ = tt.forward(params, cfg, {"inputs": torch.zeros((2, 4), dtype=torch.long)})
     assert logits.shape == (2, 4, cfg.vocab_size)

@@ -293,8 +293,10 @@ def test_train_unported_paths_raise():
     # --ckpt-dir, --compress / --dp-procs, --fail-step and --result
     # (tests/test_torch_checkpoint_ft.py, test_torch_ft_gates.py); since the
     # sharding slice so do sharding rules (outside a mesh the reference's
-    # no-op; on two ranks tests/test_torch_shard_exec.py), while MLA and the
-    # recurrent kinds under a mesh are still to port
+    # no-op; on two ranks tests/test_torch_shard_exec.py), and MLA and the
+    # recurrent kinds run under a mesh too (tests/test_torch_shard_layouts.py):
+    # on a mesh description the step now gets past every refusal to its
+    # first collective
     from repro_torch.launch import mesh as tmesh
     from repro_torch.runtime import sharding as ts
     qcfg = tconfigs.get_reduced("qwen3-1.7b")
@@ -311,7 +313,7 @@ def test_train_unported_paths_raise():
     step, _ = ttrain.make_sharded_train_step(
         mcfg, tmesh.Mesh((1, 2), ("data", "model"), device="cpu"), ts.Rules(),
         topt.AdamW())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(RuntimeError, match="not bound to a process group"):
         step(st, {"inputs": toks, "labels": toks})
     # hymba-1.5b trains and xlstm serves from its decode state now
     # (tests/test_torch_recurrent.py); remat "dots" is still to port
