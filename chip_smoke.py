@@ -57,11 +57,12 @@ Phases, any failure exits non-zero:
    of the same model is held against the plain path on the CPU;
 4. **train** — the counts are set to 0 again, then
    ``repro_torch.launch.train`` trains xlstm-1.3b at full width (d 2048,
-   random weights from a seed) with its depth cut to 16 blocks (two
-   super-blocks; 48 blocks and 3 steps before the ft phase came) for 2
-   steps at batch 4 x seq 256; loss and gradient norm must be finite on every step and the
-   sweep kernel's launch count must equal the structural one (14 mLSTM
-   blocks per forward, once more in the remat recompute).  The warm-up
+   random weights from a seed) with its depth cut to 8 blocks (one
+   super-block since the dryrun phase came; 16 before it, 48 blocks and
+   3 steps before the ft phase came) for 2 steps at batch 4 x seq 256;
+   loss and gradient norm must be finite on every step and the sweep
+   kernel's launch count must equal the structural one (7 mLSTM blocks
+   per forward, once more in the remat recompute).  The warm-up
    step's fp32-route launches are tallied by shape, each shape then timed
    alone; then one step is profiled (device busy / idle share) with its
    peak memory, and one
@@ -80,8 +81,8 @@ Phases, any failure exits non-zero:
    deep rows), which is printed as unbounded and held only to be finite;
 5. **lmtrain** — the counts are set to 0 again, then
    ``repro_torch.launch.train`` trains qwen3-1.7b at full width (28
-   layers, d 2048, vocab 151936, random weights from a seed) for 3 steps
-   at batch 4 x seq 256: loss and gradient norm finite, and each kernel's
+   layers, d 2048, vocab 151936, random weights from a seed) for 2 steps
+   (3 before the dryrun phase came) at batch 4 x seq 256: loss and gradient norm finite, and each kernel's
    launches equal to the structural count (kernel 1 451, kernel 2 168,
    kernel 3 56 a step).  Then one step is profiled (busy / idle share;
    GEMM, composition, flash and other device time; peak memory), two
@@ -142,6 +143,18 @@ Phases, any failure exits non-zero:
    card beside a control that must fail (one rank's block of a cut
    weight negated), every rank's resident bytes equal to the spec's
    blocks, the recurrent states bitwise equal across ranks;
+7b. **dryrun** — the dry run (``launch/dryrun.py``): each ``SH_LAYOUTS``
+   cell's rank 0 traced on meta tensors (the card's contract) in
+   ``DR_WORKERS`` host processes started before the ft phase (the traces
+   need no card and no run; the ft ranks leave most host cores idle), its collectives per kind (count,
+   payload bytes), resident parameter / moment / KV bytes and engine bill
+   equal to every rank's, its traced peak within ``DR_MEM_BOUND`` of the
+   rank's ``max_memory_allocated`` over the same steps, beside the cell
+   with its batch doubled, which must miss the bound wherever the batch
+   moves the traced peak; the reference's production cells
+   (``DR_PROD``) at full width with the reference's printed line; the
+   lmtrain step's measured time over the dry run's one-card bound
+   (printed).  Every term is an estimate from H100 data-sheet constants;
 8. **ae** — the counts are set to 0 again, then ``repro_torch.launch.train
    --arch ae`` trains the paper's TinyMLPerf AutoEncoder (640 -> [128 x4]
    -> 8 -> [128 x4] -> 640, random weights from a seed) for 200 steps at
@@ -206,7 +219,8 @@ Phases, any failure exits non-zero:
    layers and the prefill crosses q_chunk 1024; kernel 4 32 a prefill, 0
    a decode step, no flash;
 16. **hymbatrain** — ``repro_torch.launch.train`` trains hymba-1.5b at full
-   width and depth, 4 x 256, 3 steps: losses finite, 64 sweeps a step
+   width and depth, 4 x 256, 2 steps (3 before the dryrun phase came):
+   losses finite, 64 sweeps a step
    (forward and remat recompute), no flash, one profiled step, peak memory;
 17. **ssmcut** — a two-layer full-width cut of hymba-1.5b (full layer 0,
    sliding layer 1) on 2 x 1088 and one xlstm-1.3b super-block on 2 x 128
@@ -290,15 +304,17 @@ TF32_FLOPS = 495e12         # H100 SXM dense TF32 tensor-core peak
 ARCH, BATCH, PROMPT, GEN, SEED = "qwen3-1.7b", 4, 128, 16, 0
 # the training path: xlstm-1.3b at full width
 T_ARCH, T_BATCH, T_SEQ, T_STEPS = "xlstm-1.3b", 4, 256, 2
-# its main path and profiled step run the first T_LAYERS blocks (two
-# super-blocks; all 48 and 3 steps until the ft phase needed the time);
-# the step-0 parity below keeps the whole depth
-T_LAYERS = 16
+# its main path and profiled step run the first T_LAYERS blocks (one
+# super-block since the dryrun phase needed the time; two until then, all
+# 48 and 3 steps until the ft phase did); the step-0 parity below keeps
+# the whole depth
+T_LAYERS = 8
 # the full-depth step-0 parity: batch 1 x seq 128 (two 64-row chunks, so
 # the sweep carries its state once), all 48 blocks at full width under the
-# training policy; under fp32 the first FD_FP32_LAYERS (three super-blocks:
-# 48 until the shard phase needed the time)
-FD_SEQ, FD_FP32_LAYERS = 128, 24
+# training policy; under fp32 the first FD_FP32_LAYERS (two super-blocks
+# since the dryrun phase needed the time; three until then, 48 until the
+# shard phase did)
+FD_SEQ, FD_FP32_LAYERS = 128, 16
 # the AutoEncoder path: the paper's use case at its published width
 AE_BATCH, AE_STEPS, AE_BIG = 16, 200, 4096
 # the paper_fp16 AE step parity's control at batch AE_BIG: one row of fc1's
@@ -323,7 +339,7 @@ AE8_STATS_TOL = 2.0 ** -9
 # a 2^-6 scale error moves the logits by 0.087-0.13: 1.25 splits the gap
 S8_TRIALS, S8_FACTOR = 4, 1.25
 # the LM training path: qwen3-1.7b at full width; its two-layer parity cut
-L_BATCH, L_SEQ, L_STEPS, L_CUT_SEQ = 4, 256, 3, 128
+L_BATCH, L_SEQ, L_STEPS, L_CUT_SEQ = 4, 256, 2, 128
 # the dense configs of the LM slice, each served as a two-layer cut
 DENSE_ARCHS = ("mistral-nemo-12b", "pixtral-12b", "command-r-35b", "musicgen-medium")
 # the MoE slice: deepseek-v2-lite-16b served at full width and depth (4
@@ -341,7 +357,7 @@ MOE_ARCHS, MC_BATCH, MC_PROMPT = ("deepseek-v2-lite-16b", "deepseek-moe-16b"), 2
 # 2 x 128, each with 2 decode steps, card vs CPU
 X_BATCH, X_PROMPT, X_GEN = 4, 128, 16
 H_ARCH, H_BATCH, H_PROMPT, H_GEN = "hymba-1.5b", 4, 1152, 16
-HT_BATCH, HT_SEQ, HT_STEPS = 4, 256, 3
+HT_BATCH, HT_SEQ, HT_STEPS = 4, 256, 2
 HC_BATCH, HC_PROMPT, XC_BATCH, XC_PROMPT, C_GEN = 2, 1088, 2, 128, 2
 # the hymba cut's control: layer 1's a_log raised by this much.  2^-3 moves
 # the logits by ~3.3e-2 and layer 1's SSD state by ~4.7e-2 of max, inside
@@ -372,7 +388,7 @@ def _card() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+def _time_ms(fn, iters: int = 10, warmup: int = 3) -> float:
     import torch
 
     for _ in range(warmup):
@@ -1403,7 +1419,7 @@ def _time_rows(runs) -> list:
         # included where it exceeds the kernel); device_ms: the kernel
         # alone, from the profiler; splits: the slices S of the call
         _, splits = _with_splits(r["kernel"])
-        prof = _device_profile(r["kernel"], 10)["by_kernel"]
+        prof = _device_profile(r["kernel"], 5)["by_kernel"]
         kernels.append({
             "name": r["name"], "route": "cuda", "source": r["source"],
             "replaces": r["replaces"], "shape": r["shape"],
@@ -1413,7 +1429,7 @@ def _time_rows(runs) -> list:
             "library_ms": None if r["library"] is None else _time_ms(r["library"]),
             "device_ms": prof[r["group"]]["ms"], "splits": splits})
         if r["library"] is not None:   # the library call's kernels alone
-            kernels[-1]["library_device_ms"] = _device_profile(r["library"], 10)["device_ms"]
+            kernels[-1]["library_device_ms"] = _device_profile(r["library"], 5)["device_ms"]
         if "bound_tc" in r:   # the tensor-core bound of the split products
             kernels[-1]["bound_tc_ms"], kernels[-1]["bound_tc_by"] = r["bound_tc"]
         print(f"[time] {r['name']} ({r['shape']}): {kernels[-1]['ms']:.4f} ms, "
@@ -1857,7 +1873,7 @@ def serve_phase(log, counters):
                                       kv_group_sizes=sizes)
 
     dec_logits, _ = decode()
-    decode_ms = _time_ms(decode, iters=20, warmup=2)
+    decode_ms = _time_ms(decode, iters=10, warmup=2)
     for name, t in (("prefill", logits), ("decode", dec_logits)):
         if not torch.isfinite(t.float()).all():
             raise AssertionError(f"{name} logits are not finite")
@@ -2142,7 +2158,7 @@ def _k2_ranged():
 
 def lmtrain_phase(log, counters):
     """LM training through its entry point: qwen3-1.7b at full width,
-    batch 4 x seq 256, 3 steps, with the launch counts held to the
+    batch 4 x seq 256, 2 steps, with the launch counts held to the
     structural ones; one profiled step (busy / idle share, the GEMM /
     flash / composition / other split, peak memory); two ``--fp16-scale``
     steps; a two-layer full-width cut's loss and gradients against the CPU
@@ -2835,7 +2851,7 @@ def _fp32_by_shape(tally):
             kw = ({"bias_grad": True} if layout == "tn" else
                   {"deriv": torch.randn_like(x), "grad_epilogue": "relu"})
         ms = _device_profile(lambda: fn(x, w, policy=prec.FP32, layout=layout, **kw),
-                             10)["by_kernel"]["redmule_gemm_f32"]["ms"]
+                             5)["by_kernel"]["redmule_gemm_f32"]["ms"]
         tile = tiling.choose_tiles(M, N, K)
         S = tiling.split_plan(M, N, K, tile=tile, batch=batch, route="simt",
                               fused_bwd=fused).splits
@@ -3331,7 +3347,7 @@ def serve8_phase(log, counters):
                                       kv_group_sizes=sizes)
 
     dec_logits, _ = decode()
-    decode_ms = _time_ms(decode, iters=20, warmup=2)
+    decode_ms = _time_ms(decode, iters=10, warmup=2)
     for name, t in (("prefill", logits), ("decode", dec_logits)):
         if not torch.isfinite(t.float()).all():
             raise AssertionError(f"serve8: {name} logits are not finite")
@@ -4967,7 +4983,7 @@ def sched_phase(log, counters):
         step = lambda pp=pp, cc=cc, cache=cache: transformer.serve_step(
             pp, cc, toks, cache, pos, kv_group_sizes=sizes)
         step()
-        acct[f"decode_step_ms_{tag}"] = _time_ms(step, iters=3, warmup=1)
+        acct[f"decode_step_ms_{tag}"] = _time_ms(step, iters=2, warmup=1)
         # one call a window: an FP8 step launches ~18,700 kernels, and the
         # profiler's post-processing of three took ~30 s
         profiles[tag] = _k2_profile(step, 1, 2 * L)
@@ -6002,6 +6018,210 @@ def shard_phase(log, counters):
     return res
 
 
+# the dry run (launch/dryrun.py) against the layout cells that ran on the
+# card: every prediction equal to the rank (collectives per kind, resident
+# bytes, engine bill) and its peak within DR_MEM_BOUND of the rank's
+# max_memory_allocated over the same steps (relative), beside the same
+# cell with its batch doubled, which must miss it where the batch moves
+# the peak.  Then the reference's production cells at full width,
+# and the lmtrain step against its one-card bound.
+# the largest gap measured on an H100 80GB HBM3 (700 W) was 2.8e-3
+# (hymba_train; PERF.md section 5)
+DR_MEM_BOUND = 0.005
+DR_WORKERS = 4
+DR_PROD = (("qwen3-1.7b", "train_4k", False), ("qwen3-1.7b", "decode_32k", False),
+           ("deepseek-v2-lite-16b", "train_4k", True), ("xlstm-1.3b", "long_500k", False))
+
+
+def _dry_predict(cell, batch_scale: int = 1) -> dict:
+    """Rank 0 of a layout cell traced on meta tensors (the card's contract):
+    its collectives per kind, resident bytes, engine bill and peak bytes."""
+    import dataclasses
+
+    from repro_torch.core import precision as prec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_lib
+
+    cell = _layout_cell(cell, ())
+    cfg = _layout_cfg(cell)
+    mesh = mesh_lib.Mesh(tuple(cell["mesh"]), ("data", "model"))
+    rules = _layout_rules(cell)
+    B = cell["batch"] * batch_scale
+    if cell["kind"] == "train":
+        # the rank worker's step keeps a copy of its gradients
+        got = dryrun.trace_train(cfg, mesh, rules, batch=B, seq=cell["seq"],
+                                 grad_accum=cell.get("grad_accum", 1),
+                                 return_grads=True)
+        return {"collectives": got.collective_stats(), "bill": got.bill(),
+                "resident": got.resident, "peak": got.peak_bytes,
+                "seconds": got.seconds}
+    cfg = dataclasses.replace(cfg, param_dtype=prec.dtype_name(cfg.compute_dtype))
+    S, G, m = cell["prompt"], cell["gen"], cell["mesh"][1]
+    T = -(-(S + G) // m) * m
+    pre = dryrun.trace_prefill(cfg, mesh, rules, batch=B, seq=S, max_len=T)
+    steps = [dryrun.trace_decode(cfg, mesh, rules, batch=B, max_len=T, pos=S + i)
+             for i in range(G)]
+    stats: dict = {}
+    for st in steps:
+        for k, v in st.collective_stats().items():
+            d = stats.setdefault(k, {"count": 0, "bytes": 0})
+            d["count"] += v["count"]
+            d["bytes"] += v["bytes"]
+    bill = {q: {d: sum(st.bill()[q][d] for st in steps) for d in ("fwd", "bwd")}
+            for q in ("flops", "bytes")}
+    return {"collectives_prefill": pre.collective_stats(), "collectives_decode": stats,
+            "bill_prefill": pre.bill(), "bill_decode": bill,
+            "resident": dict(pre.resident, kv_bytes=steps[0].resident["kv_bytes"]),
+            "peak": max([pre.peak_bytes] + [st.peak_bytes for st in steps]),
+            "seconds": pre.seconds + sum(st.seconds for st in steps)}
+
+
+def _dry_task(task):
+    """One dry-run trace of the dryrun phase, in a worker process."""
+    kind, args = task
+    if kind == "cell":
+        return _dry_predict(*args)
+    from repro_torch.launch import dryrun
+
+    if kind == "prod":
+        arch, shape, multi = args
+        return dryrun.dryrun_cell(arch, shape, multi_pod=multi, verbose=False)
+    # the lmtrain step (qwen3-1.7b, L_BATCH x L_SEQ) on one card
+    from repro_torch import configs
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.roofline import analysis
+    from repro_torch.runtime import sharding
+
+    cfg = configs.get(ARCH)
+    got = dryrun.trace_train(cfg, mesh_lib.Mesh((1, 1), ("data", "model")),
+                             sharding.Rules(), batch=L_BATCH, seq=L_SEQ)
+    rep = analysis.roofline(got.trace, arch=ARCH, shape=f"{L_BATCH}x{L_SEQ}",
+                            mesh_name="1x1", n_devices=1,
+                            model_flops_val=analysis.model_flops(
+                                cfg, configs.ShapeSpec("lm", "train", L_SEQ, L_BATCH)))
+    return {"bound_s": rep.bound_s, "dominant": rep.dominant, "peak": got.peak_bytes,
+            "compute_s": rep.compute_s, "memory_s": rep.memory_s}
+
+
+def start_dry_traces():
+    """Start the dryrun phase's traces (host CPU only, no card) in
+    DR_WORKERS processes; they need the cells' descriptions, not their
+    runs, so they run beside the ft phase, whose ranks leave most host
+    cores idle.  Returns what :func:`dryrun_phase` waits on."""
+    import concurrent.futures
+    import multiprocessing
+
+    tasks = [("cell", (cell, scale)) for cell, _, _ in SH_LAYOUTS for scale in (1, 2)]
+    tasks += [("prod", p) for p in DR_PROD] + [("one", ())]
+    # the longest traces first
+    tasks.sort(key=lambda t: t[0] != "cell" or t[1][0]["name"] not in
+               ("xlstm_train", "mla_train", "mla_serve", "qwen_fsdp"))
+    pool = concurrent.futures.ProcessPoolExecutor(
+        DR_WORKERS, mp_context=multiprocessing.get_context("spawn"))
+    t0 = time.perf_counter()
+    futures = {repr(t): pool.submit(_dry_task, t) for t in tasks}
+    ends: dict = {}
+    for k, f in futures.items():
+        f.add_done_callback(lambda _f, k=k: ends.setdefault(k, time.perf_counter()))
+    return pool, futures, t0, ends
+
+
+def dryrun_phase(log, shard, lmtrain, traces):
+    """The dry run: each layout cell's prediction against its ranks; the
+    reference's production cells at full width; the lmtrain step against
+    the dry run's one-card bound.  The traces were started before the ft
+    phase (:func:`start_dry_traces`); this phase waits for them.  Every
+    term is an estimate from H100 data-sheet constants
+    (roofline/analysis.py), not a measurement."""
+    from repro_torch.launch import dryrun
+
+    card = _card()
+    strip = lambda st: {k: {"count": v["count"], "bytes": v["bytes"]}
+                        for k, v in st.items()}
+    pool, futures, t0, ends = traces
+    t_wait = time.perf_counter()
+    try:
+        done = {k: f.result() for k, f in futures.items()}
+    finally:
+        pool.shutdown()
+    print(f"[dryrun] {len(done)} traces in {max(ends.values()) - t0:.1f} s on "
+          f"{DR_WORKERS} host processes beside the ft and shard phases; this "
+          f"phase waited {time.perf_counter() - t_wait:.1f} s for them", flush=True)
+    res: dict = {"card": card, "cells": {}, "traces_s": max(ends.values()) - t0}
+    for cell, _, _ in SH_LAYOUTS:
+        infos = shard[cell["name"]]
+        want, twice = (done[repr(("cell", (cell, k)))] for k in (1, 2))
+        for r, info in enumerate(infos):
+            if cell["kind"] == "train":
+                pairs = [("collectives", strip(info["collectives"][0]), want["collectives"]),
+                         ("bill", info["bill"][0], want["bill"]),
+                         ("param_bytes", info["param_bytes"], want["resident"]["param_bytes"]),
+                         ("moment_bytes", info["moment_bytes"],
+                          want["resident"]["moment_bytes"])]
+            else:
+                pairs = [(k, strip(info[k]) if k.startswith("coll") else info[k], want[k])
+                         for k in ("collectives_prefill", "collectives_decode",
+                                   "bill_prefill", "bill_decode")]
+                pairs += [(k, info[k], want["resident"][k])
+                          for k in ("param_bytes", "kv_bytes")]
+            bad = [k for k, got, w in pairs if got != w]
+            log.append({"check": f"dryrun {cell['name']} rank {r}: collectives, "
+                        "resident bytes and engine bill equal the rank's",
+                        "ok": not bad, "differ": bad})
+            if bad:
+                raise AssertionError(f"dryrun {cell['name']} rank {r}: {bad} differ: "
+                                     + "; ".join(f"{k} run {g} predicted {w}"
+                                                 for k, g, w in pairs if k in bad))
+        # the rank's peak over the steps the trace predicts (not its
+        # weights' init, which draws whole leaves)
+        peak = infos[0]["peak_steps_bytes"]
+        peak = peak[0] if isinstance(peak, list) else peak
+        gap, gap2 = want["peak"] / peak - 1, twice["peak"] / peak - 1
+        print(f"[dryrun] ({card}) {cell['name']}: predicted == rank on collectives, "
+              f"resident bytes, bill; peak predicted {want['peak'] / 2**30:.3f} GiB, "
+              f"max_memory_allocated {peak / 2**30:.3f} GiB (gap {gap:+.4f}), batch x2 "
+              f"predicted {twice['peak'] / 2**30:.3f} GiB (gap {gap2:+.4f}); traced in "
+              f"{want['seconds']:.1f} s", flush=True)
+        res["cells"][cell["name"]] = {"peak_pred": want["peak"], "peak_run": peak,
+                                      "peak_pred_x2": twice["peak"], "gap": gap,
+                                      "gap_x2": gap2, "trace_s": want["seconds"]}
+        # the control: the batch doubled must miss the bound wherever it
+        # moves the traced peak by more than twice the bound (activations
+        # set the peak); where AdamW over the whole state sets it, no
+        # batch can move it and the control is printed as such
+        moves = abs(twice["peak"] / want["peak"] - 1) > 2 * DR_MEM_BOUND
+        ok = abs(gap) <= DR_MEM_BOUND and (abs(gap2) > DR_MEM_BOUND or not moves)
+        log.append({"check": f"dryrun {cell['name']} peak within {DR_MEM_BOUND} of the "
+                    "rank's steps, batch x2 outside where it moves the peak",
+                    "ok": ok, "gap": gap, "gap_x2": gap2, "control_applies": moves})
+        if not moves:
+            print(f"[dryrun] {cell['name']}: batch x2 moves the traced peak by "
+                  f"{twice['peak'] / want['peak'] - 1:+.5f} (the optimizer over the "
+                  "whole state sets it): no batch control can miss the bound here",
+                  flush=True)
+        if not ok:
+            raise AssertionError(f"dryrun {cell['name']}: peak gap {gap:+.4f}, "
+                                 f"batch x2 {gap2:+.4f}, bound {DR_MEM_BOUND}")
+    print("[dryrun] the production cells (estimates from H100 data-sheet constants, "
+          f"not measurements; card here: {card}):", flush=True)
+    for p in DR_PROD:
+        rec = done[repr(("prod", p))]
+        print(dryrun.cell_line(rec), flush=True)
+        res[f"{rec['arch']}__{rec['shape']}__{rec['mesh']}"] = rec
+    one = done[repr(("one", ()))]
+    step_s = lmtrain["history"][-1]["step_ms"] / 1e3
+    print(f"[dryrun] ({card}) lmtrain step qwen3-1.7b {L_BATCH} x {L_SEQ} on one card: "
+          f"measured {step_s * 1e3:.1f} ms, dry-run bound {one['bound_s'] * 1e3:.2f} ms "
+          f"({one['dominant']}-bound estimate: compute {one['compute_s'] * 1e3:.2f} ms, "
+          f"memory {one['memory_s'] * 1e3:.2f} ms), measured / bound "
+          f"{step_s / one['bound_s']:.2f}; peak predicted {one['peak'] / 2**30:.2f} GiB, "
+          f"measured {lmtrain['peak_mem_step_gib']:.2f} GiB (printed, not a check)",
+          flush=True)
+    res["lmtrain"] = dict(one, step_s=step_s, ratio=step_s / one["bound_s"],
+                          peak_run_gib=lmtrain["peak_mem_step_gib"])
+    return res
+
+
 def _main_launches(counts: dict) -> dict:
     """A rank's launches of each kernel (its wrappers' ``.launches``)."""
     return {k.split(".")[0]: v for k, v in counts.items() if k.endswith(".launches")}
@@ -6055,19 +6275,27 @@ def main() -> int:
     log: list = []
     phase_s = {}
 
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
+    progress = ROOT / "chiprun_out" / "chip_smoke_phases.json"
+
     def timed(name, fn, *args):
         t = time.perf_counter()
         result = fn(*args)
         phase_s[name] = time.perf_counter() - t
         print(f"[phase] {name} {phase_s[name]:.1f}s", flush=True)
+        # each phase's seconds as it ends (a failing run keeps them)
+        progress.write_text(json.dumps({"card": card, "build_s": build_s,
+                                        "phase_s": phase_s}, indent=1))
         return result
 
     kernels, counters, row_paths = timed("kernels", kernel_phase, log)
     serve = timed("serve", serve_phase, log, counters)
     train = timed("train", train_phase, log, counters)
     lmtrain = timed("lmtrain", lmtrain_phase, log, counters)
+    traces = start_dry_traces()
     ft = timed("ft", ft_phase, log, counters)
     shard = timed("shard", shard_phase, log, counters)
+    dry = timed("dryrun", dryrun_phase, log, shard, lmtrain, traces)
     ae = timed("ae", ae_phase, log, counters)
     ae8 = timed("ae8", ae8_phase, log, counters)
     serve8 = timed("serve8", serve8_phase, log, counters)
@@ -6102,7 +6330,8 @@ def main() -> int:
     print(f"[report] split launches per path: {json.dumps(split_by_path)}", flush=True)
     out = {"card": card, "build_s": build_s, "phase_s": phase_s, "checks": log,
            "serve": serve,
-           "train": train, "lmtrain": lmtrain, "ft": ft, "shard": shard, "ae": ae,
+           "train": train, "lmtrain": lmtrain, "ft": ft, "shard": shard,
+           "dryrun": dry, "ae": ae,
            "ae8": ae8,
            "serve8": serve8, "moeserve": moeserve, "moecut": moecut,
            "moetrain": moetrain, "ssmserve": ssmserve, "hymbaserve": hymbaserve,

@@ -14,7 +14,8 @@ from repro_torch.configs import (base, command_r_35b, deepseek_moe_16b,
                                  deepseek_v2_lite_16b, hymba_1_5b,
                                  mistral_nemo_12b, musicgen_medium,
                                  pixtral_12b, qwen3_1_7b, xlstm_1_3b, yi_9b)
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import (SHAPES, ModelConfig, ShapeSpec, cache_specs,
+                                      input_specs)
 
 _MODULES = (yi_9b, qwen3_1_7b, mistral_nemo_12b, command_r_35b,
             deepseek_v2_lite_16b, deepseek_moe_16b, musicgen_medium,
@@ -42,4 +43,5 @@ def get_reduced(arch_id: str) -> ModelConfig:
     return _entry(arch_id)[1]()
 
 
-__all__ = ["REGISTRY", "ARCH_IDS", "get", "get_reduced", "ModelConfig", "base"]
+__all__ = ["REGISTRY", "ARCH_IDS", "get", "get_reduced", "ModelConfig", "base",
+           "SHAPES", "ShapeSpec", "input_specs", "cache_specs"]

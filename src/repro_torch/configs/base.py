@@ -113,6 +113,12 @@ class ModelConfig:
             return "hymba"
         return "attn"
 
+    @property
+    def supports_long_context_decode(self) -> bool:
+        """True for sub-quadratic (SSM / hybrid) families: the dry run's
+        long_500k cells."""
+        return self.family in ("ssm", "hybrid")
+
     def param_count(self) -> int:
         """Total parameters (embedding included), for MODEL_FLOPS."""
         from repro_torch.models import transformer  # the models import configs

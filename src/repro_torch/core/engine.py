@@ -108,6 +108,7 @@ __all__ = [
     "linear_attention", "scores_policy", "is_backward_op", "is_pass_op",
     "instrument", "repeat", "op_scope", "paused", "checkpoint",
     "total_flops", "total_bytes", "summarize", "DEFAULT_ENGINE",
+    "REMAT_POLICIES",
 ]
 
 _ROADMAP = "not yet ported (see ROADMAP.md, Queue A)"
@@ -530,26 +531,71 @@ def _restored(ctx: _EmitContext, *, recompute: bool = False):
             setattr(_state, n, v)
 
 
-def checkpoint(fn: Callable[..., Any], *args):
+REMAT_POLICIES = ("full", "dots")
+
+
+def checkpoint(fn: Callable[..., Any], *args, policy: str = "full"):
     """``fn(*args)`` as a remat region (``torch.utils.checkpoint``,
     non-reentrant): its activations are not kept, and the backward re-runs
     ``fn``.  The re-run emits its events in the emission context of the
     first run, tagged ``recompute=True`` (the reference detects its
     ``jax.checkpoint`` re-traces the same way, ``engine.py:85-91``), so a
-    remat forward is not billed as new forward work."""
+    remat forward is not billed as new forward work.
+
+    ``policy="dots"`` is JAX's ``dots_with_no_batch_dims_saveable``: the
+    first run keeps, in order, the output of every dispatch with no batch
+    dimension (:func:`_no_batch_dims`: ``matmul`` / ``linear`` on a 2D
+    weight, an ``einsum2d`` with no batch labels), and the re-run hands
+    those back instead of launching again — it emits no event for them —
+    while every other dispatch (batched, grouped, attention and sweep),
+    norm and activation re-runs.  The saved outputs belong to this region
+    (its closure), so nested regions and repeated calls keep their own."""
     from torch.utils.checkpoint import checkpoint as torch_checkpoint
 
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"remat policy {policy!r}; known: {REMAT_POLICIES}")
     ctx = _capture()
     runs = [0]
+    dots: Optional[List[torch.Tensor]] = [] if policy == "dots" else None
 
     def body(*a):
         runs[0] += 1
-        if runs[0] == 1:
-            return fn(*a)
-        with _restored(ctx, recompute=True):
-            return fn(*a)
+        prev = getattr(_state, "dots", None)
+        try:
+            if runs[0] == 1:
+                _state.dots = None if dots is None else ("save", dots)
+                return fn(*a)
+            with _restored(ctx, recompute=True):
+                _state.dots = None if dots is None else ("replay", iter(dots))
+                return fn(*a)
+        finally:
+            _state.dots = prev
 
     return torch_checkpoint(body, *args, use_reentrant=False)
+
+
+def _no_batch_dims(spec: GemmSpec) -> bool:
+    """A dispatch whose contraction has no batch dimension (one shared 2D
+    weight, no groups): what ``dots_with_no_batch_dims_saveable`` saves."""
+    return spec.w_shared and spec.groups == 1
+
+
+def _saved_dot(spec: GemmSpec) -> Optional[torch.Tensor]:
+    """Inside a "dots" region's re-run, the first run's output of this
+    no-batch dispatch (next in order); None where the dispatch runs."""
+    d = getattr(_state, "dots", None)
+    if d is None or d[0] != "replay" or not _no_batch_dims(spec):
+        return None
+    return next(d[1])
+
+
+def _keep_dot(spec: GemmSpec, z: torch.Tensor) -> torch.Tensor:
+    """Inside a "dots" region's first run, keep a no-batch dispatch's
+    output for the re-run; returns ``z``."""
+    d = getattr(_state, "dots", None)
+    if d is not None and d[0] == "save" and _no_batch_dims(spec):
+        d[1].append(z)
+    return z
 
 
 def _emit(spec: GemmSpec, backend: str, count: Optional[int] = None) -> None:
@@ -803,10 +849,14 @@ def _dispatch(spec: GemmSpec, backend: str, x, w,
     x, w, layout = _pretranspose(x, w, spec.layout, backend)
     if layout != spec.layout:
         spec = dataclasses.replace(spec, layout=layout)
-    _emit(spec, backend)
+    z = _saved_dot(spec)
+    if z is None:
+        _emit(spec, backend)
     for extra in extra_specs:
         _emit(extra, backend)
-    return get_backend(backend).fn(x, w, spec=spec).to(pol.out_dtype)
+    if z is None:
+        z = _keep_dot(spec, get_backend(backend).fn(x, w, spec=spec))
+    return z.to(pol.out_dtype)
 
 
 def _storage(policy: prec.Policy, backend: str) -> Dict[str, Any]:
@@ -1104,11 +1154,14 @@ def _linear_forward(spec: GemmSpec, backend: str, xd, wd, bc, sp, *,
     ``spec.epilogue``, or None to fuse only the bias."""
     pol = spec.policy
     if fuse:
-        _emit(spec, backend)
-        run = (spec if epilogue == spec.epilogue
-               else dataclasses.replace(spec, epilogue=epilogue))
-        return get_backend(backend).fn(xd, wd, spec=run, bias=bc,
-                                       fuse_epilogue=True).to(pol.out_dtype)
+        z = _saved_dot(spec)
+        if z is None:
+            _emit(spec, backend)
+            run = (spec if epilogue == spec.epilogue
+                   else dataclasses.replace(spec, epilogue=epilogue))
+            z = _keep_dot(spec, get_backend(backend).fn(xd, wd, spec=run, bias=bc,
+                                                         fuse_epilogue=True))
+        return z.to(pol.out_dtype)
     z = _unscale(_dispatch(spec, backend, xd, wd, _postep(spec)), pol, sp)
     z = z.to(pol.accum_dtype)
     if bc is not None:

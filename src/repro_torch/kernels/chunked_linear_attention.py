@@ -24,6 +24,9 @@ scratch — :func:`chunk_scores_plain` is their plain version), then the
 sweep on the tensor cores, with the fp32 operands split into TF32 pieces.
 ``chunked_linear_attention.launches`` counts wrapper calls that launched
 the pair.
+A meta tensor inside the dry run takes the card's checks (all but the
+shared-memory budget, which only the compiled library answers) and the
+launch's allocations, with no launch and no count (``kernels/ops.py``).
 """
 
 from __future__ import annotations
@@ -149,10 +152,14 @@ def chunked_linear_attention(q: torch.Tensor, k: torch.Tensor,
     _check_shapes(q, k, v, log_g, chunk)
     if not (q.device == k.device == v.device == log_g.device):
         raise ValueError("operands on different devices")
-    if q.device.type == "cpu":
+    from repro_torch.kernels.ops import card_contract, on_card
+
+    if not on_card(q):
         return chunked_linear_attention_plain(q, k, v, log_g, chunk=chunk)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
+    if not card_contract(q):
+        BH, S, dk = q.shape
+        return (q.new_empty((BH, S, v.shape[-1])),
+                q.new_empty((BH, dk, v.shape[-1]), dtype=torch.float32))
     _check_dtypes(q, k, v)
     if log_g.dtype != torch.float32:
         raise TypeError(f"log_g must be float32, got {log_g.dtype}")
@@ -166,9 +173,10 @@ def chunked_linear_attention(q: torch.Tensor, k: torch.Tensor,
     if dk > MAX_DK:
         raise NotImplementedError(f"dk = {dk}: the sweep holds its state in "
                                   f"registers up to dk = {MAX_DK}")
-    lib = _lib()
+    meta = q.device.type == "meta"      # the dry run: no library to ask
+    lib = None if meta else _lib()
     codes = (_DTYPE_CODE[q.dtype], _DTYPE_CODE[v.dtype])
-    smem = lib.cla_smem_bytes(*codes, chunk, dk)
+    smem = 0 if meta else lib.cla_smem_bytes(*codes, chunk, dk)
     if smem > tiling.SMEM_BUDGET:
         raise NotImplementedError(
             f"dk = {dk} at chunk {chunk} needs {smem} B of shared memory "
@@ -181,6 +189,8 @@ def chunked_linear_attention(q: torch.Tensor, k: torch.Tensor,
     # scratch of the scores launch: L (BH, S) and the scores (BH, S, chunk)
     scratch = torch.empty(BH * S * (chunk + 1), dtype=torch.float32,
                           device=q.device)
+    if meta:
+        return out, state
     err = lib.chunked_linear_attention(
         *codes, chunk, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         log_g.data_ptr(), out.data_ptr(), state.data_ptr(), scratch.data_ptr(),

@@ -14,6 +14,8 @@ at a time — the ``tiling.FLASH_BQ`` x ``FLASH_BKV`` the engine bills;
 fp32, as the reference's kernel takes it, in SIMT FMAs over the same 16
 query rows) or raises.  The kernel masks ragged S and T itself, so nothing
 is padded.  ``flash_attention.launches`` counts kernel launches.
+A meta tensor inside the dry run takes the card's checks and returns an
+empty output, with no launch and no count (``kernels/ops.py``).
 """
 
 from __future__ import annotations
@@ -94,11 +96,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"v {tuple(v.shape)} with group {group}")
     scale = float(D ** -0.5 if scale is None else scale)
     t_valid = T if t_valid is None else min(int(t_valid), T)
-    if q.device.type == "cpu":
+    from repro_torch.kernels.ops import card_contract, on_card
+
+    if not on_card(q):
         return flash_attention_plain(q, k, v, group=group, causal=causal,
                                      scale=scale, t_valid=t_valid,
                                      q_offset=q_offset)
-    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
+    if not card_contract(q):
+        return torch.empty_like(q)
+    if k.device != q.device or v.device != q.device:
         raise ValueError(f"operands on {q.device}, {k.device}, {v.device}")
     if (bq or tiling.FLASH_BQ, bkv or tiling.FLASH_BKV) != (
             tiling.FLASH_BQ, tiling.FLASH_BKV):
@@ -113,7 +119,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if (q.data_ptr() | k.data_ptr() | v.data_ptr()) % 16:
         raise ValueError("the flash kernel needs 16-byte aligned operands")
     out = torch.empty_like(q)
-    if BHq == 0 or S == 0:
+    if BHq == 0 or S == 0 or q.device.type == "meta":   # meta: the dry run
         return out
     lib = _lib()
     err = lib.flash_attention_fwd(

@@ -34,6 +34,13 @@ A launch whose reduction the kernel splits inside the launch
 (:func:`repro_torch.core.tiling.launch_plan`: the ``tile``'s ``splits``
 where it names them, else few output tiles for the card) is also counted
 in ``.launches_split``; it is still one launch.
+
+A meta tensor takes the dry run's route (``launch/dryrun.py``), and only
+inside ``runtime.collectives.dry_run``: the card's contract checks (none
+in a dry run that predicts a CPU run), then the launch's own allocations — the output, the converted bias, db and,
+where the reduction splits, the partial sums and tile counters — with no
+launch and no count.  Outside the dry run a meta tensor raises like any
+other device.
 Model code goes through :mod:`repro_torch.core.engine`.
 """
 
@@ -56,6 +63,31 @@ _ROADMAP = "not yet ported (see ROADMAP.md, Queue A)"
 _KERNEL_BN = tiling.GEMM_TILES[0].bn
 
 
+def on_card(t: torch.Tensor) -> bool:
+    """True for a CUDA tensor and for a meta tensor inside the dry run
+    (``runtime.collectives.dry_run``), False for a CPU tensor (the plain
+    version); any other device raises."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "meta":
+        from repro_torch.runtime import collectives
+        if collectives.dry_trace() is not None:
+            return True
+    if t.device.type != "cpu":
+        raise ValueError(f"unsupported device {t.device}")
+    return False
+
+
+def card_contract(t: torch.Tensor) -> bool:
+    """Whether a tensor :func:`on_card` is held to the CUDA kernel's
+    contract: always, but for a meta tensor in a dry run that predicts a
+    CPU run (``dry_run(contract="cpu")``), which gets shapes only."""
+    if t.device.type != "meta":
+        return True
+    from repro_torch.runtime import collectives
+    return collectives.dry_contract() == "card"
+
+
 def _route(x: torch.Tensor) -> str:
     """The kernel's route: SIMT for fp32 operands, else the tensor cores."""
     return "simt" if x.dtype == torch.float32 else "tensor"
@@ -74,10 +106,8 @@ def _check(x: torch.Tensor, w: torch.Tensor, policy: prec.Policy,
             f"{policy.name!r} computes in {prec.dtype_name(policy.compute_dtype)}")
     if x.device != w.device:
         raise ValueError(f"operands on {x.device} and {w.device}")
-    if x.device.type == "cpu":
+    if not on_card(x) or not card_contract(x):
         return
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
     if policy.compute_dtype == torch.float32 and policy.out_dtype != torch.float32:
         raise NotImplementedError(
             f"fp32 operands with a {policy.out_dtype} output (policy "
@@ -119,7 +149,8 @@ def _check_bwd(x, w, layout: str, policy: prec.Policy, deriv, grad_epilogue,
             raise ValueError(f"{grad_epilogue!r} has no output-form derivative")
     if bias_grad and layout != "tn":
         raise ValueError("bias_grad rides on the dW (tn) dispatch")
-    if x.device.type == "cuda" and (grad_epilogue is not None or bias_grad):
+    if x.device.type != "cpu" and card_contract(x) and (grad_epilogue is not None
+                                                        or bias_grad):
         if policy.out_dtype != policy.accum_dtype:
             raise NotImplementedError(
                 f"a fused backward with a {policy.out_dtype} output under "
@@ -213,6 +244,8 @@ def redmule_matmul(x: torch.Tensor, w: torch.Tensor, *, policy: prec.Policy,
     out, splits = rm.launch(x, w, policy=policy, tile=tile, plan=plan,
                             bias=bias, epilogue=epilogue, layout=layout,
                             accum_block=block or 0, **bwd)
+    if x.device.type == "meta":
+        return out
     redmule_matmul.launches += 1
     if splits > 1:
         redmule_matmul.launches_split += 1
@@ -276,6 +309,8 @@ def redmule_matmul_batched(x: torch.Tensor, w: torch.Tensor, *,
     z, splits = rm.launch(x, w, policy=policy, tile=tile, plan=plan, bias=bias,
                           epilogue=epilogue, layout=layout,
                           accum_block=block or 0)
+    if x.device.type == "meta":
+        return z
     redmule_matmul_batched.launches += 1
     if splits > 1:
         redmule_matmul_batched.launches_split += 1

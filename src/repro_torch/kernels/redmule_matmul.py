@@ -331,6 +331,8 @@ def launch(x: torch.Tensor, w: torch.Tensor, *, policy: prec.Policy,
                            device=x.device)
         counters = _tile_counters(
             x.device, batch * -(-M // tile.bm) * -(-K // tile.bk))
+    if x.device.type == "meta":     # the dry run: the allocations, no launch
+        return ((z, db.to(policy.accum_dtype)) if bias_grad else z), plan.splits
     lib = _lib()
     err = lib.redmule_gemm(
         _DTYPE_CODE[x.dtype], _DTYPE_CODE[w.dtype],

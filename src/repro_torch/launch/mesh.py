@@ -145,6 +145,24 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
+# the cell's peak before the last _reset_peak (a cell's peak_bytes is the
+# larger of it and the peak since)
+_CELL_PEAK = [0]
+
+
+def _reset_peak(device) -> None:
+    """Start a step's peak (the cell's so far is kept in ``_CELL_PEAK``)."""
+    if device.type == "cuda":
+        _CELL_PEAK[0] = max(_CELL_PEAK[0], torch.cuda.max_memory_allocated(device))
+        torch.cuda.reset_peak_memory_stats(device)
+
+
+def _peak(device) -> Optional[int]:
+    """``max_memory_allocated`` since the last :func:`_reset_peak` (None
+    off the card)."""
+    return torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
+
+
 def _cfg(cell):
     from repro_torch import configs
 
@@ -227,7 +245,17 @@ def _aten_library(fn, device) -> Dict[str, float]:
             if ev.key in names or "scaled_dot_product" in ev.key}
 
 
+def _bill(events) -> Dict[str, Dict[str, float]]:
+    """The engine's flops and bytes of ``events`` by direction (what the
+    dry run predicts for the same step, ``launch/dryrun.py``)."""
+    from repro_torch.roofline import analysis
+
+    return {"flops": analysis.flops_by_direction(events),
+            "bytes": analysis.bytes_by_direction(events)}
+
+
 def _serve_cell(cell, mesh, out: Dict) -> Dict:
+    from repro_torch.core import engine
     from repro_torch.launch import serve as serve_lib
     from repro_torch.models import moe
     from repro_torch.runtime import collectives as coll
@@ -249,23 +277,29 @@ def _serve_cell(cell, mesh, out: Dict) -> Dict:
     coll.reset_stats()
     _zero_launches()
     _sync(dev)
+    _reset_peak(dev)
     t0 = time.perf_counter()
-    logits, cache = pre(params, {"inputs": prompts.to(dev)})
+    with engine.instrument() as events:
+        logits, cache = pre(params, {"inputs": prompts.to(dev)})
     _sync(dev)
     info["prefill_s"] = time.perf_counter() - t0
     info["collectives_prefill"] = {k: dict(v) for k, v in coll.STATS.items()}
     info["launches_prefill"] = _kernel_launches()
+    info["bill_prefill"] = _bill(events)
     rows, fed = [logits.float().cpu()], []
     coll.reset_stats()
     _zero_launches()
     t0 = time.perf_counter()
-    for i in range(G):
-        tok = rows[-1].argmax(-1, keepdim=True)
-        fed.append(tok)
-        lg, cache = step(params, cache, tok.to(dev), S + i)
-        rows.append(lg.float().cpu())
+    with engine.instrument() as events:
+        for i in range(G):
+            tok = rows[-1].argmax(-1, keepdim=True)
+            fed.append(tok)
+            lg, cache = step(params, cache, tok.to(dev), S + i)
+            rows.append(lg.float().cpu())
     _sync(dev)
     info["decode_s"] = time.perf_counter() - t0
+    info["bill_decode"] = _bill(events)
+    info["peak_steps_bytes"] = _peak(dev)      # over the prefill and decode steps
     info["decode_steps"] = G
     info["collectives_decode"] = {k: dict(v) for k, v in coll.STATS.items()}
     info["launches_decode"] = _kernel_launches()
@@ -290,6 +324,7 @@ def _serve_cell(cell, mesh, out: Dict) -> Dict:
 
 
 def _train_cell(cell, mesh, out: Dict) -> Dict:
+    from repro_torch.core import engine
     from repro_torch.data import SyntheticLM
     from repro_torch.launch import train as train_lib
     from repro_torch.optim import AdamW, tree_leaves
@@ -301,7 +336,8 @@ def _train_cell(cell, mesh, out: Dict) -> Dict:
     opt = AdamW(lr=cell.get("lr", 1e-3))
     rules = _rules(cell, False)
     step, sspec = train_lib.make_sharded_train_step(
-        cfg, mesh, rules, opt, return_grads=True, grad_accum=cell.get("grad_accum", 1))
+        cfg, mesh, rules, opt, return_grads=True, grad_accum=cell.get("grad_accum", 1),
+        cast_params=cell.get("cast_params", False))
     params = _params(cell, cfg, mesh, sspec.params, getattr(torch, cfg.param_dtype))
     for p in tree_leaves(params):
         p.requires_grad_(True)
@@ -315,14 +351,18 @@ def _train_cell(cell, mesh, out: Dict) -> Dict:
         coll.reset_stats()
         _zero_launches()
         _sync(dev)
+        _reset_peak(dev)
         t0 = time.perf_counter()
-        state, m = step(state, batch)
+        with engine.instrument() as events:
+            state, m = step(state, batch)
         loss = float(m["loss"])
         info["step_s"].append(time.perf_counter() - t0)
         info["losses"].append(loss)
         info["grad_norms"].append(float(m["grad_norm"]))
         info["collectives"].append({k: dict(v) for k, v in coll.STATS.items()})
         info.setdefault("launches", []).append(_kernel_launches())
+        info.setdefault("bill", []).append(_bill(events))
+        info.setdefault("peak_steps_bytes", []).append(_peak(dev))
         if i == 0:
             grads, specs = m["grads"], sspec.params
             if cell.get("grads"):       # only these leaves ("a/b/c" paths)
@@ -466,11 +506,17 @@ def main(argv=None) -> int:
     ``seed``) and its layout: ``fsdp``, ``sequence_parallel`` and
     ``serve_rules`` (default true for serve cells: ``launch.serve.
     serve_rules`` of those rules; false gives the training rules), and a
-    train cell's ``grad_accum`` (and ``grads``, the "a/b" paths of the
-    step-0 gradient leaves to gather, default all).  Rank 0 writes ``OUT/<name>.pt``
+    train cell's ``grad_accum``, ``cast_params`` (the master weights cast
+    to the compute dtype at step entry, before FSDP's gathers) and
+    ``grads`` (the "a/b" paths of the step-0 gradient leaves to gather,
+    default all).  Rank 0 writes ``OUT/<name>.pt``
     (gathered tensors); every rank writes ``OUT/<name>.rank<r>.json`` (its
-    times, peak memory, resident parameter / moment / KV bytes, kernel
-    launches and collectives).  ``--spawn N`` starts N such ranks."""
+    times, peak memory — the cell's, and ``peak_steps_bytes``: each train
+    step's, a serve cell's over its prefill and decode steps, what the dry
+    run predicts — resident parameter / moment / KV bytes, kernel
+    launches, collectives and each step's engine bill: ``bill`` per train
+    step, ``bill_prefill`` / ``bill_decode`` over a serve cell's decode
+    steps).  ``--spawn N`` starts N such ranks."""
     ap = argparse.ArgumentParser(description=main.__doc__)
     ap.add_argument("--plan", required=True)
     ap.add_argument("--out", required=True)
@@ -501,13 +547,15 @@ def main(argv=None) -> int:
             if device.type == "cuda":
                 torch.cuda.empty_cache()
                 torch.cuda.reset_peak_memory_stats(device)
+                _CELL_PEAK[0] = 0
             out: Dict = {}
             t0 = time.perf_counter()
             info = CELLS[cell["kind"]](cell, mesh, out)
             info["seconds"] = time.perf_counter() - t0
             info["mesh"] = mesh.shape
             if device.type == "cuda":
-                info["peak_bytes"] = torch.cuda.max_memory_allocated(device)
+                info["peak_bytes"] = max(_CELL_PEAK[0],
+                                         torch.cuda.max_memory_allocated(device))
             # each file appears whole (written aside, then renamed): a
             # reader may take a cell's results while later cells run
             path = os.path.join(args.out, cell["name"])

@@ -128,14 +128,17 @@ def spec_tree(schema: Dict[str, Any], rules):
 
 
 def abstract_tree(schema: Dict[str, Any], dtype=torch.float32):
-    """The schema as meta tensors (shape and dtype, no storage)."""
+    """The schema as meta tensors (shape and dtype, no storage; a
+    description, which no dry-run memory tracker counts)."""
+    from repro_torch.roofline.memory import described
 
     def go(node):
         if isinstance(node, Param):
             return torch.empty(node.shape, dtype=dtype, device="meta")
         return {k: go(v) for k, v in node.items()}
 
-    return go(schema)
+    with described():
+        return go(schema)
 
 
 def stack_schema(schema: Dict[str, Any], n: int, axis_name: str = "layers"

@@ -174,6 +174,15 @@ def _expert_block(params, cfg, shard) -> Tuple[int, int]:
     return (0, E) if start is None else (start, n)
 
 
+def _expert_counts(ids: torch.Tensor, E: int) -> torch.Tensor:
+    """fp32 ``(E,)`` counts of the routed slots per expert: ones summed
+    into E zeros (``bincount``'s integers, with an output size that does
+    not depend on the values, so it traces on meta tensors too)."""
+    flat = ids.reshape(-1).long()
+    return torch.zeros(E, dtype=torch.float32, device=ids.device).scatter_add_(
+        0, flat, torch.ones(flat.shape, dtype=torch.float32, device=ids.device))
+
+
 def moe_forward(params: Dict[str, Any], x: torch.Tensor, cfg, *,
                 policy: prec.Policy, shard=None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -195,7 +204,7 @@ def moe_forward(params: Dict[str, Any], x: torch.Tensor, cfg, *,
     logits, probs, gate, ids = _route(params, x, mo, policy)
 
     # ---- load-balance aux (Switch-style) + router z-loss ----
-    counts = torch.bincount(ids.reshape(-1), minlength=E).to(torch.float32)
+    counts = _expert_counts(ids, E)
     mean_prob = probs.mean(dim=(0, 1))
     z_loss = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
     n_slots = B * S * k
@@ -283,7 +292,7 @@ def moe_forward_shard_map(params: Dict[str, Any], x: torch.Tensor, cfg, *,
     y = shard.leave(coll.all_gather(y, mesh, ax, 0), partial=False)   # (B, S, d)
 
     # every rank routed its own tokens: the stats reduce over every axis
-    counts = torch.bincount(ids.reshape(-1), minlength=E).to(torch.float32)
+    counts = _expert_counts(ids, E)
     n_slots = torch.tensor(float(S * k * Bl), device=x.device)
     mean_prob = probs.mean(dim=(0, 1))
     for a in (*shard.data_axes, ax):

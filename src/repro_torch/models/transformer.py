@@ -15,7 +15,7 @@ MoE blocks, whose router metrics ``forward`` sums over layers and
 stacks super-blocks of (7 mLSTM + 1 sLSTM); hymba stacks blocks of
 attention and a Mamba2 / SSD mixer in parallel on the same normed input,
 with a per-layer window (:func:`window_array`, ``BIG_WINDOW`` on the full
-layers).  With ``remat="full"`` each
+layers).  With ``remat="full"`` (or ``"dots"``) each
 block of the layer loop (each super-block for xLSTM) is a
 :func:`repro_torch.core.engine.checkpoint` region when it is trained, as
 the reference checkpoints its layer-scan body (``layer0`` stays outside,
@@ -28,7 +28,8 @@ states (xLSTM's mLSTM / sLSTM, hymba's SSD) by ``copy_`` into the stacked
 tensors.  A fresh prefill (``pos`` 0) hands the sweeps no state, so they
 run the sweep kernel from zero (the reference hands them the zero state
 of its cache and runs the composition: the same values up to fp32
-rounding).  ``remat="dots"`` is not ported yet (ROADMAP.md).
+rounding).  ``remat="dots"`` makes each block a region that keeps its
+no-batch GEMM outputs (``engine.checkpoint``).
 
 Every parameter carries the reference's logical axes, so
 :func:`param_specs`, :func:`abstract_params` and :func:`cache_axes` give
@@ -223,14 +224,13 @@ def _unbind(tree) -> List[Any]:
 
 def _remat(cfg, fn):
     """``remat="full"``: the block is an engine checkpoint region (the
-    reference's ``jax.checkpoint`` of the layer-scan body).  ``"dots"``
-    (save the GEMM outputs, recompute the rest) needs a saving policy that
-    sees the ctypes kernels' outputs and is not ported."""
+    reference's ``jax.checkpoint`` of the layer-scan body); ``"dots"``
+    keeps the region's no-batch GEMM outputs and recomputes the rest (the
+    reference's ``dots_with_no_batch_dims_saveable``,
+    ``engine.checkpoint(policy="dots")``)."""
     if cfg.remat == "none":
         return fn
-    if cfg.remat != "full":
-        raise NotImplementedError(f"remat {cfg.remat!r} is {_ROADMAP}")
-    return lambda *args: engine.checkpoint(fn, *args)
+    return lambda *args: engine.checkpoint(fn, *args, policy=cfg.remat)
 
 
 def window_array(cfg, device=None) -> Optional[torch.Tensor]:
@@ -562,10 +562,12 @@ def serve_step(params, cfg, tokens: torch.Tensor, cache, pos, *,
 @torch.inference_mode()
 def prefill(params, cfg, batch, max_len: int, storage_dtype=None):
     """Run the prompt ``batch["inputs"] (B, S)``, build a ``max_len``
-    cache, return (last-token logits ``(B, V)``, cache).  On a mesh the
+    cache, return (last-token logits ``(B, V)``, cache); an embedding-input
+    arch's prompt is ``batch["embeddings"] (B, S, d)``.  On a mesh the
     prompt is this rank's rows of the batch and the cache its block."""
     sh = sharding.context()
-    B = batch["inputs"].shape[0] * (sh.data if sh is not None else 1)
+    some = batch["inputs"] if "inputs" in batch else batch["embeddings"]
+    B = some.shape[0] * (sh.data if sh is not None else 1)
     cache = init_cache(cfg, B, max_len, dtype=cfg.policy.compute_dtype,
                        storage_dtype=storage_dtype,
                        device=params["embed"].device)
@@ -679,7 +681,9 @@ def _local_cache(cfg, sh, batch: int, max_len: int, dtype, storage_dtype, dev):
     if sh.rules.serve_attention and cfg.block_kind != "xlstm" and max_len % sh.model:
         sharding.refuse(f"a serving cache of {max_len} positions on a "
                         f"{sh.model}-way model axis (max_len a multiple of it)")
-    with sharding.use_mesh(None):
+    from repro_torch.roofline.memory import described
+
+    with sharding.use_mesh(None), described():
         whole = init_cache(cfg, batch, max_len, dtype, device="meta")
 
     def local(axes, leaf, name):

@@ -21,25 +21,129 @@ size 1 makes every collective the identity.
 
 :data:`STATS` counts each kind's calls, payload bytes (what this rank
 sends) and host seconds; :func:`reset_stats` clears it.
+
+:func:`dry_run` is the dry run's recording context (``launch/dryrun.py``):
+inside it a mesh needs no process group (a description mesh will do),
+every collective takes meta tensors only, records one entry (kind, axis,
+group size, payload bytes as :data:`STATS` counts them, this rank's result
+bytes, and where its group lies) and returns an empty meta tensor of its
+result's shape; the backwards record theirs the same way.  Outside it
+nothing changes: a description mesh raises, as it always has.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import math
 import time
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 __all__ = ["psum", "pmax", "pmean", "all_gather", "psum_scatter", "all_to_all",
-           "redistribute_last", "STATS", "reset_stats"]
+           "redistribute_last", "STATS", "reset_stats", "dry_run", "dry_trace",
+           "dry_contract", "DryCollective", "NODE_SIZE"]
 
 STATS: Dict[str, Dict[str, float]] = {}
+
+# cards per NVLink node (an 8-GPU HGX / DGX H100 board)
+NODE_SIZE = 8
 
 
 def reset_stats() -> None:
     STATS.clear()
+
+
+# --------------------------------------------------------------------- #
+# The dry run: record, do not run
+# --------------------------------------------------------------------- #
+@dataclasses.dataclass(frozen=True)
+class DryCollective:
+    """One collective a dry-run rank would run: ``kind`` as :data:`STATS`
+    names it, the mesh ``axis`` and its ``group_size``, the ``payload``
+    bytes :data:`STATS` counts, this rank's ``result_bytes`` and whether
+    the group stays inside one NVLink node (``intra_node``)."""
+
+    kind: str
+    axis: str
+    group_size: int
+    payload: int
+    result_bytes: int
+    intra_node: bool
+
+
+@dataclasses.dataclass(frozen=True)
+class _DryGroup:
+    """The stand-in for a process group inside :func:`dry_run`."""
+
+    axis: str
+    size: int
+    intra_node: bool
+
+
+# the active dry runs, innermost last: (entries, contract)
+_DRY: List[Tuple[List[DryCollective], str]] = []
+CONTRACTS = ("card", "cpu")
+
+
+def dry_trace() -> Optional[List[DryCollective]]:
+    """The entries of the innermost active :func:`dry_run`, else None."""
+    return _DRY[-1][0] if _DRY else None
+
+
+def dry_contract() -> Optional[str]:
+    """The contract of the innermost active :func:`dry_run`, else None."""
+    return _DRY[-1][1] if _DRY else None
+
+
+@contextlib.contextmanager
+def dry_run(contract: str = "card"):
+    """Record the collectives run in the context instead of running them
+    (see the module docstring); yields the list of :class:`DryCollective`
+    entries.  Process-wide, so a backward run by another thread records
+    into it too.  ``contract`` is the run it predicts: ``"card"`` holds
+    meta tensors to the CUDA kernels' contract (the kernel wrappers'
+    checks), ``"cpu"`` to the plain versions' (none: a CPU run takes any
+    head size or dtype the plain versions take)."""
+    if contract not in CONTRACTS:
+        raise ValueError(f"dry-run contract {contract!r}; known: {CONTRACTS}")
+    entries: List[DryCollective] = []
+    item = (entries, contract)
+    _DRY.append(item)
+    try:
+        yield entries
+    finally:
+        _DRY.remove(item)
+
+
+def _intra_node(mesh, axis: str) -> bool:
+    """True when this rank's line along ``axis`` lies inside one node of
+    :data:`NODE_SIZE` consecutive ranks (row-major rank order, as
+    ``launch.mesh.make_mesh`` lays the ranks out)."""
+    names = list(mesh.shape)
+    stride = math.prod(mesh.shape[a] for a in names[names.index(axis) + 1:])
+    coord = mesh.coords.get(axis, 0)
+    first = mesh.rank - coord * stride
+    last = first + (mesh.shape[axis] - 1) * stride
+    return first // NODE_SIZE == last // NODE_SIZE
+
+
+def _dry(kind: str, group: _DryGroup, x: torch.Tensor, payload: int,
+         out_shape, result_bytes: Optional[int] = None) -> torch.Tensor:
+    """Record one entry and return the empty meta result (``result_bytes``:
+    the rank's part of it where that is less, a scatter's block)."""
+    if x.device.type != "meta":
+        raise ValueError(f"the dry run takes meta tensors; {kind} got one on "
+                         f"{x.device}")
+    out = x.new_empty(tuple(out_shape))
+    with _record(kind, payload):
+        _DRY[-1][0].append(DryCollective(
+            kind=kind, axis=group.axis, group_size=group.size, payload=int(payload),
+            result_bytes=(out.numel() * out.element_size() if result_bytes is None
+                          else int(result_bytes)),
+            intra_node=group.intra_node))
+    return out
 
 
 @contextlib.contextmanager
@@ -60,11 +164,19 @@ def _dist():
 
 
 def _group(mesh, axis: str):
-    """``(group, size, index)`` of this rank along ``axis``."""
-    return mesh.group(axis), mesh.shape.get(axis, 1), mesh.coords.get(axis, 0)
+    """``(group, size, index)`` of this rank along ``axis`` (inside
+    :func:`dry_run` the group is a recording stand-in)."""
+    n, idx = mesh.shape.get(axis, 1), mesh.coords.get(axis, 0)
+    if _DRY and n > 1:
+        return _DryGroup(axis, n, _intra_node(mesh, axis)), n, idx
+    return mesh.group(axis), n, idx
 
 
 def _reduce(x: torch.Tensor, group, op: str, kind: str) -> torch.Tensor:
+    if isinstance(group, _DryGroup):
+        nbytes = x.numel() * x.element_size()
+        return _dry(kind, group, x, nbytes, x.shape,
+                    nbytes // group.size if kind == "psum_scatter" else None)
     dist = _dist()
     wide = torch.float64 if x.dtype == torch.float64 else torch.float32
     with _record(kind, x.numel() * x.element_size()):
@@ -87,8 +199,10 @@ def _a2a_rows(x: torch.Tensor, send: Sequence[int], recv: Sequence[int],
     """All-to-all of ``x``'s leading rows: ``send[s]`` consecutive rows go
     to rank s of the group; returns the rows received, source by source,
     on ``x``'s device."""
-    dist = _dist()
     rest = tuple(x.shape[1:])
+    if isinstance(group, _DryGroup):
+        return _dry(kind, group, x, x.numel() * x.element_size(), (sum(recv), *rest))
+    dist = _dist()
     with _record(kind, x.numel() * x.element_size()):
         h = _bytes_rows(x)
         out = torch.empty((sum(recv), h.shape[1]), dtype=torch.uint8)
@@ -128,6 +242,10 @@ class _AllGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dim, group, n, idx):
         ctx.dim, ctx.group, ctx.idx, ctx.size = dim, group, idx, x.shape[dim]
+        if isinstance(group, _DryGroup):
+            shape = list(x.shape)
+            shape[dim] *= n
+            return _dry("all_gather", group, x, x.numel() * x.element_size(), shape)
         dist = _dist()
         with _record("all_gather", x.numel() * x.element_size()):
             h = _bytes_rows(x.movedim(dim, 0))

@@ -299,7 +299,12 @@ class TrainLoop:
     of dicts, NamedTuples and tensors.  A restored state is placed like
     ``init_state`` (:func:`reshard`).  ``sync_preempt`` (data-parallel
     ranks) maps this process's preemption flag to the group's after every
-    step, so every rank checkpoints at the same step."""
+    step, so every rank checkpoints at the same step.  The SIGTERM handler
+    only sets ``_sigterm``; each step reads it once, agrees on it, and
+    decides on the agreed value alone: a signal landing between the
+    agreement and the decision (or inside the agreement) is taken at the
+    next step by every rank, never by one rank alone, which would leave
+    its peers waiting in a collective it never joins."""
 
     def __init__(
         self,
@@ -324,11 +329,12 @@ class TrainLoop:
         self.sync_preempt = sync_preempt
         self.step_times = []
         self._preempted = False
+        self._sigterm = False       # set by the handler, never cleared
         if handle_sigterm:
             signal.signal(signal.SIGTERM, self._on_sigterm)
 
     def _on_sigterm(self, signum, frame):
-        self._preempted = True
+        self._sigterm = True
 
     def run(
         self,
@@ -384,10 +390,12 @@ class TrainLoop:
                     log(f"[step {step}] {m} ({dt * 1e3:.1f} ms)"
                         + (" STRAGGLER" if straggler else ""))
                 history.append(m)
+                preempt = self._sigterm
                 if self.sync_preempt is not None:
-                    self._preempted = self.sync_preempt(self._preempted)
+                    preempt = self.sync_preempt(preempt)
+                self._preempted = preempt
                 next_step = step + 1
-                if next_step % self.save_every == 0 or self._preempted:
+                if next_step % self.save_every == 0 or preempt:
                     if self.injector is not None:
                         # a write starts once the one in flight is done: a
                         # crash inside it leaves the previous one complete
@@ -396,7 +404,7 @@ class TrainLoop:
                     saver = self.ckpt.save_async if self.async_save else self.ckpt.save
                     saver(next_step, state, {"wall_time": time.time()})
                     meter.on_checkpoint(next_step)
-                    if self._preempted:
+                    if preempt:
                         self.ckpt.wait()
                         log(f"[ft] preempted: checkpointed at step {next_step}, "
                             "exiting")

@@ -27,7 +27,9 @@ def decode_cache_specs(cfg, rules, mesh, batch: int, max_len: int, *,
     decode; ``storage_dtype`` grows the FP8 cache's per-head scale leaves
     in both trees.  Reads only ``mesh.shape``."""
     axes = transformer.cache_axes(cfg, storage_dtype)
-    with sharding.use_mesh(None):      # the global cache, whatever the context
+    from repro_torch.roofline.memory import described
+
+    with sharding.use_mesh(None), described():      # the global cache, described
         abstract = transformer.init_cache(cfg, batch, max_len, dtype=dtype,
                                           storage_dtype=storage_dtype,
                                           device="meta")

@@ -318,6 +318,38 @@ def test_sigterm_worker_checkpoints_and_exits_clean(tmp_path, dp):
     assert CheckpointManager(str(ckpt)).latest() == step == res["last_step"] + 1
 
 
+def test_sigterm_racing_the_agreement_is_taken_by_every_rank(tmp_path):
+    """A SIGTERM that lands while a step's preemption agreement runs is
+    taken at the next step, on the agreed value, so every rank stops at
+    one step.  (The handler used to set the decision itself: landing in
+    the agreement, the agreed value overwrote it and the preemption was
+    lost; landing after it, one rank stopped while its peers went on into
+    the next step's collectives and waited for it.)"""
+    init = {"w": torch.zeros(3), "step": torch.tensor(0, dtype=torch.int32)}
+    old = signal.getsignal(signal.SIGTERM)
+    agreed = []
+
+    def sync(flag):
+        # one rank agreeing with a peer that has not seen the signal: the
+        # group's flag is this rank's; the signal arrives during step 2's
+        out = bool(flag)
+        if len(agreed) == 2:
+            os.kill(os.getpid(), signal.SIGTERM)
+        agreed.append(out)
+        return out
+
+    try:
+        loop = TrainLoop(_toy_step, CheckpointManager(str(tmp_path), keep=2),
+                         save_every=100, async_save=False, handle_sigterm=True,
+                         sync_preempt=sync)
+        out = loop.run(init, lambda i: torch.ones(3), 50, log=lambda s: None)
+    finally:
+        signal.signal(signal.SIGTERM, old)
+    assert out["preempted"] is True
+    assert agreed == [False, False, False, True]
+    assert out["last_step"] == 3
+
+
 # ------------------------------------------------------------------ #
 # The on-disk format across the two packages
 # ------------------------------------------------------------------ #

@@ -66,6 +66,7 @@ ARCH = {QWEN: QWEN, MLA: MLA, HYMBA: HYMBA, XLSTM: XLSTM, HYMBA5: HYMBA}
 SERVE = dict(batch=2, prompt=8, gen=4)
 TRAIN = dict(batch=4, seq=8, steps=2)
 TOL, REF_TOL = 1e-5, 1e-4
+TOL16 = 2 ** -8     # a 16-bit cell's loss against the unsharded 16-bit run
 FLOOR_X = 3     # a gradient's bound: at least 3x its measured fp32 floor
 
 
@@ -115,6 +116,9 @@ PLAN2 = [
     _cell("mla_sp_train", "train", MLA, [1, 2], sequence_parallel=True),
     _cell("hymba5_sp_train", "train", HYMBA5, [1, 2], sequence_parallel=True),
     _cell("xlstm_sp_train", "train", XLSTM, [1, 2], sequence_parallel=True),
+    # the master weights cast to bf16 before FSDP's gathers
+    _cell("fsdp_cast", "train", QWEN, [2, 1], cast_params=True,
+          policy_name="tpu_bf16", **FSDP),
 ]
 PLAN4 = [
     _cell("fsdp_2x2", "train", QWEN, [2, 2], **FSDP),
@@ -134,7 +138,7 @@ def run(tmp_path_factory):
     for key, (_, _, _, tparams) in setups.items():
         torch.save(tparams, d / f"{key}.pt")
     for plan, n in ((PLAN2, 2), (PLAN4, 4)):
-        cells = [dict(c, policy_name="fp32", params=str(d / f"{c['key']}.pt"))
+        cells = [dict({"policy_name": "fp32"}, **c, params=str(d / f"{c['key']}.pt"))
                  for c in plan]
         (d / f"plan{n}.json").write_text(json.dumps(cells))
         rc = procs.spawn(n, ["-m", "repro_torch.launch.mesh", "--device", "cpu",
@@ -264,7 +268,9 @@ def _reference_grads(key, jcfg, jparams, batch, grad_accum):
     return _REFERENCE[(key, grad_accum)]
 
 
-TRAIN_CELLS = [c["name"] for c in PLAN2 + PLAN4 if c["kind"] == "train"]
+# the fp32 training cells (the 16-bit cast cell has its own test)
+TRAIN_CELLS = [c["name"] for c in PLAN2 + PLAN4
+               if c["kind"] == "train" and "policy_name" not in c]
 
 
 @pytest.mark.parametrize("name", TRAIN_CELLS)
@@ -463,3 +469,94 @@ def test_sequence_parallel_collectives(run):
     _, infos = load("sp_prefill")
     assert infos[0]["collectives_prefill"]["psum_scatter"]["count"] > 0
     assert "psum_scatter" not in infos[0]["collectives_decode"]
+
+
+# --------------------------------------------------------------------- #
+# cast_params on a mesh
+# --------------------------------------------------------------------- #
+def test_cast_params_gathers_16_bit_words(run):
+    """FSDP under ``cast_params`` with the tpu_bf16 policy: the master
+    weights are cast before the per-layer gathers, so every all-gather
+    carries half the bytes of the fp32 cell's (the same gathers), and the
+    loss is the unsharded cast run's."""
+    setups, load = run
+    _, one = load("fsdp_2x1")
+    _, cast = load("fsdp_cast")
+    for a, b in zip(one, cast):
+        fp32, bf16 = a["collectives"][0]["all_gather"], b["collectives"][0]["all_gather"]
+        assert bf16["count"] == fp32["count"] > 0
+        assert 2 * bf16["bytes"] == fp32["bytes"]
+    _, tcfg, _, tparams = setups[QWEN]
+    cfg = dataclasses.replace(tcfg, policy_name="tpu_bf16")
+    opt = AdamW()
+    params = _trainable(tparams)
+    state = ttrain.TrainState(params, opt.init(params), ())
+    step = ttrain.build_train_step(cfg, opt, cast_params=True)
+    want = [float(step(state, b)[1]["loss"]) for b in _batches(cfg)[:1]]
+    for info in cast:
+        assert abs(info["losses"][0] - want[0]) <= TOL16 * abs(want[0])
+
+
+# --------------------------------------------------------------------- #
+# the dry run against the ranks
+# --------------------------------------------------------------------- #
+def _stats(st):
+    """``collectives.STATS`` without the host seconds."""
+    return {k: {"count": v["count"], "bytes": v["bytes"]} for k, v in st.items()}
+
+
+def _sum_stats(parts):
+    out = {}
+    for st in parts:
+        for k, v in st.items():
+            s = out.setdefault(k, {"count": 0, "bytes": 0})
+            s["count"] += v["count"]
+            s["bytes"] += v["bytes"]
+    return out
+
+
+def _sum_bills(bills):
+    return {q: {d: sum(b[q][d] for b in bills) for d in ("fwd", "bwd")}
+            for q in ("flops", "bytes")}
+
+
+@pytest.mark.parametrize("name", list(CELLS))
+def test_dry_run_predicts_every_rank(run, name):
+    """Rank 0's program traced on meta tensors (``launch/dryrun.py``,
+    predicting a CPU run) equals what every rank of the cell ran: the
+    collectives per kind (count and payload bytes), the resident
+    parameter / moment / KV bytes and the engine bill of each step."""
+    from repro_torch.launch import dryrun
+
+    setups, load = run
+    cell = CELLS[name]
+    cfg = dataclasses.replace(setups[cell["key"]][1],
+                              policy_name=cell.get("policy_name", "fp32"))
+    _, infos = load(name)
+    mesh = tmesh.Mesh(tuple(cell["mesh"]), ("data", "model"))
+    rules = _rules(cell)
+    if cell["kind"] == "train":
+        got = dryrun.trace_train(cfg, mesh, rules, batch=cell["batch"], seq=cell["seq"],
+                                 grad_accum=cell.get("grad_accum", 1),
+                                 cast_params=cell.get("cast_params", False),
+                                 contract="cpu")
+        for info in infos:
+            assert _stats(info["collectives"][0]) == got.collective_stats()
+            assert info["bill"][0] == got.bill()
+            assert info["param_bytes"] == got.resident["param_bytes"]
+            assert info["moment_bytes"] == got.resident["moment_bytes"]
+        return
+    S, G, m = cell["prompt"], cell["gen"], cell["mesh"][1]
+    T = -(-(S + G) // m) * m
+    pre = dryrun.trace_prefill(cfg, mesh, rules, batch=cell["batch"], seq=S,
+                               max_len=T, contract="cpu")
+    steps = [dryrun.trace_decode(cfg, mesh, rules, batch=cell["batch"], max_len=T,
+                                 pos=S + i, contract="cpu") for i in range(G)]
+    for info in infos:
+        assert _stats(info["collectives_prefill"]) == pre.collective_stats()
+        assert _stats(info["collectives_decode"]) == _sum_stats(
+            s.collective_stats() for s in steps)
+        assert info["bill_prefill"] == pre.bill()
+        assert info["bill_decode"] == _sum_bills([s.bill() for s in steps])
+        assert info["param_bytes"] == pre.resident["param_bytes"]
+        assert info["kv_bytes"] == pre.resident["kv_bytes"] == steps[0].resident["kv_bytes"]

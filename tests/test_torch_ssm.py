@@ -291,12 +291,20 @@ def test_backwards_of_later_slices_raise():
     torch.testing.assert_close(gx, want[0], rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(gw, want[1], rtol=1e-5, atol=1e-5)
     # attention differentiates now (tests/test_torch_lm_train.py); remat
-    # "dots" still raises
+    # "dots" runs: its region's output and gradient equal "full"'s
     q = torch.randn(1, 2, 8, 16, requires_grad=True)
     (gq,) = torch.autograd.grad(te.attention(q, q, q, policy="fp32").sum(), q)
     assert torch.isfinite(gq).all()
-    with pytest.raises(NotImplementedError, match="remat"):
-        tt._remat(dataclasses.replace(tconfigs.get_reduced("qwen3-1.7b"),
-                                      remat="dots"), lambda h: h)
+    qcfg = tconfigs.get_reduced("qwen3-1.7b")
+    wq = torch.randn(16, 16)
+    region = lambda h: te.linear(te.attention(h, h, h, policy="fp32"), wq,
+                                 activation="silu", policy="fp32")
+    outs = {}
+    for remat in ("dots", "full"):
+        hq = q.detach().requires_grad_(True)
+        out = tt._remat(dataclasses.replace(qcfg, remat=remat), region)(hq)
+        outs[remat] = (out, torch.autograd.grad(out.sum(), hq)[0])
+    assert torch.equal(outs["dots"][0], outs["full"][0])
+    assert torch.equal(outs["dots"][1], outs["full"][1])
     with torch.no_grad():                       # inference stays available
         te.linear(x, w, torch.zeros(8), activation="gelu", policy="fp32")

@@ -316,12 +316,15 @@ def test_train_unported_paths_raise():
     with pytest.raises(RuntimeError, match="not bound to a process group"):
         step(st, {"inputs": toks, "labels": toks})
     # hymba-1.5b trains and xlstm serves from its decode state now
-    # (tests/test_torch_recurrent.py); remat "dots" is still to port
+    # (tests/test_torch_recurrent.py); remat "dots" runs: xLSTM's loss is
+    # finite and equals "full"'s
     cfg = dataclasses.replace(tconfigs.get_reduced("xlstm-1.3b"), remat="dots")
     params = tt.init_params(cfg, seed=0, device="cpu")
     toks = torch.zeros((1, 8), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tt.loss_fn(params, cfg, {"inputs": toks, "labels": toks})
+    loss_dots = tt.loss_fn(params, cfg, {"inputs": toks, "labels": toks})[0]
+    loss_full = tt.loss_fn(params, dataclasses.replace(cfg, remat="full"),
+                           {"inputs": toks, "labels": toks})[0]
+    assert torch.isfinite(loss_dots) and torch.equal(loss_dots, loss_full)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             ttrain.main(["--steps", "1"])
