@@ -48,6 +48,19 @@ Phases, any failure exits non-zero:
    are timed with CUDA events (decode / prefill rows over weight copies
    that exceed the L2), the kernel alone with torch.profiler, and each
    GEMM row prints the slices S its launch split into;
+2b. **audit** — the static-analysis suite (``repro_torch.analysis``) on
+   the card: the registry contract for ``"hopper"`` on CUDA tensors;
+   then each of the five audit entries (``analysis/entries.py``; the
+   flash-bound ones at head size 64) under ``"hopper"`` on the card, its
+   launch counts set to 0 just before and read just after: no aten
+   contraction recorded below autograd, its dtype findings the
+   manifest's, its events' dispatch footprint equal to the same entry's
+   on the CPU, and each kernel's launches equal to what its events imply;
+   then three planted controls that must be caught (a ``torch.matmul`` in
+   a forward, one inside an autograd backward, which runs in autograd's
+   device thread, and an fp64 op).  One line per entry.  The lmtrain
+   phase's extra step and the sched phase's FP8 decode step also run
+   under the audit (no aten contraction, no dtype finding);
 3. **serve** — every kernel's launch count is set to 0, then
    ``repro_torch.launch.serve`` serves qwen3-1.7b at full width (random
    weights from a seed): 4 requests, prompt 128, 16 new tokens; the counts
@@ -78,7 +91,9 @@ Phases, any failure exits non-zero:
    r_gates of the first and the last super-block, card vs CPU, under fp32
    and tpu_bf16, each held to 8x the CPU's own spread (half vs all
    threads), except a row where that bound reaches max |x| (tpu_bf16's
-   deep rows), which is printed as unbounded and held only to be finite;
+   deep rows), which is printed as unbounded and held only to be finite.
+   The card's half runs here; the CPU's runs in a host process beside the
+   ft and shard phases and is held after them (``fullcheck``);
 5. **lmtrain** — the counts are set to 0 again, then
    ``repro_torch.launch.train`` trains qwen3-1.7b at full width (28
    layers, d 2048, vocab 151936, random weights from a seed) for 2 steps
@@ -376,9 +391,6 @@ E4M3_EPS, E4M3_SUB = 2.0 ** -3, 2.0 ** -9
 # the reference's band for FP8 decode logits against the 16-bit cache's
 # (tests/test_serving.py:71-97): max and mean over the decode steps
 FP8_BAND_MAX, FP8_BAND_MEAN = 0.5, 0.3
-# the aten ops a profiled window of the port must not call on the card
-ATEN_GEMM = ("aten::mm", "aten::bmm", "aten::addmm", "aten::baddbmm",
-             "aten::addbmm", "aten::matmul", "aten::linear")
 
 
 def _card() -> str:
@@ -441,8 +453,12 @@ def _profile_once(fn, iters: int, ranges=(), cpu: bool = True):
     groups: dict = {}
     spans = {r: {"ms": 0.0, "count": 0} for r in ranges}
     aten = {}
+    # the aten contractions a profiled window of the port must not call:
+    # the audit's own list (repro_torch.analysis.aten_audit.CONTRACTIONS)
+    from repro_torch.analysis.aten_audit import CONTRACTIONS
+
     for ev in prof.key_averages():
-        if ev.key in ATEN_GEMM or "scaled_dot_product" in ev.key:
+        if ev.key in CONTRACTIONS:
             aten[ev.key] = ev.count / iters
         # a range's count from its host-side record (one per call), its
         # device time from its device-side annotation, of which the
@@ -484,8 +500,14 @@ def _bound_ms(n_bytes: float, flops: float, peak: float = BF16_FLOPS):
 
 def _check(name, got, want, tol_rel, log):
     """max |got - want| against tol_rel * max |want|; raises on failure."""
-    err = (got.float() - want.float()).abs().max().item()
-    tol = tol_rel * max(want.float().abs().max().item(), 1e-30)
+    return _check_err(name, (got.float() - want.float()).abs().max().item(),
+                      max(want.float().abs().max().item(), 1e-30), tol_rel, log)
+
+
+def _check_err(name, err, scale, tol_rel, log):
+    """:func:`_check` on its two maxima: the error ``err`` against
+    ``tol_rel * scale``."""
+    tol = tol_rel * scale
     ok = math.isfinite(err) and err <= tol
     log.append({"check": name, "max_abs_err": err, "tol": tol, "ok": ok})
     print(f"[check] {name}: max_abs_err={err:.3e} tol={tol:.3e} "
@@ -1827,6 +1849,183 @@ def _require(launches: dict, names, path: str) -> None:
         raise AssertionError(f"kernels not launched on the {path} path: {missing}")
 
 
+def _audited(what: str, fn):
+    """``fn()`` once under the audit's recorder and the engine's collectors
+    ("hopper", the card): no aten contraction may reach the dispatcher and
+    no dtype finding may show (the manifest holds none for these steps).
+    Returns ``(fn's result, summary)``."""
+    import torch
+
+    from repro_torch.analysis import aten_audit, dtype_audit
+
+    t0 = time.perf_counter()
+    trace = aten_audit.trace_entry(fn, (), "hopper")
+    torch.cuda.synchronize()
+    findings = dtype_audit.audit_dtypes(trace)
+    summary = {"events": len(trace.events), "aten_contractions": sum(
+        s.count for s in trace.sites), "dtype_findings": [f.describe() for f in findings],
+        "seconds": time.perf_counter() - t0}
+    print(f"[audit] {what}: {summary['events']} engine events, "
+          f"{summary['aten_contractions']} aten contractions, "
+          f"{len(findings)} dtype findings ({summary['seconds']:.2f} s)", flush=True)
+    for site in trace.sites:
+        print(f"[audit]   escape: {site.describe()}", flush=True)
+    for f in findings:
+        print(f"[audit]   dtype: {f.describe()}", flush=True)
+    if trace.sites or findings:
+        raise AssertionError(f"{what}: aten contractions or dtype findings under "
+                             f"the audit")
+    return trace.out, summary
+
+
+def _planted_backward():
+    """A control for the audit: an autograd Function whose backward calls
+    ``torch.matmul`` by a square ``w`` and notes the thread it ran in."""
+    import threading
+
+    import torch
+
+    class Planted(torch.autograd.Function):
+        threads = []
+
+        @staticmethod
+        def forward(ctx, x, w):
+            ctx.save_for_backward(w)
+            return x * 1.0
+
+        @staticmethod
+        def backward(ctx, g):
+            (w,) = ctx.saved_tensors
+            Planted.threads.append(threading.get_ident())
+            return torch.matmul(g, w), None
+
+    return Planted
+
+
+def audit_phase(log, counters):
+    """The static-analysis suite on the card (see the module docstring,
+    phase 2b): the registry contract for "hopper" on CUDA tensors; the five
+    audit entries under "hopper", each against its CPU twin's footprint
+    and its events' implied launches; three planted controls."""
+    import threading
+
+    import torch
+
+    from repro_torch.analysis import aten_audit, audit, contract, dtype_audit, entries
+    from repro_torch.core import engine
+    from repro_torch.kernels import chunked_linear_attention, flash_attention, ops
+
+    t0 = time.perf_counter()
+    hop = engine.get_backend("hopper")
+    ran = []
+    for c in contract.CONTRACTS:
+        if c in ("base", "attention") or hop.supports(c):
+            contract.run_contract("hopper", c, "cuda")
+            ran.append(c)
+    torch.cuda.synchronize()
+    contract_s = time.perf_counter() - t0
+    print(f"[audit] contract: 'hopper' on cuda passes {ran} ({contract_s:.2f} s)",
+          flush=True)
+    log.append({"check": "audit: the registry contract on cuda", "ok": True,
+                "contracts": ran})
+
+    wrappers = {"redmule_matmul": ops.redmule_matmul,
+                "redmule_matmul_batched": ops.redmule_matmul_batched,
+                "flash_attention": flash_attention.flash_attention,
+                "chunked_linear_attention":
+                    chunked_linear_attention.chunked_linear_attention}
+    manifest = audit.load_manifest(audit.DEFAULT_MANIFEST)
+    per_entry = {}
+    _zero(counters)
+    for name in sorted(entries.ENTRY_POINTS):
+        over = entries.CARD_OVERRIDES.get(name)
+        cpu = audit.audit_entry(name, "hopper", "cpu", over)
+        before = {k: f.launches for k, f in wrappers.items()}
+        card = audit.audit_entry(name, "hopper", "cuda", over)
+        torch.cuda.synchronize()
+        ran_k = {k: f.launches - before[k] for k, f in wrappers.items()}
+        implied = aten_audit.launches_implied(card["trace"].events)
+        got = {"gemm": ran_k["redmule_matmul"] + ran_k["redmule_matmul_batched"],
+               "flash_attention": ran_k["flash_attention"],
+               "chunked_linear_attention": ran_k["chunked_linear_attention"]}
+        escapes = sum(s.count for s in card["trace"].sites)
+        dtype_errs = audit.dtype_ratchet_errors(name, "hopper", card["findings"],
+                                                manifest)
+        rec = {"events": len(card["trace"].events),
+               "footprint": sum(card["footprint"].values()),
+               "footprint_equal_cpu": card["footprint"] == cpu["footprint"],
+               "launches": ran_k, "implied": implied, "aten_contractions": escapes,
+               "dtype_findings": [f.describe() for f in card["findings"]],
+               "overrides": over}
+        per_entry[name] = rec
+        print(f"[audit] {name}: {rec['events']} events, footprint "
+              f"{rec['footprint']} dispatches (CPU 'hopper' "
+              f"{sum(cpu['footprint'].values())}, equal {rec['footprint_equal_cpu']}), "
+              f"launches {ran_k} (implied {implied}), {escapes} aten contractions, "
+              f"{len(card['findings'])} dtype findings"
+              + (f", overrides {over}" if over else ""), flush=True)
+        for s in card["trace"].sites:
+            print(f"[audit]   escape: {s.describe()}", flush=True)
+        ok = (not escapes and not dtype_errs and rec["footprint_equal_cpu"]
+              and got == implied)
+        log.append({"check": f"audit: {name} on the card", "ok": ok, **rec})
+        if not ok:
+            raise AssertionError(f"audit: {name}: escapes {escapes}, dtype "
+                                 f"{dtype_errs}, footprint equal "
+                                 f"{rec['footprint_equal_cpu']}, launches {got} vs "
+                                 f"implied {implied}")
+    launches = _read(counters)
+
+    # the controls, each of which the audit must catch
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn(64, 128, generator=g, device=dev, dtype=torch.bfloat16)
+    w = torch.randn(128, 96, generator=g, device=dev, dtype=torch.bfloat16)
+    v = torch.randn(96, 32, generator=g, device=dev, dtype=torch.bfloat16)
+
+    def planted_fwd():
+        return torch.matmul(engine.matmul(x, w), v)
+
+    sq = torch.randn(128, 128, generator=g, device=dev)
+    fn_bwd = _planted_backward()
+
+    def planted_bwd():
+        xg = x.detach().float().requires_grad_(True)
+        fn_bwd.apply(xg, sq).sum().backward()
+
+    controls = {}
+    for what, fn, want_flops in (
+            ("planted torch.matmul in a forward", planted_fwd, 2 * 64 * 96 * 32),
+            ("planted torch.matmul in an autograd backward", planted_bwd,
+             2 * 64 * 128 * 128)):
+        tr = aten_audit.trace_entry(fn, (), "hopper")
+        torch.cuda.synchronize()
+        caught = [s for s in tr.sites if s.flops == want_flops]
+        controls[what] = {"caught": sum(s.count for s in caught),
+                          "sites": [s.describe() for s in tr.sites]}
+        print(f"[audit] control: {what}: caught {[s.describe() for s in tr.sites]}",
+              flush=True)
+        if len(tr.sites) != 1 or len(caught) != 1 or caught[0].count != 1:
+            raise AssertionError(f"audit control not caught: {what}")
+    other = [t for t in fn_bwd.threads if t != threading.get_ident()]
+    controls["backward in autograd's device thread"] = bool(other)
+    print(f"[audit] control: the planted backward ran in autograd's device thread: "
+          f"{bool(other)}", flush=True)
+    if not other:
+        raise AssertionError("audit control: the backward ran in the calling thread, "
+                             "so the device thread was not shown")
+    tr = aten_audit.trace_entry(lambda: (x.double() * 2.0).sum(), (), "hopper")
+    f64 = [f for f in dtype_audit.audit_dtypes(tr) if f.kind == "fp64"]
+    controls["planted fp64 op"] = [f.describe() for f in f64]
+    print(f"[audit] control: planted fp64 op: {[f.describe() for f in f64]}", flush=True)
+    if not f64:
+        raise AssertionError("audit control not caught: planted fp64 op")
+    log.append({"check": "audit: three planted controls caught", "ok": True})
+    return {"contract": ran, "contract_s": contract_s, "entries": per_entry,
+            "controls": controls, "launches": launches,
+            "seconds": time.perf_counter() - t0}
+
+
 def serve_phase(log, counters):
     """The serving path through its entry point, with launch counts."""
     import dataclasses
@@ -1985,10 +2184,12 @@ def train_phase(log, counters):
           f"{peak_step / 2**30:.2f} GiB: {parts}", flush=True)
 
     super_block = super_block_parity(log, full)
-    full_depth = full_depth_parity(log, full)
+    # the full-depth parity's card half; its CPU half runs beside the ft
+    # phase and is held in full_depth_check
+    full_depth = full_depth_card(full)
     step_ms = [h["step_ms"] for h in hist]
     return {"train_wall_s": train_s, "history": hist, "step_ms": step_ms,
-            "super_block_parity": super_block, "full_depth_parity": full_depth,
+            "super_block_parity": super_block, "full_depth_card": full_depth,
             "launches": launches, "structural_sweeps": structural,
             "fp32_route_by_shape": by_shape,
             "peak_mem_main_gib": peak_main / 2**30,
@@ -2218,6 +2419,9 @@ def lmtrain_phase(log, counters):
         holder[0], m = step(holder[0], ds.batch(1))
         return m
 
+    # one step, forward and backward, under the audit
+    _, audited = _audited("lmtrain step (qwen3-1.7b full width, forward and "
+                          "backward)", one_step)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with _k2_ranged():
@@ -2262,7 +2466,7 @@ def lmtrain_phase(log, counters):
             "peak_mem_step_gib": peak_step / 2**30, "profile": prof,
             "fp16_scale": {"history": out16["history"], "wall_s": fp16_s},
             "two_layer_parity": cut, "dense_serve_cuts": serve_cuts,
-            "params": out["params"]}
+            "audit": audited, "params": out["params"]}
 
 
 # the ft phase: launch/train.py's compressed data-parallel path, qwen3-1.7b
@@ -2687,21 +2891,30 @@ def dense_serve_cuts(log):
     return errs
 
 
-def full_depth_parity(log, cfg):
-    """Step 0 of the training path at full depth and width, card vs the CPU
-    plain path: the loss of ``transformer.loss_fn`` on one batch of 1 x
-    FD_SEQ tokens at the path's seed and the gradients of w_up, w_qkv
-    (every mLSTM block) and r_gates (the sLSTM block) of the first and the
-    last super-block, under ``fp32`` and the training policy.  The bound is
-    the spread measured in this run between the CPU plain path on half its
-    threads and on all of them (another BLAS blocking, another summation
-    order) times 8, above a floor of one rounding (fp32 1e-5, bf16 2^-8).
-    A row whose bound reaches max |x| (the bf16 policy's deep rows: the
-    rounding's perturbation grows through 48 recurrent blocks) has no
-    reference: it is printed and logged as unbounded (no pass / fail) and
-    held only to be finite.  Half, not one: the one-thread runs took 49-54 s a policy, and the run
-    must stay within its time.  Returns the errors, spreads and seconds per
-    policy."""
+def _fd_rows():
+    """The full-depth parity's compared items after the loss: the gradient
+    of each weight at the first and the last super-block."""
+    return [(f"grad {w} super-block {b}", w, i) for w in ("w_up", "w_qkv", "r_gates")
+            for b, i in (("0", 0), ("last", -1))]
+
+
+def _fd_params(cfg):
+    """fp32 parameters of ``cfg`` at the path's seed, on the CPU (each
+    policy casts on use), and a fingerprint of them: the float64 sum of
+    every layer leaf, so the card's and the CPU's runs can show they start
+    from the same draw."""
+    import torch
+
+    from repro_torch.models import transformer
+    from repro_torch.optim import tree_leaves
+
+    p_cpu = transformer.init_params(cfg, seed=SEED, device="cpu", dtype=torch.float32)
+    return p_cpu, [t.double().sum().item() for t in tree_leaves(p_cpu["layers"])]
+
+
+def _fd_run(params, cfg, policy, dev):
+    """Step 0 of ``cfg`` under ``policy`` at the depth the policy's row
+    runs: the loss and the gradients of :func:`_fd_rows`, on the CPU."""
     import dataclasses
 
     import torch
@@ -2711,67 +2924,138 @@ def full_depth_parity(log, cfg):
     from repro_torch.models import transformer
     from repro_torch.optim import tree_map
 
+    depth = FD_FP32_LAYERS if policy == "fp32" else cfg.n_layers
+    c = dataclasses.replace(cfg, policy_name=policy, n_layers=depth)
+    n_super = depth // cfg.ssm.slstm_period
+    cells = tree_map(lambda t: t[:n_super].to(dev), params["layers"])
     batch_np = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=FD_SEQ,
                            global_batch=1, seed=SEED).batch(0)
-    n_threads = torch.get_num_threads()
-    names = [(f"grad {w} super-block {b}", w, i) for w in ("w_up", "w_qkv", "r_gates")
-             for b, i in (("0", 0), ("last", -1))]
+    wrt = [cells["mlstm"]["cell"]["w_up"], cells["mlstm"]["cell"]["w_qkv"],
+           cells["slstm"]["cell"]["r_gates"]]
+    wrt = [t.detach().requires_grad_(True) for t in wrt]
+    p = {**tree_map(lambda t: t.to(dev), {k: v for k, v in params.items()
+                                          if k != "layers"}),
+         "layers": {
+             "mlstm": {**cells["mlstm"], "cell": {**cells["mlstm"]["cell"],
+                                                  "w_up": wrt[0], "w_qkv": wrt[1]}},
+             "slstm": {**cells["slstm"], "cell": {**cells["slstm"]["cell"],
+                                                  "r_gates": wrt[2]}}}}
+    loss, _ = transformer.loss_fn(p, c, train._to_device(batch_np, dev))
+    grads = dict(zip(("w_up", "w_qkv", "r_gates"), torch.autograd.grad(loss, wrt)))
+    return [loss.detach().cpu()] + [grads[w][i].detach().cpu() for _, w, i in _fd_rows()]
 
-    def run(params, c, dev):
-        cells = params["layers"]
-        wrt = [cells["mlstm"]["cell"]["w_up"], cells["mlstm"]["cell"]["w_qkv"],
-               cells["slstm"]["cell"]["r_gates"]]
-        wrt = [t.detach().requires_grad_(True) for t in wrt]
-        p = {**params, "layers": {
-            "mlstm": {**cells["mlstm"], "cell": {**cells["mlstm"]["cell"],
-                                                 "w_up": wrt[0], "w_qkv": wrt[1]}},
-            "slstm": {**cells["slstm"], "cell": {**cells["slstm"]["cell"],
-                                                 "r_gates": wrt[2]}}}}
-        loss, _ = transformer.loss_fn(p, c, train._to_device(batch_np, dev))
-        grads = dict(zip(("w_up", "w_qkv", "r_gates"), torch.autograd.grad(loss, wrt)))
-        return [loss.detach().cpu()] + [grads[w][i].detach().cpu() for _, w, i in names]
 
-    result = {}
-    # fp32 parameters, drawn once for both policies (each casts on use)
-    p_cpu = transformer.init_params(cfg, seed=SEED, device="cpu", dtype=torch.float32)
-    for policy, floor, depth in (("fp32", 1e-5, FD_FP32_LAYERS),
-                                 (cfg.policy_name, 2.0 ** -8, cfg.n_layers)):
-        c = dataclasses.replace(cfg, policy_name=policy, n_layers=depth)
-        n_super = depth // cfg.ssm.slstm_period
-        p_run = {**p_cpu, "layers": tree_map(lambda t: t[:n_super], p_cpu["layers"])}
+def full_depth_card(cfg):
+    """The card's half of the full-depth parity (see
+    :func:`full_depth_check`): step 0 under fp32 and the training policy on
+    the card, written to a temporary file for the CPU half, which runs in
+    a host process beside the ft phase (:func:`_full_depth_cpu`).  Returns
+    the file, the card's seconds per policy and the parameters'
+    fingerprint."""
+    import tempfile
+
+    import torch
+
+    p_cpu, fingerprint = _fd_params(cfg)
+    got, card_s = {}, {}
+    for policy in ("fp32", cfg.policy_name):
         t0 = time.perf_counter()
-        got = run(tree_map(lambda t: t.cuda(), p_run), c, torch.device("cuda"))
+        got[policy] = _fd_run(p_cpu, cfg, policy, torch.device("cuda"))
         torch.cuda.synchronize()
-        t_card = time.perf_counter() - t0
+        card_s[policy] = time.perf_counter() - t0
         torch.cuda.empty_cache()
+    path = str(Path(tempfile.mkdtemp(prefix="fd_")) / "card.pt")
+    torch.save(got, path)
+    return {"path": path, "card_s": card_s, "fingerprint": fingerprint}
+
+
+def _full_depth_cpu(card, n_threads):
+    """The CPU half of the full-depth parity, in a host process: the plain
+    path on ``n_threads`` threads and on half of them (the spread), each
+    row's max |card - CPU|, max |CPU| and spread.  Its seconds are taken
+    beside the ft and shard phases, so they include the host's contention."""
+    import torch
+
+    from repro_torch import configs
+
+    torch.set_num_threads(n_threads)
+    cfg = configs.get(T_ARCH)
+    p_cpu, fingerprint = _fd_params(cfg)
+    if fingerprint != card["fingerprint"]:
+        raise AssertionError("full depth: the CPU's parameters are not the card's draw")
+    got_all = torch.load(card["path"])
+    half = max(1, n_threads // 2)
+    result = {}
+    for policy, got in got_all.items():
         t0 = time.perf_counter()
-        want = run(p_run, c, torch.device("cpu"))
+        want = _fd_run(p_cpu, cfg, policy, torch.device("cpu"))
         t_cpu = time.perf_counter() - t0
-        half = max(1, n_threads // 2)
         torch.set_num_threads(half)
         t0 = time.perf_counter()
         try:
-            want_half = run(p_run, c, torch.device("cpu"))
+            want_half = _fd_run(p_cpu, cfg, policy, torch.device("cpu"))
         finally:
             torch.set_num_threads(n_threads)
         t_half = time.perf_counter() - t0
-        print(f"[train] full depth {policy}: card {t_card:.1f} s, CPU {t_cpu:.1f} s "
-              f"({n_threads} threads), {t_half:.1f} s ({half} threads)", flush=True)
+        rows = []
+        for name, a_, b_, c_ in zip(["loss"] + [n for n, _, _ in _fd_rows()], got,
+                                    want, want_half):
+            rows.append({"name": name,
+                         "err": (a_.float() - b_.float()).abs().max().item(),
+                         "max_abs": max(b_.float().abs().max().item(), 1e-30),
+                         "spread_abs": (c_ - b_).abs().max().item()})
+        result[policy] = {"rows": rows, "cpu_s": t_cpu, "cpu_half_threads_s": t_half,
+                          "threads": n_threads, "half": half,
+                          "depth": FD_FP32_LAYERS if policy == "fp32" else cfg.n_layers}
+    return result
+
+
+def full_depth_check(log, train_out, future):
+    """Step 0 of the training path at full depth and width, card vs the CPU
+    plain path: the loss of ``transformer.loss_fn`` on one batch of 1 x
+    FD_SEQ tokens at the path's seed and the gradients of w_up, w_qkv
+    (every mLSTM block) and r_gates (the sLSTM block) of the first and the
+    last super-block, under ``fp32`` (the first FD_FP32_LAYERS blocks) and
+    the training policy (all of them).  The card ran in the train phase
+    (:func:`full_depth_card`), the CPU beside the ft and shard phases
+    (``future``, :func:`_full_depth_cpu`).  The bound is the spread
+    measured in this run between the CPU plain path on half its threads
+    and on all of them (another BLAS blocking, another summation order)
+    times 8, above a floor of one rounding (fp32 1e-5, bf16 2^-8).  A row
+    whose bound reaches max |x| (the bf16 policy's deep rows: the
+    rounding's perturbation grows through 48 recurrent blocks) has no
+    reference: it is printed and logged as unbounded (no pass / fail) and
+    held only to be finite.  Half, not one: the one-thread runs took 49-54
+    s a policy.  Fills ``train_out["full_depth_parity"]`` with the errors,
+    spreads and seconds per policy."""
+    import shutil
+
+    card = train_out.pop("full_depth_card")
+    try:
+        cpu = future.result()
+    finally:
+        shutil.rmtree(Path(card["path"]).parent, ignore_errors=True)
+    result = {}
+    for policy, r in cpu.items():
+        depth = r["depth"]
+        print(f"[train] full depth {policy}: card {card['card_s'][policy]:.1f} s, CPU "
+              f"{r['cpu_s']:.1f} s ({r['threads']} threads), "
+              f"{r['cpu_half_threads_s']:.1f} s ({r['half']} threads), beside the "
+              f"ft and shard phases", flush=True)
+        floor = 1e-5 if policy == "fp32" else 2.0 ** -8
         rows, failed = {}, []
-        for name, a_, b_, c_ in zip(["loss"] + [n for n, _, _ in names], got, want,
-                                    want_half):
-            scale = max(b_.abs().max().item(), 1e-30)
-            spread = (c_ - b_).abs().max().item() / scale
+        for row in r["rows"]:
+            name, err, scale = row["name"], row["err"], row["max_abs"]
+            spread = row["spread_abs"] / scale
             tol = max(8 * spread, floor)
-            print(f"[train] full depth {policy} {name}: CPU spread ({half} vs "
-                  f"{n_threads} threads) {spread:.3e} of max", flush=True)
+            print(f"[train] full depth {policy} {name}: CPU spread ({r['half']} vs "
+                  f"{r['threads']} threads) {spread:.3e} of max", flush=True)
             label = (f"full depth ({depth} blocks, 1x{FD_SEQ}, {policy}) step 0 "
                      f"{name}, card vs CPU plain")
             if tol >= 1.0:
                 # two correct summation orders already differ by max |x| / 8:
                 # there is no reference to hold the card to, so the row is
                 # reported, not logged as a passing check (ROADMAP Queue C)
-                err = (a_.float() - b_.float()).abs().max().item()
                 log.append({"unbounded": label, "max_abs_err": err,
                             "bound_rel": tol, "finite": math.isfinite(err)})
                 print(f"[unbounded] {label}: max_abs_err={err:.3e} "
@@ -2781,16 +3065,18 @@ def full_depth_parity(log, cfg):
                     failed.append(f"{label}: not finite")
             else:
                 try:
-                    err = _check(label, a_, b_, tol, log)
+                    _check_err(label, err, scale, tol, log)
                 except AssertionError as e:
                     err = float("nan")
                     failed.append(str(e))
             rows[name] = {"err_rel": err / scale, "spread": spread, "tol_rel": tol,
                           "max_abs": scale, "bounded": tol < 1.0}
-        result[policy] = {"rows": rows, "card_s": t_card, "cpu_s": t_cpu,
-                          "cpu_half_threads_s": t_half}
+        result[policy] = {"rows": rows, "card_s": card["card_s"][policy],
+                          "cpu_s": r["cpu_s"],
+                          "cpu_half_threads_s": r["cpu_half_threads_s"]}
         if failed:
             raise AssertionError("; ".join(failed))
+    train_out["full_depth_parity"] = result
     return result
 
 
@@ -4983,6 +5269,9 @@ def sched_phase(log, counters):
         step = lambda pp=pp, cc=cc, cache=cache: transformer.serve_step(
             pp, cc, toks, cache, pos, kv_group_sizes=sizes)
         step()
+        if tag == "fp8":
+            _, audited = _audited("sched decode step (yi-9b full width, "
+                                  "mixed_fp8_e4m3, FP8 cache)", step)
         acct[f"decode_step_ms_{tag}"] = _time_ms(step, iters=2, warmup=1)
         # one call a window: an FP8 step launches ~18,700 kernels, and the
         # profiler's post-processing of three took ~30 s
@@ -5009,6 +5298,7 @@ def sched_phase(log, counters):
             "points": points,
             "slo": slo, "recovery": {"16-bit": rec16, "fp8": rec8, "cost": rec_cost},
             "accounting": acct, "profiles": profiles, "fp8_cuts": cuts,
+            "audit": audited,
             "peak_mem_gib": peak / 2**30, "seconds": parts}
 
 
@@ -6289,12 +6579,17 @@ def main() -> int:
         return result
 
     kernels, counters, row_paths = timed("kernels", kernel_phase, log)
+    audit = timed("audit", audit_phase, log, counters)
     serve = timed("serve", serve_phase, log, counters)
     train = timed("train", train_phase, log, counters)
     lmtrain = timed("lmtrain", lmtrain_phase, log, counters)
     traces = start_dry_traces()
+    # the full-depth parity's CPU half, queued behind the traces in their pool
+    fd_cpu = traces[0].submit(_full_depth_cpu, train["full_depth_card"],
+                              torch.get_num_threads())
     ft = timed("ft", ft_phase, log, counters)
     shard = timed("shard", shard_phase, log, counters)
+    timed("fullcheck", full_depth_check, log, train, fd_cpu)
     dry = timed("dryrun", dryrun_phase, log, shard, lmtrain, traces)
     ae = timed("ae", ae_phase, log, counters)
     ae8 = timed("ae8", ae8_phase, log, counters)
@@ -6308,7 +6603,8 @@ def main() -> int:
     ssmcut = timed("ssmcut", ssm_cuts, log)
     sched = timed("sched", sched_phase, log, counters)
     tune = timed("tune", tune_phase, log)
-    runs = {"serve": serve["launches"], "train": train["launches"],
+    runs = {"audit": audit["launches"], "serve": serve["launches"],
+            "train": train["launches"],
             "lmtrain": lmtrain["launches"], "ft": ft["launches"],
             "shard": shard["launches"],
             "ae": ae["launches"], "ae_fp32": ae["launches_fp32"],
@@ -6329,7 +6625,7 @@ def main() -> int:
                          if k.startswith("split launches: ")} for p in runs}
     print(f"[report] split launches per path: {json.dumps(split_by_path)}", flush=True)
     out = {"card": card, "build_s": build_s, "phase_s": phase_s, "checks": log,
-           "serve": serve,
+           "audit": audit, "serve": serve,
            "train": train, "lmtrain": lmtrain, "ft": ft, "shard": shard,
            "dryrun": dry, "ae": ae,
            "ae8": ae8,

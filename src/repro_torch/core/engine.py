@@ -6,16 +6,19 @@ goes through this module:
 * :class:`GemmSpec` — a frozen description of one contraction (tag,
   M/N/K, batch, groups, policy, tile, layout, ragged ``valid_rows``) with
   the reference's flop and byte formulas;
-* a **backend registry** with capability flags.  One backend is
-  registered, ``"hopper"`` — the hand-written CUDA kernels on a CUDA
-  tensor, their plain PyTorch versions on a CPU tensor — with the
-  capabilities ``fused_epilogue`` (bias + activation in the kernel's
-  store), ``tiled`` (it runs ``spec.tile``), ``layouts`` (nn / nt / tn
-  storage read in place), ``fused_bwd_epilogue`` (act' applied to the dZ
-  tile on load, the bias gradient accumulated in the dW pass) and
-  ``attention`` (the flash and the chunked linear-attention sweeps).  It
-  plays the role of the reference's ``"pallas"`` and ``"interpret"``
-  together and is the default;
+* a **backend registry** with capability flags.  ``"hopper"`` — the
+  hand-written CUDA kernels on a CUDA tensor, their plain PyTorch
+  versions on a CPU tensor — has the capabilities ``fused_epilogue``
+  (bias + activation in the kernel's store), ``tiled`` (it runs
+  ``spec.tile``), ``layouts`` (nn / nt / tn storage read in place),
+  ``fused_bwd_epilogue`` (act' applied to the dZ tile on load, the bias
+  gradient accumulated in the dW pass) and ``attention`` (the flash and
+  the chunked linear-attention sweeps).  It plays the role of the
+  reference's ``"pallas"`` and ``"interpret"`` together and is the
+  default, and the only backend any path on the card runs.  ``"aten"``
+  (``layouts``, ``operand_dtypes``) is the reference's ``"xla"``: one
+  aten contraction per dispatch, on CPU and meta tensors only, for the
+  static audit (``repro_torch.analysis``) and the registry contract;
 * the ops :func:`matmul`, :func:`linear` (fused epilogue),
   :func:`grouped_matmul` (ragged groups), :func:`einsum2d` (two-operand
   contractions), :func:`attention` (the flash kernel path, its backward
@@ -107,7 +110,8 @@ __all__ = [
     "matmul", "linear", "grouped_matmul", "einsum2d", "attention",
     "linear_attention", "scores_policy", "is_backward_op", "is_pass_op",
     "instrument", "repeat", "op_scope", "paused", "checkpoint",
-    "total_flops", "total_bytes", "summarize", "DEFAULT_ENGINE",
+    "total_flops", "total_bytes", "dispatch_footprint", "summarize",
+    "DEFAULT_ENGINE",
     "REMAT_POLICIES",
 ]
 
@@ -177,13 +181,21 @@ class GemmSpec:
     def flops(self) -> int:
         """2 * B * G * M * N * K; ragged GEMMs bill ``valid_rows`` instead of
         ``G * <ragged_dim>``; pass events carry no MACs."""
-        if is_pass_op(self.op):
-            return 0
-        if self.valid_rows is None:
-            return 2 * self.batch * self.groups * self.m * self.n * self.k
+        if is_pass_op(self.op) or self.valid_rows is None:
+            return self.dense_flops
         if self.ragged_dim == "m":
             return 2 * self.batch * self.valid_rows * self.n * self.k
         return 2 * self.batch * self.m * self.valid_rows * self.k
+
+    @property
+    def dense_flops(self) -> int:
+        """The dense ``2 * B * G * M * N * K`` of the contraction one
+        dispatch issues, ignoring ragged ``valid_rows`` (the mask is applied
+        around the contraction, not in it); 0 for pass events.  What the
+        escape audit (``repro_torch.analysis.aten_audit``) reconciles."""
+        if is_pass_op(self.op):
+            return 0
+        return 2 * self.batch * self.groups * self.m * self.n * self.k
 
     @property
     def bytes(self) -> int:
@@ -285,6 +297,20 @@ def total_flops(events: Sequence[GemmEvent]) -> int:
 
 def total_bytes(events: Sequence[GemmEvent]) -> int:
     return sum(ev.total_bytes for ev in events)
+
+
+def dispatch_footprint(events: Sequence[GemmEvent]) -> Dict[int, int]:
+    """``dense_flops -> total dispatch count`` over the non-pass events
+    (the reference's ``engine.dispatch_footprint``).  On the ``"aten"``
+    backend each such dispatch issues exactly one aten contraction of
+    :attr:`GemmSpec.dense_flops`, so the escape audit subtracts this
+    multiset from the contractions it recorded; what is left escaped."""
+    foot: Dict[int, int] = {}
+    for ev in events:
+        df = ev.spec.dense_flops
+        if df > 0:
+            foot[df] = foot.get(df, 0) + ev.count
+    return foot
 
 
 def summarize(events: Sequence[GemmEvent]) -> Dict[str, Dict[str, float]]:
@@ -679,6 +705,40 @@ register_backend(
                 "on the tensor cores, fp32 in SIMT FMAs), causal "
                 "GQA flash attention and the chunked linear-attention sweep; "
                 "plain PyTorch versions on CPU tensors")
+
+
+def _aten_fn(x: torch.Tensor, w: torch.Tensor, *, spec: GemmSpec) -> torch.Tensor:
+    """One ``torch.matmul`` in the compute dtype (the reference's ``_xla_fn``).
+
+    The stored layout folds into the operands as transposed views and FP8
+    storage is widened right at the contraction's input; a 2D weight
+    folds x's leading dims into M (one ``mm``), anything else is one
+    ``bmm`` over the broadcast leading dims, so the contraction's flops
+    are ``spec.dense_flops``.  The engine applies bias and activation after
+    it.  CPU and meta tensors only: on the card every dispatch runs
+    ``"hopper"``."""
+    for t in (x, w):
+        if t.device.type not in ("cpu", "meta"):
+            raise ValueError(f"the 'aten' backend runs CPU and meta tensors only "
+                             f"(the audit and the registry contract), got a "
+                             f"{t.device} operand: use 'hopper' on the card")
+    comp = spec.policy.compute_dtype
+    x, w = x.to(comp), w.to(comp)
+    if spec.layout == "tn":
+        x = x.transpose(-1, -2)
+    elif spec.layout == "nt":
+        w = w.transpose(-1, -2)
+    return torch.matmul(x, w)
+
+
+register_backend(
+    "aten", _aten_fn, capabilities=("layouts", "operand_dtypes"),
+    description="one aten contraction (torch.matmul) per dispatch in the "
+                "compute dtype, on CPU and meta tensors: the static audit's "
+                "and the registry contract's backend, as the reference's "
+                "'xla' (epilogues post-op; transpose layouts as views; FP8 "
+                "storage widened at the contraction's input; attention "
+                "through the engine's composition); never the default")
 
 
 # --------------------------------------------------------------------- #

@@ -232,17 +232,18 @@ def _digest(tensors: Dict[str, torch.Tensor]) -> str:
 
 
 def _aten_library(fn, device) -> Dict[str, float]:
-    """The aten GEMM / SDPA ops one call of ``fn`` runs (host profile)."""
+    """The aten contractions one call of ``fn`` runs (host profile), by the
+    escape audit's list (:data:`repro_torch.analysis.aten_audit.CONTRACTIONS`)."""
     from torch.profiler import ProfilerActivity, profile
 
-    names = ("aten::mm", "aten::bmm", "aten::addmm", "aten::baddbmm",
-             "aten::matmul", "aten::linear", "aten::einsum")
+    from repro_torch.analysis.aten_audit import CONTRACTIONS
+
     _sync(device)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         fn()
         _sync(device)
     return {ev.key: ev.count for ev in prof.key_averages()
-            if ev.key in names or "scaled_dot_product" in ev.key}
+            if ev.key in CONTRACTIONS}
 
 
 def _bill(events) -> Dict[str, Dict[str, float]]:
