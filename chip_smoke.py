@@ -150,6 +150,25 @@ Phases, any failure exits non-zero:
    per rank the peak memory, KV bytes (half the cache), launches, the
    collectives (count, bytes, host seconds) and times; no aten GEMM /
    SDPA in a decode step or a train step; kernel 2 with an empty group.
+   FP8 on the mesh and the scheduler over ranks (since slice 17): the
+   qwen3 serve cell's second pass on an E4M3 cache and mla_serve's, each
+   teacher-forced against the unsharded E4M3 run (logits in the FP8 cuts'
+   band, scale leaves within ``SH_SCALE_TOL`` / ``SH_SCALE_TOL_BF16``);
+   ``launch/mesh.py``'s scheduler on ``{data: 2, model: 1}`` at full width,
+   8 of the 28 layers, under the reference's ``--sched`` defaults
+   (``SH_SCHED``: ``mixed_fp8_e4m3``, the E4M3 cache, 4 slots, 8 requests
+   of 128 + 16,
+   ``kv_corrupt@2`` audited every step; a third two-rank spawn, started
+   once this process's largest references are done, runs it and then the
+   recovery cells) against the
+   unsharded scheduler (the trace equal and equal on both ranks, slots of
+   both data ranks admitted, the corruption detected and rebuilt, scale
+   leaves, every request's tokens equal and its final logits within the
+   bound); and slot recovery under the serving rules (``SH_RECOVER``: two
+   layers, the 16-bit cache, ``nan_logits@2`` and ``kv_corrupt@2``
+   against the uninjected run on the same mesh, the drained pools bitwise
+   equal), each beside a control that must fail (the recovery's: the
+   corruption with the rebuild skipped).
    A second two-rank spawn beside it runs the reference dry run's
    layouts at full width (``SH_LAYOUTS``: FSDP with grad_accum, sequence
    parallelism, a KV cache under ``Rules()``, MLA, hymba and xLSTM served
@@ -222,20 +241,23 @@ Phases, any failure exits non-zero:
    recompute, dX and dW), one profiled step (no aten GEMM or SDPA op),
    peak memory;
 14. **ssmserve** — the counts are set to 0 again, then xlstm-1.3b at full
-   width and depth (48 blocks, random weights from a seed) runs
+   width, its depth cut to ``X_LAYERS`` = 8 blocks (one super-block; 24
+   in slice 17's first trim, 48 before; random weights from a seed), runs
    ``transformer.prefill`` on 4 x 128 and a greedy loop of 16
    ``serve_step``s from its decode state (the scheduler refuses recurrent
-   kinds, as the reference's does); launches structural (kernel 4: 42 a
+   kinds, as the reference's does); launches structural (kernel 4: 7 a
    prefill, 0 a decode step), one prefill and one decode step timed and
    profiled (kernel 1 / 2 / 4 / other, no aten GEMM or SDPA op), peak
    memory;
-15. **hymbaserve** — the same for hymba-1.5b at full width and depth (32
-   layers) on 4 x (1152 + 16): the 1024 window masks on the 29 sliding
-   layers and the prefill crosses q_chunk 1024; kernel 4 32 a prefill, 0
-   a decode step, no flash;
+15. **hymbaserve** — the same for hymba-1.5b at full width, ``H_LAYERS`` =
+   8 layers (16 in slice 17's first trim, 32 before; full attention on
+   layer 0) on 4 x (1152 + 16): the 1024 window masks on the 7 sliding
+   layers and the prefill crosses q_chunk 1024; kernel 4 8 a prefill, 0 a
+   decode step, no flash;
 16. **hymbatrain** — ``repro_torch.launch.train`` trains hymba-1.5b at full
-   width and depth, 4 x 256, 2 steps (3 before the dryrun phase came):
-   losses finite, 64 sweeps a step
+   width, ``--layers 8`` (16 in slice 17's first trim, 32 before), 4 x
+   256, 2 steps (3 before the dryrun phase came): losses finite, 16 sweeps
+   a step
    (forward and remat recompute), no flash, one profiled step, peak memory;
 17. **ssmcut** — a two-layer full-width cut of hymba-1.5b (full layer 0,
    sliding layer 1) on 2 x 1088 and one xlstm-1.3b super-block on 2 x 128
@@ -244,7 +266,8 @@ Phases, any failure exits non-zero:
    the larger of 8x the CPU's 1-vs-all-thread spread and 2^-4 of max
    (fp32: 1e-5), beside two controls that must fail (hymba layer 1's ``a_log`` raised by
    ``HC_CONTROL``; the fp32 xLSTM cut's first mLSTM state zeroed after the
-   prefill);
+   prefill).  The CPU halves run in a host process started after the
+   shard phase, beside the phases in between (:func:`start_cpu_refs`);
 18. **sched** — serving under load: the counts are set to 0 again, then
    ``repro_torch.launch.serve --sched`` runs yi-9b at full width and depth
    (48 layers, d 4096, random weights from a seed) with the reference's
@@ -373,6 +396,12 @@ MOE_ARCHS, MC_BATCH, MC_PROMPT = ("deepseek-v2-lite-16b", "deepseek-moe-16b"), 2
 X_BATCH, X_PROMPT, X_GEN = 4, 128, 16
 H_ARCH, H_BATCH, H_PROMPT, H_GEN = "hymba-1.5b", 4, 1152, 16
 HT_BATCH, HT_SEQ, HT_STEPS = 4, 256, 2
+# the recurrent serving and training paths' depth, cut to make room for
+# the shard phase's FP8 and scheduler cells (was the full 48 blocks / 32
+# layers, then 24 / 16): xlstm-1.3b's first super-block (7 mLSTM + 1
+# sLSTM), hymba-1.5b's first 8 layers (full attention on layer 0, the 1024
+# window on the rest); their structural counts follow the config
+X_LAYERS, H_LAYERS = 8, 8
 HC_BATCH, HC_PROMPT, XC_BATCH, XC_PROMPT, C_GEN = 2, 1088, 2, 128, 2
 # the hymba cut's control: layer 1's a_log raised by this much.  2^-3 moves
 # the logits by ~3.3e-2 and layer 1's SSD state by ~4.7e-2 of max, inside
@@ -4410,20 +4439,22 @@ def _hymba_structural(cfg, prompt: int) -> tuple:
 
 
 def _recurrent_serve(log, counters, arch: str, tag: str, batch: int, prompt: int,
-                     gen: int, structural) -> dict:
-    """``arch`` at full width and depth through ``transformer.prefill`` and a
+                     gen: int, structural, layers: int) -> dict:
+    """``arch`` at full width, ``layers`` deep, through ``transformer.prefill`` and a
     greedy loop of ``gen`` ``serve_step``s (the scheduler refuses recurrent
     kinds, as the reference's does), with the counts set to 0 just before
     and held to the structural ones after; tokens in range, logits finite.
     Then one prefill and one decode step timed with CUDA events and
     profiled (kernel 1 / 2 / 4 / other, no aten GEMM or SDPA op), with the
     peak memory of the run."""
+    import dataclasses
+
     import torch
 
     from repro_torch import configs
     from repro_torch.models import transformer
 
-    cfg = configs.get(arch)
+    cfg = dataclasses.replace(configs.get(arch), n_layers=layers)
     pre, dec = structural(cfg, prompt)
     want = {k: pre[k] + gen * dec[k] for k in pre}
     print(f"[{tag}] predicted launches {want} (prefill {pre}, decode step {dec})",
@@ -4492,28 +4523,33 @@ def _tensors(tree):
 
 
 def ssmserve_phase(log, counters):
-    """xlstm-1.3b served from its decode state at full width and depth (48
-    blocks): prefill 4 x 128 (42 sweeps, kernel 4), 16 greedy decode steps
-    (no sweep: the state readout on kernel 2's fp32 route)."""
+    """xlstm-1.3b served from its decode state at full width, its depth cut
+    to ``X_LAYERS`` blocks (one super-block of 7 mLSTM + 1 sLSTM): prefill
+    4 x 128 (7 sweeps, kernel 4), 16 greedy decode steps (no sweep: the
+    state readout on kernel 2's fp32 route)."""
     return _recurrent_serve(log, counters, T_ARCH, "ssmserve", X_BATCH, X_PROMPT,
-                            X_GEN, _xlstm_structural)
+                            X_GEN, _xlstm_structural, X_LAYERS)
 
 
 def hymbaserve_phase(log, counters):
-    """hymba-1.5b served at full width and depth (32 layers): prefill 4 x
-    1152 (the 1024 window masks on the 29 sliding layers, the prompt crosses
-    q_chunk 1024; 32 sweeps on kernel 4 with fp32 q / k and bf16 v), 16
-    greedy decode steps (the windowed attention on kernel 2, no flash)."""
+    """hymba-1.5b served at full width, its depth cut to ``H_LAYERS``
+    layers (full attention on layer 0): prefill 4 x 1152 (the 1024 window
+    masks on the 7 sliding layers, the prompt crosses q_chunk 1024; a
+    sweep a layer on kernel 4 with fp32 q / k and bf16 v), 16 greedy decode
+    steps (the windowed attention on kernel 2, no flash)."""
     return _recurrent_serve(log, counters, H_ARCH, "hymbaserve", H_BATCH, H_PROMPT,
-                            H_GEN, _hymba_structural)
+                            H_GEN, _hymba_structural, H_LAYERS)
 
 
 def hymbatrain_phase(log, counters):
-    """hymba-1.5b trained through ``repro_torch.launch.train`` at full width
-    and depth, 4 x 256, 3 steps: losses finite, kernel 4 launched once a
-    layer in the forward and once more in its remat recompute (64 a step),
-    no flash; one profiled step (busy / idle share, kernel 1 / 2 / 4 /
-    other, no aten GEMM or SDPA op) and its peak memory."""
+    """hymba-1.5b trained through ``repro_torch.launch.train`` at full width,
+    its depth cut to ``H_LAYERS``, 4 x 256, ``HT_STEPS`` steps: losses
+    finite, kernel 4 launched once a layer in the forward and once more in
+    its remat recompute (16 a step), no flash; one profiled step (busy /
+    idle share, kernel 1 / 2 / 4 / other, no aten GEMM or SDPA op) and its
+    peak memory."""
+    import dataclasses
+
     import torch
 
     from repro_torch import configs
@@ -4521,14 +4557,14 @@ def hymbatrain_phase(log, counters):
     from repro_torch.launch import train
     from repro_torch.optim import AdamW
 
-    cfg = configs.get(H_ARCH)
+    cfg = dataclasses.replace(configs.get(H_ARCH), n_layers=H_LAYERS)
     per_step_k4 = cfg.n_layers * (2 if cfg.remat == "full" else 1)
     _zero(counters)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    out = train.main(["--arch", H_ARCH, "--full", "--batch", str(HT_BATCH), "--seq",
-                      str(HT_SEQ), "--steps", str(HT_STEPS), "--seed", str(SEED),
-                      "--device", "cuda"])
+    out = train.main(["--arch", H_ARCH, "--full", "--layers", str(H_LAYERS),
+                      "--batch", str(HT_BATCH), "--seq", str(HT_SEQ), "--steps",
+                      str(HT_STEPS), "--seed", str(SEED), "--device", "cuda"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _read(counters)
@@ -4637,7 +4673,85 @@ def _zero_mlstm_slot(cache) -> None:
     cache["layers"]["mlstm"][0, 0].zero_()
 
 
-def ssm_cuts(log):
+def _ssm_cut_setup() -> list:
+    """The ssmcut phase's cuts, ``(arch, policy, config, prompt tokens,
+    decode tokens)`` each: a two-layer hymba-1.5b and one xlstm-1.3b
+    super-block under its policy and under fp32 (on the same tokens), the
+    tokens drawn from the seed in this order."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+
+    gen = torch.Generator().manual_seed(SEED + 10)
+    x_cfg = configs.get(T_ARCH)
+    cuts = ((H_ARCH, None, 2, HC_BATCH, HC_PROMPT),
+            (T_ARCH, None, x_cfg.ssm.slstm_period, XC_BATCH, XC_PROMPT),
+            (T_ARCH, "fp32", x_cfg.ssm.slstm_period, XC_BATCH, XC_PROMPT))
+    out, xlstm_toks = [], None
+    for arch, policy, n_layers, B, S in cuts:
+        c = dataclasses.replace(configs.get(arch), n_layers=n_layers)
+        if policy is not None:
+            c = dataclasses.replace(c, policy_name=policy)
+        if arch == T_ARCH and xlstm_toks is not None:
+            toks, nxt = xlstm_toks          # both policies on the same tokens
+        else:
+            toks = torch.randint(0, c.vocab_size, (B, S), generator=gen)
+            nxt = torch.randint(0, c.vocab_size, (B, C_GEN), generator=gen)
+            if arch == T_ARCH:
+                xlstm_toks = toks, nxt
+        out.append((arch, policy, c, toks, nxt))
+    return out
+
+
+def _ssm_cut_weights(i: int):
+    """Cut ``i``'s weights, drawn on the host from the seed."""
+    from repro_torch.models import transformer
+
+    return transformer.init_params(_ssm_cut_setup()[i][2], seed=SEED + 10, device="cpu")
+
+
+def _ssm_cut_cpu(i: int):
+    """Cut ``i`` of :func:`_ssm_cut_setup` on the CPU plain path, with
+    every thread and with one (the CPU's own spread), on its weights:
+    ``(want, want_1t, seconds, seconds_1t, threads)``."""
+    import torch
+
+    _, _, c, toks, nxt = _ssm_cut_setup()[i]
+    pcpu = _ssm_cut_weights(i)
+    n_threads = torch.get_num_threads()
+    t0 = time.perf_counter()
+    want = _cut_run(pcpu, c, toks, nxt, "cpu")
+    t_cpu = time.perf_counter() - t0
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    try:
+        want_1t = _cut_run(pcpu, c, toks, nxt, "cpu")
+    finally:
+        torch.set_num_threads(n_threads)
+    return want, want_1t, t_cpu, time.perf_counter() - t0, n_threads
+
+
+def start_cpu_refs():
+    """The ssmcut phase's CPU plain-path runs in one host process, and the
+    draws of its weights in a thread of this one, started after the shard
+    phase (whose gloo ranks want the host's cores): they need only the
+    cuts' seeds, so they run beside the single-process card phases in
+    between.  Returns the pools and, per cut, the futures :func:`ssm_cuts`
+    waits on (its CPU runs, its weights)."""
+    import concurrent.futures
+    import multiprocessing
+
+    procs = concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    thread = concurrent.futures.ThreadPoolExecutor(1)
+    cuts = range(len(_ssm_cut_setup()))
+    return (procs, thread), [(procs.submit(_ssm_cut_cpu, i),
+                              thread.submit(_ssm_cut_weights, i)) for i in cuts]
+
+
+def ssm_cuts(log, cpu_refs):
     """Card vs the CPU plain path at full width: a two-layer cut of
     hymba-1.5b (full-attention layer 0, sliding layer 1) on a 2 x 1088
     prompt (the 1024 window masks in layer 1; the prompt crosses q_chunk)
@@ -4654,57 +4768,34 @@ def ssm_cuts(log):
     cached state zeroed between the prefill and the decode steps (under
     tpu_bf16 the CPU's spread reaches 0.03-0.07 of max, so that cut's
     bound is 0.23-0.55 of max and the fp32 cut is the one that can see a
-    cache fault)."""
-    import dataclasses
-
+    cache fault).  The CPU runs come from :func:`start_cpu_refs`, made
+    beside the earlier phases on the same seeded weights (drawn on the host;
+    the card's are their copy) and tokens."""
     import torch
 
-    from repro_torch import configs
-    from repro_torch.models import transformer
-
     out = {}
-    gen = torch.Generator().manual_seed(SEED + 10)
-    n_threads = torch.get_num_threads()
-    x_cfg = configs.get(T_ARCH)
-    cuts = ((H_ARCH, None, 2, HC_BATCH, HC_PROMPT),
-            (T_ARCH, None, x_cfg.ssm.slstm_period, XC_BATCH, XC_PROMPT),
-            (T_ARCH, "fp32", x_cfg.ssm.slstm_period, XC_BATCH, XC_PROMPT))
-    xlstm_toks = None
-    for arch, policy, n_layers, B, S in cuts:
-        c = dataclasses.replace(configs.get(arch), n_layers=n_layers)
-        if policy is not None:
-            c = dataclasses.replace(c, policy_name=policy)
+    for i, (arch, policy, c, toks, nxt) in enumerate(_ssm_cut_setup()):
+        n_layers, (B, S) = c.n_layers, toks.shape
         tag = f"{arch} {c.policy_name}"
-        pc = transformer.init_params(c, seed=SEED + 10, device="cuda")
-        pcpu = _to_cpu(pc)
-        if arch == T_ARCH and xlstm_toks is not None:
-            toks, nxt = xlstm_toks          # both policies on the same tokens
-        else:
-            toks = torch.randint(0, c.vocab_size, (B, S), generator=gen)
-            nxt = torch.randint(0, c.vocab_size, (B, C_GEN), generator=gen)
-            if arch == T_ARCH:
-                xlstm_toks = toks, nxt
+        refs, weights = cpu_refs[i]
+        t0 = time.perf_counter()
+        pc = _to_card(weights.result())
+        want, want_1t, t_cpu, t_cpu1, n_threads = refs.result()
+        t_wait = time.perf_counter() - t0
         t0 = time.perf_counter()
         got = _cut_run(pc, c, toks, nxt, "cuda")
         t_card = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        want = _cut_run(pcpu, c, toks, nxt, "cpu")
-        t_cpu = time.perf_counter() - t0
-        torch.set_num_threads(1)
-        t0 = time.perf_counter()
-        try:
-            want_1t = _cut_run(pcpu, c, toks, nxt, "cpu")
-        finally:
-            torch.set_num_threads(n_threads)
-        t_cpu1 = time.perf_counter() - t0
         floor = 1e-5 if c.policy_name == "fp32" else 2.0 ** -4
         rows = _cut_compare(got, want, want_1t, floor)
         bad = [k for k, r in rows.items() if not r["err_rel"] <= r["tol_rel"]]
-        row = {"items": rows, "card_s": t_card, "cpu_s": t_cpu, "cpu_1thread_s": t_cpu1}
+        row = {"items": rows, "card_s": t_card, "cpu_s": t_cpu, "cpu_1thread_s": t_cpu1,
+               "cpu_wait_s": t_wait}
         worst = max(rows, key=lambda k: rows[k]["err_rel"] / rows[k]["tol_rel"])
         print(f"[ssmcut] {tag} {n_layers} layers at full width, {B}x{S} + {C_GEN} "
               f"decode steps: card {t_card:.1f} s, CPU {t_cpu:.1f} s ({n_threads} "
-              f"threads), {t_cpu1:.1f} s (1 thread); worst {worst}: err "
+              f"threads), {t_cpu1:.1f} s (1 thread; both in a host process beside the "
+              f"earlier phases, waited {t_wait:.1f} s for them and the weights); worst "
+              f"{worst}: err "
               f"{rows[worst]['err_rel']:.3e} of max, tol {rows[worst]['tol_rel']:.3e} "
               f"(CPU spread {rows[worst]['spread']:.3e})", flush=True)
         for k, r in rows.items():
@@ -4736,7 +4827,7 @@ def ssm_cuts(log):
                                  f"on {bad}")
         if control is not None and not row["control_failing"]:
             raise AssertionError(f"ssmcut {tag}: the control passed the bound")
-        del pc, pcpu
+        del pc
         torch.cuda.empty_cache()
     return out
 
@@ -5562,6 +5653,30 @@ SH_MOE = dict(batch=4, prompt=128, gen=8, n_layers=3)
 # fp32 rows (summation order only)
 SH_BF16_TOL, SH_FP32_TOL = 2.0 ** -3, 1e-4
 SH_DEVICE, SH_FULL = "cuda", True
+# FP8 on the mesh and the scheduler over ranks (slice 17): qwen_serve's
+# second pass on an E4M3 cache (tpu_bf16) and mla_serve's (fp32), each
+# teacher-forced against the unsharded E4M3 run: logits within the FP8
+# cuts' band (FP8_BAND_MAX / FP8_BAND_MEAN, the reference's), scale leaves
+# within SH_SCALE_TOL relative; in a third spawn, the scheduler on {data:
+# 2, model: 1} at full width under the reference's --sched defaults
+# (mixed_fp8_e4m3, the E4M3 cache) with kv_corrupt at decode step 2
+# audited every step, its depth cut to 8 of the 28 layers (at full depth
+# it added ~80 s to the phase, ~330 host pmax a decode step, against ~38 s
+# the recurrent phases' cuts bought: PERF.md section 6); and after it in
+# that spawn slot recovery under the serving rules (two layers, the 16-bit
+# cache, tpu_bf16): uninjected, nan_logits@2, kv_corrupt@2 and the control
+# (kv_corrupt@2 with the rebuild skipped) on the same mesh, the final pools
+# bitwise equal (the control's must differ)
+SH_SCALE_TOL = 2.0 ** -7
+# a bf16 layout moves the new rows by a few bf16 ulps (2^-8), and their
+# amax with them: its scale leaves are held to 2^-5 (the CPU's reduced run
+# of this phase read 9.9e-3)
+SH_SCALE_TOL_BF16 = 2.0 ** -5
+SH_SCHED = dict(n_layers=8, n_slots=4, requests=8, rate=1.0, prompt=128, gen=16,
+                audit_every=1, policy_name="mixed_fp8_e4m3", storage_dtype="float8_e4m3fn",
+                inject="kv_corrupt@2")
+SH_RECOVER = dict(n_layers=2, n_slots=4, requests=4, rate=1.0, prompt=128, gen=8,
+                  audit_every=1, policy_name="tpu_bf16", pool=True)
 # the reference dry run's layouts, each cell at full width in a second
 # spawn beside the first (fp32 unless named): qwen3-1.7b's two layers trained under
 # Rules(fsdp=True) on {data: 2, model: 1} with grad_accum 2 and under
@@ -5588,7 +5703,7 @@ SH_LAYOUTS = [
      ("layer0/attn/wq", "layers/attn/wuk", "layers/attn/wo",
       "layers/moe/router", "layers/moe/shared/w_in", "layers/ln1")),
     (dict(name="mla_serve", kind="serve", arch=SH_MLA, mesh=[1, 2], n_layers=3,
-          batch=4, prompt=128, gen=8), "layers/attn/wo", ()),
+          batch=4, prompt=128, gen=8, fp8_pass=True), "layers/attn/wo", ()),
     (dict(name="qwen_fsdp", kind="train", arch=ARCH, mesh=[2, 1], fsdp=True,
           grad_accum=2, **dict(SH_TRAIN, steps=1)), "layers/attn/wo",
      ("embed", "layers/attn/wqkv", "layers/attn/wo", "layers/mlp/w_in",
@@ -5623,24 +5738,81 @@ SH_CPU4 = (dict(name="qwen_fsdp_2x2", kind="train", arch=ARCH, mesh=[2, 2], fsdp
            ("layers/attn/wqkv", "layers/attn/wo", "layers/mlp/w_in", "layers/ln1"))
 
 
-def _shard_rows(prompts, fed, params, cfg, gen, dev, states=False):
+def _shard_rows(prompts, fed, params, cfg, gen, dev, states=False, storage=None):
     """The unsharded run's logits, teacher-forced on the tokens the
     sharded run fed: prefill, then ``gen`` decode steps (fp32, host); with
-    ``states`` also the final recurrent states (fp32, host)."""
+    ``states`` also the final recurrent states (fp32, host); with an FP8
+    ``storage`` the cache's scale leaves (host) in their place."""
     import torch
 
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.models import transformer as tt
 
     S = prompts.shape[1]
-    lg, cache = tt.prefill(params, cfg, {"inputs": prompts.to(dev)}, S + gen)
+    lg, cache = tt.prefill(params, cfg, {"inputs": prompts.to(dev)}, S + gen,
+                           storage_dtype=storage)
     rows = [lg.float().cpu()]
     for i in range(gen):
         lg, cache = tt.serve_step(params, cfg, fed[:, i:i + 1].to(dev), cache, S + i)
         rows.append(lg.float().cpu())
-    final = {k: v.float().cpu() for k, v in mesh_lib.recurrent_states(cache).items()}
+    if storage:
+        final = _scale_leaves(cache)
+    else:
+        final = {k: v.float().cpu() for k, v in mesh_lib.recurrent_states(cache).items()}
     del cache
-    return (torch.stack(rows), final) if states else torch.stack(rows)
+    return (torch.stack(rows), final) if states or storage else torch.stack(rows)
+
+
+def _scale_leaves(cache) -> dict:
+    """An FP8 cache's scale leaves on the host, keyed as the mesh worker
+    writes them ("<key>/<name>_scale/<field>")."""
+    return {f"{key}/{name}/{f}": t.cpu() for key, sub in cache.items()
+            for name, leaf in sub.items() if name.endswith("_scale")
+            for f, t in leaf.items()}
+
+
+def _scale_gap(got: dict, want: dict) -> float:
+    """The largest gap of two caches' scale leaves, relative to each
+    leaf's largest value (inf where an overflow count differs)."""
+    import torch
+
+    worst = 0.0
+    for k, w in want.items():
+        if k.endswith("overflow_count"):
+            worst = max(worst, 0.0 if torch.equal(got[k], w) else math.inf)
+        else:
+            worst = max(worst, ((got[k].float() - w.float()).abs().max()
+                                / w.float().abs().max()).item())
+    return worst
+
+
+def _fp8_pass_check(what, out, want, want_scales, control, control_scales, tol,
+                    log) -> dict:
+    """A sharded serving pass on the E4M3 cache against the unsharded one,
+    both fed the sharded run's tokens: every step's largest logit gap
+    within the FP8 cuts' band (the reference's FP8-vs-16-bit bound:
+    ``FP8_BAND_MAX`` / ``FP8_BAND_MEAN``), the scale leaves within ``tol``
+    of max (overflow counts equal), beside the control (a rank's block
+    negated), which must miss both."""
+    got = out["logits_fp8"]
+    diffs = [(a - b).abs().max().item() for a, b in zip(got, want)]
+    cdiffs = [(a - b).abs().max().item() for a, b in zip(control, want)]
+    band = lambda d: max(d) < FP8_BAND_MAX and sum(d) / len(d) < FP8_BAND_MEAN
+    scales = out["scales_fp8"]
+    gap = _scale_gap(scales, want_scales) if scales.keys() == want_scales.keys() else math.inf
+    cgap = _scale_gap(control_scales, want_scales)
+    ok = band(diffs) and not band(cdiffs) and gap <= tol < cgap
+    row = {"check": f"shard {what}", "step_max_abs": diffs, "control_step_max_abs": cdiffs,
+           "scale_rel": gap, "control_scale_rel": cgap, "tol": tol, "ok": ok}
+    log.append(row)
+    print(f"[check] shard {what}, sharded vs unsharded E4M3 pass: step max |logit gap| "
+          f"max {max(diffs):.3e} / mean {sum(diffs) / len(diffs):.3e} (band "
+          f"{FP8_BAND_MAX} / {FP8_BAND_MEAN}); control max {max(cdiffs):.3e}; scale "
+          f"leaves {gap:.3e} of max (tol {tol:.3e}; control {cgap:.3e}): "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"shard {what}: {row}")
+    return row
 
 
 def _layout_cell(cell, leaves) -> dict:
@@ -5890,8 +6062,15 @@ def _layout_serve(cell, control_leaf, out, infos, dev, card, log, res) -> None:
     bf16 = cfg.policy_name != "fp32"
     params = tt.init_params(cfg, seed=SEED, device=dev)
     want, states = _shard_rows(out["prompts"], out["fed"], params, cfg, gen, dev, True)
+    fp8 = "logits_fp8" in out        # a second pass on the E4M3 cache
+    if fp8:
+        want8, scales8 = _shard_rows(out["prompts"], out["fed_fp8"], params, cfg, gen,
+                                     dev, storage=FP8_STORAGE)
     _flip_block(params, cfg, cell, control_leaf)
     control = _shard_rows(out["prompts"], out["fed"], params, cfg, gen, dev)
+    if fp8:
+        control8, cscales8 = _shard_rows(out["prompts"], out["fed_fp8"], params, cfg,
+                                         gen, dev, storage=FP8_STORAGE)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -5901,6 +6080,10 @@ def _layout_serve(cell, control_leaf, out, infos, dev, card, log, res) -> None:
             f"{', sp' if cell.get('sequence_parallel') else ''}) logits")
     err = _shard_compare(what, out["logits"], want, control,
                          SH_BF16_TOL if bf16 else SH_FP32_TOL, log)
+    if fp8:
+        _fp8_pass_check(what.replace(") logits", ", E4M3 cache)"), out, want8, scales8,
+                        control8, cscales8,
+                        SH_SCALE_TOL_BF16 if bf16 else SH_SCALE_TOL, log)
     agree, n = _greedy_agree(out["fed"], want, 2 * err)
     print(f"[shard] {name}: greedy tokens equal to the unsharded argmax: {agree} of the "
           f"{n} of {out['fed'].numel()} off a near tie", flush=True)
@@ -5948,6 +6131,187 @@ def _layout_serve(cell, control_leaf, out, infos, dev, card, log, res) -> None:
         if info.get("aten_library_decode"):
             raise AssertionError(f"shard {name}: library ops {info['aten_library_decode']}")
     res[name] = infos
+
+
+def _unsharded_sched(params, cfg, cell):
+    """The unsharded scheduler on the card over the cell's requests."""
+    from repro_torch.runtime import FailureInjector
+    from repro_torch.serving import loadgen
+    from repro_torch.serving import scheduler as sl
+
+    scfg = sl.SchedulerConfig(n_slots=cell["n_slots"],
+                              max_len=cell["prompt"] + cell["gen"] + 4,
+                              storage_dtype=cell.get("storage_dtype"),
+                              audit_every=cell["audit_every"])
+    inj = None
+    if cell.get("inject"):
+        mode, _, at = cell["inject"].partition("@")
+        inj = FailureInjector(fail_at_step=int(at), mode=mode)
+    sched = sl.Scheduler(params, cfg, scfg, inj)
+    sched.submit(loadgen.poisson_requests(cfg, loadgen.LoadConfig(
+        rate=cell["rate"], n_requests=cell["requests"], prompt_len=cell["prompt"],
+        gen_len=cell["gen"], seed=0)))
+    sched.run()
+    return sched
+
+
+def _sched_refs(dev) -> dict:
+    """The unsharded scheduler on the card over ``SH_SCHED``'s requests,
+    from the same seed, and its control (layer 0's wo negated: on {data:
+    2, model: 1} the last rank's block is the whole leaf), each drained;
+    what :func:`_shard_sched` reads, on the host.  It needs none of the
+    ranks' results, so the shard phase runs it while its spawns run."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import transformer as tt
+
+    cell = dict(SH_SCHED)
+    cfg = dataclasses.replace((configs.get if SH_FULL else configs.get_reduced)(ARCH),
+                              policy_name=cell["policy_name"], n_layers=cell["n_layers"])
+    params = tt.init_params(cfg, seed=SEED, device=dev)
+    t0 = time.perf_counter()
+    want = _unsharded_sched(params, cfg, cell)
+    unsharded_s = time.perf_counter() - t0
+    with torch.no_grad():
+        params["layers"]["attn"]["wo"][0].neg_()
+    control = _unsharded_sched(params, cfg, cell)
+    refs = {"n_layers": cfg.n_layers, "trace": [list(e) for e in want.trace],
+            "results": dict(want.results), "scales": _scale_leaves(want.cache),
+            "control": dict(control.results), "unsharded_s": unsharded_s}
+    del params, want, control
+    gc.collect()
+    torch.cuda.empty_cache()
+    return refs
+
+
+def _shard_sched(out, infos, refs, card, log) -> dict:
+    """``qwen_sched_dp`` (the scheduler on {data: 2, model: 1}) against the
+    unsharded scheduler on the card (:func:`_sched_refs`): the trace (the
+    corruption detected at the same tick, the slot rebuilt) equal to it
+    and on both ranks, with requests admitted into the slots of both data
+    ranks; the pool's scale leaves within ``SH_SCALE_TOL``; every
+    request's tokens equal; every request's final logits within
+    ``SH_BF16_TOL`` of max, beside the control, which must miss it on
+    every request; every kernel-1 launch FP8."""
+    import torch
+
+    unsharded_s, n_layers = refs["unsharded_s"], refs["n_layers"]
+    trace = refs["trace"]
+    same_ranks = len({i["trace_digest"] for i in infos}) == 1 and \
+        len({i["tokens_digest"] for i in infos}) == 1
+    events = [e[0] for e in trace]
+    recovered = events.count("kv_quarantine") == 1 and "recover" in events
+    half = SH_SCHED["n_slots"] // 2
+    slots = {e[3] for e in trace if e[0] == "prefill"}
+    both_ranks = any(sl < half for sl in slots) and any(sl >= half for sl in slots)
+    srel = _scale_gap(out["scales"], refs["scales"])
+    wres = refs["results"]
+    finished = all(r.final_logits is not None for r in wres.values()) and \
+        out["final_logits"].keys() == wres.keys()
+    tokens_equal = all(out["tokens"][rid] == r.tokens for rid, r in wres.items())
+    scale = max(float(abs(r.final_logits).max()) for r in wres.values())
+    fgap = max(float(abs(out["final_logits"][rid] - torch.from_numpy(r.final_logits)).max())
+               for rid, r in wres.items()) if finished else math.inf
+    cgap = min(float(abs(refs["control"][rid].final_logits - r.final_logits).max())
+               for rid, r in wres.items())
+    cgap_max = max(float(abs(refs["control"][rid].final_logits - r.final_logits).max())
+                   for rid, r in wres.items())
+    fp8_all = all(i["launches"]["redmule_matmul.launches"]
+                  == i["launches"]["redmule_matmul.launches_fp8"] for i in infos)
+    ok = (out["trace"] == trace and same_ranks and recovered and both_ranks
+          and srel <= SH_SCALE_TOL and finished and tokens_equal
+          and fgap <= SH_BF16_TOL * scale < cgap and fp8_all)
+    row = {"check": "shard qwen_sched_dp", "trace_equal": out["trace"] == trace,
+           "ranks_equal": same_ranks, "recovered": recovered, "slots_admitted": sorted(slots),
+           "scale_rel": srel, "tokens_equal": tokens_equal, "final_logits_gap": fgap,
+           "control_gap_min": cgap, "control_gap_max": cgap_max, "tol": SH_BF16_TOL * scale,
+           "every_k1_fp8": fp8_all, "unsharded_s": unsharded_s, "ok": ok}
+    log.append(row)
+    print(f"[check] shard qwen3-1.7b scheduler on {{data: 2, model: 1}} ({n_layers} layers, "
+          f"mixed_fp8_e4m3, E4M3 cache, 4 slots, 8 requests of 128 + 16, kv_corrupt@2, "
+          f"audit every step) vs unsharded: trace equal {row['trace_equal']} "
+          f"({len(trace)} events), ranks equal {same_ranks}, corruption detected and "
+          f"rebuilt {recovered}, slots admitted {sorted(slots)} (both data ranks "
+          f"{both_ranks}); scale leaves {srel:.3e} of max (tol {SH_SCALE_TOL:.3e}); every "
+          f"request's tokens equal {tokens_equal}; every request's final logits "
+          f"{fgap:.3e} (tol {SH_BF16_TOL * scale:.3e}; control {cgap:.3e} to "
+          f"{cgap_max:.3e}); every kernel-1 launch FP8 {fp8_all}: "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    for r, info in enumerate(infos):
+        print(f"[shard] ({card}) qwen_sched_dp rank {r} (overlapped: the phase's other "
+              f"spawns and this process's references share the card and the host): "
+              f"{info['seconds_run']:.1f} s ({info['decode_steps']} decode steps, "
+              f"{info['prefills']} prefills); peak {info.get('peak_bytes', 0) / 2**30:.2f} "
+              f"GiB; KV pool {info['kv_bytes']} B; collectives: "
+              f"{_shard_collectives(info['collectives'])}; a decode step: "
+              f"{_shard_collectives(info['collectives'], info['decode_steps'])}; "
+              f"launches {_main_launches(info['launches'])}; goodput "
+              f"{info['goodput']!r}", flush=True)
+    print(f"[shard] qwen_sched_dp unsharded on the card (overlapped with the spawns): "
+          f"{unsharded_s:.1f} s", flush=True)
+    if not ok:
+        raise AssertionError(f"shard qwen_sched_dp: {row}")
+    return row
+
+
+def _shard_recovery(runs, card, log) -> dict:
+    """Slot recovery under the serving rules on {data: 1, model: 2} (two
+    layers, the 16-bit cache): the runs with ``nan_logits`` and
+    ``kv_corrupt`` at decode step 2 against the uninjected run on the same
+    mesh.  Each: its trace less the detection and recovery events equals
+    the uninjected one, the victim's tokens (and every request's) equal
+    its, and the drained pool's stored bytes (the rebuilt slot's rows
+    included) bitwise equal its.  The control (``stale``: the corruption
+    with the rebuild skipped, the slot left stale) must fail the pool
+    comparison."""
+    import torch
+
+    base, base_infos = runs["none"]
+
+    def pools_equal(out):
+        return out["pool"].keys() == base["pool"].keys() and all(
+            torch.equal(out["pool"][k].view(torch.uint8), base["pool"][k].view(torch.uint8))
+            for k in base["pool"])
+
+    control_equal = pools_equal(runs["stale"][0])
+    row = {"control_pool_bitwise": control_equal}
+    fails = []
+    for tag, detect in (("nan_logits", "nan_detect"), ("kv_corrupt", "kv_quarantine")):
+        out, infos = runs[tag]
+        ev = [e for e in out["trace"] if e[0] in (detect, "recover")]
+        rest = [e for e in out["trace"] if e[0] not in (detect, "recover")]
+        victim = ev[0][2] if ev else None
+        bitwise = pools_equal(out)
+        tokens_equal = out["tokens"] == base["tokens"]
+        ok = (len(ev) == 2 and rest == base["trace"] and tokens_equal and bitwise
+              and not control_equal
+              and len({i["trace_digest"] for i in infos}) == 1)
+        row[tag] = {"events": ev, "victim": victim, "trace_rest_equal": rest == base["trace"],
+                    "tokens_equal": tokens_equal, "pool_bitwise": bitwise,
+                    "control_equal": control_equal, "ok": ok}
+        log.append({"check": f"shard recovery {tag}", **row[tag]})
+        print(f"[check] shard qwen3-1.7b slot recovery ({tag}@2, 2 layers, 16-bit cache, "
+              f"serve_rules on {{data: 1, model: 2}}) vs the uninjected run on the mesh: "
+              f"events {ev}; trace otherwise equal {row[tag]['trace_rest_equal']}; victim "
+              f"{victim} and every request's tokens equal {tokens_equal}; drained pool "
+              f"bitwise {bitwise} (control, kv_corrupt@2 with the rebuild skipped: "
+              f"{'equal' if control_equal else 'differs'}): {'ok' if ok else 'FAIL'}",
+              flush=True)
+        if not ok:
+            fails.append(tag)
+    for tag, (_, infos) in runs.items():
+        for r, info in enumerate(infos):
+            print(f"[shard] ({card}) qwen_recover_{tag} rank {r} (overlapped): "
+                  f"{info['seconds_run']:.1f} s ({info['decode_steps']} decode steps, "
+                  f"{info['recovery_decode_steps']} replayed); collectives "
+                  f"{_shard_collectives(info['collectives'])}", flush=True)
+    if fails:
+        raise AssertionError(f"shard recovery: {fails}: {row}")
+    return row
 
 
 def _shard_compare(what, got, want, control, tol, log) -> float:
@@ -6008,26 +6372,37 @@ def shard_phase(log, counters):
     qwen = dict(arch=ARCH, full=SH_FULL, mesh=SH_MESH, seed=SEED)
     moe = dict(arch="deepseek-moe-16b", full=SH_FULL, mesh=SH_MESH, seed=SEED,
                policy_name="fp32", **SH_MOE)
-    plan = [dict(name="qwen_serve", kind="serve", profile=True, **qwen, **SH_SERVE),
+    plan = [dict(name="qwen_serve", kind="serve", profile=True, fp8_pass=True, **qwen,
+                 **SH_SERVE),
             dict(name="qwen_train_fp32", kind="train", policy_name="fp32", **qwen,
                  **SH_TRAIN),
             dict(name="qwen_train_bf16", kind="train", profile=True, **qwen, **SH_TRAIN),
             dict(name="moe_gspmd", kind="serve", moe_impl="gspmd", **moe),
             dict(name="moe_shard_map", kind="serve", moe_impl="shard_map", **moe)]
+    sched_plan = [dict(name="qwen_sched_dp", kind="sched", **dict(qwen, mesh=[2, 1]),
+                       **SH_SCHED)]
+    sched_plan += [dict(name=f"qwen_recover_{tag}", kind="sched", **qwen, **SH_RECOVER,
+                        **({"inject": f"{tag}@2"} if tag != "none" else {}))
+                   for tag in ("none", "nan_logits", "kv_corrupt")]
+    # the recovery's control: the corruption with the rebuild skipped
+    sched_plan += [dict(name="qwen_recover_stale", kind="sched", **qwen, **SH_RECOVER,
+                        inject="kv_corrupt@2", rebuild=False)]
     layouts = [dict(_layout_cell(cell, leaves), profile=cell["kind"] == "serve")
                for cell, _, leaves in SH_LAYOUTS]
     res: dict = {"card": card}
-    pool = concurrent.futures.ThreadPoolExecutor(3)
+    pool = concurrent.futures.ThreadPoolExecutor(4)
     gc.collect()
     torch.cuda.empty_cache()
     try:
         # two spawns of two ranks side by side on the card (the slice-13
-        # cells; the dry run's layouts), and this process's unsharded
-        # training references once the layout ranks are past their MLA
-        # cells (the largest on the card: with them, the card has no room
-        # for the references)
+        # and slice-17 cells; the dry run's layouts), and this process's
+        # unsharded training references once the layout ranks are past
+        # their MLA cells (the largest on the card: with them, the card has
+        # no room for the references); then a third spawn (the scheduler
+        # over the data axis, slot recovery)
         runs = {}
-        for tag, cells in (("shard ranks", plan), ("layout ranks", layouts)):
+
+        def start(tag, cells):
             d = Path(tmp, tag.split()[0])
             d.mkdir()
             Path(d, "plan.json").write_text(json.dumps(cells))
@@ -6035,6 +6410,9 @@ def shard_phase(log, counters):
                                     ["--device", SH_DEVICE, "--plan",
                                      str(Path(d, "plan.json")), "--out", str(d)],
                                     str(d), tag)
+
+        start("shard ranks", plan)
+        start("layout ranks", layouts)
         parts = {}
 
         def ranks(tag):
@@ -6070,6 +6448,7 @@ def shard_phase(log, counters):
                 for c, (_, ctl, leaves) in zip(layouts, SH_LAYOUTS) if c["kind"] == "train"}
         refs[cpu4["name"]] = _layout_train_refs(cpu4, SH_CPU4[1], SH_CPU4[2], dev, "cpu")
         parts["train_refs"] = time.perf_counter() - t1
+        start("sched ranks", sched_plan)
 
         def load(name, d="shard"):
             infos = [json.loads(Path(tmp, d, f"{name}.rank{r}.json").read_text())
@@ -6107,19 +6486,33 @@ def shard_phase(log, counters):
                 t1 = time.perf_counter()
 
         check_layouts(wait=False)
-        ranks("shard ranks")
+        # the unsharded scheduler needs none of the ranks' results: it runs
+        # while the spawns run on (the MLA cells are done: the card has room)
+        t1 = time.perf_counter()
+        sched_refs = _sched_refs(dev)
+        parts["sched_refs"] = time.perf_counter() - t1
+        # qwen_serve is the spawn's first cell: held while the spawn runs on
+        ready("qwen_serve", "shard")
         t1 = time.perf_counter()
         # ---- qwen3-1.7b served at full width and depth ----
         cfg = (configs.get if SH_FULL else configs.get_reduced)(ARCH)
         out, infos = load("qwen_serve")
         params = tt.init_params(cfg, seed=SEED, device=dev)
         want = _shard_rows(out["prompts"], out["fed"], params, cfg, SH_SERVE["gen"], dev)
+        want8, scales8 = _shard_rows(out["prompts"], out["fed_fp8"], params, cfg,
+                                     SH_SERVE["gen"], dev, storage=FP8_STORAGE)
         # the control: rank 1's block of layer 0's wo rows, sign flipped
         wo = params["layers"]["attn"]["wo"]
         half = wo.shape[1] // 2
         wo[0, half:].neg_()
         control = _shard_rows(out["prompts"], out["fed"], params, cfg, SH_SERVE["gen"], dev)
+        control8, cscales8 = _shard_rows(out["prompts"], out["fed_fp8"], params, cfg,
+                                         SH_SERVE["gen"], dev, storage=FP8_STORAGE)
         wo[0, half:].neg_()
+        res["qwen_serve_fp8"] = _fp8_pass_check(
+            f"qwen3-1.7b serve ({cfg.n_layers} layers, 4 x (128 + 16), tpu_bf16, E4M3 "
+            f"cache, serve_rules)", out, want8, scales8, control8, cscales8,
+            SH_SCALE_TOL_BF16, log)
         res["qwen_serve_err"] = _shard_compare(
             "qwen3-1.7b serve (28 layers, 4 x (128 + 16), tpu_bf16) logits",
             out["logits"], want, control, SH_BF16_TOL, log)
@@ -6128,9 +6521,16 @@ def shard_phase(log, counters):
               f"of the {n} of {out['fed'].numel()} off a near tie", flush=True)
         if agree != n:
             raise AssertionError(f"shard: {n - agree} greedy tokens differ off a tie")
-        del params, want, control
+        del params, want, control, want8, control8
         for r, info in enumerate(infos):
             steps = info["decode_steps"]
+            print(f"[shard] ({card}) qwen3-1.7b serve E4M3 pass rank {r}: KV cache "
+                  f"{info['kv_bytes_fp8']} B; prefill {info['prefill_s_fp8'] * 1e3:.1f} ms, "
+                  f"decode {info['decode_s_fp8'] / steps * 1e3:.1f} ms a step; collectives "
+                  f"a prefill: {_shard_collectives(info['collectives_prefill_fp8'])}; a "
+                  f"decode step: {_shard_collectives(info['collectives_decode_fp8'], steps)}"
+                  f"; launches prefill {_main_launches(info['launches_prefill_fp8'])}, "
+                  f"decode {_main_launches(info['launches_decode_fp8'])}", flush=True)
             print(f"[shard] ({card}) qwen3-1.7b serve rank {r}: peak "
                   f"{info.get('peak_bytes', 0) / 2**30:.2f} GiB, KV cache {info['kv_bytes']} B; "
                   f"prefill {info['prefill_s'] * 1e3:.1f} ms, decode "
@@ -6153,10 +6553,14 @@ def shard_phase(log, counters):
         i0 = infos[0]
         launches["serve"] = {k: i0["launches_prefill"][k] + i0["launches_decode"][k]
                              for k in i0["launches_prefill"]}
+        launches["serve_fp8"] = {k: i0["launches_prefill_fp8"][k]
+                                 + i0["launches_decode_fp8"][k]
+                                 for k in i0["launches_prefill_fp8"]}
         res["qwen_serve"] = infos
         gc.collect()
         torch.cuda.empty_cache()
         parts["serve_unsharded"] = time.perf_counter() - t1
+        ready("qwen_train_bf16", "shard")      # the spawn's second and third cells
         t1 = time.perf_counter()
 
         # ---- qwen3-1.7b, two layers at full width, trained ----
@@ -6217,6 +6621,7 @@ def shard_phase(log, counters):
         gc.collect()
         torch.cuda.empty_cache()
         parts["train_unsharded"] = time.perf_counter() - t1
+        ranks("shard ranks")
         t1 = time.perf_counter()
 
         # ---- deepseek-moe-16b, three layers at full width, both routes ----
@@ -6265,6 +6670,9 @@ def shard_phase(log, counters):
         del want, control
         gc.collect()
         torch.cuda.empty_cache()
+        parts["moe_checks"] = time.perf_counter() - t1
+
+        t1 = time.perf_counter()
 
         # ---- the rest of the dry run's layouts ----
         check_layouts(wait=True)
@@ -6279,6 +6687,21 @@ def shard_phase(log, counters):
         _layout_train(cpu4, refs[cpu4["name"]], SH_CPU4[2], out, infos, "host CPU", log,
                       res)
         parts["cpu4_check"] = time.perf_counter() - t1
+
+        # ---- the scheduler over the data axis, slot recovery on the mesh
+        # (the third spawn) ----
+        ranks("sched ranks")
+        t1 = time.perf_counter()
+        out, infos = load("qwen_sched_dp", "sched")
+        res["qwen_sched_dp"] = _shard_sched(out, infos, sched_refs, card, log)
+        launches["sched_dp"] = infos[0]["launches"]
+        runs_r = {tag: load(f"qwen_recover_{tag}", "sched") for tag in
+                  ("none", "nan_logits", "kv_corrupt", "stale")}
+        res["qwen_recover"] = _shard_recovery(runs_r, card, log)
+        for tag, (_, inf) in runs_r.items():
+            launches[f"recover_{tag}"] = inf[0]["launches"]
+        del runs_r
+        parts["sched_check"] = time.perf_counter() - t1
 
         # kernel 2 takes an empty group (a slot whose KV lies on the other
         # rank): its rows come back zero, as the plain version's do
@@ -6544,6 +6967,12 @@ def _to_cpu(tree):
     return {k: _to_cpu(v) for k, v in tree.items()}
 
 
+def _to_card(tree):
+    if hasattr(tree, "cuda"):
+        return tree.cuda()
+    return {k: _to_card(v) for k, v in tree.items()}
+
+
 def main() -> int:
     import torch
 
@@ -6589,6 +7018,7 @@ def main() -> int:
                               torch.get_num_threads())
     ft = timed("ft", ft_phase, log, counters)
     shard = timed("shard", shard_phase, log, counters)
+    cpu_pools, cpu_refs = start_cpu_refs()
     timed("fullcheck", full_depth_check, log, train, fd_cpu)
     dry = timed("dryrun", dryrun_phase, log, shard, lmtrain, traces)
     ae = timed("ae", ae_phase, log, counters)
@@ -6600,7 +7030,9 @@ def main() -> int:
     ssmserve = timed("ssmserve", ssmserve_phase, log, counters)
     hymbaserve = timed("hymbaserve", hymbaserve_phase, log, counters)
     hymbatrain = timed("hymbatrain", hymbatrain_phase, log, counters)
-    ssmcut = timed("ssmcut", ssm_cuts, log)
+    ssmcut = timed("ssmcut", ssm_cuts, log, cpu_refs)
+    for pool in cpu_pools:
+        pool.shutdown()
     sched = timed("sched", sched_phase, log, counters)
     tune = timed("tune", tune_phase, log)
     runs = {"audit": audit["launches"], "serve": serve["launches"],

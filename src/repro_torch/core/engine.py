@@ -73,7 +73,12 @@ dW (in the w slot).  Scales are device tensors: nothing on the dispatch
 path syncs with the host.  Under ``torch.inference_mode`` (serving) an
 operand made outside it and not requiring grad — a weight — keeps its
 quantization until the tensor changes (:func:`_frozen_fp8`): the same
-``(q, s)`` the dispatch would compute, once instead of every step.  ``attention`` casts q / k / v to the compute
+``(q, s)`` the dispatch would compute, once instead of every step.  On a
+mesh of ranks every per-tensor amax (an operand's, a frozen weight's, a
+cotangent's) is the ``pmax`` of the rank's block amax over every mesh
+axis, the logical tensor's amax (:func:`fp8_scale_mesh`), except inside
+:func:`local_scales` (the expert-parallel route's ``shard_map`` body,
+whose operands are local in the reference too).  ``attention`` casts q / k / v to the compute
 dtype and runs flash without quantizing, as the reference does.
 ``attention``'s backward recomputes through the reference composition of
 two :func:`einsum2d` dispatches and differentiates it (the reference's
@@ -110,6 +115,7 @@ __all__ = [
     "matmul", "linear", "grouped_matmul", "einsum2d", "attention",
     "linear_attention", "scores_policy", "is_backward_op", "is_pass_op",
     "instrument", "repeat", "op_scope", "paused", "checkpoint",
+    "fp8_scale_mesh", "local_scales", "record_scales",
     "total_flops", "total_bytes", "dispatch_footprint", "summarize",
     "DEFAULT_ENGINE",
     "REMAT_POLICIES",
@@ -524,6 +530,7 @@ class _EmitContext:
     paused: bool
     count: int
     backend: Optional[str]
+    scale_mesh: Any = None
 
 
 def _capture() -> _EmitContext:
@@ -531,7 +538,8 @@ def _capture() -> _EmitContext:
                         op_scope=getattr(_state, "op_scope", None),
                         paused=getattr(_state, "paused", False),
                         count=_repeat_multiplier(),
-                        backend=getattr(_state, "backend", None))
+                        backend=getattr(_state, "backend", None),
+                        scale_mesh=fp8_scale_mesh())
 
 
 @contextlib.contextmanager
@@ -541,10 +549,15 @@ def _restored(ctx: _EmitContext, *, recompute: bool = False):
     A backward (``recompute=False``) runs with no repeat multiplier — its
     dispatches pass the count captured at the forward, as the reference's
     VJP rules do; a remat recompute (``recompute=True``) re-enters the
-    forward's multiplier and tags its events."""
-    names = ("collectors", "op_scope", "paused", "repeat", "recompute", "backend")
+    forward's multiplier and tags its events.  Either way the FP8 scales
+    reduce over the forward's mesh (:func:`fp8_scale_mesh`), which a
+    backward in autograd's device thread could not read otherwise."""
+    names = ("collectors", "op_scope", "paused", "repeat", "recompute", "backend",
+             "scale_override", "local_scales")
     prev = {n: getattr(_state, n, None) for n in names}
     _state.backend = ctx.backend
+    _state.scale_override = (ctx.scale_mesh,)
+    _state.local_scales = False
     _state.collectors = list(ctx.collectors)
     _state.op_scope = ctx.op_scope
     _state.paused = ctx.paused
@@ -555,6 +568,57 @@ def _restored(ctx: _EmitContext, *, recompute: bool = False):
     finally:
         for n, v in prev.items():
             setattr(_state, n, v)
+
+
+def fp8_scale_mesh():
+    """The mesh over whose every axis a per-tensor FP8 amax is reduced, or
+    None (local).  On a mesh of more than one rank (``runtime.sharding.
+    use_mesh``) each rank holds a block of every logical tensor (replicas
+    only repeat values), so the ``pmax`` of the block amaxes over every
+    axis is the logical tensor's amax, bit for bit: the scale GSPMD gives
+    the reference.  Inside :func:`local_scales` (the counterpart of a
+    ``shard_map`` body, whose operands are local) it is None; a backward or
+    remat recompute takes its forward's (:func:`_restored`)."""
+    if getattr(_state, "local_scales", False):
+        return None
+    override = getattr(_state, "scale_override", None)
+    if override is not None:
+        return override[0]
+    from repro_torch.runtime import sharding
+
+    mesh = sharding.current_mesh()
+    return mesh if mesh is not None and mesh.size > 1 else None
+
+
+@contextlib.contextmanager
+def local_scales():
+    """Per-tensor FP8 scales from each rank's own block within the context
+    (the reference's amax inside ``shard_map``); the dispatches' backwards
+    keep them."""
+    prev = getattr(_state, "local_scales", False)
+    _state.local_scales = True
+    try:
+        yield
+    finally:
+        _state.local_scales = prev
+
+
+# active :func:`record_scales` lists, process-wide (a backward in
+# autograd's device thread records too)
+_SCALE_LOGS: List[list] = []
+
+
+@contextlib.contextmanager
+def record_scales() -> Iterator[list]:
+    """Collect ``(label, scale)`` for every per-tensor FP8 quantization of
+    a dispatch operand in the context: ``label`` is ``"<op>:x"`` /
+    ``":w"`` / ``":dz"``, ``scale`` the fp32 0-d device tensor used."""
+    log: list = []
+    _SCALE_LOGS.append(log)
+    try:
+        yield log
+    finally:
+        _SCALE_LOGS.remove(log)
 
 
 REMAT_POLICIES = ("full", "dots")
@@ -831,7 +895,7 @@ _FP8_FROZEN: Dict[tuple, tuple] = {}
 
 
 def _frozen_fp8(v: torch.Tensor, storage_dtype):
-    """``prec.quantize_fp8(v, storage_dtype)``, kept while ``v``'s base
+    """:func:`_quantize` of ``v``, kept while ``v``'s base
     tensor is alive and unmodified, for a tensor made outside inference
     mode that needs no grad, dispatched inside it (a weight while serving);
     None otherwise.  The values are the ones a fresh quantization gives:
@@ -840,29 +904,45 @@ def _frozen_fp8(v: torch.Tensor, storage_dtype):
     if not torch.is_inference_mode_enabled() or v.is_inference() or v.requires_grad:
         return None
     base = v if v._base is None else v._base
+    mesh = fp8_scale_mesh()
     key = (id(base), v.storage_offset(), tuple(v.shape), v.stride(),
-           prec.dtype_name(storage_dtype))
+           prec.dtype_name(storage_dtype), id(mesh))
     hit = _FP8_FROZEN.get(key)
     if hit is not None and hit[0]() is base and hit[1] == base._version:
         return hit[2]
-    out = prec.quantize_fp8(v, storage_dtype)
+    out = _quantize(v, storage_dtype, mesh)
     ref = weakref.ref(base, lambda _r, k=key: _FP8_FROZEN.pop(k, None))
     _FP8_FROZEN[key] = (ref, base._version, out)
     return out
 
 
+def _quantize(v: torch.Tensor, storage_dtype, mesh) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``prec.quantize_fp8(v, storage_dtype)`` with the amax reduced over
+    every axis of ``mesh`` (:func:`fp8_scale_mesh`; None: this tensor's)."""
+    if mesh is None:
+        return prec.quantize_fp8(v, storage_dtype)
+    from repro_torch.runtime import collectives as coll
+
+    amax = coll.pmax_over(prec.fp8_amax(v), mesh, mesh.axis_names)
+    return prec.quantize_fp8(v, storage_dtype, scale=prec.scale_of_amax(amax))
+
+
 def _prep_operand(v: torch.Tensor, storage_dtype, store_name: Optional[str],
-                  policy: prec.Policy
+                  policy: prec.Policy, label: str = ""
                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Cast, or per-tensor quantize, one operand for dispatch
     (``engine.py:1026-1049``): FP8 storage returns ``(q, s)`` with ``q = v
     / amax`` in FP8 and ``s`` an fp32 scalar tensor on the operand's device
-    (no host sync); anything else ``(v cast, None)``.  Without a narrow
+    (no host sync beyond the amax's ``pmax`` on a mesh,
+    :func:`fp8_scale_mesh`); anything else ``(v cast, None)``.  Without a narrow
     ``store_name`` the quantized values are widened back to the compute
     dtype, so the quantization point does not depend on the backend."""
     comp = policy.compute_dtype
     if prec.is_fp8(storage_dtype):
-        q, s = _frozen_fp8(v, storage_dtype) or prec.quantize_fp8(v, storage_dtype)
+        q, s = (_frozen_fp8(v, storage_dtype)
+                or _quantize(v, storage_dtype, fp8_scale_mesh()))
+        for log in _SCALE_LOGS:
+            log.append((label, s))
         return (q.to(comp) if store_name is None else q), s
     q = v.to(storage_dtype)
     if store_name is None and q.dtype != comp:
@@ -895,8 +975,8 @@ def _prep_xw(spec: GemmSpec, x, w):
     """Both GEMM operands cast or quantized per the spec's per-operand
     storage: ``(xd, wd, sx, sw)``, the scales None on uniform policies."""
     pol = spec.policy
-    xd, sx = _prep_operand(x, pol.x_storage_dtype, spec.x_dtype, pol)
-    wd, sw = _prep_operand(w, pol.w_storage_dtype, spec.w_dtype, pol)
+    xd, sx = _prep_operand(x, pol.x_storage_dtype, spec.x_dtype, pol, f"{spec.op}:x")
+    wd, sw = _prep_operand(w, pol.w_storage_dtype, spec.w_dtype, pol, f"{spec.op}:w")
     return xd, wd, sx, sw
 
 
@@ -1157,7 +1237,7 @@ def _quantized_bwd(spec: GemmSpec, backend: str, count: int, xd, wd, sx, sw,
     scaled."""
     pol = spec.policy
     dzd, sdz = _prep_operand(dz_wide, pol.grad_storage_dtype,
-                             _dispatch_storage(pol, backend)[2], pol)
+                             _dispatch_storage(pol, backend)[2], pol, f"{spec.op}:dz")
     dx, dw, _ = _bwd_gemms(spec, backend, count, xd, wd, dzd)
     spx, spw = _scale_product(sdz, sw), _scale_product(sx, sdz)
     if spx is not None:

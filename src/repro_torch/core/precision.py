@@ -20,7 +20,8 @@ __all__ = [
     "Policy", "PAPER_FP16", "TPU_FP16", "TPU_BF16", "FP32",
     "MIXED_FP8_E4M3", "MIXED_FP8_E5M2", "FP8_FORMATS",
     "resolve", "known_policies", "is_fp8", "fp8_max",
-    "quantize_fp8", "dequantize_fp8", "as_dtype", "dtype_name",
+    "quantize_fp8", "dequantize_fp8", "fp8_amax", "scale_of_amax", "as_dtype",
+    "dtype_name",
 ]
 
 FP8_FORMATS = ("float8_e4m3fn", "float8_e5m2")
@@ -176,11 +177,21 @@ def quantize_fp8(v: torch.Tensor, dtype,
             f"{dtype_name(dt)!r}")
     vf = v.to(torch.float32)
     if scale is None:
-        amax = vf.abs().max() if vf.numel() else vf.new_zeros(())
-        scale = torch.where((amax > 0) & torch.isfinite(amax), amax,
-                            torch.ones_like(amax))
+        scale = scale_of_amax(fp8_amax(vf))
     scale = torch.as_tensor(scale, dtype=torch.float32, device=vf.device)
     return _to_fp8(vf / scale, dt), scale
+
+
+def fp8_amax(v: torch.Tensor) -> torch.Tensor:
+    """``max |v|`` in fp32, a 0-d tensor (0 for an empty tensor)."""
+    vf = v.to(torch.float32)
+    return vf.abs().max() if vf.numel() else vf.new_zeros(())
+
+
+def scale_of_amax(amax: torch.Tensor) -> torch.Tensor:
+    """The unit-max scale of :func:`quantize_fp8`: ``amax``, or 1 where it
+    is zero or not finite."""
+    return torch.where((amax > 0) & torch.isfinite(amax), amax, torch.ones_like(amax))
 
 
 def _to_fp8(x: torch.Tensor, dt: torch.dtype) -> torch.Tensor:

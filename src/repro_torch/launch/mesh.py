@@ -29,6 +29,7 @@ with ``plan.json`` a list of cells, e.g. ``[{"name": "s", "kind": "serve",
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -255,38 +256,62 @@ def _bill(events) -> Dict[str, Dict[str, float]]:
             "bytes": analysis.bytes_by_direction(events)}
 
 
-def _serve_cell(cell, mesh, out: Dict) -> Dict:
-    from repro_torch.core import engine
-    from repro_torch.launch import serve as serve_lib
-    from repro_torch.models import moe
+@contextlib.contextmanager
+def _local_amax():
+    """A control cell: every FP8 amax from the rank's own block.  The one
+    reduction every per-tensor scale on a mesh takes (``collectives.
+    pmax_over``: the engine's operands, the KV cache's write-back and
+    admission, the scale report) keeps the rank's value."""
     from repro_torch.runtime import collectives as coll
 
-    cfg = _cfg(cell)
+    real = coll.pmax_over
+    coll.pmax_over = lambda x, mesh, axes: real(x, mesh, ())
+    try:
+        yield
+    finally:
+        coll.pmax_over = real
+
+
+def _scale_leaves(cache, cspec, mesh):
+    """The FP8 cache's scale leaves gathered whole (host fp32 / int32):
+    ``{"<key>/<name>_scale/<field>": tensor}``; empty for a 16-bit cache."""
+    from repro_torch.runtime.fault_tolerance import gather
+
+    out = {}
+    for key, sub in cache.items():
+        for name, leaf in sub.items():
+            if name.endswith("_scale"):
+                whole = gather(leaf, mesh, cspec[key][name])
+                out.update({f"{key}/{name}/{f}": t.cpu() for f, t in whole.items()})
+    return out
+
+
+def _serve_pass(cfg, mesh, rules, params, prompts, G: int, T: int,
+                storage_dtype, info: Dict, tag: str = ""):
+    """Prefill ``prompts`` and ``G`` greedy decode steps on a cache of ``T``
+    positions (FP8 with ``storage_dtype``): ``(logits (G + 1, B, V), fed
+    (B, G), cache, cache specs)``; times, collectives, launches and bills
+    into ``info`` (keys suffixed ``tag``)."""
+    from repro_torch.core import engine
+    from repro_torch.launch import serve as serve_lib
+    from repro_torch.runtime import collectives as coll
+
     dev = mesh.device
-    B, S, G = cell["batch"], cell["prompt"], cell["gen"]
-    m = mesh.shape["model"]
-    T = -(-(S + G) // m) * m        # the cache's positions, a multiple of model
-    rules = _rules(cell, True)
-    step, pspec, _ = serve_lib.make_sharded_serve_step(cfg, mesh, rules,
-                                                       batch=B, max_len=T)
-    params = _params(cell, cfg, mesh, pspec, cfg.policy.compute_dtype)
-    info: Dict = {"param_bytes": _tree_bytes(params)}
-    prompts = torch.from_numpy(np.random.default_rng(cell.get("data_seed", 1))
-                               .integers(0, cfg.vocab_size, (B, S))).long()
-    pre = serve_lib.build_prefill(cfg, rules, T, mesh=mesh)
-    moe.ROUTES.clear()
+    B, S = prompts.shape
+    step, _, cspec = serve_lib.make_sharded_serve_step(
+        cfg, mesh, rules, batch=B, max_len=T, storage_dtype=storage_dtype)
+    pre = serve_lib.build_prefill(cfg, rules, T, mesh=mesh, storage_dtype=storage_dtype)
     coll.reset_stats()
     _zero_launches()
     _sync(dev)
-    _reset_peak(dev)
     t0 = time.perf_counter()
     with engine.instrument() as events:
         logits, cache = pre(params, {"inputs": prompts.to(dev)})
     _sync(dev)
-    info["prefill_s"] = time.perf_counter() - t0
-    info["collectives_prefill"] = {k: dict(v) for k, v in coll.STATS.items()}
-    info["launches_prefill"] = _kernel_launches()
-    info["bill_prefill"] = _bill(events)
+    info[f"prefill_s{tag}"] = time.perf_counter() - t0
+    info[f"collectives_prefill{tag}"] = {k: dict(v) for k, v in coll.STATS.items()}
+    info[f"launches_prefill{tag}"] = _kernel_launches()
+    info[f"bill_prefill{tag}"] = _bill(events)
     rows, fed = [logits.float().cpu()], []
     coll.reset_stats()
     _zero_launches()
@@ -298,12 +323,41 @@ def _serve_cell(cell, mesh, out: Dict) -> Dict:
             lg, cache = step(params, cache, tok.to(dev), S + i)
             rows.append(lg.float().cpu())
     _sync(dev)
-    info["decode_s"] = time.perf_counter() - t0
-    info["bill_decode"] = _bill(events)
+    info[f"decode_s{tag}"] = time.perf_counter() - t0
+    info[f"bill_decode{tag}"] = _bill(events)
+    info[f"collectives_decode{tag}"] = {k: dict(v) for k, v in coll.STATS.items()}
+    info[f"launches_decode{tag}"] = _kernel_launches()
+    return torch.stack(rows), (torch.cat(fed, 1) if fed else None), cache, cspec
+
+
+def _serve_cell(cell, mesh, out: Dict) -> Dict:
+    """Prefill and greedy decode (teacher-forcing references are the
+    caller's); ``storage_dtype`` serves from the FP8 cache, ``fp8_pass``
+    runs a second pass over the same weights on an E4M3 cache (outputs
+    suffixed ``_fp8``), ``generate`` also runs ``launch.serve.generate``.
+    The cache holds ``max_len`` positions (default: prompt + gen rounded up
+    to a multiple of the model axis)."""
+    from repro_torch.launch import serve as serve_lib
+    from repro_torch.models import moe
+
+    cfg = _cfg(cell)
+    dev = mesh.device
+    B, S, G = cell["batch"], cell["prompt"], cell["gen"]
+    m = mesh.shape["model"]
+    T = cell.get("max_len", -(-(S + G) // m) * m)
+    rules = _rules(cell, True)
+    storage = cell.get("storage_dtype")
+    _, pspec, _ = serve_lib.make_sharded_serve_step(cfg, mesh, rules, batch=B, max_len=T)
+    params = _params(cell, cfg, mesh, pspec, cfg.policy.compute_dtype)
+    info: Dict = {"param_bytes": _tree_bytes(params)}
+    prompts = torch.from_numpy(np.random.default_rng(cell.get("data_seed", 1))
+                               .integers(0, cfg.vocab_size, (B, S))).long()
+    moe.ROUTES.clear()
+    _reset_peak(dev)
+    logits, fed, cache, cspec = _serve_pass(cfg, mesh, rules, params, prompts, G, T,
+                                            storage, info)
     info["peak_steps_bytes"] = _peak(dev)      # over the prefill and decode steps
     info["decode_steps"] = G
-    info["collectives_decode"] = {k: dict(v) for k, v in coll.STATS.items()}
-    info["launches_decode"] = _kernel_launches()
     info["kv_bytes"] = _tree_bytes(cache)
     info["route"] = dict(moe.ROUTES)
     states = recurrent_states(cache)
@@ -311,16 +365,28 @@ def _serve_cell(cell, mesh, out: Dict) -> Dict:
         info["state_digest"] = _digest(states)
         out["states"] = {k: v.float().cpu() for k, v in states.items()}
     if dev.type == "cuda" and cell.get("profile"):
-        tok = rows[-1].argmax(-1, keepdim=True).to(dev)
+        step = serve_lib.make_sharded_serve_step(cfg, mesh, rules, batch=B, max_len=T,
+                                                 storage_dtype=storage)[0]
+        tok = logits[-1].argmax(-1, keepdim=True).to(dev)
         info["aten_library_decode"] = _aten_library(
             lambda: step(params, cache, tok, T - 1), dev)
-    out.update(prompts=prompts, fed=torch.cat(fed, 1) if fed else None,
-               logits=torch.stack(rows))
+    out.update(prompts=prompts, fed=fed, logits=logits,
+               scales=_scale_leaves(cache, cspec, mesh))
+    del cache
+    if cell.get("fp8_pass"):
+        lg8, fed8, cache8, cspec8 = _serve_pass(cfg, mesh, rules, params, prompts, G, T,
+                                                "float8_e4m3fn", info, "_fp8")
+        info["kv_bytes_fp8"] = _tree_bytes(cache8)
+        out.update(fed_fp8=fed8, logits_fp8=lg8,
+                   scales_fp8=_scale_leaves(cache8, cspec8, mesh))
+        del cache8
     if cell.get("generate"):
-        seqs, _, final = serve_lib.generate(params, cfg, prompts, G,
-                                            rules=rules, mesh=mesh,
-                                            return_state=True)
-        out.update(gen_seqs=torch.from_numpy(seqs), gen_final=torch.from_numpy(final))
+        seqs, gcache, final = serve_lib.generate(params, cfg, prompts, G, rules=rules,
+                                                 mesh=mesh, storage_dtype=storage,
+                                                 return_state=True)
+        gspec = serve_lib.cache_spec_tree(cfg, rules, mesh, B, S + G, storage)
+        out.update(gen_seqs=torch.from_numpy(seqs), gen_final=torch.from_numpy(final),
+                   gen_scales=_scale_leaves(gcache, gspec, mesh))
     return info
 
 
@@ -354,9 +420,11 @@ def _train_cell(cell, mesh, out: Dict) -> Dict:
         _sync(dev)
         _reset_peak(dev)
         t0 = time.perf_counter()
-        with engine.instrument() as events:
+        with engine.instrument() as events, engine.record_scales() as scales:
             state, m = step(state, batch)
         loss = float(m["loss"])
+        if i == 0 and cell.get("record_scales"):
+            info["scales0"] = [[label, float(sc)] for label, sc in scales]
         info["step_s"].append(time.perf_counter() - t0)
         info["losses"].append(loss)
         info["grad_norms"].append(float(m["grad_norm"]))
@@ -378,6 +446,84 @@ def _train_cell(cell, mesh, out: Dict) -> Dict:
     return info
 
 
+def _sched_cell(cell, mesh, out: Dict) -> Dict:
+    """The continuous-batching scheduler on the mesh (``serving.
+    scheduler``): ``requests`` seeded Poisson requests (``serving.loadgen``:
+    ``rate``, ``prompt``, ``gen``, ``seed``) into ``n_slots`` slots of
+    ``max_len`` positions (default prompt + gen + 4), FP8 with
+    ``storage_dtype``, the KV audit every ``audit_every`` decode steps and
+    an injector ``inject`` ("mode@step"), under the cell's rules (default
+    the serving rules).  Every rank writes its trace digest, collectives,
+    launches and peak, and a digest of each pool leaf that its spec leaves
+    whole (every rank holds the same bytes); rank 0 the trace, each
+    request's tokens and final logits and the pool's scale leaves
+    (gathered; with ``pool`` its KV data leaves too).  ``rebuild: false``
+    is a control: a quarantined slot is left as it is, stale."""
+    import hashlib
+
+    from repro_torch.core import engine
+    from repro_torch.launch import serve as serve_lib
+    from repro_torch.runtime import collectives as coll
+    from repro_torch.runtime.fault_tolerance import FailureInjector
+    from repro_torch.serving import kv_cache, loadgen, scheduler
+
+    cfg = _cfg(cell)
+    dev = mesh.device
+    rules = _rules(cell, True)
+    S, G = cell["prompt"], cell["gen"]
+    scfg = scheduler.SchedulerConfig(
+        n_slots=cell["n_slots"], max_len=cell.get("max_len", S + G + 4),
+        storage_dtype=cell.get("storage_dtype"), audit_every=cell.get("audit_every", 0))
+    lc = loadgen.LoadConfig(rate=cell.get("rate", 1.0), n_requests=cell["requests"],
+                            prompt_len=S, gen_len=G, seed=cell.get("seed_requests", 0))
+    injector = None
+    if cell.get("inject"):
+        mode, _, at = cell["inject"].partition("@")
+        injector = FailureInjector(fail_at_step=int(at), mode=mode)
+    _, pspec, _ = serve_lib.make_sharded_serve_step(cfg, mesh, rules, batch=scfg.n_slots,
+                                                    max_len=scfg.max_len)
+    params = _params(cell, cfg, mesh, pspec, cfg.policy.compute_dtype)
+    coll.reset_stats()
+    _zero_launches()
+    _sync(dev)
+    _reset_peak(dev)
+    t0 = time.perf_counter()
+    with engine.instrument() as events:
+        sched = scheduler.Scheduler(params, cfg, scfg, injector, rules=rules, mesh=mesh)
+        if cell.get("rebuild", True) is False:
+            sched._rebuild_slot = lambda slot, s, rerun_decode: None
+        sched.submit(loadgen.poisson_requests(cfg, lc))
+        results = sched.run()
+    _sync(dev)
+    trace = [list(e) for e in sched.trace]
+    info: Dict = {
+        "seconds_run": time.perf_counter() - t0, "peak_steps_bytes": _peak(dev),
+        "decode_steps": sched.decode_steps, "prefills": sched.prefill_count,
+        "recovery_decode_steps": sched.recovery_decode_steps,
+        "collectives": {k: dict(v) for k, v in coll.STATS.items()},
+        "launches": _kernel_launches(), "bill": _bill(events),
+        "kv_bytes": _tree_bytes(sched.cache),
+        "trace_digest": hashlib.sha256(json.dumps(trace).encode()).hexdigest(),
+        "tokens_digest": hashlib.sha256(json.dumps(
+            [r.tokens for r in results]).encode()).hexdigest(),
+        "goodput": sched.goodput.goodput,
+        "scale_health": kv_cache.scale_health(sched.cache, sched.layout),
+        "whole_leaves_digest": _digest(_whole_leaves(sched.cache, sched.layout.specs)
+                                       if sched.layout is not None else {})}
+    out.update(trace=trace, tokens={r.rid: list(r.tokens) for r in results},
+               status={r.rid: r.status for r in results},
+               final_logits={r.rid: torch.from_numpy(r.final_logits) for r in results
+                             if r.final_logits is not None},
+               scales=_scale_leaves(sched.cache, sched.layout.specs, mesh)
+               if sched.layout is not None else {})
+    if cell.get("pool"):        # the pool's KV data leaves, gathered whole
+        from repro_torch.runtime.fault_tolerance import gather
+
+        out["pool"] = {f"{k}/{n}": gather(leaf, mesh, sched.layout.specs[k][n]).cpu()
+                       for k, n, leaf, _ in kv_cache.iter_kv_leaves(sched.cache)}
+    return info
+
+
 def _select(tree, paths):
     """The subtree of ``tree`` holding the leaves at ``paths``."""
     out: Dict = {}
@@ -394,6 +540,20 @@ def _host(tree):
     if isinstance(tree, torch.Tensor):
         return tree.detach().float().cpu()
     return {k: _host(v) for k, v in tree.items()}
+
+
+def _whole_leaves(cache, cspec) -> Dict[str, torch.Tensor]:
+    """The cache's leaves (scale leaves' fields too) that their spec
+    leaves whole: replicated, so every rank must hold the same bytes."""
+    out = {}
+    for key, sub in cache.items():
+        for name, leaf in sub.items():
+            fields = leaf.items() if isinstance(leaf, dict) else ((None, leaf),)
+            for f, t in fields:
+                spec = cspec[key][name] if f is None else cspec[key][name][f]
+                if all(p is None for p in spec):
+                    out[f"{key}/{name}" + (f"/{f}" if f else "")] = t
+    return out
 
 
 def _forward_cell(cell, mesh, out: Dict) -> Dict:
@@ -495,12 +655,14 @@ def _reshard_cell(cell, mesh, out: Dict) -> Dict:
 
 
 CELLS = {"serve": _serve_cell, "train": _train_cell, "forward": _forward_cell,
-         "collectives": _collectives_cell, "reshard": _reshard_cell}
+         "collectives": _collectives_cell, "reshard": _reshard_cell,
+         "sched": _sched_cell}
 
 
 def main(argv=None) -> int:
     """Run every cell of ``--plan`` (a JSON list) as this rank.  A cell
-    names its ``kind`` (serve | train | forward | collectives | reshard),
+    names its ``kind`` (serve | train | sched | forward | collectives |
+    reshard),
     its ``mesh`` shape over ("data", "model"), its model (``arch``,
     ``full``, ``n_layers``, ``policy_name``, ``moe_impl``, ``overrides``;
     weights from ``params``, a ``torch.save``'d host tree, else drawn from
@@ -510,7 +672,8 @@ def main(argv=None) -> int:
     train cell's ``grad_accum``, ``cast_params`` (the master weights cast
     to the compute dtype at step entry, before FSDP's gathers) and
     ``grads`` (the "a/b" paths of the step-0 gradient leaves to gather,
-    default all).  Rank 0 writes ``OUT/<name>.pt``
+    default all); ``local_amax`` makes it a control whose FP8 amaxes are
+    each rank's own (:func:`_local_amax`).  Rank 0 writes ``OUT/<name>.pt``
     (gathered tensors); every rank writes ``OUT/<name>.rank<r>.json`` (its
     times, peak memory — the cell's, and ``peak_steps_bytes``: each train
     step's, a serve cell's over its prefill and decode steps, what the dry
@@ -551,7 +714,9 @@ def main(argv=None) -> int:
                 _CELL_PEAK[0] = 0
             out: Dict = {}
             t0 = time.perf_counter()
-            info = CELLS[cell["kind"]](cell, mesh, out)
+            with (_local_amax() if cell.get("local_amax")
+                  else contextlib.nullcontext()):
+                info = CELLS[cell["kind"]](cell, mesh, out)
             info["seconds"] = time.perf_counter() - t0
             info["mesh"] = mesh.shape
             if device.type == "cuda":

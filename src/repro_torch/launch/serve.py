@@ -25,7 +25,9 @@ cache is cut over its sequence, every rank holding its ``max_len /
 model`` positions of every KV head (:func:`cache_spec_tree`), or under
 ``sharding.Rules()``, which cuts it over the KV heads where they divide
 the model axis; :func:`make_sharded_serve_step`, :func:`build_prefill`
-and ``generate(..., rules=, mesh=)`` run this rank's part.
+and ``generate(..., rules=, mesh=)`` run this rank's part, on the FP8
+cache too (``storage_dtype``), and the scheduler runs over the data axes
+as well (its pool's slots cut over them).
 """
 
 from __future__ import annotations
@@ -70,20 +72,26 @@ def cache_spec_tree(cfg, rules, mesh, batch: int, max_len: int,
         cfg, rules, mesh, batch, max_len, storage_dtype=storage_dtype)[1]
 
 
-def build_serve_step(cfg, rules: Optional[sharding.Rules], *, mesh=None):
+def build_serve_step(cfg, rules: Optional[sharding.Rules], *, mesh=None,
+                     max_len: Optional[int] = None):
     """``step(params, cache, tokens, pos) -> (logits, cache)`` under the
-    rules (and ``mesh``, else the active one)."""
+    rules (and ``mesh``, else the active one); ``max_len`` is the cache's
+    global length (``transformer.serve_step``)."""
     def step(params, cache, tokens, pos):
         with sharding.use_rules(rules), _mesh(mesh):
-            return transformer.serve_step(params, cfg, tokens, cache, pos)
+            return transformer.serve_step(params, cfg, tokens, cache, pos,
+                                          max_len=max_len)
     return step
 
 
-def build_prefill(cfg, rules: Optional[sharding.Rules], max_len: int, *, mesh=None):
-    """``pre(params, batch) -> (logits, cache)`` under the rules."""
+def build_prefill(cfg, rules: Optional[sharding.Rules], max_len: int, *, mesh=None,
+                  storage_dtype: Optional[str] = None):
+    """``pre(params, batch) -> (logits, cache)`` under the rules, the cache
+    FP8 with ``storage_dtype``."""
     def pre(params, batch):
         with sharding.use_rules(rules), _mesh(mesh):
-            return transformer.prefill(params, cfg, batch, max_len)
+            return transformer.prefill(params, cfg, batch, max_len,
+                                       storage_dtype=storage_dtype)
     return pre
 
 
@@ -91,25 +99,28 @@ def _mesh(mesh):
     return sharding.use_mesh(mesh) if mesh is not None else contextlib.nullcontext()
 
 
-def make_sharded_serve_step(cfg, mesh, rules, *, batch: int, max_len: int):
+def make_sharded_serve_step(cfg, mesh, rules, *, batch: int, max_len: int,
+                            storage_dtype: Optional[str] = None):
     """``(step, param specs, cache specs)`` for this rank of ``mesh`` under
-    ``rules`` (None: :func:`serve_rules`, the cache cut over its positions;
+    ``rules`` (None: :func:`serve_rules`, the cache cut over its positions,
+    or whole where ``max_len`` does not divide the model axis;
     ``sharding.Rules()`` cuts it over the KV heads where they divide the
     model axis).  ``step(params, cache, tokens, pos)`` takes this rank's
-    blocks of the parameters and cache and the global tokens (it keeps the
-    rows of its data coordinates when they divide), and returns its rows'
-    whole logits and the cache."""
+    blocks of the parameters and cache (FP8 with ``storage_dtype``: the
+    cache specs then hold its scale leaves) and the global tokens (it
+    keeps the rows of its data coordinates when they divide), and returns
+    its rows' whole logits and the cache."""
     rules = rules if rules is not None else serve_rules()
     pspec = transformer.param_specs(cfg, rules)
     pshape = transformer.abstract_params(cfg)
     pspec = sharding.sanitize_tree(pspec, pshape, mesh)
-    cspec = cache_spec_tree(cfg, rules, mesh, batch, max_len)
+    cspec = cache_spec_tree(cfg, rules, mesh, batch, max_len, storage_dtype)
     dp = tuple(a for a in sharding.DATA_AXES if a in mesh.shape)
     n_dp = 1
     for a in dp:
         n_dp *= mesh.shape[a]
     rows = sharding.P(dp) if batch % n_dp == 0 else sharding.P()
-    inner = build_serve_step(cfg, rules, mesh=mesh)
+    inner = build_serve_step(cfg, rules, mesh=mesh, max_len=max_len)
 
     def step(params, cache, tokens, pos):
         return inner(params, cache, sharding.shard_block(tokens, rows, mesh), pos)
@@ -129,8 +140,9 @@ def generate(params, cfg, prompts, gen_len: int,
     invariant — with ``return_state=True`` it returns ``(seqs, cache,
     final_logits)`` and ``argmax(final_logits)`` is the token a
     ``gen_len + 1`` run would emit next.  ``storage_dtype`` serves from
-    the FP8 KV cache.  With ``rules`` and ``mesh`` (one data row) the
-    scheduler runs this rank's part on its blocks of ``params``."""
+    the FP8 KV cache.  With ``rules`` and ``mesh`` the scheduler runs this
+    rank's part on its blocks of ``params`` (every rank returns the same
+    sequences and logits; the cache is the rank's block)."""
     pnp = np.asarray(prompts.cpu() if isinstance(prompts, torch.Tensor)
                      else prompts, dtype=np.int32)
     B, S = pnp.shape

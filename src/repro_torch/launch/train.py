@@ -180,13 +180,14 @@ def build_train_step(cfg, opt, rules=None, *, use_scale: bool = False,
     Under ``rules`` with an active mesh of ranks (``sharding.use_mesh``,
     as ``make_sharded_train_step`` sets it) the state is this rank's
     blocks and the step takes the global batch and keeps the rows of its
-    data coordinates.  The backward is seeded with ``1 / model``: a value
-    replicated over the model axis carries a share of its gradient on each
-    rank (``runtime/collectives.py``), so a leaf replicated over the model
-    axis sums its gradient over it; every gradient is then averaged over
-    the data axes (each rank's loss is the mean over its rows; a leaf FSDP
-    cuts over a data axis arrives summed over it and is divided by its
-    size).  With ``grad_accum`` the rank takes its data rows of each
+    data coordinates.  The backward is seeded with ``1 / (model * data)``:
+    a value replicated over the model axis carries a share of its gradient
+    on each rank (``runtime/collectives.py``), so a leaf replicated over
+    the model axis sums its gradient over it; each rank's loss is the mean
+    over its rows, so the data ranks' cotangents are the global mean's
+    (a cut of the reference's logical cotangent, which the FP8 policies
+    quantize per tensor), and every gradient is summed over the data axes
+    (a leaf FSDP cuts over a data axis arrives summed over it).  With ``grad_accum`` the rank takes its data rows of each
     microbatch and accumulates their gradients locally: one reduction a
     step.  Clipping takes the global norm: the squares of each leaf summed
     over the axes it is cut over, replicated ones counted once.  Without a mesh the
@@ -241,7 +242,7 @@ def build_train_step(cfg, opt, rules=None, *, use_scale: bool = False,
                                        transformer.abstract_params(cfg), sh.mesh)
         metrics, grads = accumulate(
             state.params, [{k: v[i] for k, v in mbs.items()} for i in range(grad_accum)],
-            state.scale, 1.0 / sh.model)
+            state.scale, 1.0 / (sh.model * sh.data))
         for a in sh.data_axes:
             metrics = {k: coll.pmean(v, sh.mesh, a) for k, v in metrics.items()}
         grads = _reduce_grads(grads, pspec, sh)
@@ -298,10 +299,10 @@ def _cut_axes(spec) -> frozenset:
 
 def _reduce_grads(grads, pspec, sh):
     """Sum the gradients of model-replicated leaves over the model axis,
-    then average every gradient over the data axes: a leaf cut over a
-    data axis (FSDP) arrives summed over it (its gather's backward, a
-    reduce-scatter) and is divided by the axis size; a whole one is
-    averaged (``pmean``).  fp32 buckets, one collective per axis."""
+    then every gradient over the data axes (the backward was seeded with
+    ``1 / data``): a leaf cut over a data axis (FSDP) arrives summed over
+    it (its gather's backward, a reduce-scatter); a whole one is summed
+    (``psum``).  fp32 buckets, one collective per axis."""
     leaves, specs = tree_flatten(grads), sharding.spec_leaves(pspec)
 
     def bucket(sel, reduce):
@@ -321,11 +322,8 @@ def _reduce_grads(grads, pspec, sh):
             bucket([i for i, c in enumerate(cut) if sharding.MODEL_AXIS not in c],
                    lambda f: coll.psum(f, sh.mesh, sharding.MODEL_AXIS))
         for a in (a for a in sh.data_axes if sh.mesh.shape[a] > 1):
-            n = sh.mesh.shape[a]
-            for i in (i for i, c in enumerate(cut) if a in c):
-                leaves[i].div_(n)
             bucket([i for i, c in enumerate(cut) if a not in c],
-                   lambda f: coll.pmean(f, sh.mesh, a))
+                   lambda f: coll.psum(f, sh.mesh, a))
     return grads
 
 

@@ -41,6 +41,13 @@ larger of the stored and the refreshed scale, so rows quantized under an
 older scale can only shrink).  Attention reads the wide merged cache; the
 codes and scales are written back in place.  The dequantize, refresh and
 requantize are plain PyTorch, as the reference's are plain ``jnp``.
+
+On a mesh each rank dequantizes, merges and requantizes its own block of
+the FP8 cache.  The new rows' amax is the ``pmax`` over the data axes of
+the rank's rows (the batch is cut over them): on the sequence-cut serving
+cache every model rank computes every head's new rows, and on the
+head-parallel one the scale leaves are cut with the heads, so no model
+rank's amax is missing.  GSPMD gives the reference the same global amax.
 """
 
 from __future__ import annotations
@@ -113,12 +120,16 @@ def scale_leaf_axes(head_axes: Tuple) -> Dict[str, Tuple]:
 
 
 def _refresh_scale(sc: Dict[str, torch.Tensor], new_rows: torch.Tensor,
-                   reduce_dims) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+                   reduce_dims, mesh=None, axes=()
+                   ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
     """Fold the amax of ``new_rows`` over ``reduce_dims`` into the window
     (one observation per leading layer / head) and return ``(updated
     leaves, applied scale)``; the applied scale ratchets: the larger of the
-    stored scale and the refreshed one."""
+    stored scale and the refreshed one.  With a ``mesh`` the amax is the
+    ``pmax`` over ``axes``, the ranks holding the rest of the rows."""
     amax = new_rows.float().abs().amax(dim=reduce_dims)
+    if mesh is not None:
+        amax = coll.pmax_over(amax, mesh, axes)
     st = oscale.update_fp8_scale(oscale.Fp8ScaleState(
         sc["scale"], sc["amax_history"], sc["overflow_count"]), amax)
     applied = torch.maximum(sc["scale"], st.scale)
@@ -326,23 +337,30 @@ def _write_rows(cache: torch.Tensor, rows: torch.Tensor, pos,
 
 
 def _update_cache(cache: Dict[str, Any], names, rows, pos, scale_shape,
-                  reduce_dims, dtype) -> list:
+                  reduce_dims, dtype, *, start: Optional[int] = None,
+                  shard=None) -> list:
     """Write the new ``rows`` (one per name) into the cache at ``pos`` and
     return the full caches in ``dtype`` that attention reads.  A wide
     cache is written in place and read as it is; an FP8 cache is
     dequantized whole, merged, its scales refreshed from the new rows and
     requantized whole under the applied scale, codes and scale leaves
-    written back in place (the reference's read / write-back)."""
+    written back in place (the reference's read / write-back).  ``start``:
+    the cache holds positions ``[start, start + T)`` of a sequence-cut one
+    (:func:`_write_rows`).  On a mesh (``shard``) the new rows' amax is
+    reduced over the data axes (see the module docstring)."""
     if f"{names[0]}_scale" not in cache:
         for name, r in zip(names, rows):
-            _write_rows(cache[name], r, pos)
+            _write_rows(cache[name], r, pos, start)
         return [cache[name] for name in names]
+    axes = () if shard is None else tuple(a for a in shard.data_axes
+                                          if shard.mesh.shape[a] > 1)
+    mesh = shard.mesh if axes else None
     out = []
     for name, r in zip(names, rows):
         sc = cache[f"{name}_scale"]
         wide = prec.dequantize_fp8(cache[name], sc["scale"].reshape(scale_shape), dtype)
-        _write_rows(wide, r, pos)
-        new_sc, applied = _refresh_scale(sc, r, reduce_dims)
+        _write_rows(wide, r, pos, start)
+        new_sc, applied = _refresh_scale(sc, r, reduce_dims, mesh, axes)
         q, _ = prec.quantize_fp8(wide, cache[name].dtype,
                                  scale=applied.reshape(scale_shape))
         cache[name].copy_(q)
@@ -390,7 +408,14 @@ def _gqa_sharded(params, x, cfg, *, pos_offset, cache, window, policy, q_chunk,
     * otherwise (hymba's 25 / 5 heads): the columns are gathered whole and
       every rank runs every head, on a whole cache if any.
 
-    ``wo`` is row-parallel (:func:`layers.row_parallel`)."""
+    ``wo`` is row-parallel (:func:`layers.row_parallel`).  A serving cache
+    whose positions are whole (``shard.kv_whole``: its length does not
+    divide the model axis) is replicated, as its sanitized spec says: it
+    takes the head-parallel route, each rank's new rows of its KV heads
+    all-gathered over the model axis so that every rank writes every head
+    (and an FP8 cache's per-head scales) before attending over its own.
+    An FP8 cache is written back through :func:`_update_cache` on every
+    route."""
     hq, hkv, hd, m = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, shard.model
     x = shard.enter(x)
     B, S, _ = x.shape
@@ -398,9 +423,7 @@ def _gqa_sharded(params, x, cfg, *, pos_offset, cache, window, policy, q_chunk,
     qkv = engine.matmul(x, params["wqkv"], policy=policy)
     if "bqkv" in params:
         qkv = qkv + params["bqkv"].to(qkv.dtype)
-    if cache is not None and "k_scale" in cache:
-        sharding.refuse("the FP8 KV cache")
-    if cache is not None and shard.rules.serve_attention:
+    if cache is not None and shard.rules.serve_attention and not shard.kv_whole:
         return _gqa_seq_sharded(params, layers.gather_cols(qkv, n, shard), cfg,
                                 pos_offset=pos_offset, cache=cache, window=window,
                                 policy=policy, q_chunk=q_chunk,
@@ -415,9 +438,16 @@ def _gqa_sharded(params, x, cfg, *, pos_offset, cache, window, policy, q_chunk,
     q, kk, vv = _qkv_heads(params, qkv, cfg, hq_l, hkv_l, pos_offset)
     kv_valid = S
     if cache is not None:
-        _write_rows(cache["k"], kk, pos_offset)
-        _write_rows(cache["v"], vv, pos_offset)
-        kk, vv, kv_valid = cache["k"], cache["v"], pos_offset + S
+        whole = cache["k"].shape[1] != hkv_l     # kv_whole: every rank every head
+        if whole:
+            kk, vv = (coll.all_gather(t, shard.mesh, sharding.MODEL_AXIS, 1)
+                      for t in (kk, vv))
+        kk, vv = _update_cache(cache, ("k", "v"), (kk, vv), pos_offset, (1, -1, 1, 1),
+                               (0, 2, 3), kk.dtype, shard=shard)
+        if whole:
+            first = shard.model_index * hkv_l
+            kk, vv = kk.narrow(1, first, hkv_l), vv.narrow(1, first, hkv_l)
+        kv_valid = pos_offset + S
     o = chunked_attention(q.reshape(B, hkv_l, hq // hkv, S, hd), kk, vv,
                           q_offset=pos_offset, kv_valid=kv_valid, causal=True,
                           window=window, q_chunk=q_chunk, policy=policy,
@@ -441,10 +471,10 @@ def _gqa_seq_sharded(params, qkv, cfg, *, pos_offset, cache, window, policy,
     B, S, _ = qkv.shape
     q, kk, vv = _qkv_heads(params, qkv, cfg, hq, hkv, pos_offset)
     start = shard.model_index * cache["k"].shape[2]
-    _write_rows(cache["k"], kk, pos_offset, start)
-    _write_rows(cache["v"], vv, pos_offset, start)
-    o = chunked_attention(q.reshape(B, hkv, hq // hkv, S, hd), cache["k"],
-                          cache["v"], q_offset=pos_offset, kv_valid=pos_offset + S,
+    k_all, v_all = _update_cache(cache, ("k", "v"), (kk, vv), pos_offset, (1, -1, 1, 1),
+                                 (0, 2, 3), kk.dtype, start=start, shard=shard)
+    o = chunked_attention(q.reshape(B, hkv, hq // hkv, S, hd), k_all,
+                          v_all, q_offset=pos_offset, kv_valid=pos_offset + S,
                           causal=True, window=window, q_chunk=q_chunk,
                           policy=policy, kv_group_sizes=kv_group_sizes,
                           kv_start=start, shard=shard)
@@ -482,7 +512,7 @@ def gqa_attention(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg, *,
 
     if cache is not None:
         k_all, v_all = _update_cache(cache, ("k", "v"), (kk, vv), pos_offset,
-                                     (1, -1, 1, 1), (0, 2, 3), kk.dtype)
+                                     (1, -1, 1, 1), (0, 2, 3), kk.dtype, shard=shard)
         kv_valid = pos_offset + S
     else:
         k_all, v_all, kv_valid = kk, vv, S
@@ -536,13 +566,12 @@ def mla_attention(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg, *,
     hq = cfg.n_heads
     dn, dr, dv, r = m.qk_nope_dim, m.qk_rope_dim, m.v_head_dim, m.kv_lora_rank
     pos_cut = False
+    cache_shard = shard      # the data axes reduce an FP8 cache's amax
     if shard is not None and shard.model > 1:
-        if cache is not None and "ckv_scale" in cache:
-            sharding.refuse("the FP8 KV cache")
         x = shard.enter(x)
         if hq % shard.model:
             params = _mla_whole_heads(params, cfg, shard)
-        pos_cut = cache is not None and shard.rules.serve_attention
+        pos_cut = cache is not None and shard.rules.serve_attention and not shard.kv_whole
     else:
         shard = None
     B, S, _ = x.shape
@@ -565,14 +594,13 @@ def mla_attention(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg, *,
     kr = layers.apply_rope(kr[:, None], cos, sin)[:, 0]     # (B, S, dr)
 
     start = 0
-    if pos_cut:
-        start = shard.model_index * cache["ckv"].shape[1]
-        _write_rows(cache["ckv"], ckv, pos_offset, start)
-        _write_rows(cache["kr"], kr, pos_offset, start)
-        ckv_all, kr_all, kv_valid = cache["ckv"], cache["kr"], pos_offset + S
-    elif cache is not None:
-        ckv_all, kr_all = _update_cache(cache, ("ckv", "kr"), (ckv, kr),
-                                        pos_offset, (), (0, 1, 2), ckv.dtype)
+    if cache is not None:
+        if pos_cut:
+            start = shard.model_index * cache["ckv"].shape[1]
+        ckv_all, kr_all = _update_cache(cache, ("ckv", "kr"), (ckv, kr), pos_offset,
+                                        (), (0, 1, 2), ckv.dtype,
+                                        start=start if pos_cut else None,
+                                        shard=cache_shard)
         kv_valid = pos_offset + S
     else:
         ckv_all, kr_all, kv_valid = ckv, kr, S

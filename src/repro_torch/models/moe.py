@@ -274,22 +274,27 @@ def moe_forward_shard_map(params: Dict[str, Any], x: torch.Tensor, cfg, *,
     ROUTES["shard_map"] += 1
     ep, mi, mesh, ax = shard.model, shard.model_index, shard.mesh, sharding.MODEL_AXIS
     El, Bl = E // ep, B // ep
-    # slice the rows across model peers first: no two peers dispatch or
-    # compute the same token
-    x_l = x[mi * Bl:(mi + 1) * Bl]
-    logits, probs, gate, ids = _route(params, x_l, mo, policy)
-    C = capacity(S, k, E, mo.capacity_factor)
-    bufs, dest = _dispatch(x_l, ids, E=E, k=k, C=C, dtype=policy.compute_dtype)
-    # (Bl, E, C, d) -> peer-major -> the expert owners; slice s of the
-    # result came from peer s
-    t = coll.all_to_all(bufs.reshape(Bl, ep, El, C, d).movedim(1, 0), mesh, ax)
-    t = t.movedim(2, 0).reshape(El, ep * Bl * C, d)            # (El, ep Bl C, d)
-    out = _experts(params, t, cfg, policy)
-    out = out.reshape(El, ep, Bl, C, d).movedim(0, 2)          # (ep, Bl, El, C, d)
-    out = coll.all_to_all(out.contiguous(), mesh, ax)          # expert-major again
-    out = out.movedim(0, 1).reshape(Bl, E * C, d)
-    y = _combine(out, dest, gate, 0, policy).to(x.dtype)
-    y = shard.leave(coll.all_gather(y, mesh, ax, 0), partial=False)   # (B, S, d)
+    # the reference's shard_map body (its moe.py:222-290): its operands
+    # are local, so are its FP8 scales (engine.local_scales), forward and
+    # backward
+    with engine.local_scales():
+        # slice the rows across model peers first: no two peers dispatch or
+        # compute the same token
+        x_l = x[mi * Bl:(mi + 1) * Bl]
+        logits, probs, gate, ids = _route(params, x_l, mo, policy)
+        C = capacity(S, k, E, mo.capacity_factor)
+        bufs, dest = _dispatch(x_l, ids, E=E, k=k, C=C, dtype=policy.compute_dtype)
+        # (Bl, E, C, d) -> peer-major -> the expert owners; slice s of the
+        # result came from peer s
+        t = coll.all_to_all(bufs.reshape(Bl, ep, El, C, d).movedim(1, 0), mesh, ax)
+        t = t.movedim(2, 0).reshape(El, ep * Bl * C, d)            # (El, ep Bl C, d)
+        out = _experts(params, t, cfg, policy)
+        out = out.reshape(El, ep, Bl, C, d).movedim(0, 2)          # (ep, Bl, El, C, d)
+        out = coll.all_to_all(out.contiguous(), mesh, ax)          # expert-major again
+        out = out.movedim(0, 1).reshape(Bl, E * C, d)
+        y = _combine(out, dest, gate, 0, policy).to(x.dtype)
+        y = coll.all_gather(y, mesh, ax, 0)                         # (B, S, d)
+    y = shard.leave(y, partial=False)
 
     # every rank routed its own tokens: the stats reduce over every axis
     counts = _expert_counts(ids, E)

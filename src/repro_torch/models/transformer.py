@@ -46,8 +46,9 @@ vocab-parallel.  Under FSDP each block gathers its layer's data-cut
 weights inside its remat region (:func:`_gather_top`); under sequence
 parallelism the residual stream holds the rank's positions between the
 blocks (``ShardCtx.enter`` / ``leave``).  ``serve_step`` and ``prefill``
-gather the logits whole.  The FP8 KV cache on a mesh raises, naming
-ROADMAP.md.
+gather the logits whole.  The FP8 KV cache runs on a mesh too: each rank
+dequantizes, merges and requantizes its own block under scales reduced
+over the ranks that hold the other blocks (``models/attention.py``).
 """
 
 from __future__ import annotations
@@ -385,7 +386,8 @@ def _gather_top(params, cfg, sh):
 
 def forward(params: Dict[str, Any], cfg, batch: Dict[str, torch.Tensor], *,
             cache: Optional[Dict[str, Any]] = None, pos=0,
-            last_only: bool = False, head: bool = True, kv_group_sizes=None
+            last_only: bool = False, head: bool = True, kv_group_sizes=None,
+            max_len: Optional[int] = None
             ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]], Dict[str, torch.Tensor]]:
     """Logits ``(B, S', V)`` (``S' = 1`` with ``last_only``; with ``head``
     False the final-normed hidden states), the cache (updated in place)
@@ -393,9 +395,11 @@ def forward(params: Dict[str, Any], cfg, batch: Dict[str, torch.Tensor], *,
     kinds).  The input is ``batch["embeddings"]`` ``(B, S, d)`` where the
     batch carries it, else the embedded ``batch["inputs"]``.  ``pos`` is an
     int or a ``(B,)`` tensor of per-slot decode positions.  On a mesh the
-    batch is this rank's rows and the logits its vocab block."""
+    batch is this rank's rows and the logits its vocab block; ``max_len``,
+    the cache's global length, tells whether the serving rules cut its
+    positions (:func:`sharding.with_cache`; None: they do)."""
     _check_kind(cfg)
-    sh = sharding.context()
+    sh = sharding.with_cache(sharding.context(), max_len)
     params, lspec = _gather_top(params, cfg, sh)
     return _forward(params, lspec, cfg, batch, sh, cache=cache, pos=pos,
                     last_only=last_only, head=head, kv_group_sizes=kv_group_sizes)
@@ -549,13 +553,15 @@ def loss_fn(params: Dict[str, Any], cfg, batch: Dict[str, torch.Tensor]
 
 @torch.inference_mode()
 def serve_step(params, cfg, tokens: torch.Tensor, cache, pos, *,
-               kv_group_sizes=None):
+               kv_group_sizes=None, max_len: Optional[int] = None):
     """One decode step: tokens ``(B, 1)`` + cache at ``pos`` -> (logits
     ``(B, V)``, cache).  ``pos`` is an int (uniform batch) or a ``(B,)``
     tensor (the scheduler's continuous batch, with ``kv_group_sizes`` the
-    per-slot valid KV lengths after this step's append)."""
+    per-slot valid KV lengths after this step's append).  On a mesh
+    ``max_len`` is the cache's global length (:func:`forward`)."""
     logits, cache, _ = forward(params, cfg, {"inputs": tokens}, cache=cache,
-                               pos=pos, kv_group_sizes=kv_group_sizes)
+                               pos=pos, kv_group_sizes=kv_group_sizes,
+                               max_len=max_len)
     return _gather_vocab(logits[:, -1], params, cfg, sharding.context()), cache
 
 
@@ -564,16 +570,25 @@ def prefill(params, cfg, batch, max_len: int, storage_dtype=None):
     """Run the prompt ``batch["inputs"] (B, S)``, build a ``max_len``
     cache, return (last-token logits ``(B, V)``, cache); an embedding-input
     arch's prompt is ``batch["embeddings"] (B, S, d)``.  On a mesh the
-    prompt is this rank's rows of the batch and the cache its block."""
+    prompt is this rank's rows of the batch, where the rules cut the batch
+    over the data axes (else the whole batch, replicated), and the cache
+    its block."""
     sh = sharding.context()
     some = batch["inputs"] if "inputs" in batch else batch["embeddings"]
-    B = some.shape[0] * (sh.data if sh is not None else 1)
+    B = some.shape[0] * (_batch_ways(sh) if sh is not None else 1)
     cache = init_cache(cfg, B, max_len, dtype=cfg.policy.compute_dtype,
                        storage_dtype=storage_dtype,
                        device=params["embed"].device)
     logits, cache, _ = forward(params, cfg, batch, cache=cache, pos=0,
-                               last_only=True)
+                               last_only=True, max_len=max_len)
     return _gather_vocab(logits[:, -1], params, cfg, sh), cache
+
+
+def _batch_ways(sh) -> int:
+    """How many blocks the rules cut a batch into on ``sh``'s mesh (the
+    data axes "batch" names; 1 where it names none)."""
+    part = sharding.logical_spec(("batch",), sh.rules)[0]
+    return math.prod(sh.mesh.shape.get(a, 1) for a in sharding.axes_of(part))
 
 
 def cache_axes(cfg, storage_dtype=None):
@@ -674,17 +689,15 @@ def init_cache(cfg, batch: int, max_len: int, dtype=None, storage_dtype=None,
 def _local_cache(cfg, sh, batch: int, max_len: int, dtype, storage_dtype, dev):
     """This rank's blocks of the decode cache of ``batch`` x ``max_len``:
     every leaf at the local shape of its sanitized :func:`cache_axes` spec,
-    at its initial value (the sLSTM stabiliser ``m`` at -1e30, the rest
-    zero)."""
-    if storage_dtype is not None:
-        sharding.refuse("the FP8 KV cache")
-    if sh.rules.serve_attention and cfg.block_kind != "xlstm" and max_len % sh.model:
-        sharding.refuse(f"a serving cache of {max_len} positions on a "
-                        f"{sh.model}-way model axis (max_len a multiple of it)")
+    at its initial value (the sLSTM stabiliser ``m`` at -1e30, an FP8
+    scale leaf's ``scale`` at 1, the rest zero).  A length the model axis
+    does not divide keeps the serving cache's positions whole, as the
+    reference's ``sanitize_spec`` does."""
     from repro_torch.roofline.memory import described
 
     with sharding.use_mesh(None), described():
-        whole = init_cache(cfg, batch, max_len, dtype, device="meta")
+        whole = init_cache(cfg, batch, max_len, dtype, storage_dtype, device="meta")
+    init = {"m": -1e30, "scale": 1.0}
 
     def local(axes, leaf, name):
         if isinstance(leaf, dict):
@@ -692,6 +705,6 @@ def _local_cache(cfg, sh, batch: int, max_len: int, dtype, storage_dtype, dev):
         spec = sharding.sanitize_spec(sharding.logical_spec(axes, sh.rules),
                                       tuple(leaf.shape), sh.mesh)
         return torch.full(sharding.local_shape(tuple(leaf.shape), spec, sh.mesh),
-                          -1e30 if name == "m" else 0.0, dtype=leaf.dtype, device=dev)
+                          init.get(name, 0.0), dtype=leaf.dtype, device=dev)
 
-    return local(cache_axes(cfg), whole, None)
+    return local(cache_axes(cfg, storage_dtype), whole, None)

@@ -41,7 +41,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-__all__ = ["psum", "pmax", "pmean", "all_gather", "psum_scatter", "all_to_all",
+__all__ = ["psum", "pmax", "pmax_over", "pmean", "all_gather", "psum_scatter", "all_to_all",
            "redistribute_last", "STATS", "reset_stats", "dry_run", "dry_trace",
            "dry_contract", "DryCollective", "NODE_SIZE"]
 
@@ -236,6 +236,17 @@ def pmax(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     """Maximum over ``axis``, not differentiated (a softmax shift)."""
     group, n, _ = _group(mesh, axis)
     return x.detach() if n == 1 else _reduce(x, group, "MAX", "pmax")
+
+
+def pmax_over(x: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:
+    """Maximum over every axis of ``axes`` (the ones the mesh has), not
+    differentiated; a NaN counts as +inf, so a non-finite element on any
+    rank stays non-finite everywhere (gloo's MAX keeps or drops a NaN by
+    operand order)."""
+    x = torch.nan_to_num(x.detach(), nan=math.inf, posinf=math.inf, neginf=-math.inf)
+    for a in axes:
+        x = pmax(x, mesh, a)
+    return x
 
 
 class _AllGather(torch.autograd.Function):

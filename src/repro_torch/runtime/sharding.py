@@ -54,12 +54,11 @@ __all__ = [
     "current_mesh", "logical_spec", "sanitize_spec", "constrain",
     "constrain_fb", "constrain_both", "DATA_AXES", "MODEL_AXIS", "ShardCtx",
     "context", "with_sequence", "gather_over", "local_shape", "shard_block",
-    "sanitize_tree", "spec_leaves", "axes_of", "refuse",
+    "sanitize_tree", "spec_leaves", "axes_of", "with_cache", "block_index",
 ]
 
 DATA_AXES: Tuple[str, ...] = ("pod", "data")
 MODEL_AXIS = "model"
-ROADMAP = "not yet ported (see ROADMAP.md, Queue A)"
 
 
 class PartitionSpec(tuple):
@@ -263,7 +262,7 @@ def local_shape(shape: Tuple[int, ...], spec, mesh) -> Tuple[int, ...]:
                  for d, p in zip(shape, _parts(spec, len(shape))))
 
 
-def _block_index(part, mesh) -> int:
+def block_index(part, mesh) -> int:
     """The rank's block along a dim cut over ``part`` (row-major over the
     named axes, as a device mesh flattens them)."""
     idx = 0
@@ -280,7 +279,7 @@ def shard_block(x, spec, mesh):
         n = math.prod(mesh.shape[a] for a in axes_of(part))
         if n > 1:
             size = x.shape[dim] // n
-            out = out.narrow(dim, _block_index(part, mesh) * size, size)
+            out = out.narrow(dim, block_index(part, mesh) * size, size)
     return out
 
 
@@ -296,11 +295,16 @@ class ShardCtx:
     the rank holding its contiguous block of positions), else 0.  A block
     takes its input through :meth:`enter` (the whole sequence, for the
     column-parallel GEMMs) and hands its output back through :meth:`leave`
-    (the rank's positions again)."""
+    (the rank's positions again).
+
+    ``kv_whole``: the serving cache holds every position (its length does
+    not divide the model axis, so ``sanitize_spec`` keeps its sequence dim
+    whole) and attention takes the head-parallel route (:func:`with_cache`)."""
 
     rules: Rules
     mesh: Any
     seq: int = 0
+    kv_whole: bool = False
 
     @property
     def model(self) -> int:
@@ -373,6 +377,15 @@ def with_sequence(sh: Optional[ShardCtx], seq_len: int) -> Optional[ShardCtx]:
     return dataclasses.replace(sh, seq=seq_len if cut else 0)
 
 
+def with_cache(sh: Optional[ShardCtx], max_len: Optional[int]) -> Optional[ShardCtx]:
+    """``sh`` for a serving cache of ``max_len`` positions (None: unknown,
+    taken as cut): under the serving rules its positions stay whole where
+    the model axis does not divide them, as ``sanitize_spec`` leaves them."""
+    if sh is None or max_len is None or not sh.rules.serve_attention:
+        return sh
+    return dataclasses.replace(sh, kv_whole=max_len % sh.model != 0)
+
+
 def gather_over(tree, specs, mesh, axes: Tuple[str, ...], lead: int = 0):
     """Every dim of every leaf that its spec cuts over one of ``axes``,
     all-gathered (inside autograd: the backward sums the cotangent over
@@ -392,7 +405,3 @@ def gather_over(tree, specs, mesh, axes: Tuple[str, ...], lead: int = 0):
                     x = coll.all_gather(x, mesh, ax, dim)
         return x
     return {k: gather_over(v, specs[k], mesh, axes, lead) for k, v in tree.items()}
-
-
-def refuse(what: str) -> None:
-    raise NotImplementedError(f"{what} under a mesh is {ROADMAP}")

@@ -53,12 +53,27 @@ ratcheted scale, which a replay cannot reproduce, so the rebuild re-
 prefills ``prompt + absorbed tokens`` batch 1 (and replays the poisoned
 step batch 1), as the reference does: the rows lie within one E4M3 step
 of the decode-built ones (``chip_smoke.py``'s sched phase holds both).
+
+On a mesh of ranks (``rules`` and ``mesh``, the reference's ``Scheduler(
+rules=...)`` on its ambient mesh) every rank runs this same host state
+machine.  The pool is the rank's block of the sanitized cache specs
+(``serving.specs``): its batch cut over the data axes where ``n_slots``
+divides (else replicated), its positions or KV heads over the model axis
+as the rules say.  A batch-1 prefill runs replicated across the data ranks
+(its batch dim sanitizes to whole) and its cache is inserted on the rank
+holding the slot (``kv_cache.insert_slot``).  A decode step runs the
+rank's slots, and the logits are all-gathered over the data axes before
+the NaN guard and the argmax, so every rank takes the same decisions and
+writes the same ``trace``.  The audit gathers a slot's stored bytes to
+every rank (``kv_cache.slot_checksum``), the corruptor flips the same
+global rows, and a rebuild runs the same shapes as on one rank.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 from collections import deque
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -67,9 +82,11 @@ import torch
 
 from repro_torch.core import engine
 from repro_torch.models import transformer
+from repro_torch.runtime import collectives as coll
 from repro_torch.runtime import sharding
 from repro_torch.runtime.fault_tolerance import InjectedFault
 from repro_torch.serving import kv_cache, resilience
+from repro_torch.serving import specs as specs_lib
 
 __all__ = ["Request", "SchedulerConfig", "RequestResult", "Scheduler",
            "instrumented_decode_events"]
@@ -161,20 +178,34 @@ class Scheduler:
                 "corruption with the checksum audit off is undetectable")
         self.params, self.cfg, self.scfg = params, cfg, scfg
         self.injector = injector
-        # sharded serving: every model call runs under the rules and mesh
+        # sharded serving: every model call runs under the rules and mesh;
+        # a batch-1 prefill under them with the batch left whole
         self.rules, self.mesh = rules, mesh
+        self.layout: Optional[kv_cache.Layout] = None
+        self._mine = list(range(scfg.n_slots))      # the slots this rank holds
+        self._batch_axes: Tuple[str, ...] = ()
         if mesh is not None and rules is not None and mesh.size > 1:
-            if injector is not None or scfg.audit_every:
-                sharding.refuse("fault injection and the KV audit")
-            if any(mesh.shape.get(a, 1) > 1 for a in sharding.DATA_AXES):
-                sharding.refuse("the scheduler over a data axis")
+            self.layout = kv_cache.Layout(specs_lib.decode_cache_specs(
+                cfg, rules, mesh, scfg.n_slots, scfg.max_len,
+                storage_dtype=scfg.storage_dtype)[1], mesh)
+            key, name, spec = next(
+                (k, n, sub[n]) for k, sub in self.layout.specs.items()
+                for n in ("k", "ckv") if n in sub)
+            bax = 1 if key == "layers" else 0
+            self._batch_axes = self.layout.axes(spec, (bax,))
+            n_local = scfg.n_slots // math.prod(mesh.shape[a] for a in self._batch_axes)
+            first = n_local * sharding.block_index(self._batch_axes, mesh) \
+                if self._batch_axes else 0
+            self._mine = list(range(first, first + n_local))
+        self.prefill_rules = None if rules is None else dataclasses.replace(
+            rules, overrides=rules.overrides + (("batch", None),))
         self.device = params["embed"].device
         self.clock = 0.0
         self.decode_steps = 0
         self.prefill_count = 0
         self.recovery_decode_steps = 0  # decode steps run by slot rebuilds
         self.compute_dtype = cfg.policy.compute_dtype
-        with self._sharded():
+        with self._sharded(self.rules):
             self.cache = transformer.init_cache(
                 cfg, scfg.n_slots, scfg.max_len, dtype=self.compute_dtype,
                 storage_dtype=scfg.storage_dtype, device=self.device)
@@ -188,14 +219,32 @@ class Scheduler:
         self.guards: Dict[int, resilience.SlotGuard] = {}
         self.goodput = resilience.ServeGoodputMeter(n_slots=scfg.n_slots)
 
-    def _sharded(self):
-        """The rules and mesh of a sharded scheduler (else no context)."""
+    def _sharded(self, rules):
+        """``rules`` (the pool's, or :attr:`prefill_rules`) and the mesh of a
+        sharded scheduler (else no context)."""
         stack = contextlib.ExitStack()
-        if self.rules is not None:
-            stack.enter_context(sharding.use_rules(self.rules))
+        if rules is not None:
+            stack.enter_context(sharding.use_rules(rules))
             if self.mesh is not None:
                 stack.enter_context(sharding.use_mesh(self.mesh))
         return stack
+
+    def _serve_step(self, toks, pos, sizes):
+        """One decode step of the pool (``toks`` / ``pos`` / ``sizes`` for
+        every slot; this rank runs its own) under the pool's rules; the
+        logits of every slot on every rank (all-gathered over the data
+        axes that cut the pool)."""
+        mine = self._mine
+        if len(mine) != self.scfg.n_slots:
+            toks, pos, sizes = toks[mine[0]:mine[-1] + 1], pos[mine[0]:mine[-1] + 1], \
+                sizes[mine[0]:mine[-1] + 1]
+        with self._sharded(self.rules):
+            logits, self.cache = transformer.serve_step(
+                self.params, self.cfg, toks, self.cache, pos, kv_group_sizes=sizes,
+                max_len=self.scfg.max_len)
+        for a in reversed(self._batch_axes):
+            logits = coll.all_gather(logits, self.mesh, a, 0)
+        return logits
 
     def _tokens(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a, np.int64), device=self.device)
@@ -295,7 +344,7 @@ class Scheduler:
 
     # -- prefill (batch 1, the request's real prompt length) ------------- #
     def _prefill(self, seq: np.ndarray, scope: str):
-        with engine.op_scope(scope), self._sharded():
+        with engine.op_scope(scope), self._sharded(self.prefill_rules):
             return transformer.prefill(
                 self.params, self.cfg, {"inputs": self._tokens(seq)[None]},
                 self.scfg.max_len, storage_dtype=self.scfg.storage_dtype)
@@ -316,8 +365,9 @@ class Scheduler:
             return self._prefill(prompt, "serve_prefill")
 
     def _insert(self, single, slot: int, scope: str) -> None:
-        with engine.op_scope(scope):
-            kv_cache.insert_slot(self.cache, single, slot, self.compute_dtype)
+        with engine.op_scope(scope), self._sharded(self.rules):
+            kv_cache.insert_slot(self.cache, single, slot, self.compute_dtype,
+                                 self.layout)
 
     def _start(self) -> None:
         while self.queue:
@@ -354,7 +404,7 @@ class Scheduler:
         self.guards = {
             i: resilience.SlotGuard(
                 rid=s.rid, length=s.pos,
-                checksum=kv_cache.slot_checksum(self.cache, i, s.pos))
+                checksum=kv_cache.slot_checksum(self.cache, i, s.pos, self.layout))
             for i, s in enumerate(self.slots) if s is not None}
 
     def _audit_slots(self) -> None:
@@ -368,7 +418,8 @@ class Scheduler:
             g = self.guards.get(i)
             if g is None or g.rid != s.rid:
                 continue
-            if kv_cache.slot_checksum(self.cache, i, g.length) != g.checksum:
+            if kv_cache.slot_checksum(self.cache, i, g.length,
+                                      self.layout) != g.checksum:
                 bad.append(i)
         for i in bad:
             s = self.slots[i]
@@ -387,8 +438,6 @@ class Scheduler:
         decode step (``last_token`` at ``pos``) is replayed too and its
         logits row is returned to replace the poisoned one.  The clock
         does not move."""
-        if self.rules is not None and self.mesh is not None and self.mesh.size > 1:
-            sharding.refuse("slot recovery")
         res = self.results[s.rid]
         absorbed = [int(t) for t in res.tokens[:s.fed]]
         assert len(s.prompt) + len(absorbed) == s.pos, "slot rows out of sync"
@@ -398,20 +447,26 @@ class Scheduler:
         _, single = self._prefill(s.prompt, "serve_recover")
         self._insert(single, slot, "serve_recover")
         # the replay parks every other slot at the last row (see
-        # _step_inputs), which may hold a co-resident's newest row
+        # _step_inputs), which may hold a co-resident's newest row (on a
+        # mesh: where this rank's block holds that position)
         last = self.scfg.max_len - 1
-        held = [leaf.select(-2, last).clone()
-                for _, _, leaf, _ in kv_cache.iter_kv_leaves(self.cache)]
+        held = [None if v is None else v.clone()
+                for v in kv_cache.position_views(self.cache, last, self.layout)]
         logits = None
         for j, tok in enumerate(feed):
             toks, pos, sizes = self._step_inputs({slot: (tok, len(s.prompt) + j)})
             with engine.op_scope("serve_recover"):
-                logits, self.cache = transformer.serve_step(
-                    self.params, self.cfg, toks, self.cache, pos, kv_group_sizes=sizes)
+                logits = self._serve_step(toks, pos, sizes)
             self.recovery_decode_steps += 1
-        for (_, _, leaf, bax), keep in zip(kv_cache.iter_kv_leaves(self.cache), held):
-            row = leaf.select(-2, last)
-            keep.narrow(bax, slot, 1).copy_(row.narrow(bax, slot, 1))
+        rows = kv_cache.position_views(self.cache, last, self.layout)
+        for (key, name, leaf, bax), row, keep in zip(kv_cache.iter_kv_leaves(self.cache),
+                                                     rows, held):
+            if row is None:
+                continue
+            local = slot if self.layout is None else self.layout.slot(
+                key, name, leaf, bax, slot)
+            if local is not None:
+                keep.narrow(bax, local, 1).copy_(row.narrow(bax, local, 1))
             row.copy_(keep)
         return _host_logits(logits[slot]) if rerun_decode else None
 
@@ -425,11 +480,12 @@ class Scheduler:
         _, single = self._prefill(seq, "serve_recover")
         row = None
         if rerun_decode:
-            with engine.op_scope("serve_recover"):
+            with engine.op_scope("serve_recover"), self._sharded(self.prefill_rules):
                 logits1, single = transformer.serve_step(
                     self.params, self.cfg, self._tokens([[s.last_token]]), single,
                     self._tokens([s.pos]),
-                    kv_group_sizes=np.asarray([s.pos + 1], np.int32))
+                    kv_group_sizes=np.asarray([s.pos + 1], np.int32),
+                    max_len=self.scfg.max_len)
             self.recovery_decode_steps += 1
             row = _host_logits(logits1[0])
         self._insert(single, slot, "serve_recover")
@@ -473,10 +529,8 @@ class Scheduler:
         n = self.scfg.n_slots
         toks, pos, sizes = self._step_inputs(
             {i: (s.last_token, s.pos) for i, s in enumerate(self.slots) if s is not None})
-        with engine.op_scope("serve_decode"), self._sharded():
-            logits, self.cache = transformer.serve_step(
-                self.params, self.cfg, toks, self.cache, pos, kv_group_sizes=sizes)
-        logits = _host_logits(logits)
+        with engine.op_scope("serve_decode"):
+            logits = _host_logits(self._serve_step(toks, pos, sizes))
         self.clock += 1.0
         self.decode_steps += 1
         self.goodput.on_decode_step()
@@ -525,7 +579,7 @@ class Scheduler:
             v = self._victim_slot()
             sv = self.slots[v]
             self.cache = kv_cache.corrupt_slot_rows(self.cache, v,
-                                                    [0, max(sv.pos - 1, 0)])
+                                                    [0, max(sv.pos - 1, 0)], self.layout)
         self.health.append({
             "tick": self.clock,
             "queue_depth": len(self.queue),

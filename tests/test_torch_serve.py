@@ -190,8 +190,8 @@ def test_unported_paths_raise(fp32):
     # slice), and the FP8 KV cache, the resilience layer and --sched are
     # ported, and so are the injector's checkpoint modes; since the sharding
     # slice manual expert parallelism and the serving specs are too
-    # (tests/test_torch_sharding.py, test_torch_shard_exec.py); serving the
-    # FP8 cache on a mesh is still to port
+    # (tests/test_torch_sharding.py, test_torch_shard_exec.py), and serving
+    # the FP8 cache on a mesh: its cache is the rank's block
     from repro_torch import serving
     from repro_torch.launch import mesh as tmesh
     from repro_torch.runtime import FailureInjector, sharding as ts
@@ -203,8 +203,9 @@ def test_unported_paths_raise(fp32):
     assert tuple(spec["layers"]["k"]) == (None, "data", None, "model")
     with ts.use_rules(tserve.serve_rules()), \
             ts.use_mesh(tmesh.Mesh((1, 2), ("data", "model"), device="cpu")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tt.init_cache(tcfg, 2, 8, storage_dtype="float8_e4m3fn", device="cpu")
+        local = tt.init_cache(tcfg, 2, 8, storage_dtype="float8_e4m3fn", device="cpu")
+    assert local["layers"]["k"].shape[-2] == 4       # the rank's 4 of 8 positions
+    assert local["layers"]["k_scale"]["scale"].shape == (tcfg.n_layers, tcfg.n_kv_heads)
     cache = tt.init_cache(tcfg, 1, 8, storage_dtype="float8_e4m3fn", device="cpu")
     assert cache["layers"]["k"].dtype == torch.float8_e4m3fn
     tsched.Scheduler(tparams, tcfg, tsched.SchedulerConfig(max_queue=2, audit_every=1))
